@@ -1,0 +1,57 @@
+"""Pointwise observables q = B u (port of ``hippyflow_tpu/models/observable.py``)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import config
+from ..fem import FunctionSpace, assemble_pointwise_observation
+from .pde_problem import Linearization, VariationalPDEProblem
+
+
+class PointwiseObservation:
+    """Dense B (n_obs, n) from P1 interpolation at target points (numpy
+    construction, a tensor on the device)."""
+
+    def __init__(self, space: FunctionSpace, targets, dtype=None, device=None):
+        dtype, device = config.resolve(dtype, device)
+        Bnp = assemble_pointwise_observation(space, np.asarray(targets))
+        self.B = torch.as_tensor(Bnp, dtype=dtype, device=device)
+        self.targets = np.asarray(targets)
+
+    @property
+    def dim(self) -> int:
+        return self.B.shape[0]
+
+    def apply(self, u):
+        """B u for states (N, n) -> (N, n_obs)."""
+        return u @ self.B.T
+
+    def dense(self):
+        return self.B
+
+
+class LinearStateObservable:
+    """q(m) = B u(m), batched over samples."""
+
+    def __init__(self, problem: VariationalPDEProblem, B: PointwiseObservation):
+        self.problem = problem
+        self.B = B
+
+    @property
+    def dQ(self) -> int:
+        return self.B.dim
+
+    @property
+    def dM(self) -> int:
+        return self.problem.Vm.dim
+
+    def evalu(self, u):
+        return self.B.apply(u)
+
+    def applyCt(self, lin: Linearization, dp):
+        return self.problem.apply_Ct(lin, dp)
+
+    def solveAdjIncremental(self, lin: Linearization, rhs):
+        return self.problem.solve_incremental(lin, rhs, is_adj=True)

@@ -1,0 +1,159 @@
+"""Batched sampling of (m, u, q, J) with resampling of failed lanes.
+
+Port of ``hippyflow_tpu/models/sampling.py`` (``auto_chunk_size``,
+``sample_until_solved``, ``materialize_jacobians``).  PyTorch runs eagerly,
+so the JAX package's program cache and ahead-of-time compile machinery
+have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .jacobian import ObservableJacobian
+from .observable import LinearStateObservable
+
+
+def _device_memory_budget_gb(device) -> float:
+    """A quarter of the card's memory (factors are one of several live
+    buffers: samples, Jacobians, probe blocks); 2 GB on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        _, total = torch.cuda.mem_get_info(device)
+        return 0.25 * total / 1e9
+    return 2.0
+
+
+def auto_chunk_size(problem, dtype, device) -> int:
+    """Largest power-of-two sample batch (at most 4096) whose banded
+    factorizations fit the memory budget: ~16 n s bytes per sample for the
+    band, the factor blocks and solve temporaries."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    per_sample = 16.0 * problem.state_dim * problem._block_size * itemsize
+    budget = _device_memory_budget_gb(device) * 1e9
+    n = max(1, min(4096, int(budget / per_sample)))
+    return 1 << (n.bit_length() - 1)
+
+
+@dataclass
+class SampleBatch:
+    """Solved forward samples, leading sample axis."""
+
+    ms: torch.Tensor  # (n, dM)
+    us: torch.Tensor  # (n, n_state)
+    qs: torch.Tensor  # (n, dQ)
+    n_failures: int
+    # parameters whose forward solve did not converge (resampled lanes)
+    failed_ms: np.ndarray | None = None
+    # Newton iterations of every kept sample, (n,)
+    iterations: torch.Tensor | None = None
+
+
+def sample_until_solved(
+    observable: LinearStateObservable,
+    prior,
+    keychain,
+    n_samples: int,
+    chunk_size: int | None = None,
+    max_tries: int = 10,
+    verbose: bool = False,
+    reset_initial_guess: bool = False,
+    noise=None,
+) -> SampleBatch:
+    """Draw n_samples prior samples with converged forward solves.
+
+    ``noise`` (n_samples, noise_dim), when given, replaces the first draws;
+    resampling always draws from ``keychain``.  As in the JAX package, every
+    chunk is solved first; then failed lanes are resampled with fresh noise
+    at the chunk's own batch size, keeping the first nbad lanes, up to
+    ``max_tries`` sweeps; a hard failure raises.  Unless
+    ``reset_initial_guess``, each chunk's Newton solves start from the
+    previous chunk's converged states, lane by lane (a failed or non-finite
+    lane carries zero)."""
+    problem = observable.problem
+    dtype, device = prior.mean.dtype, prior.mean.device
+    if chunk_size is None:
+        chunk_size = auto_chunk_size(problem, dtype, device)
+    draw = lambda b: keychain.normal((b, prior.noise_dim), dtype=dtype)
+
+    def solve(noise_c, u0):
+        m = prior.sample(noise_c)
+        u, info = problem.solve_fwd(m, u0=u0)
+        return m, u, observable.evalu(u), info
+
+    chunks = []
+    u_prev = None
+    for a in range(0, n_samples, chunk_size):
+        b = min(chunk_size, n_samples - a)
+        noise_c = noise[a : a + b] if noise is not None else draw(b)
+        u0 = None
+        if not reset_initial_guess and u_prev is not None and u_prev.shape[0] >= b:
+            u0 = u_prev[:b]
+        m, u, q, info = solve(noise_c, u0)
+        if not reset_initial_guess:
+            good = info.converged[:, None] & torch.isfinite(u).all(
+                dim=1, keepdim=True
+            )
+            u_prev = torch.where(good, u, 0.0)
+        chunks.append((m, u, q, info))
+        if verbose:
+            print(f"  solved {a + b}/{n_samples}", flush=True)
+
+    out = {k: [] for k in ("m", "u", "q", "it")}
+    failed_ms = []
+    n_failures = 0
+    for m, u, q, info in chunks:
+        b = m.shape[0]
+        ok, it = info.converged.cpu().numpy(), info.iterations.clone()
+        for _ in range(max_tries):
+            if ok.all():
+                break
+            bad = np.flatnonzero(~ok)
+            nbad = len(bad)
+            n_failures += nbad
+            failed_ms.append(m[bad].cpu().numpy())
+            if verbose:
+                print(f"resampling {nbad} failed forward solves")
+            m2, u2, q2, info2 = solve(draw(b), None)
+            bad_t = torch.as_tensor(bad, device=device)
+            m[bad_t], u[bad_t], q[bad_t] = m2[:nbad], u2[:nbad], q2[:nbad]
+            it[bad_t] = info2.iterations[:nbad]
+            ok[bad] = info2.converged[:nbad].cpu().numpy()
+        if not ok.all():
+            raise RuntimeError(
+                f"{(~ok).sum()} forward solves failed after {max_tries} "
+                "resampling sweeps"
+            )
+        for k, v in zip(("m", "u", "q", "it"), (m, u, q, it)):
+            out[k].append(v)
+    return SampleBatch(
+        ms=torch.cat(out["m"]),
+        us=torch.cat(out["u"]),
+        qs=torch.cat(out["q"]),
+        n_failures=n_failures,
+        failed_ms=np.concatenate(failed_ms) if failed_ms else None,
+        iterations=torch.cat(out["it"]),
+    )
+
+
+def materialize_jacobians(observable: LinearStateObservable, ms, us,
+                          chunk_size: int | None = None):
+    """Dense Jacobians J_i = dq/dm at each sample: (n, dQ, dM).
+
+    Per chunk: one batched linearization (K1) and one adjoint solve of dQ
+    right-hand sides (K2), written into a preallocated result, so the
+    factors of only one chunk are alive at a time."""
+    problem = observable.problem
+    J = ObservableJacobian(observable)
+    n = ms.shape[0]
+    if chunk_size is None:
+        chunk_size = auto_chunk_size(problem, ms.dtype, ms.device)
+    J_all = torch.empty((n,) + J.shape, dtype=ms.dtype, device=ms.device)
+    for a in range(0, n, chunk_size):
+        e = min(a + chunk_size, n)
+        lin = problem.linearize(us[a:e], ms[a:e], needs="adj")
+        J_all[a:e] = J.materialize(lin)
+    return J_all

@@ -1,0 +1,29 @@
+"""Seeded random streams (stand-in for ``hippyflow_tpu/utils/prandom.py``).
+
+``jax.random`` keys cannot be reproduced in PyTorch, so the port draws from
+an explicit ``torch.Generator`` seeded once.  Every API that draws noise
+also accepts given noise, which is how tests feed both packages the same
+numpy draws.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import config
+
+
+class KeyChain:
+    """A mutable stream of normal draws from one seeded generator on the
+    device the draws are made on."""
+
+    def __init__(self, seed: int = 0, device=None):
+        _, self.device = config.resolve(None, device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def normal(self, shape, dtype=None):
+        """Standard normal draws of the given shape."""
+        dtype = dtype or config.DEFAULT_DTYPE
+        return torch.randn(shape, generator=self.generator, dtype=dtype,
+                           device=self.device)

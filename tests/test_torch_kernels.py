@@ -1,0 +1,232 @@
+"""K1/K2 of the PyTorch port against the JAX package's Pallas kernels.
+
+The port's banded inverse-Thomas factorization (K1, ``banded_factorize``)
+and back-solve (K2, ``banded_solve``) run their plain PyTorch versions on
+CPU tensors; here they are held against the Pallas kernels they replace
+(``banded_factorize_batch`` / ``banded_solve_batch`` in interpret mode) and
+the JAX package's XLA scans, on the same numpy inputs, in float64.  The
+CUDA kernels themselves run only on a card: ``tests/test_torch_cuda.py``.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hippyflow_tpu.ops.pallas_kernels import (
+    banded_factorize_batch,
+    banded_solve_batch,
+)
+from hippyflow_tpu.ops.structured import (
+    _factorize_thomas_inv_banded,
+    _thomas_solve_scan,
+)
+from hippyflow_tpu_torch import interop
+from hippyflow_tpu_torch.ops import hopper_kernels as hk
+from hippyflow_tpu_torch.ops.structured import (
+    block_tridiag_matmat,
+    block_tridiag_matmat_trans,
+    factorize_thomas_inv_banded,
+)
+
+torch.set_num_threads(2)
+
+F64 = dict(dtype=torch.float64, device="cpu")
+# float64 throughout; both sides invert diagonally dominant blocks (the
+# Pallas kernel by Gauss-Jordan without pivoting, the plain version by
+# pivoted LU), which agree to a few ulps of the block entries
+TOL = 1e-12
+
+
+def _random_band(nx: int, n_batch: int, seed: int) -> np.ndarray:
+    """(N, nb, s, 3s) band, nb = s = nx + 1, diagonally dominant, with the
+    structurally absent blocks A_0 and B_{nb-1} zero."""
+    rng = np.random.default_rng(seed)
+    s = nb = nx + 1
+    band = 0.1 * rng.standard_normal((n_batch, nb, s, 3 * s))
+    band[:, :, :, s : 2 * s] += 4.0 * np.eye(s)
+    band[:, 0, :, :s] = 0.0
+    band[:, -1, :, 2 * s :] = 0.0
+    return band
+
+
+@functools.lru_cache(maxsize=None)
+def _confusion_band(nx: int, n_batch: int, seed: int) -> np.ndarray:
+    """bc-symmetrized confusion bands assembled by the JAX package at
+    random (u, m) states."""
+    from applications.confusion import confusion_linear_observable
+    from hippyflow_tpu.fem import bc_symmetrize_banded_from_mask
+
+    obs, Vh = confusion_linear_observable(nx=nx, velocity="analytic")
+    pde = obs.problem
+    s = nx + 1
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((n_batch, Vh.dim))
+    m = 0.5 * rng.standard_normal((n_batch, Vh.dim))
+    bands = jax.vmap(
+        lambda uu, mm: bc_symmetrize_banded_from_mask(
+            pde.bound.assemble_A_banded(uu, mm, None, s), pde.bc
+        )
+    )(jnp.asarray(u), jnp.asarray(m))
+    return np.asarray(bands)
+
+
+def _band(kind: str, nx: int = 8, n_batch: int = 3, seed: int = 0):
+    if kind == "random":
+        return _random_band(nx, n_batch, seed)
+    return _confusion_band(nx, n_batch, seed)
+
+
+def _rhs(band: np.ndarray, k: int, seed: int) -> np.ndarray:
+    N, nb, s, _ = band.shape
+    return np.random.default_rng(seed).standard_normal((N, nb, s, k))
+
+
+@pytest.mark.parametrize("kind", ["random", "confusion"])
+def test_factorize_plain_matches_pallas_interpret(kind):
+    band = _band(kind)
+    M_ref, D_ref = banded_factorize_batch(jnp.asarray(band), interpret=True)
+    M, Dinv = hk.banded_factorize_plain(interop.tensor(band, **F64))
+    np.testing.assert_allclose(M.numpy(), np.asarray(M_ref), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(
+        Dinv.numpy(), np.asarray(D_ref), rtol=TOL, atol=TOL
+    )
+
+
+@pytest.mark.parametrize("kind", ["random", "confusion"])
+def test_factorize_plain_matches_scan(kind):
+    band = _band(kind)
+    ref = jax.vmap(_factorize_thomas_inv_banded)(jnp.asarray(band))
+    fac = factorize_thomas_inv_banded(interop.tensor(band, **F64))
+    for got, want in zip(fac, ref):
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(want), rtol=TOL, atol=TOL
+        )
+
+
+@pytest.mark.parametrize("kind", ["random", "confusion"])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k", [1, 5])
+def test_solve_plain_matches_pallas_interpret(kind, trans, k):
+    """The JAX factor carried over by interop: the plain K2 equals the
+    interpret-mode Pallas sweeps and the XLA scan."""
+    band = _band(kind, nx=10)
+    ref_fac = jax.vmap(_factorize_thomas_inv_banded)(jnp.asarray(band))
+    rhs = _rhs(band, k, seed=1)
+    want = banded_solve_batch(
+        ref_fac.M, ref_fac.Dinv, ref_fac.B, jnp.asarray(rhs), trans,
+        interpret=True,
+    )
+    want_scan = jax.vmap(
+        lambda M, D, B, r: _thomas_solve_scan(M, D, B, r, trans)
+    )(ref_fac.M, ref_fac.Dinv, ref_fac.B, jnp.asarray(rhs))
+    fac = interop.inverse_thomas_factor(*map(np.asarray, ref_fac), **F64)
+    got = hk.banded_solve_plain(
+        fac.M, fac.Dinv, fac.B, interop.tensor(rhs, **F64), trans
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want_scan), rtol=TOL, atol=TOL
+    )
+
+
+@pytest.mark.parametrize("kind", ["random", "confusion"])
+@pytest.mark.parametrize("trans", [False, True])
+def test_factor_solves_the_system(kind, trans):
+    """End to end on the CPU: factorize, solve, and check A x = b (or
+    A^T x = b) with the banded matvec."""
+    band = interop.tensor(_band(kind, nx=10), **F64)
+    N, nb, s, _ = band.shape
+    b = torch.as_tensor(
+        np.random.default_rng(2).standard_normal((N, nb * s, 4)), **F64
+    )
+    x = factorize_thomas_inv_banded(band).solve(b, trans=trans)
+    apply = block_tridiag_matmat_trans if trans else block_tridiag_matmat
+    res = torch.linalg.vector_norm(apply(band, x) - b) / torch.linalg.vector_norm(b)
+    assert res.item() < 1e-12
+    # 1-d right-hand sides keep their shape
+    x1 = factorize_thomas_inv_banded(band).solve(b[..., 0], trans=trans)
+    np.testing.assert_allclose(
+        x1.numpy(), x[..., 0].numpy(), rtol=1e-13, atol=1e-13
+    )
+
+
+def test_banded_matvecs_match_dense():
+    """block_tridiag_matmat(_trans) against the dense operator the band
+    stores."""
+    band = _random_band(4, 2, seed=3)
+    N, nb, s, _ = band.shape
+    dense = np.zeros((N, nb * s, nb * s))
+    for j in range(nb):
+        for o in range(3):
+            jj = j + o - 1
+            if 0 <= jj < nb:
+                dense[:, j * s : (j + 1) * s, jj * s : (jj + 1) * s] = band[
+                    :, j, :, o * s : (o + 1) * s
+                ]
+    X = np.random.default_rng(4).standard_normal((N, nb * s, 3))
+    bt, Xt = interop.tensor(band, **F64), interop.tensor(X, **F64)
+    np.testing.assert_allclose(
+        block_tridiag_matmat(bt, Xt).numpy(), dense @ X, rtol=1e-13, atol=1e-13
+    )
+    np.testing.assert_allclose(
+        block_tridiag_matmat_trans(bt, Xt).numpy(),
+        np.swapaxes(dense, 1, 2) @ X,
+        rtol=1e-13,
+        atol=1e-13,
+    )
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On the CPU the wrappers run the plain versions and count no launch."""
+    band = interop.tensor(_random_band(4, 2, seed=5), **F64)
+    hk.reset_launch_counts()
+    M, Dinv = hk.banded_factorize(band)
+    M_p, D_p = hk.banded_factorize_plain(band)
+    assert torch.equal(M, M_p) and torch.equal(Dinv, D_p)
+    B = band[..., 2 * band.shape[2] :].contiguous()
+    bb = torch.ones(band.shape[:3] + (2,), **F64)
+    for trans in (False, True):
+        assert torch.equal(
+            hk.banded_solve(M, Dinv, B, bb, trans),
+            hk.banded_solve_plain(M, Dinv, B, bb, trans),
+        )
+    assert hk.banded_factorize.launches == 0
+    assert hk.banded_solve.launches == 0
+
+
+def test_library_path_is_keyed_on_the_sources():
+    """The build directory is ignored by git and named by a hash of the
+    kernel sources and nvcc flags, so an edit rebuilds."""
+    path = hk.library_path()
+    assert path.parent.parent == hk.BUILD_DIR
+    assert path == hk.library_path()
+    for name in hk.SOURCES + hk.HEADERS:
+        assert (hk.CSRC / name).exists()
+
+
+@pytest.mark.parametrize("call", ["factorize", "solve"])
+def test_non_cpu_tensors_never_take_the_plain_versions(call):
+    """A tensor that is not on the CPU goes to the kernel or raises: a
+    "meta" tensor (no data, no card needed) is refused, not computed by
+    the plain version."""
+    band = torch.empty((2, 5, 5, 15), dtype=torch.float64, device="meta")
+    blk = torch.empty((2, 5, 5, 5), dtype=torch.float64, device="meta")
+    hk.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="meta"):
+        if call == "factorize":
+            hk.banded_factorize(band)
+        else:
+            hk.banded_solve(blk, blk, blk, blk[..., :2], False)
+    assert hk.banded_factorize.launches == hk.banded_solve.launches == 0
+
+
+def test_wrappers_reject_malformed_shapes():
+    with pytest.raises(ValueError, match="band shape"):
+        hk.banded_factorize(torch.empty((2, 5, 5, 14), device="meta"))
+    with pytest.raises(ValueError, match="4-d"):
+        blk = torch.empty((5, 5, 5), device="meta")
+        hk.banded_solve(blk, blk, blk, blk, True)
