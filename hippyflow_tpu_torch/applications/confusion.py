@@ -9,7 +9,13 @@ Port of ``applications/confusion.py``:
   - f p dx                                  Gaussian-blob source
 
 with homogeneous Dirichlet BCs, 100 pointwise observations on a grid in
-[0.6, 0.8]^2, and the dense BiLaplacian prior.
+[0.6, 0.8]^2, and the BiLaplacian prior: dense up to 20000 dofs, banded
+(``StructuredBiLaplacianPrior``) above, as in the JAX package.
+
+Two lanes of ``bench.py`` run here: nx=64 (4225 dofs, blocks s=65) and
+nx=192 (37249 dofs, s=193, the structured prior).  Newton cold-starts
+every lane: the grid-sequenced warm starts of the JAX package
+(``fem/multigrid.py``) are not ported.
 
 The velocity is either 'analytic' (the stream-function vortex of the JAX
 package) or an (n, 2) array of P1 dof values, e.g. the steady
@@ -36,6 +42,7 @@ from ..models import (
     BiLaplacian2D,
     LinearStateObservable,
     PointwiseObservation,
+    StructuredBiLaplacianPrior,
     VariationalPDEProblem,
 )
 
@@ -131,9 +138,12 @@ def confusion_linear_observable(
 
 def confusion_prior(Vh: FunctionSpace, gamma: float = 0.1, delta: float = 1.0,
                     dtype=None, device=None):
-    """Dense BiLaplacian prior with the driver's defaults.  The banded
-    prior that the JAX package takes beyond 20000 dofs is not ported."""
-    if Vh.dim > 20000:
-        raise NotImplementedError("the structured (banded) prior is not ported")
+    """BiLaplacian prior with the confusion setup's defaults (gamma=0.1,
+    delta=1.0, ``confusion_problem_setup.py``): beyond 20000 dofs the
+    banded ``StructuredBiLaplacianPrior`` (same distribution, O(n s)
+    memory; the nx=192 lane), else the dense one."""
+    if Vh.mesh.structured_shape is not None and Vh.dim > 20000:
+        return StructuredBiLaplacianPrior(Vh, gamma=gamma, delta=delta,
+                                          dtype=dtype, device=device)
     return BiLaplacian2D(Vh, gamma=gamma, delta=delta, dtype=dtype,
                          device=device)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import config
+from .mesh import boundary_edges
 from .space import FunctionSpace
 
 
@@ -271,6 +272,70 @@ def stiffness_matrix(V: FunctionSpace, tensor=None, dtype=None,
     g = V.geometry.grads
     K_e = np.einsum("cid,de,cje,c->cij", g, tensor, g, V.geometry.volumes)
     return _scatter_dense(V, K_e, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Canonical matrices in (nb, s, 3s) band storage (the structured prior)
+# ---------------------------------------------------------------------------
+
+
+def _numpy_dtype(dtype) -> np.dtype:
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def banded_from_elements(V: FunctionSpace, vals_e, connectivity=None) -> np.ndarray:
+    """Scatter (ncell, a, a) element matrices into (nb, s, 3s) band storage
+    on a structured P1 mesh (numpy host work, as in the JAX package).
+    ``connectivity`` defaults to the triangle cells; pass boundary edges
+    (ne, 2) with 2x2 element matrices for boundary mass terms."""
+    if V.degree != 1 or V.mesh.structured_shape is None:
+        raise NotImplementedError("band storage needs a structured P1 space")
+    s = V.mesh.structured_shape[0] + 1
+    conn = np.asarray(V.mesh.cells if connectivity is None else connectivity)
+    a = conn.shape[1]
+    vals_e = np.asarray(vals_e)
+    g1 = np.repeat(conn, a, axis=1).reshape(-1).astype(np.int64)
+    g2 = np.tile(conn, (1, a)).reshape(-1).astype(np.int64)
+    o = g2 // s - g1 // s + 1
+    if not ((o >= 0) & (o <= 2)).all():
+        raise ValueError("connectivity exceeds the band")
+    idx = g1 * (3 * s) + o * s + (g2 % s)
+    flat = np.zeros(V.dim * 3 * s, dtype=vals_e.dtype)
+    np.add.at(flat, idx, vals_e.reshape(-1))
+    return flat.reshape(V.dim // s, s, 3 * s)
+
+
+def mass_matrix_banded(V: FunctionSpace, dtype=None, device=None) -> torch.Tensor:
+    """(nb, s, 3s) band of the consistent P1 mass matrix."""
+    dtype, device = config.resolve(dtype, device)
+    local = (np.full((3, 3), 1.0) + np.eye(3)) / 12.0
+    M_e = V.geometry.volumes[:, None, None] * local[None]
+    band = banded_from_elements(V, M_e.astype(_numpy_dtype(dtype)))
+    return torch.as_tensor(band, device=device)
+
+
+def stiffness_matrix_banded(V: FunctionSpace, tensor=None, dtype=None,
+                            device=None) -> torch.Tensor:
+    """(nb, s, 3s) band of the P1 stiffness matrix (optional tensor)."""
+    dtype, device = config.resolve(dtype, device)
+    tensor = np.eye(2) if tensor is None else np.asarray(tensor)
+    g = V.geometry.grads
+    K_e = np.einsum("cid,de,cje,c->cij", g, tensor, g, V.geometry.volumes)
+    band = banded_from_elements(V, K_e.astype(_numpy_dtype(dtype)))
+    return torch.as_tensor(band, device=device)
+
+
+def boundary_mass_matrix_banded(V: FunctionSpace, dtype=None,
+                                device=None) -> torch.Tensor:
+    """(nb, s, 3s) band of the boundary mass matrix int_dOmega u v ds."""
+    dtype, device = config.resolve(dtype, device)
+    edges = boundary_edges(V.mesh)
+    x = V.mesh.vertices[edges]
+    lens = np.sqrt(((x[:, 1] - x[:, 0]) ** 2).sum(-1))
+    local = np.array([[2.0, 1.0], [1.0, 2.0]]) / 6.0
+    Me = (lens[:, None, None] * local[None]).astype(_numpy_dtype(dtype))
+    band = banded_from_elements(V, Me, connectivity=edges)
+    return torch.as_tensor(band, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Port of ``hippyflow_tpu/models/pde_problem.py`` with the inverse
 block-Thomas (``thomas_inv``) solver, which the JAX package's 'auto' rule
-picks at nx=64 for both the forward and the adjoint factor.  Every method
+picks at nx=64 and nx=192 for both the forward and the adjoint factor.  Every method
 takes tensors with a leading sample axis:
 
 * ``solve_fwd``: Newton with a backtracking Armijo ladder.  As in the JAX
