@@ -22,17 +22,37 @@ each:
 5. s=193: K1 (row panels) and K2 (k=1 streamed, and k=100 transposed
    through panels) against their plain versions on Newton bands of nx=192 (N=16,
    nb=s=193), both dtypes, with residuals and timings;
-6. parity: the float64 pipeline on ``.bench/parity_ref.npz`` against the
+6. coarse grids: K1 and K2 (k=1) against their plain versions on the
+   Newton bands of the grid-sequencing levels, s=33 and 17 (N=1024, the
+   nx=64 chunk) and s=97, 49 and 25 (N=32, the nx=192 chunk), both dtypes;
+7. s=516: K1 (row panels: Schur step + K3 per block row), K2 (k=1
+   streamed, both directions; k=200 transposed through panels, and the
+   panel-row choice) and K3 on the helmholtz lane's own bands (N=16,
+   nb=52), both dtypes,
+   against the pivoted plain versions: K1 against plain, max|T T^-1 - I|
+   of K3 and of ``torch.linalg.inv`` on the same Schur complements, and
+   ||Ax - b|| / ||b|| through K1+K2 and through the plain pair, K3's
+   within 10x of the pivoted ones; timings;
+8. parity: the float64 pipeline on ``.bench/parity_ref.npz`` against the
    stored reference spectrum (relative error <= 1e-8 over eigenvalues above
    1e-4 lambda_0), with the dense prior and again with the structured one;
-7. main path: the float32 input active subspace of confusion at nx=64 with
+9. main path: the float32 input active subspace of confusion at nx=64 with
    the steady Navier-Stokes velocity, 1024 prior samples, rank 100,
-   oversampling 10, through ``ActiveSubspaceProjector``;
-8. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
-   256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16.
+   oversampling 10, through ``ActiveSubspaceProjector``, grid-sequenced
+   (depth 2: coarse levels nx=32 and 16 on the restricted velocity, as
+   ``bench.py`` builds them), and once more cold-started for comparison;
+10. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
+    256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16,
+    grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started;
+11. helmholtz lane: the float32 input active subspace of the split-complex
+    P2 helmholtz problem at nx=64 (ny=51), 600 Hz (26574 dofs, s=516,
+    nb=52), dense BiLaplacian prior (gamma=1, delta=5, 3380 dofs),
+    32 samples, rank 128, oversampling 10, chunk 16, through the fused
+    pass; for 2 samples the float32 Jacobian against the same samples
+    run through the kernels in float64.
 
 Then a JSON line describing the kernels (``launches`` is the sum over the
-two paths, which are each driven with the counts set to 0 just before and
+paths, which are each driven with the counts set to 0 just before and
 read just after; ``launches_by_path`` splits it), and last the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without printing the result line.
@@ -59,6 +79,21 @@ SEED = 0
 NX192, N192_SAMPLES, RANK192 = 192, 256, 128
 CHUNK192, JAC_CHUNK192 = 32, 16
 N_BAND192 = 16  # samples of the s=193 kernel phase
+# grid-sequencing depth of bench.py's lanes (coarse levels below the fine)
+GRIDSEQ_DEPTH = {NX: 2, NX192: 3}
+# the helmholtz lane of bench.py (run_helmholtz_lane)
+HELM_NX, HELM_FREQ = 64, 600.0
+HELM_SAMPLES, HELM_RANK, HELM_CHUNK = 32, 128, 16
+N_BAND_HELM = HELM_CHUNK  # samples of the s=516 kernel phase
+# K3's identity residual and the K1+K2 solve residual on the helmholtz
+# bands (indefinite, no pivoting) may exceed the pivoted plain versions'
+# by at most this factor.  For the identity residual, 32 samples of these
+# bands on the CPU gave 1.0-4.8x (float64) and 1.4-8.8x (float32) sample by
+# sample; on an H100 the worst of 16 samples' 832 blocks was 2.3x and 4.2x
+PIVOT_FACTOR = 10.0
+# the float32 helmholtz Jacobian against the same samples in float64,
+# relative to max|J|
+JAC_TOL_F32 = 1e-4
 
 # Kernel against plain version, relative to the largest plain entry, and
 # relative residuals ||A x - b|| / ||b|| of the kernels' solves (taken in
@@ -386,6 +421,249 @@ def phase_s193(obs64, prior64, device):
     return report
 
 
+def warm_start_levels(obs, vel, nx, depth, dtype, device):
+    """The grid-sequencing levels below nx as ``bench.py`` builds them:
+    (problem, V) pairs at nx/2, nx/4, ... (at most ``depth``, none below
+    nx=8), each on the velocity restricted from the level above, so that no
+    second Navier-Stokes solve is needed."""
+    from hippyflow_tpu_torch.applications.confusion import (
+        confusion_linear_observable,
+    )
+    from hippyflow_tpu_torch.fem import (
+        FunctionSpace,
+        restrict_injection,
+        unit_square_mesh,
+    )
+
+    levels = []
+    V_prev, vel_prev, nx_prev = obs.problem.Vu, vel, nx
+    while len(levels) < depth and nx_prev % 2 == 0 and nx_prev // 2 >= 8:
+        nx_c = nx_prev // 2
+        vel_c = restrict_injection(
+            torch.as_tensor(vel_prev)[None], V_prev,
+            FunctionSpace(unit_square_mesh(nx_c)))[0].numpy()
+        obs_c, V_c = confusion_linear_observable(
+            nx=nx_c, velocity=vel_c, dtype=dtype, device=device)
+        levels.append((obs_c.problem, V_c))
+        V_prev, vel_prev, nx_prev = V_c, vel_c, nx_c
+    return levels
+
+
+def check_band_kernels(band64, ks, label, gen, reps=2):
+    """K1 and K2 (for each (k, trans) of ``ks``) against their plain
+    versions on float64 bands, in both dtypes, with the residuals of the
+    kernels' solves; float32 times.  Returns {dtype: {...}}."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+    from hippyflow_tpu_torch.ops.structured import (
+        block_tridiag_matmat,
+        block_tridiag_matmat_trans,
+    )
+
+    N, nb, s, _ = band64.shape
+    rhs64 = {k: torch.randn(N, nb, s, k, generator=gen, dtype=torch.float64,
+                            device=band64.device) for k, _ in ks}
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tol = TOL[dtype]
+        band = band64.to(dtype)
+        B = band[..., 2 * s :].contiguous()
+        M, Dinv = hk.banded_factorize(band)
+        M_p, D_p = hk.banded_factorize_plain(band)
+        torch.cuda.synchronize()
+        k1_rel = max(rel_err(M, M_p), rel_err(Dinv, D_p))
+        check(k1_rel <= tol["diff"], f"K1 {label} {dtype}: vs plain {k1_rel:.3e}")
+        line = f"{label} {str(dtype)[6:]} N={N}: K1 rel diff {k1_rel:.3e}"
+        rec = {"max_abs_err": max((M - M_p).abs().max().item(),
+                                  (Dinv - D_p).abs().max().item())}
+        for k, trans in ks:
+            bb = rhs64[k].to(dtype)
+            x = hk.banded_solve(M, Dinv, B, bb, trans)
+            x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
+            torch.cuda.synchronize()
+            rel = rel_err(x, x_p)
+            apply = block_tridiag_matmat_trans if trans else block_tridiag_matmat
+            b_flat = rhs64[k].reshape(N, nb * s, k)
+            res = (torch.linalg.vector_norm(
+                apply(band64, x.double().reshape(N, nb * s, k)) - b_flat)
+                / torch.linalg.vector_norm(b_flat)).item()
+            check(rel <= tol["diff"], f"K2 {label} {dtype} k={k}: vs plain {rel:.3e}")
+            check(res <= tol["residual"],
+                  f"K2 {label} {dtype} k={k}: residual {res:.3e}")
+            line += f"; K2 k={k} trans={trans} rel diff {rel:.3e} residual {res:.3e}"
+            rec[f"k2_max_abs_err_k{k}"] = (x - x_p).abs().max().item()
+            if dtype == torch.float32:
+                rec[f"k2_k{k}"] = paired_ms(
+                    lambda: hk.banded_solve(M, Dinv, B, bb, trans),
+                    lambda: hk.banded_solve_plain(M, Dinv, B, bb, trans), reps)
+        if dtype == torch.float32:
+            rec["k1"] = paired_ms(lambda: hk.banded_factorize(band),
+                                  lambda: hk.banded_factorize_plain(band), reps)
+            line += f"; float32 K1 {rec['k1'][0]:.3f} ms (plain {rec['k1'][1]:.3f})"
+            for k, trans in ks:
+                t = rec[f"k2_k{k}"]
+                line += f", K2 k={k} {t[0]:.3f} ms (plain {t[1]:.3f})"
+        log(line)
+        out[dtype] = rec
+    return out
+
+
+def phase_coarse(levels, prior64, n, device):
+    """K1 and K2 (k=1, the Newton solves) at the grid-sequencing levels'
+    block sizes, on their own Newton bands: prior samples of m and u
+    restricted from the fine grid, N = the lane's chunk."""
+    from hippyflow_tpu_torch.fem import (
+        bc_symmetrize_banded_from_mask,
+        restrict_injection,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    xi = torch.randn(2 * n, prior64.noise_dim, generator=gen,
+                     dtype=torch.float64, device=device)
+    x, V_prev = prior64.sample(xi), prior64.Vh
+    report = {}
+    for problem, V in levels:
+        x = restrict_injection(x, V_prev, V)
+        V_prev = V
+        band = bc_symmetrize_banded_from_mask(
+            problem.bound.assemble_A_banded(x[n:], x[:n]), problem.bc
+        ).contiguous()
+        s = band.shape[-2]
+        report[s] = check_band_kernels(band, ((1, False),), f"coarse s={s}", gen)
+        del band
+    return report
+
+
+def phase_s516(device):
+    """K1, K2 and K3 at the helmholtz lane's block size on its own bands
+    (the operator at prior samples of m, N=16), both dtypes, against the
+    pivoted plain versions; the Schur complements T_j = D_j - M_j B_{j-1}
+    come from the float64 plain factorization."""
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        helmholtz_linear_observable,
+        helmholtz_prior,
+    )
+    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+    from hippyflow_tpu_torch.ops.structured import (
+        block_tridiag_matmat,
+        block_tridiag_matmat_trans,
+    )
+
+    f64 = dict(dtype=torch.float64, device=device)
+    obs, Vh = helmholtz_linear_observable(nx=HELM_NX, frequency=HELM_FREQ, **f64)
+    prior = helmholtz_prior(Vh, **f64)
+    pde = obs.problem
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n = N_BAND_HELM
+    m = prior.sample(torch.randn(n, prior.noise_dim, generator=gen, **f64))
+    zero = torch.zeros(n, pde.state_dim, **f64)
+    band64 = bc_symmetrize_banded_masked(
+        pde.bound.assemble_A_banded_ordered(zero, m, pde._band_order),
+        pde._band_mask).contiguous()
+    del zero, m, obs, prior
+    N, nb, s, _ = band64.shape
+    B64 = band64[..., 2 * s :].contiguous()
+    M64, _ = hk.banded_factorize_plain(band64)
+    T64 = band64[..., s : 2 * s].clone()
+    T64[:, 1:] -= M64[:, 1:] @ B64[:, :-1]
+    del M64
+    eye = torch.eye(s, **f64)
+    rhs64 = {k: torch.randn(N, nb, s, k, generator=gen, **f64) for k in (1, 200)}
+    # the lane solves transposed (forward solve, refinement, Jacobian); the
+    # k=1 solve forward as well, as a Newton solve would
+    ks = ((1, False), (1, True), (200, True))
+    report = {}
+    for dtype in (torch.float32, torch.float64):
+        tol, name = TOL[dtype], str(dtype)[6:]
+        band = band64.to(dtype)
+        B = band[..., 2 * s :].contiguous()
+        M, Dinv = hk.banded_factorize(band)
+        M_p, D_p = hk.banded_factorize_plain(band)
+        torch.cuda.synchronize()
+        k1_rel = max(rel_err(M, M_p), rel_err(Dinv, D_p))
+        check(k1_rel <= tol["diff"], f"K1 s={s} {dtype}: vs plain {k1_rel:.3e}")
+        line = f"s={s} kernels {name} N={N} nb={nb}: K1 rel diff {k1_rel:.3e}"
+        # K3 and the pivoted inverse on the same Schur complements
+        T = T64.to(dtype).reshape(N * nb, s, s)
+        res_k3 = res_inv = 0.0
+        for c in range(0, N * nb, 128):
+            t64 = T64.reshape(N * nb, s, s)[c : c + 128]
+            res_k3 = max(res_k3, (t64 @ hk.batched_inverse(T[c : c + 128]).double()
+                                  - eye).abs().max().item())
+            res_inv = max(res_inv, (t64 @ torch.linalg.inv(T[c : c + 128]).double()
+                                    - eye).abs().max().item())
+        check(res_k3 <= PIVOT_FACTOR * res_inv,
+              f"K3 s={s} {dtype}: max|T T^-1 - I| {res_k3:.3e} against the "
+              f"pivoted {res_inv:.3e}")
+        line += (f"; max|T T^-1 - I| K3 {res_k3:.3e} torch.linalg.inv "
+                 f"{res_inv:.3e} ({res_k3 / res_inv:.2f}x)")
+        rec = {"max_abs_err": max((M - M_p).abs().max().item(),
+                                  (Dinv - D_p).abs().max().item())}
+        for k, trans in ks:
+            bb = rhs64[k].to(dtype)
+            x = hk.banded_solve(M, Dinv, B, bb, trans)
+            x_k = hk.banded_solve_plain(M, Dinv, B, bb, trans)
+            x_p = hk.banded_solve_plain(M_p, D_p, B, bb, trans)
+            torch.cuda.synchronize()
+            rel = rel_err(x, x_k)
+            check(rel <= tol["diff"],
+                  f"K2 s={s} {dtype} k={k} trans={trans}: vs plain {rel:.3e}")
+            apply = block_tridiag_matmat_trans if trans else block_tridiag_matmat
+            b_flat = rhs64[k].reshape(N, nb * s, k)
+
+            def res(sol):
+                return (torch.linalg.vector_norm(
+                    apply(band64, sol.double().reshape(N, nb * s, k)) - b_flat)
+                    / torch.linalg.vector_norm(b_flat)).item()
+
+            r_k, r_p = res(x), res(x_p)
+            check(r_k <= PIVOT_FACTOR * r_p,
+                  f"K1+K2 s={s} {dtype} k={k} trans={trans}: residual "
+                  f"{r_k:.3e} against the plain pair's {r_p:.3e}")
+            line += (f"; K2 k={k} trans={trans} rel diff {rel:.3e}, residual "
+                     f"K1+K2 {r_k:.3e} plain pair {r_p:.3e}")
+            key = f"k2_max_abs_err_k{k}"
+            rec[key] = max(rec.get(key, 0.0), (x - x_k).abs().max().item())
+        log(line)
+        tiles = hk.solve_tiles(s, 200, band.element_size(),
+                               hk._smem_limit(band.device))
+        other = {torch.float32: (64, 16), torch.float64: (32, 8)}[dtype]
+        bb1, bb200 = rhs64[1].to(dtype), rhs64[200].to(dtype)
+        rec["k1"] = paired_ms(lambda: hk.banded_factorize(band),
+                              lambda: hk.banded_factorize_plain(band), reps=1)
+        rec["k1_rows_plain"] = cuda_ms(lambda: hk.banded_factorize_rows_plain(band), 1)
+        rec["k2_k200"] = paired_ms(
+            lambda: hk.banded_solve(M, Dinv, B, bb200, True),
+            lambda: hk.banded_solve_plain(M, Dinv, B, bb200, True), reps=2)
+        rec["k2_k200_other"] = paired_ms(
+            lambda: hk.banded_solve(M, Dinv, B, bb200, True, tiles=other),
+            lambda: hk.banded_solve(M, Dinv, B, bb200, True, tiles=tiles), reps=2)
+        rec["k2_k1"] = paired_ms(
+            lambda: hk.banded_solve(M, Dinv, B, bb1, True),
+            lambda: hk.banded_solve_plain(M, Dinv, B, bb1, True), reps=2)
+        rec["k2_k1_fwd"] = paired_ms(
+            lambda: hk.banded_solve(M, Dinv, B, bb1, False),
+            lambda: hk.banded_solve_plain(M, Dinv, B, bb1, False), reps=2)
+        # one block row's Schur complements, (N, s, s)
+        T1 = T.reshape(N, nb, s, s)[:, nb // 2].contiguous()
+        rec["k3"] = paired_ms(lambda: hk.batched_inverse(T1),
+                              lambda: hk.batched_inverse_plain(T1), reps=2)
+        rec["k3_inv"] = cuda_ms(lambda: torch.linalg.inv(T1), 2)
+        log(f"timing {name} s={s} N={N} nb={nb}: K1 rows {rec['k1'][0]:.3f} ms "
+            f"(plain {rec['k1'][1]:.3f}, rows plain {rec['k1_rows_plain']:.3f}); "
+            f"K2 k=200 trans {rec['k2_k200'][0]:.3f} ms (plain "
+            f"{rec['k2_k200'][1]:.3f}) with panel rows, column tile {tiles}, "
+            f"{other}: {rec['k2_k200_other'][0]:.3f} ms against "
+            f"{rec['k2_k200_other'][1]:.3f}; K2 k=1 trans {rec['k2_k1'][0]:.3f} ms "
+            f"(plain {rec['k2_k1'][1]:.3f}), k=1 {rec['k2_k1_fwd'][0]:.3f} ms "
+            f"(plain {rec['k2_k1_fwd'][1]:.3f}); K3 {tuple(T1.shape)} {rec['k3'][0]:.3f} "
+            f"ms (plain {rec['k3'][1]:.3f}, torch.linalg.inv {rec['k3_inv']:.3f})")
+        report[dtype] = rec
+        del band, B, M, Dinv, M_p, D_p, T, T1
+        torch.cuda.empty_cache()
+    return s, report
+
+
 def phase_parity(obs64, prior64):
     """The float64 pipeline against the stored reference spectrum."""
     label = type(prior64).__name__
@@ -422,11 +700,14 @@ def phase_parity(obs64, prior64):
     return err
 
 
-def run_subspace(obs32, prior_fn, label, n_samples, rank, **params_kw):
+def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
+                 **params_kw):
     """The float32 input active subspace once, through the user entry
     points, with every launch count set to 0 just before (``prior_fn``
-    builds the prior, which is part of the path) and read just after;
-    then the health checks."""
+    builds the prior, and the grid-sequencing map on ``warm_levels`` is
+    built, inside the counted run) and read just after; then the health
+    checks.  Returns (launches, projector)."""
+    from hippyflow_tpu_torch.fem import coarse_newton_warm_start
     from hippyflow_tpu_torch.models import (
         ActiveSubspaceParameterList,
         ActiveSubspaceProjector,
@@ -441,6 +722,12 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, **params_kw):
     params["rank"], params["oversampling"] = rank, OVERSAMPLING
     params["samples_per_process"] = n_samples
     params["verbose"], params["seed"] = False, SEED
+    warm = None
+    if warm_levels:
+        warm = coarse_newton_warm_start(
+            prior32, warm_levels[0][0], obs32.problem.Vu, warm_levels[0][1],
+            coarser_levels=warm_levels[1:])
+        params["coarse_warm_start"] = warm
     for key, value in params_kw.items():
         params[key] = value
     proj = ActiveSubspaceProjector(obs32, prior32, parameters=params)
@@ -458,11 +745,17 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, **params_kw):
     it = proj.samples.iterations.to(torch.float64)
     ortho = (V.T @ E - torch.eye(V.shape[1], dtype=V.dtype, device=V.device))
     ortho = ortho.abs().max().item()
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+    newton = (f"Newton iterations max {int(it.max().item())} mean "
+              f"{it.mean().item():.3f}")
+    if warm is not None:
+        for (problem, _), its in zip(warm_levels, warm.iterations):
+            c = torch.cat(its).to(torch.float64)
+            newton += (f", coarse s={problem._block_size} max "
+                       f"{int(c.max().item())} mean {c.mean().item():.3f}")
     log(
         f"{label} samples={n_samples} rank={rank}: total {total:.3f} s "
-        f"(prior {total - sum(st.values()):.3f}, forward {st['forward']:.3f}, "
-        f"jacobian {st['jacobian']:.3f}, ghep {st['ghep']:.3f}); Newton "
-        f"iterations max {int(it.max().item())} mean {it.mean().item():.3f}; "
+        f"(prior {total - sum(st.values()):.3f}, {stages}); {newton}; "
         f"resampled failures {proj.samples.n_failures}; launches K1 "
         f"{launches['banded_factorize']} K2 {launches['banded_solve']} K3 "
         f"{launches['batched_inverse']} K4 {launches['batched_inverse_rank1']}; "
@@ -476,26 +769,41 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, **params_kw):
           f"{label}: shapes {tuple(d.shape)}, {tuple(V.shape)}")
     check(bool((d[1:] <= d[:-1]).all()), f"{label}: eigenvalues are not descending")
     check(ortho <= ORTHO_TOL_F32, f"{label}: max|V^T R V - I| {ortho:.3e}")
-    return launches
+    return launches, proj
 
 
-def phase_main(obs32, prior32):
-    """The float32 main path, once, through the user entry point."""
-    launches = run_subspace(obs32, lambda: prior32, f"main float32 nx={NX}",
-                            N_SAMPLES, RANK)
-    for name in ("banded_factorize", "banded_solve"):
-        check(launches[name] > 0, f"{name} was not launched on the main path")
-    return launches
+def phase_main(obs32, prior32, levels):
+    """The float32 main path, once grid-sequenced through the user entry
+    point (the counted path), and once cold-started for comparison."""
+    paths = {}
+    for name, lv in (("nx64", levels), ("nx64_cold", None)):
+        cold = " cold start" if lv is None else f" grid-sequenced depth {len(lv)}"
+        launches, _ = run_subspace(obs32, lambda: prior32,
+                                   f"main float32 nx={NX}{cold}", N_SAMPLES,
+                                   RANK, warm_levels=lv)
+        for key in ("banded_factorize", "banded_solve"):
+            check(launches[key] > 0, f"{key} was not launched on {name}")
+        paths[name] = launches
+    return paths
 
 
 def phase_lane192(device):
-    """The float32 nx=192 lane, once: confusion_prior builds the structured
-    prior (cyclic reduction through K3) inside the counted run."""
-    from hippyflow_tpu_torch.applications.confusion import confusion_prior
+    """The float32 nx=192 lane, grid-sequenced (the counted path) and
+    cold-started: confusion_prior builds the structured prior (cyclic
+    reduction through K3) inside each counted run."""
+    from hippyflow_tpu_torch.applications.confusion import (
+        confusion_prior,
+        load_ns_velocity,
+    )
     from hippyflow_tpu_torch.models import StructuredBiLaplacianPrior
 
     obs32, _ = setup(torch.float32, device, nx=NX192, with_prior=False)
     Vh = obs32.problem.Vu
+    levels = warm_start_levels(obs32, load_ns_velocity(NX192), NX192,
+                               GRIDSEQ_DEPTH[NX192], torch.float32, device)
+    check([p._block_size for p, _ in levels] == [NX192 // 2 + 1, NX192 // 4 + 1,
+                                                 NX192 // 8 + 1],
+          f"nx={NX192} levels {[p._block_size for p, _ in levels]}")
 
     def prior_fn():
         prior = confusion_prior(Vh, dtype=torch.float32, device=device)
@@ -503,13 +811,60 @@ def phase_lane192(device):
               f"nx={NX192}: confusion_prior gave {type(prior).__name__}")
         return prior
 
-    launches = run_subspace(
-        obs32, prior_fn, f"lane float32 nx={NX192}", N192_SAMPLES, RANK192,
-        chunk_size=CHUNK192, jac_chunk_size=JAC_CHUNK192,
+    paths = {}
+    for name, lv in (("nx192", levels), ("nx192_cold", None)):
+        cold = " cold start" if lv is None else f" grid-sequenced depth {len(lv)}"
+        launches, _ = run_subspace(
+            obs32, prior_fn, f"lane float32 nx={NX192}{cold}", N192_SAMPLES,
+            RANK192, warm_levels=lv, chunk_size=CHUNK192,
+            jac_chunk_size=JAC_CHUNK192,
+        )
+        for key in ("banded_factorize", "banded_solve", "batched_inverse"):
+            check(launches[key] > 0, f"{key} was not launched on {name}")
+        paths[name] = launches
+    return paths
+
+
+def phase_helmholtz(device):
+    """The float32 helmholtz lane, once, through the fused pass; then for 2
+    of its samples the float32 Jacobian against the same samples run
+    through the kernels in float64."""
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        helmholtz_linear_observable,
+        helmholtz_prior,
     )
-    for name in ("banded_factorize", "banded_solve", "batched_inverse"):
-        check(launches[name] > 0, f"{name} was not launched on the nx=192 lane")
-    return launches
+    from hippyflow_tpu_torch.models import ObservableJacobian
+
+    obs32, Vh = helmholtz_linear_observable(
+        nx=HELM_NX, frequency=HELM_FREQ, dtype=torch.float32, device=device)
+    pde = obs32.problem
+    log(f"helmholtz nx={HELM_NX} ({Vh.mesh.structured_shape}) {HELM_FREQ:.0f} Hz: "
+        f"state {pde.state_dim} dofs, s={pde._block_size}, "
+        f"nb={pde._band_order.nb}, pad rows {pde._band_order.n_pad}, "
+        f"dM={obs32.dM}, dQ={obs32.dQ}")
+    launches, proj = run_subspace(
+        obs32, lambda: helmholtz_prior(Vh, dtype=torch.float32, device=device),
+        f"helmholtz float32 nx={HELM_NX}", HELM_SAMPLES, HELM_RANK,
+        chunk_size=HELM_CHUNK, jac_chunk_size=HELM_CHUNK,
+    )
+    check(set(proj.stage_seconds) == {"fused", "ghep"},
+          f"helmholtz stages {sorted(proj.stage_seconds)}: not the fused pass")
+    check(proj.samples.n_failures == 0,
+          f"helmholtz: {proj.samples.n_failures} resampled failures")
+    for key in ("banded_factorize", "banded_solve", "batched_inverse"):
+        check(launches[key] > 0, f"{key} was not launched on the helmholtz lane")
+    obs64, _ = helmholtz_linear_observable(
+        nx=HELM_NX, frequency=HELM_FREQ, dtype=torch.float64, device=device)
+    m64 = proj.samples.ms[:2].double()
+    u64, info = obs64.problem.solve_fwd(m64)
+    check(bool(info.converged.all()), "helmholtz float64 solves did not converge")
+    J64 = ObservableJacobian(obs64).materialize(
+        obs64.problem.linearize(u64, m64, needs="adj"))
+    rel = rel_err(proj.Js[:2].double(), J64)
+    log(f"helmholtz Jacobian float32 against float64 (2 samples): max|dJ| / "
+        f"max|J| {rel:.3e} (limit {JAC_TOL_F32})")
+    check(rel <= JAC_TOL_F32, f"helmholtz J float32 vs float64 {rel:.3e}")
+    return {"helmholtz": launches}
 
 
 def phase_profile(obs32, prior32):
@@ -544,10 +899,11 @@ def phase_profile(obs32, prior32):
 
 
 def run_phases(device, argv):
-    """Phases 3-8; returns the kernels' JSON records."""
+    """Phases 3-11; returns the kernels' JSON records."""
+    from hippyflow_tpu_torch.applications.confusion import load_ns_velocity
     from hippyflow_tpu_torch.models import StructuredBiLaplacianPrior
 
-    f64 = torch.float64
+    f64, f32 = torch.float64, torch.float32
     obs64, prior64 = setup(f64, device)
     report, band64 = phase_kernels(obs64, prior64, device)
     phase_rows_s65(band64)
@@ -557,26 +913,65 @@ def run_phases(device, argv):
     obs192, sprior192 = setup(f64, device, nx=NX192)
     inv_report = phase_inverses({NX: sprior64, NX192: sprior192})
     s193_report = phase_s193(obs192, sprior192, device)
+    coarse = {}
+    for nx, obs, prior, n in ((NX, obs64, prior64, N_SAMPLES),
+                              (NX192, obs192, sprior192, CHUNK192)):
+        levels = warm_start_levels(obs, load_ns_velocity(nx), nx,
+                                   GRIDSEQ_DEPTH[nx], f64, device)
+        coarse.update(phase_coarse(levels, prior, n, device))
     del obs192, sprior192
+    torch.cuda.empty_cache()
+    s_helm, s516 = phase_s516(device)
     torch.cuda.empty_cache()
     phase_parity(obs64, prior64)
     phase_parity(obs64, sprior64)
     del obs64, prior64, sprior64
     torch.cuda.empty_cache()
 
-    obs32, prior32 = setup(torch.float32, device)
-    paths = {"nx64": phase_main(obs32, prior32)}
+    obs32, prior32 = setup(f32, device)
+    levels64 = warm_start_levels(obs32, load_ns_velocity(NX), NX,
+                                 GRIDSEQ_DEPTH[NX], f32, device)
+    check([p._block_size for p, _ in levels64] == [NX // 2 + 1, NX // 4 + 1],
+          f"nx={NX} levels {[p._block_size for p, _ in levels64]}")
+    paths = phase_main(obs32, prior32, levels64)
     if "--profile" in argv:
         phase_profile(obs32, prior32)
-    del obs32, prior32
+    del obs32, prior32, levels64
     torch.cuda.empty_cache()
-    paths["nx192"] = phase_lane192(device)
+    paths.update(phase_lane192(device))
+    torch.cuda.empty_cache()
+    paths.update(phase_helmholtz(device))
 
     for name in ("banded_factorize", "banded_solve"):
         report[name].update(s193_report[name])
     for name, key in (("K3", "batched_inverse"), ("K4", "batched_inverse_rank1")):
         report[key] = {**inv_report[(name, NX192)],
                        **{f"{k}_s65": v for k, v in inv_report[(name, NX)].items()}}
+    for dtype, sfx in ((f32, f"s{s_helm}"), (f64, f"s{s_helm}_f64")):
+        r = s516[dtype]
+        report["banded_factorize"].update({
+            f"max_abs_err_{sfx}": r["max_abs_err"], f"ms_{sfx}": r["k1"][0],
+            f"plain_ms_{sfx}": r["k1"][1],
+            f"rows_plain_ms_{sfx}": r["k1_rows_plain"]})
+        report["banded_solve"].update({
+            f"max_abs_err_{sfx}": max(r["k2_max_abs_err_k1"],
+                                      r["k2_max_abs_err_k200"]),
+            f"ms_k200_{sfx}": r["k2_k200"][0],
+            f"plain_ms_k200_{sfx}": r["k2_k200"][1],
+            f"ms_k1_{sfx}": r["k2_k1"][0], f"plain_ms_k1_{sfx}": r["k2_k1"][1],
+            f"ms_k1_fwd_{sfx}": r["k2_k1_fwd"][0],
+            f"plain_ms_k1_fwd_{sfx}": r["k2_k1_fwd"][1]})
+        report["batched_inverse"].update({
+            f"ms_{sfx}": r["k3"][0], f"plain_ms_{sfx}": r["k3"][1],
+            f"inv_ms_{sfx}": r["k3_inv"]})
+    for s, rec in sorted(coarse.items()):
+        r = rec[f32]
+        report["banded_factorize"].update({
+            f"max_abs_err_s{s}": r["max_abs_err"], f"ms_s{s}": r["k1"][0],
+            f"plain_ms_s{s}": r["k1"][1]})
+        report["banded_solve"].update({
+            f"max_abs_err_k1_s{s}": r["k2_max_abs_err_k1"],
+            f"ms_k1_s{s}": r["k2_k1"][0], f"plain_ms_k1_s{s}": r["k2_k1"][1]})
     pallas = "hippyflow_tpu/ops/pallas_kernels.py"
     sources = {
         "banded_factorize": ("banded_factorize.cu", f"{pallas}:468"),

@@ -27,14 +27,18 @@
 // on the H100 at s=65 and s=193, each faster than the first design, which
 // staged both whole blocks in shared memory and which they replace):
 //
-// * panels (k >= 8, the Jacobian's k=100 solves): each product streams its
-//   factor block through shared memory in panels of 64 rows of op(H),
-//   stored transposed so that the 8 rows a thread accumulates are
-//   contiguous (16-byte loads), filled by asynchronous copies; each warp
-//   owns 8 rows and each lane one column of the tile, so a carry element
-//   read from shared memory feeds 8 multiply-adds.  Shared memory holds
-//   one panel, the carry and its partner: 99 KB in float32 and 198 KB in
-//   float64 at s=193, kt=32.
+// * panels (k >= 8, the Jacobian's k=100 and k=200 solves): each product
+//   streams its factor block through shared memory in panels of R rows of
+//   op(H) (R = 64, 32 or 16), stored transposed so that the R/8 rows a
+//   thread accumulates are contiguous (16-byte loads), filled by
+//   asynchronous copies; each warp owns R/8 rows and each lane one column
+//   of the tile, so a carry element read from shared memory feeds R/8
+//   multiply-adds.  Shared memory holds one panel, the carry and its
+//   partner: 99 KB in float32 and 198 KB in float64 at s=193, R=64,
+//   kt=32.  The host picks the widest column tile, then the widest panel,
+//   that fit the card's 227 KB: R=64 at s <= 193; at s=516 (helmholtz)
+//   R=32, kt=32 in float32 (198 KB) and R=16, kt=16 in float64 (198 KB;
+//   one 64-row float64 panel alone is 264 KB).
 // * streamed (k < 8, the Newton solves): one output element per thread,
 //   the factor blocks read where they lie (L1/L2); shared memory holds
 //   only the carry and its partner.
@@ -90,18 +94,16 @@ __device__ void sweep_step(const T* __restrict__ H, bool trans_h,
   __syncthreads();
 }
 
-// Rows of op(A) per panel: 8 warps of HF_THREADS, 8 rows each.
-constexpr int kPanelRows = HF_SOLVE_PANEL_ROWS;
-constexpr int kRowsPerWarp = kPanelRows / (HF_THREADS / 32);
-
 // y = op(A) x, or y = in - op(A) x when `in` is given, on one (s, kw)
 // column tile: x and y (s, kw) in shared memory, `in` and `y_out` (may be
 // null) rows of stride k in device memory.  op(A) passes through `panel`
-// (s, 64) in shared memory, panel[l * 64 + r] = op(A)[i0 + r, l].
-template <typename T>
+// (s, kPanelRows) in shared memory, panel[l * kPanelRows + r] =
+// op(A)[i0 + r, l]; the 8 warps of HF_THREADS own kPanelRows / 8 rows each.
+template <typename T, int kPanelRows>
 __device__ void panel_product(const T* __restrict__ A, bool trans,
                               const T* x, const T* in, T* y, T* y_out, int s,
                               int k, int kw, T* panel) {
+  constexpr int kRowsPerWarp = kPanelRows / (HF_THREADS / 32);
   const int c = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * kRowsPerWarp;
   for (int i0 = 0; i0 < s; i0 += kPanelRows) {
@@ -149,14 +151,15 @@ __device__ void panel_product(const T* __restrict__ A, bool trans,
 }
 
 // The sweep step of `sweep_step` with both products through panels.
-template <typename T>
+template <typename T, int kPanelRows>
 __device__ void panel_step(const T* __restrict__ H, bool trans_h,
                            const T* __restrict__ G, bool trans_g, const T* in,
                            T* out, int s, int k, int kw, T* panel, T*& carry,
                            T*& tmp) {
   T* first_out = G == nullptr ? out : nullptr;
   if (H != nullptr) {
-    panel_product(H, trans_h, carry, in, tmp, first_out, s, k, kw, panel);
+    panel_product<T, kPanelRows>(H, trans_h, carry, in, tmp, first_out, s, k,
+                                 kw, panel);
   } else {
     for (int e = threadIdx.x; e < s * kw; e += blockDim.x) {
       const int i = e / kw, c = e - (e / kw) * kw;
@@ -171,24 +174,25 @@ __device__ void panel_step(const T* __restrict__ H, bool trans_h,
     tmp = t;
     return;
   }
-  panel_product(G, trans_g, tmp, static_cast<const T*>(nullptr), carry, out, s,
-                k, kw, panel);
+  panel_product<T, kPanelRows>(G, trans_g, tmp, static_cast<const T*>(nullptr),
+                               carry, out, s, k, kw, panel);
 }
 
-template <typename T, bool kPanels>
+// kPanelRows = 0: the streamed design.
+template <typename T, int kPanelRows>
 __device__ __forceinline__ void step(const T* H, bool trans_h, const T* G,
                                      bool trans_g, const T* in, T* out, int s,
                                      int k, int kw, T* panel, T*& carry,
                                      T*& tmp) {
-  if (kPanels) {
-    panel_step<T>(H, trans_h, G, trans_g, in, out, s, k, kw, panel, carry,
-                  tmp);
+  if constexpr (kPanelRows > 0) {
+    panel_step<T, kPanelRows>(H, trans_h, G, trans_g, in, out, s, k, kw,
+                              panel, carry, tmp);
   } else {
     sweep_step<T>(H, trans_h, G, trans_g, in, out, s, k, kw, carry, tmp);
   }
 }
 
-template <typename T, bool kPanels>
+template <typename T, int kPanelRows>
 __global__ void banded_solve_kernel(const T* __restrict__ m,
                                     const T* __restrict__ dinv,
                                     const T* __restrict__ b,
@@ -202,7 +206,7 @@ __global__ void banded_solve_kernel(const T* __restrict__ m,
   const int kw = min(kt, k - c0);
   // [panel (panels only) | carry | tmp]
   T* panel = smem;
-  T* carry = smem + hf_solve_panel_elems(s, kPanels);
+  T* carry = smem + hf_solve_panel_elems(s, kPanelRows);
   T* tmp = carry + s * kt;
 
   const size_t n = blockIdx.x;
@@ -216,39 +220,41 @@ __global__ void banded_solve_kernel(const T* __restrict__ m,
   if (!trans) {
     for (int j = 0; j < nb; ++j) {  // fwd
       const T* H = j > 0 ? m_n + (size_t)j * ss : nullptr;
-      step<T, kPanels>(H, false, nullptr, false, rhs_n + j * rb,
-                       out_n + j * rb, s, k, kw, panel, carry, tmp);
+      step<T, kPanelRows>(H, false, nullptr, false, rhs_n + j * rb,
+                          out_n + j * rb, s, k, kw, panel, carry, tmp);
     }
     for (int j = nb - 1; j >= 0; --j) {  // bwd, in place
       const T* H = j < nb - 1 ? b_n + (size_t)j * ss : nullptr;
-      step<T, kPanels>(H, false, d_n + (size_t)j * ss, false, out_n + j * rb,
-                       out_n + j * rb, s, k, kw, panel, carry, tmp);
+      step<T, kPanelRows>(H, false, d_n + (size_t)j * ss, false,
+                          out_n + j * rb, out_n + j * rb, s, k, kw, panel,
+                          carry, tmp);
     }
   } else {
     for (int j = 0; j < nb; ++j) {  // fwd_t
       const T* H = j > 0 ? b_n + (size_t)(j - 1) * ss : nullptr;
-      step<T, kPanels>(H, true, d_n + (size_t)j * ss, true, rhs_n + j * rb,
-                       out_n + j * rb, s, k, kw, panel, carry, tmp);
+      step<T, kPanelRows>(H, true, d_n + (size_t)j * ss, true,
+                          rhs_n + j * rb, out_n + j * rb, s, k, kw, panel,
+                          carry, tmp);
     }
     for (int j = nb - 1; j >= 0; --j) {  // bwd_t, in place
       const T* H = j < nb - 1 ? m_n + (size_t)(j + 1) * ss : nullptr;
-      step<T, kPanels>(H, true, nullptr, false, out_n + j * rb,
-                       out_n + j * rb, s, k, kw, panel, carry, tmp);
+      step<T, kPanelRows>(H, true, nullptr, false, out_n + j * rb,
+                          out_n + j * rb, s, k, kw, panel, carry, tmp);
     }
   }
 }
 
-template <typename T, bool kPanels>
+template <typename T, int kPanelRows>
 int launch_solve(const void* m, const void* dinv, const void* b,
                  const void* rhs, void* out, int n, int nb, int s, int k,
                  int kt, int trans, void* stream) {
-  const size_t smem = hf_solve_smem_elems(s, kt, kPanels) * sizeof(T);
+  const size_t smem = hf_solve_smem_elems(s, kt, kPanelRows) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      banded_solve_kernel<T, kPanels>,
+      banded_solve_kernel<T, kPanelRows>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n, (k + kt - 1) / kt);
-  banded_solve_kernel<T, kPanels>
+  banded_solve_kernel<T, kPanelRows>
       <<<grid, HF_THREADS, smem, (cudaStream_t)stream>>>(
           static_cast<const T*>(m), static_cast<const T*>(dinv),
           static_cast<const T*>(b), static_cast<const T*>(rhs),
@@ -259,34 +265,47 @@ int launch_solve(const void* m, const void* dinv, const void* b,
 template <typename T>
 int launch_solve(const void* m, const void* dinv, const void* b,
                  const void* rhs, void* out, int n, int nb, int s, int k,
-                 int kt, int trans, int panels, void* stream) {
-  return panels ? launch_solve<T, true>(m, dinv, b, rhs, out, n, nb, s, k, kt,
-                                        trans, stream)
-                : launch_solve<T, false>(m, dinv, b, rhs, out, n, nb, s, k,
-                                         kt, trans, stream);
+                 int kt, int trans, int panel_rows, void* stream) {
+  switch (panel_rows) {
+    case 0:
+      return launch_solve<T, 0>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
+                                stream);
+    case 16:
+      return launch_solve<T, 16>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
+                                 stream);
+    case 32:
+      return launch_solve<T, 32>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
+                                 stream);
+    case 64:
+      return launch_solve<T, 64>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
+                                 stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// panel_rows: 64, 32 or 16 (panel design) or 0 (streamed design).
 extern "C" int hf_banded_solve_f32(const void* m, const void* dinv,
                                    const void* b, const void* rhs, void* out,
                                    int n, int nb, int s, int k, int kt,
-                                   int trans, int panels, void* stream) {
+                                   int trans, int panel_rows, void* stream) {
   return launch_solve<float>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
-                             panels, stream);
+                             panel_rows, stream);
 }
 
 extern "C" int hf_banded_solve_f64(const void* m, const void* dinv,
                                    const void* b, const void* rhs, void* out,
                                    int n, int nb, int s, int k, int kt,
-                                   int trans, int panels, void* stream) {
+                                   int trans, int panel_rows, void* stream) {
   return launch_solve<double>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
-                              panels, stream);
+                              panel_rows, stream);
 }
 
-extern "C" long long hf_solve_smem_bytes(int s, int kt, int panels,
+extern "C" long long hf_solve_smem_bytes(int s, int kt, int panel_rows,
                                          int itemsize) {
-  return (long long)(hf_solve_smem_elems(s, kt, panels != 0) * itemsize);
+  return (long long)(hf_solve_smem_elems(s, kt, panel_rows) * itemsize);
 }
 
 extern "C" const char* hf_error_string(int code) {

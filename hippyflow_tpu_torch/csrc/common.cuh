@@ -35,8 +35,9 @@ inline std::size_t hf_gj_smem_elems(int s, int w) {
          4 * (std::size_t)w * w;
 }
 
-// A 16-byte vector of T, and a[0..n) = p[0..n) from 16-byte aligned
-// shared memory, n a multiple of the vector's length.
+// A 16-byte vector of T, and a[0..n) = p[0..n) from shared memory: in
+// 16-byte loads where n fills whole vectors (p 16-byte aligned), else
+// element by element.
 template <typename T>
 struct HfVec16;
 template <>
@@ -52,28 +53,31 @@ template <typename T, int n>
 __device__ __forceinline__ void hf_load16(const T* p, T (&a)[n]) {
   using V = typename HfVec16<T>::type;
   constexpr int m = sizeof(V) / sizeof(T);
+  if constexpr (n % m == 0) {
 #pragma unroll
-  for (int q = 0; q < n; q += m) {
-    const V v = *reinterpret_cast<const V*>(p + q);
-    const T* t = reinterpret_cast<const T*>(&v);
+    for (int q = 0; q < n; q += m) {
+      const V v = *reinterpret_cast<const V*>(p + q);
+      const T* t = reinterpret_cast<const T*>(&v);
 #pragma unroll
-    for (int u = 0; u < m; ++u) a[q + u] = t[u];
+      for (int u = 0; u < m; ++u) a[q + u] = t[u];
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < n; ++q) a[q] = p[q];
   }
 }
 
-// Rows of one factor panel of K2's panel design.
-#define HF_SOLVE_PANEL_ROWS 64
-
-// Shared-memory elements of K2's factor panel (panel design only).
+// Rows of one factor panel of K2's panel design: 64, 32 or 16 (the host
+// picks them by s and the element size); 0 selects the streamed design.
+// Shared-memory elements of one K2 block: the panel (s x rows, panel
+// design only), and the carry and temporary of one (s, kt) column tile.
 __host__ __device__ inline std::size_t hf_solve_panel_elems(int s,
-                                                         bool panels) {
-  return panels ? (std::size_t)s * HF_SOLVE_PANEL_ROWS : 0;
+                                                         int panel_rows) {
+  return (std::size_t)s * panel_rows;
 }
 
-// Shared-memory elements of one K2 block: the panel, and the carry and
-// temporary of one (s, kt) column tile.
-inline std::size_t hf_solve_smem_elems(int s, int kt, bool panels) {
-  return hf_solve_panel_elems(s, panels) + 2 * (std::size_t)s * kt;
+inline std::size_t hf_solve_smem_elems(int s, int kt, int panel_rows) {
+  return hf_solve_panel_elems(s, panel_rows) + 2 * (std::size_t)s * kt;
 }
 
 // K3/K4 host entries (csrc/batched_inverse.cu), also launched row by row

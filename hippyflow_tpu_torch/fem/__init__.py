@@ -1,5 +1,6 @@
 """Finite elements: numpy host modules copied from the JAX package (mesh,
-quadrature, space, observation, native) and the torch assembly."""
+quadrature, space, observation, native, band_order), the torch assembly
+(scalar P1 and vector/P2) and the multigrid transfers."""
 
 from .assembly import (
     BoundGalerkinForm,
@@ -16,6 +17,18 @@ from .assembly import (
     stiffness_matrix_banded,
     structured_plan,
 )
+from .band_order import BandOrder, ordered_band_mask, structured_band_order
 from .mesh import Mesh2D, boundary_edges, rectangle_mesh, unit_square_mesh
 from .observation import assemble_pointwise_observation, grid_targets
+from .multigrid import (
+    CoarseNewtonWarmStart,
+    coarse_newton_warm_start,
+    prolong_linear,
+    restrict_injection,
+)
 from .space import FunctionSpace
+from .vector_assembly import (
+    ComponentObservation,
+    VectorBoundGalerkinForm,
+    VectorGalerkinForm,
+)

@@ -213,6 +213,29 @@ class BoundGalerkinForm:
             )
         return band
 
+    def apply_C(self, u, m, dm):
+        """(dr/dm) dm for dm (N, n) or (N, n, k): the element blocks
+        dr_e/dm_e contracted with the element values of dm, slice-added."""
+        nx, ny, s, _, offs = self.plan
+        squeeze = dm.ndim == 2
+        if squeeze:
+            dm = dm[..., None]
+        C = self._elem_jacobian(u, m, "m").reshape(-1, ny, nx, 2, 3, 3)
+        P = dm.reshape(dm.shape[0], ny + 1, s, dm.shape[-1])
+        out = torch.zeros_like(P)
+        for t in range(2):
+            for a in range(3):
+                acc = 0.0
+                for b in range(3):
+                    dy, dx = int(offs[t, b, 0]), int(offs[t, b, 1])
+                    acc = acc + C[..., t, a, b, None] * P[
+                        :, dy : dy + ny, dx : dx + nx
+                    ]
+                dy, dx = int(offs[t, a, 0]), int(offs[t, a, 1])
+                out[:, dy : dy + ny, dx : dx + nx] += acc
+        out = out.reshape(dm.shape[0], self.n, dm.shape[-1])
+        return out[..., 0] if squeeze else out
+
     def apply_Ct(self, u, m, dp):
         """(dr/dm)^T dp for dp (N, n) or (N, n, k), from the element blocks
         dr_e/dm_e assembled once: gather, contract, slice-add."""
@@ -235,6 +258,51 @@ class BoundGalerkinForm:
                 out[:, dy : dy + ny, dx : dx + nx] += acc
         out = out.reshape(dp.shape[0], self.n_m, dp.shape[-1])
         return out[..., 0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# Gather tables of permuted band assembly (P2 / vector states)
+# ---------------------------------------------------------------------------
+
+
+def _build_gather_tables(idx_np: np.ndarray, out_size: int, device=None):
+    """Static tables that turn a scatter-add assembly into a gather.
+
+    idx_np: (ne,) flat band index of each element-matrix entry, all below
+    ``out_size``.  Returns (contrib (nnz, cmax): the element-entry ids of
+    each nonzero band slot, padded with ne, which reads a zero pad value;
+    slots (nnz,): the band position of each nonzero slot)."""
+    idx_np = np.asarray(idx_np, dtype=np.int64)
+    if idx_np.size and idx_np.max() >= out_size:
+        raise ValueError("band index beyond the band")
+    ne = idx_np.size
+    slots, inv = np.unique(idx_np, return_inverse=True)
+    nnz = slots.size
+    order = np.argsort(inv, kind="stable")
+    counts = np.bincount(inv, minlength=nnz)
+    starts = np.zeros(nnz, dtype=np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    cmax = int(counts.max())
+    contrib = np.full((nnz, cmax), ne, dtype=np.int64)
+    for c in range(cmax):
+        sel = counts > c
+        contrib[sel, c] = order[starts[sel] + c]
+    return (torch.as_tensor(contrib, device=device),
+            torch.as_tensor(slots, device=device))
+
+
+def _gather_assemble(A_e_flat, tables, out_size: int):
+    """Band assembly by gathers: each nonzero slot sums its (<= cmax)
+    element contributions, and the sums land on their band positions
+    (zeros elsewhere).  A_e_flat (N, ne) -> (N, out_size)."""
+    contrib, slots = tables
+    N = A_e_flat.shape[0]
+    pad = torch.zeros((N, 1), dtype=A_e_flat.dtype, device=A_e_flat.device)
+    vals = torch.cat([A_e_flat, pad], dim=1)[:, contrib].sum(dim=-1)
+    out = torch.zeros((N, out_size), dtype=A_e_flat.dtype,
+                      device=A_e_flat.device)
+    out[:, slots] = vals
+    return out
 
 
 # ---------------------------------------------------------------------------

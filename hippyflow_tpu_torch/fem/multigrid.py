@@ -1,0 +1,118 @@
+"""Two-grid transfers and grid-sequenced Newton warm starts, batched over
+samples (port of ``hippyflow_tpu/fem/multigrid.py``).
+
+Nested iteration: each sample's nonlinear forward problem is first solved
+on 2x-coarser structured meshes (restricted parameter, coarsest level
+cold-started), and the prolonged coarse solution starts the fine Newton
+iteration.  The map is a pure function of the chunk's noise (noise -> m ->
+restrict -> coarse solves -> prolong), so it draws nothing and the sample
+stream stays what a cold-started run would draw.
+
+Transfers assume the row-major P1 layout of ``unit_square_mesh``
+(``mesh.structured_shape``) and act on a leading sample axis: x (N, n) or
+(N, n, k) for k components.
+
+Not ported: ``SplitWarmStartChain``, which only lets XLA compile the
+levels concurrently; PyTorch runs the levels eagerly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _grid_shape(V) -> tuple[int, int]:
+    shape = getattr(V.mesh, "structured_shape", None)
+    if shape is None:
+        raise ValueError("multigrid transfers need a structured mesh")
+    nx, ny = shape
+    return nx + 1, ny + 1
+
+
+def _check_2to1(V_fine, V_coarse):
+    (sfx, sfy), (scx, scy) = _grid_shape(V_fine), _grid_shape(V_coarse)
+    if (sfx - 1, sfy - 1) != (2 * (scx - 1), 2 * (scy - 1)):
+        raise ValueError("the coarse mesh must be exactly 2x coarser")
+    return sfx, sfy, scx, scy
+
+
+def restrict_injection(x, V_fine, V_coarse):
+    """Injection: keep every second grid node per axis.
+    x (N, n_f) or (N, n_f, k) -> (N, n_c) or (N, n_c, k)."""
+    sfx, sfy, scx, scy = _check_2to1(V_fine, V_coarse)
+    N, trail = x.shape[0], x.shape[2:]
+    g = x.reshape((N, sfy, sfx) + trail)
+    return g[:, ::2, ::2].reshape((N, scx * scy) + trail)
+
+
+def prolong_linear(xc, V_coarse, V_fine):
+    """Exact 2:1 linear interpolation: coarse nodes inject, edge midpoints
+    average their two endpoints, cell centres their four corners.
+    xc (N, n_c) or (N, n_c, k) -> (N, n_f) or (N, n_f, k)."""
+    sfx, sfy, scx, scy = _check_2to1(V_fine, V_coarse)
+    N, trail = xc.shape[0], xc.shape[2:]
+    g = xc.reshape((N, scy, scx) + trail)
+    f = torch.zeros((N, sfy, sfx) + trail, dtype=xc.dtype, device=xc.device)
+    f[:, ::2, ::2] = g
+    f[:, 1::2, ::2] = 0.5 * (g[:, :-1, :] + g[:, 1:, :])
+    f[:, ::2, 1::2] = 0.5 * (g[:, :, :-1] + g[:, :, 1:])
+    f[:, 1::2, 1::2] = 0.25 * (
+        g[:, :-1, :-1] + g[:, :-1, 1:] + g[:, 1:, :-1] + g[:, 1:, 1:]
+    )
+    return f.reshape((N, sfx * sfy) + trail)
+
+
+def _finite_rows(x):
+    return torch.isfinite(x).all(dim=1, keepdim=True)
+
+
+class CoarseNewtonWarmStart:
+    """The warm-start map noise (b, noise_dim) -> u0 (b, n_fine) of
+    :func:`coarse_newton_warm_start`.  ``iterations`` collects, per level
+    (0 = the first coarse level), the Newton iterations of every lane of
+    every call; ``clear`` empties it."""
+
+    def __init__(self, prior, chain, V_fine):
+        self.prior = prior
+        self.chain = list(chain)  # [(problem, V)] fine to coarse
+        self.V_fine = V_fine
+        self.iterations = [[] for _ in self.chain]
+
+    def clear(self) -> None:
+        self.iterations = [[] for _ in self.chain]
+
+    def __call__(self, noise):
+        m = self.prior.sample(noise)
+        ms, V_prev = [], self.V_fine
+        for _, V in self.chain:
+            m = restrict_injection(m, V_prev, V)
+            ms.append(m)
+            V_prev = V
+        u0 = None  # the coarsest level cold-starts
+        for k in reversed(range(len(self.chain))):
+            problem, V = self.chain[k]
+            u, info = problem.solve_fwd(ms[k], u0=u0)
+            self.iterations[k].append(info.iterations)
+            # a failed or non-finite lane hands a zero guess to the level
+            # above
+            ok = info.converged[:, None] & _finite_rows(u)
+            V_up = self.V_fine if k == 0 else self.chain[k - 1][1]
+            u0 = prolong_linear(torch.where(ok, u, 0.0), V, V_up)
+            u0 = torch.where(ok & _finite_rows(u0), u0, 0.0)
+        return u0
+
+
+def coarse_newton_warm_start(prior, problem_coarse, V_fine, V_coarse,
+                             coarser_levels=()):
+    """Per-sample warm-start map for
+    ``sample_until_solved(coarse_warm_start=...)``.
+
+    Recomputes m = prior.sample(noise), restricts it to ``V_coarse``,
+    solves the coarse problem and prolongs the solution to ``V_fine``.
+    ``coarser_levels``: (problem, V) pairs, each 2x coarser than the level
+    before; every level is warm-started from the next coarser one, and only
+    the coarsest cold-starts.  A lane that fails or goes non-finite at any
+    level hands a zero initial guess to the level above."""
+    return CoarseNewtonWarmStart(
+        prior, [(problem_coarse, V_coarse)] + list(coarser_levels), V_fine
+    )

@@ -1,0 +1,232 @@
+"""Multi-component (vector-valued state) Galerkin assembly, batched over
+samples (port of ``hippyflow_tpu/fem/vector_assembly.py``).
+
+States with ``ncomp`` components of a P1 or P2 space on one mesh, in the
+component-major layout ``u = [u_0, ..., u_{ncomp-1}]`` (each block of
+length ``n = Vu.dim``); the parameter m is a scalar P1 field.  The form
+callables act on whole tensors with leading (sample, cell, quadrature
+point) axes:
+
+    flux(x, u, grad_u, m, z, c)   -> (..., ncomp, 2)
+    source(x, u, grad_u, m, z, c) -> (..., ncomp)
+
+with ``u`` (..., ncomp), ``grad_u`` (..., ncomp, 2), ``m`` (...), and the
+residual is  sum_e int F[k] . grad v_k + S[k] v_k  per component k.
+
+Element Jacobians dr_e/du_e and dr_e/dm_e are forward-mode derivatives of
+the element residual (``torch.func.jvp``, one tangent per local dof), as
+``jax.jacfwd`` gives them in the JAX package, so they agree with the
+residual by construction.  The band of dr/du is gathered straight into the
+permuted (nb, s, 3s) storage of a ``BandOrder`` (``fem/band_order.py``):
+each nonzero band slot sums its element contributions, with no scatter.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import config
+from .assembly import _build_gather_tables, _gather_assemble
+from .band_order import ordered_band_indices
+from .space import FunctionSpace
+
+
+@dataclass(frozen=True)
+class VectorGalerkinForm:
+    """Weak form of an ``ncomp``-component state (see the module doc).
+    The callables receive ``z`` = None and ``c`` = {}: the JAX package's
+    coefficient fields and its ``symmetric`` flag (Cholesky eligibility)
+    serve no ported lane and are not ported."""
+
+    ncomp: int
+    flux: Callable | None = None
+    source: Callable | None = None
+    quad_degree: int = 2
+
+
+class VectorBoundGalerkinForm:
+    """A VectorGalerkinForm bound to (state space, P1 parameter space) on
+    one device.  Entry points, all batched over a leading sample axis:
+
+      residual(u, m)                        (N, n_total) -> (N, n_total)
+      assemble_A(u, m)                      dense dr/du (N, n_total, n_total)
+      assemble_A_banded_ordered(u, m, bo)   dr/du in band order (N, nb, s, 3s)
+      apply_C(u, m, dm), apply_Ct(u, m, dp) (dr/dm) dm and (dr/dm)^T dp
+    """
+
+    def __init__(self, Vu: FunctionSpace, Vm: FunctionSpace,
+                 form: VectorGalerkinForm, dtype=None, device=None):
+        if Vu.mesh is not Vm.mesh:
+            raise ValueError("state/parameter spaces must share a mesh")
+        if Vm.degree != 1:
+            raise NotImplementedError("the parameter space must be P1")
+        self.dtype, self.device = config.resolve(dtype, device)
+        self.Vu, self.Vm, self.form = Vu, Vm, form
+        self.ncomp = form.ncomp
+        self.nd = Vu.nd
+        self.n = Vu.dim
+        self.n_m = Vm.dim
+        self.n_total = self.n * self.ncomp
+        t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)
+        cells = np.asarray(Vu.cell_dofs, dtype=np.int64)
+        self.cells = torch.as_tensor(cells, device=self.device)
+        self.cells_m = torch.as_tensor(np.asarray(Vm.cell_dofs, dtype=np.int64),
+                                       device=self.device)
+        # (nc, nd, ncomp) stacked dof id of each local (dof, component)
+        segs = cells[:, :, None] + np.arange(self.ncomp)[None, None, :] * self.n
+        self._segs_np = segs.reshape(-1, self.nd * self.ncomp)
+        self._segs = torch.as_tensor(segs.reshape(-1), device=self.device)
+        phi, gphi, xq, wdet = Vu.quad_data(form.quad_degree)
+        phi_m = Vm.quad_data(form.quad_degree)[0]
+        nq = phi.shape[0]
+        self._phi = t(phi)  # (nq, nd)
+        self._phi_m = t(phi_m)  # (nq, 3)
+        # (nc, nq, nd, 2) physical basis gradients (P1: constant in q)
+        self._grads = t(
+            np.broadcast_to(gphi, (gphi.shape[0], nq) + gphi.shape[2:]).copy())
+        self._xq = t(xq)  # (nc, nq, 2)
+        self._wdet = t(wdet)  # (nc, nq)
+        self._ordered_gather = None
+
+    # -- element kernel ----------------------------------------------------
+    def _r_elem(self, u_e, m_e):
+        """Element residuals (N, nc, nd, ncomp) from element values u_e
+        (N, nc, nd, ncomp) and m_e (N, nc, 3)."""
+        uq = torch.einsum("qi,ncik->ncqk", self._phi, u_e)
+        gu = torch.einsum("cqid,ncik->ncqkd", self._grads, u_e)
+        mq = torch.einsum("qi,nci->ncq", self._phi_m, m_e)
+        out = 0.0
+        if self.form.flux is not None:
+            F = self.form.flux(self._xq, uq, gu, mq, None, {})
+            F = F * self._wdet[:, :, None, None]
+            out = out + torch.einsum("cqid,ncqkd->ncik", self._grads, F)
+        if self.form.source is not None:
+            S = self.form.source(self._xq, uq, gu, mq, None, {})
+            out = out + torch.einsum("qi,ncqk->ncik", self._phi,
+                                     S * self._wdet[:, :, None])
+        return out
+
+    def _elements(self, u, m):
+        N = u.shape[0]
+        u_e = u.reshape(N, self.ncomp, self.n)[:, :, self.cells]
+        return u_e.permute(0, 2, 3, 1), m[:, self.cells_m]
+
+    def _elem_jacobian(self, u, m, wrt: str):
+        """Element blocks (N, nc, nd*ncomp, L): d r_e[(a, k)] / d x_e[l]
+        with x = u (L = nd*ncomp, local order (dof, component)) or m
+        (L = 3)."""
+        u_e, m_e = self._elements(u, m)
+        if wrt == "u":
+            f, x = (lambda xx: self._r_elem(xx, m_e)), u_e
+        else:
+            f, x = (lambda xx: self._r_elem(u_e, xx)), m_e
+        flat = x.reshape(x.shape[0], x.shape[1], -1)
+        cols = []
+        for j in range(flat.shape[-1]):
+            tangent = torch.zeros_like(flat)
+            tangent[..., j] = 1.0
+            cols.append(torch.func.jvp(f, (x,), (tangent.reshape(x.shape),))[1])
+        J = torch.stack(cols, dim=-1)  # (N, nc, nd, ncomp, L)
+        return J.reshape(J.shape[0], J.shape[1], self.nd * self.ncomp, -1)
+
+    # -- entry points --------------------------------------------------------
+    def residual(self, u, m):
+        """Global residual r(u, m): (N, n_total)."""
+        r_e = self._r_elem(*self._elements(u, m))
+        out = torch.zeros((u.shape[0], self.n_total), dtype=r_e.dtype,
+                          device=r_e.device)
+        return out.index_add_(1, self._segs, r_e.reshape(u.shape[0], -1))
+
+    def assemble_A(self, u, m):
+        """Dense dr/du (N, n_total, n_total), for tests."""
+        A_e = self._elem_jacobian(u, m, "u")
+        rows = self._segs.reshape(-1, self.nd * self.ncomp)
+        flat = (rows[:, :, None] * self.n_total + rows[:, None, :]).reshape(-1)
+        N = u.shape[0]
+        A = torch.zeros((N, self.n_total * self.n_total), dtype=A_e.dtype,
+                        device=A_e.device)
+        A.index_add_(1, flat, A_e.reshape(N, -1))
+        return A.reshape(N, self.n_total, self.n_total)
+
+    def prepare_banded_ordered(self, border) -> None:
+        """Build the gather tables of the permuted band for a ``BandOrder``
+        with interleaved components (host numpy work, once)."""
+        if self._ordered_gather is None:
+            idx = ordered_band_indices(self._segs_np, border)
+            self._ordered_gather = _build_gather_tables(
+                idx, border.nb * border.s * 3 * border.s, self.device
+            )
+
+    def assemble_A_banded_ordered(self, u, m, border):
+        """dr/du gathered into permuted band storage (N, nb, s, 3s) in the
+        row-ordered, component-interleaved numbering of ``border``."""
+        self.prepare_banded_ordered(border)
+        A_e = self._elem_jacobian(u, m, "u")
+        N = u.shape[0]
+        flat = _gather_assemble(A_e.reshape(N, -1), self._ordered_gather,
+                                border.nb * border.s * 3 * border.s)
+        return flat.reshape(N, border.nb, border.s, 3 * border.s)
+
+    def apply_C(self, u, m, dm):
+        """(dr/dm) dm for dm (N, n_m) or (N, n_m, k)."""
+        squeeze = dm.ndim == 2
+        if squeeze:
+            dm = dm[..., None]
+        C = self._elem_jacobian(u, m, "m")  # (N, nc, a, 3)
+        N, k = dm.shape[0], dm.shape[-1]
+        r_e = torch.einsum("ncab,ncbk->ncak", C, dm[:, self.cells_m])
+        out = torch.zeros((N, self.n_total, k), dtype=r_e.dtype,
+                          device=r_e.device)
+        out.index_add_(1, self._segs, r_e.reshape(N, -1, k))
+        return out[..., 0] if squeeze else out
+
+    def apply_Ct(self, u, m, dp):
+        """(dr/dm)^T dp for dp (N, n_total) or (N, n_total, k)."""
+        squeeze = dp.ndim == 2
+        if squeeze:
+            dp = dp[..., None]
+        C = self._elem_jacobian(u, m, "m")  # (N, nc, a, 3)
+        N, k = dp.shape[0], dp.shape[-1]
+        dp_e = dp[:, self._segs].reshape(N, C.shape[1], C.shape[2], k)
+        contrib = torch.einsum("ncab,ncak->ncbk", C, dp_e)
+        out = torch.zeros((N, self.n_m, k), dtype=contrib.dtype,
+                          device=contrib.device)
+        out.index_add_(1, self.cells_m.reshape(-1), contrib.reshape(N, -1, k))
+        return out[..., 0] if squeeze else out
+
+
+class ComponentObservation:
+    """Pointwise observation of one component of a vector state: wraps a
+    scalar ``PointwiseObservation`` (B (n_obs, n))."""
+
+    def __init__(self, B_scalar, ncomp: int, component: int = 0):
+        self.inner = B_scalar
+        self.ncomp = ncomp
+        self.component = component
+
+    @property
+    def dim(self) -> int:
+        return self.inner.dim
+
+    @property
+    def state_dim(self) -> int:
+        return self.inner.B.shape[1] * self.ncomp
+
+    def _cols(self):
+        n = self.inner.B.shape[1]
+        return slice(self.component * n, (self.component + 1) * n)
+
+    def apply(self, u):
+        """B u for states (N, n * ncomp) -> (N, n_obs)."""
+        return self.inner.apply(u[:, self._cols()])
+
+    def dense(self):
+        Bd = self.inner.dense()
+        out = torch.zeros((Bd.shape[0], self.state_dim), dtype=Bd.dtype,
+                          device=Bd.device)
+        out[:, self._cols()] = Bd
+        return out

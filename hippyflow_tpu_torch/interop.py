@@ -13,8 +13,14 @@ import numpy as np
 import torch
 
 from . import config
+from .fem.band_order import BandOrder
 from .models.sampling import SampleBatch
-from .ops.structured import BlockCyclicFactor, InverseThomasFactor, _CRLevel
+from .ops.structured import (
+    BlockCyclicFactor,
+    InverseThomasFactor,
+    PermutedFactor,
+    _CRLevel,
+)
 
 
 def tensor(x, dtype=None, device=None) -> torch.Tensor:
@@ -29,6 +35,22 @@ def tensor(x, dtype=None, device=None) -> torch.Tensor:
 def inverse_thomas_factor(M, Dinv, B, dtype=None, device=None):
     """InverseThomasFactor from (N, nb, s, s) numpy blocks."""
     return InverseThomasFactor(*(tensor(a, dtype, device) for a in (M, Dinv, B)))
+
+
+def band_order(border) -> BandOrder:
+    """The port's BandOrder from any object with the numpy attributes
+    ``order``, ``inv``, ``s``, ``nb`` and ``n_total`` (the JAX package's
+    ``BandOrder``)."""
+    return BandOrder(np.asarray(border.order), np.asarray(border.inv),
+                     border.s, border.nb, border.n_total)
+
+
+def permuted_factor(M, Dinv, B, border, dtype=None, device=None):
+    """PermutedFactor(InverseThomasFactor) from the JAX package's
+    ``PermutedFactor`` of a batched inverse-Thomas factor: its (N, nb, s, s)
+    numpy blocks and its band order."""
+    return PermutedFactor(inverse_thomas_factor(M, Dinv, B, dtype, device),
+                          band_order(border))
 
 
 def block_cyclic_factor(levels, Dinv_root, trans_levels=None,

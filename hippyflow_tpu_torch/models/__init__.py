@@ -7,5 +7,6 @@ from .sampling import (
     SampleBatch,
     auto_chunk_size,
     materialize_jacobians,
+    sample_and_materialize_symmetric,
     sample_until_solved,
 )

@@ -3,7 +3,11 @@ prior-preconditioned path of ``hippyflow_tpu/models/active_subspace.py``).
 
 The Gauss-Newton operator E[J^T J] is applied from the materialized
 per-sample Jacobians as two large matmuls; the randomized GHEP against the
-prior precision R gives the active subspace.
+prior precision R gives the active subspace.  Samples and Jacobians come
+from the staged pass (``sample_until_solved``, optionally grid-sequenced,
+then ``materialize_jacobians``) or, for a linear symmetric operator without
+Dirichlet rows, from the fused pass (``sample_and_materialize_symmetric``:
+one factorization per sample).
 """
 
 from __future__ import annotations
@@ -14,7 +18,12 @@ import torch
 
 from ..ops.randomized import double_pass_g
 from ..utils import KeyChain, ParameterList
-from .sampling import SampleBatch, materialize_jacobians, sample_until_solved
+from .sampling import (
+    SampleBatch,
+    materialize_jacobians,
+    sample_and_materialize_symmetric,
+    sample_until_solved,
+)
 
 
 def ActiveSubspaceParameterList() -> ParameterList:
@@ -36,6 +45,12 @@ def ActiveSubspaceParameterList() -> ParameterList:
                 False,
                 "cold-start every Newton solve instead of warm-starting "
                 "each chunk on the previous chunk's states",
+            ],
+            "coarse_warm_start": [
+                None,
+                "grid sequencing: a noise -> u0 map from "
+                "fem.multigrid.coarse_newton_warm_start; each Newton solve "
+                "starts from its own coarse-grid solution interpolant",
             ],
         }
     )
@@ -83,12 +98,26 @@ class ActiveSubspaceProjector:
             chunk_size=self.parameters["chunk_size"],
             verbose=self.parameters["verbose"],
             reset_initial_guess=self.parameters["reset_initial_guess"],
+            coarse_warm_start=self.parameters["coarse_warm_start"],
         )
         if self.parameters["verbose"]:
             print(
                 f"forward sampling took {time.time() - t0:.3f}s "
                 f"({self.samples.n_failures} resampled failures)"
             )
+
+    def _fused_symmetric_eligible(self) -> bool:
+        """True when sampling takes the fused forward + Jacobian pass: a
+        linear operator with A^T = A, no Dirichlet rows (bc masking breaks
+        the symmetry), drawn samples and no grid sequencing."""
+        problem = self.observable.problem
+        return (
+            problem.is_fwd_linear
+            and problem.operator_symmetric
+            and not problem._has_bc
+            and not self.parameters["ms_given"]
+            and self.parameters["coarse_warm_start"] is None
+        )
 
     def _ensure_jacobians(self):
         self._ensure_samples()
@@ -104,9 +133,10 @@ class ActiveSubspaceProjector:
 
     def construct_input_subspace(self, prior_preconditioned: bool = True):
         """GHEP of E[J^T J] against R.  Returns (d_GN, decoder, encoder)
-        with encoder = R @ decoder.  Wall seconds of the three stages
-        (forward, jacobian, ghep), each ended by a device synchronize, are
-        left in ``stage_seconds``."""
+        with encoder = R @ decoder.  Wall seconds of the stages, each ended
+        by a device synchronize, are left in ``stage_seconds``: forward,
+        jacobian and ghep, or fused (forward + Jacobian in one pass) and
+        ghep."""
         if not prior_preconditioned:
             raise NotImplementedError("only the prior-preconditioned GHEP")
         device = self.prior.mean.device
@@ -118,10 +148,27 @@ class ActiveSubspaceProjector:
             return t, t - t_prev
 
         t = time.perf_counter()
-        self._ensure_samples()
-        t, forward = lap(t)
-        self._ensure_jacobians()
-        t, jacobian = lap(t)
+        if (self.samples is None and self.Js is None
+                and self._fused_symmetric_eligible()):
+            self.samples, self.Js = sample_and_materialize_symmetric(
+                self.observable,
+                self.prior,
+                self.keychain,
+                self.parameters["samples_per_process"],
+                chunk_size=(
+                    self.parameters["jac_chunk_size"]
+                    or self.parameters["chunk_size"]
+                ),
+                verbose=self.parameters["verbose"],
+            )
+            t, fused = lap(t)
+            stages = {"fused": fused}
+        else:
+            self._ensure_samples()
+            t, forward = lap(t)
+            self._ensure_jacobians()
+            t, jacobian = lap(t)
+            stages = {"forward": forward, "jacobian": jacobian}
         J = self.Js
         r = self.parameters["rank"]
         p = self.parameters["oversampling"]
@@ -139,6 +186,5 @@ class ActiveSubspaceProjector:
         )
         encoder = self.prior.R_matmat(self.V_GN)
         _, ghep = lap(t)
-        self.stage_seconds = {"forward": forward, "jacobian": jacobian,
-                              "ghep": ghep}
+        self.stage_seconds = {**stages, "ghep": ghep}
         return self.d_GN, self.V_GN, encoder

@@ -1,9 +1,10 @@
 """Batched sampling of (m, u, q, J) with resampling of failed lanes.
 
 Port of ``hippyflow_tpu/models/sampling.py`` (``auto_chunk_size``,
-``sample_until_solved``, ``materialize_jacobians``).  PyTorch runs eagerly,
-so the JAX package's program cache and ahead-of-time compile machinery
-have no counterpart here.
+``sample_until_solved`` with grid-sequenced warm starts,
+``sample_and_materialize_symmetric``, ``materialize_jacobians``).  PyTorch
+runs eagerly, so the JAX package's program cache and ahead-of-time compile
+machinery have no counterpart here.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ def sample_until_solved(
     verbose: bool = False,
     reset_initial_guess: bool = False,
     noise=None,
+    coarse_warm_start=None,
 ) -> SampleBatch:
     """Draw n_samples prior samples with converged forward solves.
 
@@ -69,17 +71,28 @@ def sample_until_solved(
     resampling always draws from ``keychain``.  As in the JAX package, every
     chunk is solved first; then failed lanes are resampled with fresh noise
     at the chunk's own batch size, keeping the first nbad lanes, up to
-    ``max_tries`` sweeps; a hard failure raises.  Unless
-    ``reset_initial_guess``, each chunk's Newton solves start from the
-    previous chunk's converged states, lane by lane (a failed or non-finite
-    lane carries zero)."""
+    ``max_tries`` sweeps; a hard failure raises.
+
+    Initial guesses of a nonlinear problem: with ``coarse_warm_start`` (a
+    map noise -> u0 from ``fem.multigrid.coarse_newton_warm_start``) each
+    lane starts from the interpolant of its own coarse-grid solution, a pure
+    function of its noise, so the m stream is what a cold start draws;
+    this replaces the chunk-to-chunk carry.  Otherwise, unless
+    ``reset_initial_guess``, each chunk starts from the previous chunk's
+    converged states, lane by lane (a failed or non-finite lane carries
+    zero), and resampled lanes cold-start."""
     problem = observable.problem
     dtype, device = prior.mean.dtype, prior.mean.device
     if chunk_size is None:
         chunk_size = auto_chunk_size(problem, dtype, device)
+    nonlinear = not problem.is_fwd_linear
+    use_cws = coarse_warm_start is not None and nonlinear
+    carry = not reset_initial_guess and nonlinear and not use_cws
     draw = lambda b: keychain.normal((b, prior.noise_dim), dtype=dtype)
 
     def solve(noise_c, u0):
+        if use_cws:
+            u0 = coarse_warm_start(noise_c)
         m = prior.sample(noise_c)
         u, info = problem.solve_fwd(m, u0=u0)
         return m, u, observable.evalu(u), info
@@ -90,10 +103,10 @@ def sample_until_solved(
         b = min(chunk_size, n_samples - a)
         noise_c = noise[a : a + b] if noise is not None else draw(b)
         u0 = None
-        if not reset_initial_guess and u_prev is not None and u_prev.shape[0] >= b:
+        if carry and u_prev is not None and u_prev.shape[0] >= b:
             u0 = u_prev[:b]
         m, u, q, info = solve(noise_c, u0)
-        if not reset_initial_guess:
+        if carry:
             good = info.converged[:, None] & torch.isfinite(u).all(
                 dim=1, keepdim=True
             )
@@ -137,6 +150,105 @@ def sample_until_solved(
         failed_ms=np.concatenate(failed_ms) if failed_ms else None,
         iterations=torch.cat(out["it"]),
     )
+
+
+def sample_and_materialize_symmetric(
+    observable: LinearStateObservable,
+    prior,
+    keychain,
+    n_samples: int,
+    chunk_size: int | None = None,
+    max_tries: int = 10,
+    refine_steps: int = 1,
+    verbose: bool = False,
+    noise=None,
+):
+    """Fused forward + Jacobian sampling for a linear problem whose
+    assembled operator is symmetric, A^T = A, possibly indefinite (the
+    split-complex Helmholtz/PML form [[P, Q], [Q, -P]]).
+
+    Per chunk, one adjoint-only factorization (K1 on the card) serves three
+    solves through the same factor (K2): the forward solve u = A^{-T} b, its
+    ``refine_steps`` sweeps of iterative refinement against the residual,
+    and the dQ-rhs adjoint solve that materializes J.  Failure and
+    resampling semantics as in ``sample_until_solved`` (the flag is
+    ``linear_convergence_check``); the noise stream is the same, so fused
+    and staged runs see identical parameters.  ``noise`` (n_samples,
+    noise_dim), when given, replaces the first draws.
+    Returns (SampleBatch, Js (n, dQ, dM))."""
+    problem = observable.problem
+    if not (problem.is_fwd_linear and problem.operator_symmetric):
+        raise ValueError("the fused pass needs a linear, symmetric operator")
+    if problem._has_bc:
+        raise ValueError(
+            "the fused pass takes problems without Dirichlet rows: bc "
+            "masking breaks A^T = A"
+        )
+    dtype, device = prior.mean.dtype, prior.mean.device
+    if chunk_size is None:
+        chunk_size = auto_chunk_size(problem, dtype, device)
+    J = ObservableJacobian(observable)
+    draw = lambda b: keychain.normal((b, prior.noise_dim), dtype=dtype)
+
+    def solve(noise_c):
+        m = prior.sample(noise_c)
+        zero = torch.zeros((m.shape[0], problem.state_dim), dtype=dtype,
+                           device=device)
+        lin = problem.linearize(zero, m, needs="adj")
+        b = problem.linear_rhs(m)
+        u = problem.solve_incremental(lin, b, is_adj=True)  # A^T = A
+        for _ in range(refine_steps):
+            r = problem.residual_masked(u, m)  # = A u - b (r is affine)
+            u = u - problem.solve_incremental(lin, r, is_adj=True)
+        ok, _ = problem.linear_convergence_check(u, m, b)
+        # A does not depend on u, but C = dr/dm does: rebind the
+        # linearization point to the solved state, keeping the factor
+        Jm = J.materialize(lin._replace(u=u))
+        return m, u, observable.evalu(u), Jm, ok
+
+    chunks = []
+    for a in range(0, n_samples, chunk_size):
+        b = min(chunk_size, n_samples - a)
+        noise_c = noise[a : a + b] if noise is not None else draw(b)
+        chunks.append(solve(noise_c))
+        if verbose:
+            print(f"  solved {a + b}/{n_samples}", flush=True)
+
+    out = {k: [] for k in ("m", "u", "q", "J")}
+    failed_ms = []
+    n_failures = 0
+    for m, u, q, Jm, ok_t in chunks:
+        b = m.shape[0]
+        ok = ok_t.cpu().numpy()
+        for _ in range(max_tries):
+            if ok.all():
+                break
+            bad = np.flatnonzero(~ok)
+            nbad = len(bad)
+            n_failures += nbad
+            failed_ms.append(m[bad].cpu().numpy())
+            if verbose:
+                print(f"resampling {nbad} failed linear solves")
+            m2, u2, q2, J2, ok2 = solve(draw(b))
+            bad_t = torch.as_tensor(bad, device=device)
+            m[bad_t], u[bad_t], q[bad_t] = m2[:nbad], u2[:nbad], q2[:nbad]
+            Jm[bad_t] = J2[:nbad]
+            ok[bad] = ok2[:nbad].cpu().numpy()
+        if not ok.all():
+            raise RuntimeError(
+                f"{(~ok).sum()} linear solves failed after {max_tries} sweeps"
+            )
+        for k, v in zip(("m", "u", "q", "J"), (m, u, q, Jm)):
+            out[k].append(v)
+    batch = SampleBatch(
+        ms=torch.cat(out["m"]),
+        us=torch.cat(out["u"]),
+        qs=torch.cat(out["q"]),
+        n_failures=n_failures,
+        failed_ms=np.concatenate(failed_ms) if failed_ms else None,
+        iterations=torch.ones(n_samples, dtype=torch.long, device=device),
+    )
+    return batch, torch.cat(out["J"])
 
 
 def materialize_jacobians(observable: LinearStateObservable, ms, us,

@@ -18,6 +18,7 @@ from .structured import (
     BlockCyclicFactor,
     BlockTridiagFactor,
     InverseThomasFactor,
+    PermutedFactor,
     block_cholesky_tridiag,
     block_tridiag_matmat,
     block_tridiag_matmat_trans,

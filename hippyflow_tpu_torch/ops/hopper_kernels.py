@@ -19,10 +19,11 @@ Each wrapper takes batched tensors with a leading sample axis.  On a CUDA
 tensor it launches its kernel or raises; on a CPU tensor it runs its plain
 PyTorch version (``banded_factorize_plain``, ``banded_solve_plain``,
 ``batched_inverse_plain``), which is what the kernels are checked against
-on the card.  K1 and K2 have two designs each, picked by shape: K1's one-block
-chain (s=65) and row panels (larger s; ``design=`` forces one), and K2's
-panel solve (many rhs columns) and streamed solve (few); none is a plain
-version.
+on the card.  K1 and K2 have two designs each, picked by shape: K1's
+one-block chain (where its five s x s tiles fit: s <= 107 in float32, 76
+in float64) and row panels (larger s, s=516 included; ``design=`` forces
+one), and K2's panel solve (many rhs columns; panel rows and column tile
+from ``solve_tiles``) and streamed solve (few); none is a plain version.
 
 The CUDA sources are compiled with ``nvcc`` for ``sm_90a``, one process per
 source in parallel, and linked into a shared library with a plain C
@@ -30,7 +31,9 @@ interface, at first use, into
 ``hippyflow_tpu_torch/_build/<hash of the sources and flags>/``, and loaded
 with ``ctypes``.  Each wrapper counts its launches in a ``launches``
 attribute (``batched_inverse.rank1_launches`` for K4;
-``reset_launch_counts`` zeroes them all).
+``reset_launch_counts`` zeroes them all); K1's row design launches K3 once
+per block row from C, and counts those launches in
+``batched_inverse.launches``.
 """
 
 from __future__ import annotations
@@ -257,7 +260,9 @@ def batched_inverse_plain(X, w: int = GJ_WIDTH):
 def batched_inverse(X, rank1: bool = False):
     """K3 (pivot blocks of 13) or, with ``rank1``, K4 (rank-1 updates, the
     JAX package's ``force="pallas_rank1"``).  X (N, s, s) -> X^-1, without
-    pivoting: the inputs must be diagonally dominant or SPD."""
+    pivoting: the inputs must not need it (diagonally dominant or SPD
+    blocks, and the Schur complements of the helmholtz bands, whose
+    identity residuals stay within a few times the pivoted inverse's)."""
     w = 1 if rank1 else GJ_WIDTH
     if X.device.type == "cpu":
         return batched_inverse_plain(X, w)
@@ -360,6 +365,8 @@ def banded_factorize(band, design: str | None = None):
     _launch(lib, getattr(lib, f"{stem}_{_suffix(band.dtype)}"),
             "banded_factorize", band.device, *args)
     banded_factorize.launches += 1
+    if design == "rows":
+        batched_inverse.launches += nb  # K3 inverts each block row
     return M, Dinv
 
 
@@ -395,14 +402,38 @@ def banded_solve_plain(M, Dinv, B, bb, trans: bool):
 
 
 # K2 streams its factor blocks through shared-memory panels from this many
-# rhs columns (the Jacobian's 100) and reads them where they lie below it
-# (the Newton solves' 1); measured on the H100 at s=65 and s=193
+# rhs columns (the Jacobian's 100 and 200) and reads them where they lie
+# below it (the Newton and forward solves' 1); measured on the H100 at s=65
+# and s=193
 PANELS_MIN_K = 8
+# Rows of K2's factor panel, widest first
+PANEL_ROWS = (64, 32, 16)
 
 
-def banded_solve(M, Dinv, B, bb, trans: bool):
+def solve_tiles(s: int, k: int, itemsize: int, limit: int,
+                panels: bool | None = None):
+    """(panel rows, column tile) of K2 for s, k and the element size under
+    a shared-memory limit in bytes: the panel design (panels=None: from
+    k >= PANELS_MIN_K) takes the widest column tile, up to SOLVE_TILE,
+    then the widest panel that fit; the streamed design (panel rows 0) the
+    widest column tile.  None when nothing fits."""
+    if panels is None:
+        panels = k >= PANELS_MIN_K
+    need = lambda rows, kt: (s * rows + 2 * s * kt) * itemsize
+    kt = max(1, min(SOLVE_TILE, k))
+    while kt >= 1:
+        for rows in PANEL_ROWS if panels else (0,):
+            if need(rows, kt) <= limit:
+                return rows, kt
+        kt //= 2
+    return None
+
+
+def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None):
     """K2.  M, Dinv, B (N, nb, s, s); bb (N, nb, s, k) -> x (N, nb, s, k)
-    with A x = b (trans=False) or A^T x = b (trans=True)."""
+    with A x = b (trans=False) or A^T x = b (trans=True).  On the card,
+    ``tiles`` (panel rows, column tile) forces a design (panel rows 0: the
+    streamed one); None takes ``solve_tiles``'s choice."""
     if bb.device.type == "cpu":
         return banded_solve_plain(M, Dinv, B, bb, trans)
     if M.ndim != 4 or bb.ndim != 4:
@@ -413,20 +444,25 @@ def banded_solve(M, Dinv, B, bb, trans: bool):
     _check_cuda("banded_solve", [bb, M, Dinv, B], [(N, nb, s, k), fac, fac, fac])
     lib = _library()
     item, limit = bb.element_size(), _smem_limit(bb.device)
-    panels = int(k >= PANELS_MIN_K)
-    kt = max(1, min(SOLVE_TILE, k))
-    # narrower column tiles where a 32-wide carry does not fit
-    while kt > 1 and lib.hf_solve_smem_bytes(s, kt, panels, item) > limit:
-        kt //= 2
-    _smem_check("banded_solve", lib.hf_solve_smem_bytes(s, kt, panels, item),
-                bb.device, f"the solve at s={s}")
+    if tiles is None:
+        tiles = solve_tiles(s, k, item, limit)
+        if tiles is None:
+            raise ValueError(
+                f"banded_solve: no panel and column tile of s={s}, k={k} fits "
+                f"the card's {limit} bytes of shared memory per block"
+            )
+    rows, kt = tiles
+    if rows not in (0,) + PANEL_ROWS or kt < 1:
+        raise ValueError(f"banded_solve: tiles={tiles!r}")
+    _smem_check("banded_solve", lib.hf_solve_smem_bytes(s, kt, rows, item),
+                bb.device, f"the solve at s={s} with tiles {tiles}")
     out = torch.empty_like(bb)
     if N == 0 or nb == 0 or k == 0:
         return out
     _launch(lib, getattr(lib, f"hf_banded_solve_{_suffix(bb.dtype)}"),
             "banded_solve", bb.device, M.data_ptr(), Dinv.data_ptr(),
             B.data_ptr(), bb.data_ptr(), out.data_ptr(), N, nb, s, k, kt,
-            int(bool(trans)), panels)
+            int(bool(trans)), rows)
     banded_solve.launches += 1
     return out
 

@@ -10,6 +10,9 @@ the diagonal D_j and [2s, 3s) the super-diagonal B_j.
   pivoted diagonal blocks and serves forward and transposed solves.  It is
   batched over a leading sample axis; factorization and solves go through
   the hand-written kernels K1/K2 (``ops/hopper_kernels.py``) on the card.
+* ``PermutedFactor`` wraps an ``InverseThomasFactor`` of a band assembled
+  in the row order of ``fem/band_order.py`` (P2 and vector states) and
+  solves in the original dof order.
 * ``BlockTridiagFactor`` is block-Thomas with pivoted LU of the diagonal
   blocks, for the dense prior's K-solves (not a TPU kernel).
 * ``BlockCyclicFactor`` is block cyclic reduction of one block-tridiagonal
@@ -69,6 +72,31 @@ def factorize_thomas_inv_banded(band) -> InverseThomasFactor:
     band = band.contiguous()
     M, Dinv = banded_factorize(band)
     return InverseThomasFactor(M=M, Dinv=Dinv, B=band[..., 2 * s :].contiguous())
+
+
+class PermutedFactor(NamedTuple):
+    """A factor of P A P^T (the band of a ``fem.band_order.BandOrder``)
+    exposed in the original dof order: ``solve`` gathers the rhs into band
+    order (zero pad rows at the tail), solves through the inner factor and
+    gathers back, one gather each way around the band solve.  Batched
+    like its inner factor."""
+
+    inner: InverseThomasFactor
+    border: object  # BandOrder (numpy, static)
+
+    def solve(self, b, trans: bool = False):
+        """Solve A x = b (or A^T x = b) per sample; b (N, n) or (N, n, k)."""
+        bo = self.border
+        squeeze = b.ndim == 2
+        if squeeze:
+            b = b[..., None]
+        order = torch.as_tensor(bo.order, device=b.device)
+        inv = torch.as_tensor(bo.inv, device=b.device)
+        pad = torch.zeros((b.shape[0], bo.n_pad, b.shape[-1]), dtype=b.dtype,
+                          device=b.device)
+        x = self.inner.solve(torch.cat([b[:, order], pad], dim=1), trans=trans)
+        out = x[:, inv]
+        return out[..., 0] if squeeze else out
 
 
 def block_tridiag_matmat(band, X):

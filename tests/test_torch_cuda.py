@@ -211,6 +211,152 @@ def test_solve_designs_at_s65(cuda, dtype, k):
         assert _rel(x, x_p) < TOL[dtype], trans
 
 
+def _designs(s, k, item, limit):
+    """K2's (panel rows, column tile) for the streamed and the panel design
+    at s and k, each the widest that fits."""
+    return [hk.solve_tiles(s, k, item, limit, panels=p) for p in (False, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s", [17, 25, 33, 49, 97, 516])
+def test_kernels_at_the_new_block_sizes(cuda, dtype, s):
+    """The grid-sequencing levels (17, 33 at nx=64; 25, 49, 97 at nx=192)
+    and the helmholtz lane (516): K1 in both designs where the chain fits
+    (rows only above it), K2 at k=1 and k=200 in both designs and both
+    directions, K3, each against its plain version, with the residual of
+    the kernels' solve."""
+    nb = 3 if s == 516 else 8
+    band = _band(s, 2, torch.float64, cuda, seed=s, nb=nb)
+    b = band.to(dtype)
+    B = b[..., 2 * s :].contiguous()
+    lib, limit = hk._library(), hk._smem_limit(cuda)
+    item = b.element_size()
+    M_p, D_p = hk.banded_factorize_plain(b)
+    designs = ["rows"]
+    if lib.hf_factorize_smem_bytes(s, item) <= limit:
+        designs.append("chain")
+    for design in designs:
+        M, Dinv = hk.banded_factorize(b, design=design)
+        torch.cuda.synchronize()
+        assert _rel(M, M_p) < TOL[dtype] and _rel(Dinv, D_p) < TOL[dtype], design
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    for k in (1, 200):
+        bb = torch.randn(2, nb, s, k, dtype=torch.float64, device=cuda,
+                         generator=gen)
+        for tiles in _designs(s, k, item, limit):
+            for trans in (False, True):
+                x = hk.banded_solve(M, Dinv, B, bb.to(dtype), trans, tiles=tiles)
+                x_p = hk.banded_solve_plain(M, Dinv, B, bb.to(dtype), trans)
+                torch.cuda.synchronize()
+                assert _rel(x, x_p) < TOL[dtype], (k, tiles, trans)
+                apply = block_tridiag_matmat_trans if trans else block_tridiag_matmat
+                bf = bb.reshape(2, nb * s, k)
+                res = torch.linalg.vector_norm(
+                    apply(band, x.double().reshape(2, nb * s, k)) - bf
+                ) / torch.linalg.vector_norm(bf)
+                assert res.item() < (1e-4 if dtype == torch.float32 else 1e-12)
+    X = _dd_batch(3, s, dtype, cuda, seed=s)
+    Y = hk.batched_inverse(X)
+    Y_p = hk.batched_inverse_plain(X)
+    torch.cuda.synchronize()
+    assert _rel(Y, Y_p) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,tiles", [(torch.float32, (32, 32)),
+                                         (torch.float64, (16, 16))])
+def test_solve_panel_choice_at_s516(cuda, dtype, tiles):
+    """At s=516 a 64-row float64 panel alone exceeds shared memory: the
+    wrapper takes 16 rows and 16 columns in float64 and 32 and 32 in
+    float32, and every panel that fits gives the same solve."""
+    s, nb, k = 516, 3, 200
+    limit = hk._smem_limit(cuda)
+    assert hk.solve_tiles(s, k, torch.finfo(dtype).bits // 8, limit) == tiles
+    band = _band(s, 1, dtype, cuda, seed=6, nb=nb)
+    M, Dinv = hk.banded_factorize(band)
+    B = band[..., 2 * s :].contiguous()
+    bb = torch.randn(1, nb, s, k, dtype=dtype, device=cuda)
+    x_p = hk.banded_solve_plain(M, Dinv, B, bb, True)
+    hk.reset_launch_counts()
+    x = hk.banded_solve(M, Dinv, B, bb, True)
+    assert hk.banded_solve.launches == 1
+    for other in ((64, 8), (32, 16), (32, 8), (16, 32), (16, 8)):
+        lib = hk._library()
+        if lib.hf_solve_smem_bytes(s, other[1], other[0], band.element_size()) > limit:
+            with pytest.raises(ValueError, match="shared memory"):
+                hk.banded_solve(M, Dinv, B, bb, True, tiles=other)
+            continue
+        y = hk.banded_solve(M, Dinv, B, bb, True, tiles=other)
+        torch.cuda.synchronize()
+        assert _rel(y, x_p) < TOL[dtype], other
+    torch.cuda.synchronize()
+    assert _rel(x, x_p) < TOL[dtype]
+
+
+def test_solve_refuses_a_size_no_design_takes(cuda):
+    """s=2000 in float64: even a 16-row panel and one column (288 KB) is
+    above the card's shared memory, so the k=200 solve raises (it never
+    runs the plain version on the card); the streamed k=1 solve fits."""
+    s = 2000
+    fac = torch.zeros((1, 1, s, s), dtype=torch.float64, device=cuda)
+    eye = torch.eye(s, dtype=torch.float64, device=cuda).expand(1, 1, s, s)
+    Dinv = eye.contiguous()
+    bb = torch.randn(1, 1, s, 200, dtype=torch.float64, device=cuda)
+    hk.reset_launch_counts()
+    with pytest.raises(ValueError, match="no panel and column tile"):
+        hk.banded_solve(fac, Dinv, fac, bb, True)
+    assert hk.banded_solve.launches == 0
+    x = hk.banded_solve(fac, Dinv, fac, bb[..., :1].contiguous(), False)
+    torch.cuda.synchronize()
+    assert torch.equal(x, bb[..., :1])
+
+
+def test_helmholtz_bands_at_s516(cuda):
+    """K1 (rows), K2 and K3 on the helmholtz lane's own band (nx=64,
+    600 Hz, 2 prior samples): indefinite blocks, no pivoting.  Against the
+    pivoted plain versions, K3's identity residual on the Schur complements
+    stays within 10x of torch.linalg.inv's, in both dtypes."""
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        helmholtz_linear_observable,
+        helmholtz_prior,
+    )
+    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
+
+    f64 = dict(dtype=torch.float64, device=cuda)
+    obs, Vh = helmholtz_linear_observable(nx=64, frequency=600.0, **f64)
+    pde = obs.problem
+    m = helmholtz_prior(Vh, **f64).sample(
+        torch.randn(2, Vh.dim, generator=torch.Generator(device=cuda).manual_seed(0),
+                    **f64))
+    band64 = bc_symmetrize_banded_masked(pde.bound.assemble_A_banded_ordered(
+        torch.zeros(2, pde.state_dim, **f64), m, pde._band_order),
+        pde._band_mask).contiguous()
+    N, nb, s, _ = band64.shape
+    assert (s, nb) == (516, 52)
+    M64, _ = hk.banded_factorize_plain(band64)
+    T64 = band64[..., s : 2 * s].clone()
+    T64[:, 1:] -= M64[:, 1:] @ band64[:, :-1, :, 2 * s :]
+    eye = torch.eye(s, **f64)
+    bb = torch.randn(N, nb, s, 1, **f64)
+    for dtype in (torch.float32, torch.float64):
+        band = band64.to(dtype)
+        M, Dinv = hk.banded_factorize(band)
+        M_p, D_p = hk.banded_factorize_plain(band)
+        torch.cuda.synchronize()
+        assert max(_rel(M, M_p), _rel(Dinv, D_p)) < TOL[dtype]
+        T = T64.to(dtype).reshape(N * nb, s, s)
+        res_k3 = (T64.reshape(-1, s, s) @ hk.batched_inverse(T).double() - eye)
+        res_inv = (T64.reshape(-1, s, s) @ torch.linalg.inv(T).double() - eye)
+        assert res_k3.abs().max() <= 10 * res_inv.abs().max()
+        B = band[..., 2 * s :].contiguous()
+        res = []
+        for x in (hk.banded_solve(M, Dinv, B, bb.to(dtype), False),
+                  hk.banded_solve_plain(M_p, D_p, B, bb.to(dtype), False)):
+            res.append(torch.linalg.vector_norm(block_tridiag_matmat(
+                band64, x.double().reshape(N, nb * s, 1)) - bb.reshape(N, -1, 1)
+            ).item())
+        assert res[0] <= 10 * res[1]
+
+
 def test_structured_prior_runs_its_cyclic_reduction_through_k3(cuda):
     """On the card the prior's K and M factorizations invert their blocks
     with K3: one launch per reduction level and one for the root, so at

@@ -224,6 +224,30 @@ def test_non_cpu_tensors_never_take_the_plain_versions(call):
     assert hk.banded_factorize.launches == hk.banded_solve.launches == 0
 
 
+H100_SMEM = 232448  # shared memory one block may opt into on the H100
+
+
+@pytest.mark.parametrize("s,k,itemsize,want", [
+    (65, 100, 4, (64, 32)),  # the nx=64 Jacobian solve
+    (65, 1, 4, (0, 1)),  # the Newton solves: streamed
+    (193, 100, 8, (64, 32)),  # 198 KB
+    (516, 200, 4, (32, 32)),  # helmholtz: a 64-row panel forces kt=16
+    (516, 200, 8, (16, 16)),  # one 64-row float64 panel alone is 264 KB
+    (516, 1, 8, (0, 1)),
+    (516, 4, 8, (0, 4)),
+    (2000, 200, 8, None),  # no panel fits: the wrapper raises
+])
+def test_solve_tiles_pick_the_widest_tile_then_panel(s, k, itemsize, want):
+    """K2's panel rows and column tile under the H100's shared memory: the
+    widest column tile first, then the widest panel, and the total always
+    within the limit."""
+    got = hk.solve_tiles(s, k, itemsize, H100_SMEM)
+    assert got == want
+    if got is not None:
+        rows, kt = got
+        assert (s * rows + 2 * s * kt) * itemsize <= H100_SMEM
+
+
 def test_wrappers_reject_malformed_shapes():
     with pytest.raises(ValueError, match="band shape"):
         hk.banded_factorize(torch.empty((2, 5, 5, 14), device="meta"))

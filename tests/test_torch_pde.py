@@ -102,6 +102,26 @@ def test_converged_lanes_stop():
     np.testing.assert_array_equal(u[0].numpy(), u_ref[0])
 
 
+@pytest.mark.parametrize("k", [None, 3])
+def test_apply_C_matches(k):
+    """C dm with C = dr/dm of the masked residual at the solved states,
+    for one direction and for a block of k, against the JAX package."""
+    from hippyflow_tpu.models.pde_problem import Linearization as JLin
+    from hippyflow_tpu_torch.models import Linearization
+
+    jobs, tobs, _, _, _, m, u_ref, _ = _setup()
+    shape = (N_SAMPLES, m.shape[1]) + (() if k is None else (k,))
+    dm = np.random.default_rng(4).standard_normal(shape)
+    got = tobs.problem.apply_C(
+        Linearization(interop.tensor(u_ref, **F64), interop.tensor(m, **F64),
+                      None), interop.tensor(dm, **F64))
+    want = jax.vmap(lambda u, mm, d: jobs.problem.apply_C(
+        JLin(u, mm, None, None), d))(jnp.asarray(u_ref), jnp.asarray(m),
+                                     jnp.asarray(dm))
+    assert got.shape == want.shape
+    _close(got, want, tol=1e-12)
+
+
 def test_prior_samples_match():
     _, _, jpr, tpr, xi, m, _, _ = _setup()
     _close(tpr.sample(interop.tensor(xi, **F64)), m, tol=1e-12)

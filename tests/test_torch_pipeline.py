@@ -8,7 +8,7 @@ package and against the stored f64 parity reference.
   of ``.bench/parity_ref.npz`` with the steady Navier-Stokes velocity;
   eigenvalues above 1e-4 lambda_0 agree with ``d_ref`` to 1e-8 relative
   (the north-star check of ``bench.py``).
-* ``import hippyflow_tpu_torch`` pulls in no jax.
+* ``import hippyflow_tpu_torch`` and its applications pull in no jax.
 """
 
 import functools
@@ -176,6 +176,7 @@ class Refuse:
 sys.meta_path.insert(0, Refuse())
 import hippyflow_tpu_torch, hippyflow_tpu_torch.interop
 import hippyflow_tpu_torch.applications.confusion
+import hippyflow_tpu_torch.applications.helmholtz
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 sys.exit(f"loaded {bad}" if bad else 0)
 """
@@ -183,7 +184,8 @@ sys.exit(f"loaded {bad}" if bad else 0)
 
 def test_import_pulls_in_no_jax():
     """In a fresh interpreter that refuses to import jax, the JAX package
-    or its applications, the port and its confusion application import."""
+    or its applications, the port and its confusion and helmholtz
+    applications import."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
