@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``hippyflow_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py             # from the repository root
-    python3 chip_smoke.py --profile   # also: device-time table of the main path
+    python3 chip_smoke.py --profile   # also: device-time tables of the main
+                                      # path and the two large lanes
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin``, ``PATH`` or
 ``/usr/local/cuda/bin``); imports nothing of JAX.  Phases, one summary line
@@ -18,10 +19,16 @@ each:
    version;
 4. inverses: K3 and K4 (``batched_inverse``) against their plain version on
    the prior's cyclic-reduction blocks at nx=64 (N=32, s=65) and nx=192
-   (N=96, s=193), both dtypes, with the identity residual and timings;
+   (N=96, s=193), both dtypes, with the identity residual and timings; K3
+   timed at one thread block per matrix and at 2, 4, 6, 8 and the picked
+   number (``gj_cluster``), in turns, beside ``torch.linalg.inv`` and the
+   bound (a ``K3 clusters`` line; the same at each later cyclic-reduction
+   level of nx=192, N=48 down to 1, and at s=193 and s=516 below);
 5. s=193: K1 (row panels) and K2 (k=1 streamed, and k=100 transposed
    through panels) against their plain versions on Newton bands of nx=192 (N=16,
-   nb=s=193), both dtypes, with residuals and timings;
+   nb=s=193), both dtypes, with residuals and timings; K3 as K1's rows call
+   it, on one block row of an (N, 8, s, s) buffer at N=32 and 16 (the
+   other rows must come out untouched), at each cluster size;
 6. coarse grids: K1 and K2 (k=1) against their plain versions on the
    Newton bands of the grid-sequencing levels, s=33 and 17 (N=1024, the
    nx=64 chunk) and s=97, 49 and 25 (N=32, the nx=192 chunk), both dtypes;
@@ -32,7 +39,7 @@ each:
    against the pivoted plain versions: K1 against plain, max|T T^-1 - I|
    of K3 and of ``torch.linalg.inv`` on the same Schur complements, and
    ||Ax - b|| / ||b|| through K1+K2 and through the plain pair, K3's
-   within 10x of the pivoted ones; timings;
+   within 10x of the pivoted ones; timings, K3 at each cluster size;
 8. parity: the float64 pipeline on ``.bench/parity_ref.npz`` against the
    stored reference spectrum (relative error <= 1e-8 over eigenvalues above
    1e-4 lambda_0), with the dense prior and again with the structured one;
@@ -43,7 +50,9 @@ each:
    ``bench.py`` builds them), and once more cold-started for comparison;
 10. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
     256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16,
-    grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started;
+    grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started; then the
+    structured prior's build alone, with K3 at the picked cluster size and
+    at one block per matrix, in turns;
 11. helmholtz lane: the float32 input active subspace of the split-complex
     P2 helmholtz problem at nx=64 (ny=51), 600 Hz (26574 dofs, s=516,
     nb=52), dense BiLaplacian prior (gamma=1, delta=5, 3380 dofs),
@@ -53,7 +62,12 @@ each:
 
 Then a JSON line describing the kernels (``launches`` is the sum over the
 paths, which are each driven with the counts set to 0 just before and
-read just after; ``launches_by_path`` splits it), and last the result line
+read just after; ``launches_by_path`` splits it; ``bound_ms`` is the least
+time the card could take for a call at that shape, from its operations at
+the peak rate of its type and its bytes at the memory rate, whichever is
+larger, ``bound_by`` says which; ``library_ms`` is ``torch.linalg.inv``'s
+time for K3/K4 and null for K1/K2, which no single PyTorch call
+computes), and last the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without printing the result line.
 """
@@ -94,6 +108,13 @@ PIVOT_FACTOR = 10.0
 # the float32 helmholtz Jacobian against the same samples in float64,
 # relative to max|J|
 JAC_TOL_F32 = 1e-4
+# Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): float32 outside
+# the tensor cores (a float32 mma would be TF32), float64 through the FP64
+# tensor cores (IEEE double; 34e12 outside them), and HBM3 bytes per second
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+# thread blocks per matrix at which K3 is timed beside 1 and the picked one
+K3_CLUSTERS = (2, 4, 6, 8)
 
 # Kernel against plain version, relative to the largest plain entry, and
 # relative residuals ||A x - b|| / ||b|| of the kernels' solves (taken in
@@ -162,6 +183,111 @@ def paired_ms(kernel, plain, reps: int = 5):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def bound(flops: float, nbytes: float, dtype):
+    """(ms, 'operations' or 'bytes'): the least time the card could take
+    for ``flops`` operations in dtype and ``nbytes`` moved, the larger of
+    the two at the peak rates."""
+    ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    mem = 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def bound_keys(tag: str, ms: float, by: str) -> dict:
+    """The JSON keys of a bound at the shape ``tag`` names."""
+    return {f"bound_ms_{tag}": ms, f"bound_by_{tag}": by}
+
+
+def _item(dtype) -> int:
+    return torch.finfo(dtype).bits // 8
+
+
+def k1_bound(N, nb, s, dtype):
+    """K1: per sample one s x s inverse (2 s^3) at row 0 and two products
+    and an inverse (6 s^3) at each later row; the band read once, M and
+    Dinv written once."""
+    return bound(N * (6 * (nb - 1) + 2) * s**3, 5 * N * nb * s * s * _item(dtype),
+                 dtype)
+
+
+def k2_bound(N, nb, s, k, dtype):
+    """K2: the 3 nb - 2 blocks of M, Dinv and B a sweep uses, each read
+    once and applied to k columns (2 s^2 k); the rhs read and the solution
+    written once."""
+    blocks = N * (3 * nb - 2)
+    return bound(2 * blocks * s * s * k,
+                 (blocks * s * s + 2 * N * nb * s * k) * _item(dtype), dtype)
+
+
+def k3_bound(N, s, dtype):
+    """K3/K4: s^3 multiply-adds per matrix (in-place Gauss-Jordan), each
+    matrix read and written once."""
+    return bound(2 * N * s**3, 2 * N * s * s * _item(dtype), dtype)
+
+
+def time_k3_clusters(X, label, row=None, reps=5):
+    """K3 at one thread block per matrix and at each count of K3_CLUSTERS
+    and the picked one (``gj_cluster``), each count timed in turns with 1
+    (1, c, c, 1), with ``torch.linalg.inv`` and the bound beside them.  X
+    (N, s, s); or, with ``row``, an (N, nb, s, s) buffer whose block row
+    ``row`` K3 inverts in place as K1's row design calls it, where every
+    count's result is held against the plain version and the other rows
+    must come out untouched.  Without ``row`` every count's result is held
+    against one block's.  Returns the record for the kernels' JSON line."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    dtype = X.dtype
+    tol = TOL_INV[dtype]["diff"]
+    if row is None:
+        N, s, _ = X.shape
+
+        def run(c):
+            return hk.batched_inverse(X, cluster=c)
+
+        def inv():
+            return torch.linalg.inv(X)
+    else:
+        N, nb, s, _ = X.shape
+        before = X.clone()
+
+        def run(c):
+            return hk.batched_inverse_row_(X, row, cluster=c)
+
+        def inv():
+            return torch.linalg.inv(X[:, row])
+    picked = hk.gj_cluster(N, s, hk._sm_count(X.device))
+    counts = sorted((set(K3_CLUSTERS) | {picked}) - {1})
+    if row is None:
+        ref = run(1)
+        for c in counts:
+            diff = rel_err(run(c), ref)
+            check(diff <= tol, f"K3 {label} c={c}: against c=1 {diff:.3e}")
+    else:
+        want = hk.batched_inverse_plain(before[:, row].contiguous())
+        for c in (1, *counts):
+            X.copy_(before)
+            run(c)
+            torch.cuda.synchronize()
+            diff = rel_err(X[:, row], want)
+            check(diff <= tol, f"K3 {label} c={c}: against plain {diff:.3e}")
+            others = [q for q in range(nb) if q != row]
+            check(torch.equal(X[:, others], before[:, others]),
+                  f"K3 {label} c={c}: other block rows changed")
+    ms, ms1 = {}, []
+    for c in counts:
+        ms[c], t1 = paired_ms(lambda c=c: run(c), lambda: run(1), reps)
+        ms1.append(t1)
+    ms[1] = sum(ms1) / len(ms1)
+    inv_ms = cuda_ms(inv, reps)
+    b_ms, b_by = k3_bound(N, s, dtype)
+    log(f"K3 clusters {label} {str(dtype)[6:]} N={N} s={s}: "
+        + ", ".join(f"c={c} {ms[c]:.4f} ms" for c in sorted(ms))
+        + f"; picked c={picked} ({ms[1] / ms[picked]:.2f}x c=1); "
+        f"torch.linalg.inv {inv_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    return {"cluster": picked, "ms": ms[picked],
+            **{f"ms_c{c}": v for c, v in sorted(ms.items())},
+            "inv_ms": inv_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def setup(dtype, device, nx=NX, with_prior=True):
@@ -272,12 +398,17 @@ def phase_kernels(obs64, prior64, device):
             f"(plain {k2_plain:.3f}); K2 k=1 {k2_ms1:.3f} ms "
             f"(plain {k2_plain1:.3f})"
         )
+        b1, by1 = k1_bound(N, nb, s, dtype)
+        b2, by2 = k2_bound(N, nb, s, 100, dtype)
         report = {
             "banded_factorize": {"max_abs_err": k1_err, "ms": k1_ms,
-                                 "plain_ms": k1_plain},
+                                 "plain_ms": k1_plain, "bound_ms": b1,
+                                 "bound_by": by1, "library_ms": None},
             "banded_solve": {"max_abs_err": k2_err, "ms": k2_ms,
-                             "plain_ms": k2_plain, "ms_k1": k2_ms1,
-                             "plain_ms_k1": k2_plain1},
+                             "plain_ms": k2_plain, "bound_ms": b2,
+                             "bound_by": by2, "library_ms": None,
+                             "ms_k1": k2_ms1, "plain_ms_k1": k2_plain1,
+                             **bound_keys("k1", *k2_bound(N, nb, s, 1, dtype))},
         }
     return report, band64
 
@@ -312,6 +443,7 @@ def phase_inverses(priors):
     prior}, in both dtypes; float32 timings, with torch.linalg.inv's time
     beside them for reference."""
     from hippyflow_tpu_torch.ops import hopper_kernels as hk
+    from hippyflow_tpu_torch.ops.structured import _cr_reduce
 
     report = {}
     for nx, prior in priors.items():
@@ -345,9 +477,26 @@ def phase_inverses(priors):
                                 lambda: hk.batched_inverse_plain(X, w))
             report[(name, nx)].update(ms=t[name][0], plain_ms=t[name][1])
         inv_ms = cuda_ms(lambda: torch.linalg.inv(X), 5)
+        b_ms, b_by = k3_bound(X.shape[0], s, X.dtype)
+        for name in ("K3", "K4"):
+            report[(name, nx)].update(library_ms=inv_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
         log(f"timing float32 inverses nx={nx} N={X.shape[0]} s={s}: K3 "
             f"{t['K3'][0]:.3f} ms (plain {t['K3'][1]:.3f}); K4 {t['K4'][0]:.3f} "
-            f"ms (plain {t['K4'][1]:.3f}); torch.linalg.inv {inv_ms:.3f} ms")
+            f"ms (plain {t['K4'][1]:.3f}); torch.linalg.inv {inv_ms:.3f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        report[("clusters", nx)] = time_k3_clusters(
+            X, f"nx={nx} cyclic reduction")
+        if nx != NX192:
+            continue
+        # the later levels' odd diagonal blocks (N=48 down to 1)
+        a, d, b = (prior.K_band[..., q * s : (q + 1) * s] for q in range(3))
+        _, (a, d, b) = _cr_reduce(a, d, b)
+        while d.shape[0] > 1:
+            Xl = d[1::2].to(torch.float32).contiguous()
+            report[("clusters_level", Xl.shape[0])] = time_k3_clusters(
+                Xl, f"nx={nx} cyclic reduction level")
+            _, (a, d, b) = _cr_reduce(a, d, b)
     return report
 
 
@@ -413,11 +562,21 @@ def phase_s193(obs64, prior64, device):
             "banded_factorize": {
                 "max_abs_err_s193": max((M - M_p).abs().max().item(),
                                         (Dinv - D_p).abs().max().item()),
-                "ms_s193": k1[0], "plain_ms_s193": k1[1]},
+                "ms_s193": k1[0], "plain_ms_s193": k1[1],
+                **bound_keys("s193", *k1_bound(N, nb, s, dtype))},
             "banded_solve": {"max_abs_err_s193": k2_err, "ms_s193": k2[0],
                              "plain_ms_s193": k2[1], "ms_k1_s193": k2_1[0],
-                             "plain_ms_k1_s193": k2_1[1]},
+                             "plain_ms_k1_s193": k2_1[1],
+                             **bound_keys("s193", *k2_bound(N, nb, s, 100, dtype)),
+                             **bound_keys("k1_s193", *k2_bound(N, nb, s, 1, dtype))},
         }
+    # K3 as K1's rows call it in the nx=192 lane (chunk 32) and at N=16:
+    # one block row of an (N, 8, s, s) buffer (the band's diagonal blocks)
+    D = band64[:, :8, :, s : 2 * s].to(torch.float32)
+    for n in (32, 16):
+        buf = torch.cat([D] * (n // N), dim=0).contiguous()
+        report[f"rows_n{n}_s{s}"] = time_k3_clusters(
+            buf, "K1 rows (N, 8, s, s) row 3", row=3)
     return report
 
 
@@ -496,6 +655,8 @@ def check_band_kernels(band64, ks, label, gen, reps=2):
                     lambda: hk.banded_solve(M, Dinv, B, bb, trans),
                     lambda: hk.banded_solve_plain(M, Dinv, B, bb, trans), reps)
         if dtype == torch.float32:
+            rec["k1_bound"] = k1_bound(N, nb, s, dtype)
+            rec["k2_bound"] = {k: k2_bound(N, nb, s, k, dtype) for k, _ in ks}
             rec["k1"] = paired_ms(lambda: hk.banded_factorize(band),
                                   lambda: hk.banded_factorize_plain(band), reps)
             line += f"; float32 K1 {rec['k1'][0]:.3f} ms (plain {rec['k1'][1]:.3f})"
@@ -648,7 +809,9 @@ def phase_s516(device):
         T1 = T.reshape(N, nb, s, s)[:, nb // 2].contiguous()
         rec["k3"] = paired_ms(lambda: hk.batched_inverse(T1),
                               lambda: hk.batched_inverse_plain(T1), reps=2)
-        rec["k3_inv"] = cuda_ms(lambda: torch.linalg.inv(T1), 2)
+        rec["k3_clusters"] = time_k3_clusters(T1, "helmholtz Schur complements")
+        rec["k1_bound"] = k1_bound(N, nb, s, dtype)
+        rec["k2_bound"] = {k: k2_bound(N, nb, s, k, dtype) for k in (1, 200)}
         log(f"timing {name} s={s} N={N} nb={nb}: K1 rows {rec['k1'][0]:.3f} ms "
             f"(plain {rec['k1'][1]:.3f}, rows plain {rec['k1_rows_plain']:.3f}); "
             f"K2 k=200 trans {rec['k2_k200'][0]:.3f} ms (plain "
@@ -657,7 +820,7 @@ def phase_s516(device):
             f"{rec['k2_k200_other'][1]:.3f}; K2 k=1 trans {rec['k2_k1'][0]:.3f} ms "
             f"(plain {rec['k2_k1'][1]:.3f}), k=1 {rec['k2_k1_fwd'][0]:.3f} ms "
             f"(plain {rec['k2_k1_fwd'][1]:.3f}); K3 {tuple(T1.shape)} {rec['k3'][0]:.3f} "
-            f"ms (plain {rec['k3'][1]:.3f}, torch.linalg.inv {rec['k3_inv']:.3f})")
+            f"ms (plain {rec['k3'][1]:.3f})")
         report[dtype] = rec
         del band, B, M, Dinv, M_p, D_p, T, T1
         torch.cuda.empty_cache()
@@ -787,7 +950,7 @@ def phase_main(obs32, prior32, levels):
     return paths
 
 
-def phase_lane192(device):
+def phase_lane192(device, profile=False):
     """The float32 nx=192 lane, grid-sequenced (the counted path) and
     cold-started: confusion_prior builds the structured prior (cyclic
     reduction through K3) inside each counted run."""
@@ -796,6 +959,7 @@ def phase_lane192(device):
         load_ns_velocity,
     )
     from hippyflow_tpu_torch.models import StructuredBiLaplacianPrior
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
 
     obs32, _ = setup(torch.float32, device, nx=NX192, with_prior=False)
     Vh = obs32.problem.Vu
@@ -811,21 +975,47 @@ def phase_lane192(device):
               f"nx={NX192}: confusion_prior gave {type(prior).__name__}")
         return prior
 
+    def run(lv, label):
+        return run_subspace(obs32, prior_fn, label, N192_SAMPLES, RANK192,
+                            warm_levels=lv, chunk_size=CHUNK192,
+                            jac_chunk_size=JAC_CHUNK192)
+
     paths = {}
     for name, lv in (("nx192", levels), ("nx192_cold", None)):
         cold = " cold start" if lv is None else f" grid-sequenced depth {len(lv)}"
-        launches, _ = run_subspace(
-            obs32, prior_fn, f"lane float32 nx={NX192}{cold}", N192_SAMPLES,
-            RANK192, warm_levels=lv, chunk_size=CHUNK192,
-            jac_chunk_size=JAC_CHUNK192,
-        )
+        launches, _ = run(lv, f"lane float32 nx={NX192}{cold}")
         for key in ("banded_factorize", "banded_solve", "batched_inverse"):
             check(launches[key] > 0, f"{key} was not launched on {name}")
         paths[name] = launches
+    # the prior build alone with gj_cluster's choice and with one block per
+    # matrix forced, in turns (picked, 1, 1, picked, three times): a host-
+    # bound stage, so the mean and the least of each
+    picked = hk.gj_cluster
+
+    def build_s(one):
+        hk.gj_cluster = (lambda n, s, sm: 1) if one else picked
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prior_fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            hk.gj_cluster = picked
+
+    t = {False: [], True: []}
+    for one in (False, True, True, False) * 3:
+        t[one].append(build_s(one))
+    log(f"nx={NX192} prior build float32, 6 each in turns: picked c mean "
+        f"{sum(t[False]) / 6:.4f} s, least {min(t[False]):.4f} s; c=1 mean "
+        f"{sum(t[True]) / 6:.4f} s, least {min(t[True]):.4f} s")
+    if profile:
+        label = f"lane float32 nx={NX192} grid-sequenced depth {len(levels)}"
+        profile_run(label, lambda: run(levels, f"{label} (profiled)"))
     return paths
 
 
-def phase_helmholtz(device):
+def phase_helmholtz(device, profile=False):
     """The float32 helmholtz lane, once, through the fused pass; then for 2
     of its samples the float32 Jacobian against the same samples run
     through the kernels in float64."""
@@ -842,11 +1032,15 @@ def phase_helmholtz(device):
         f"state {pde.state_dim} dofs, s={pde._block_size}, "
         f"nb={pde._band_order.nb}, pad rows {pde._band_order.n_pad}, "
         f"dM={obs32.dM}, dQ={obs32.dQ}")
-    launches, proj = run_subspace(
-        obs32, lambda: helmholtz_prior(Vh, dtype=torch.float32, device=device),
-        f"helmholtz float32 nx={HELM_NX}", HELM_SAMPLES, HELM_RANK,
-        chunk_size=HELM_CHUNK, jac_chunk_size=HELM_CHUNK,
-    )
+    def run(label):
+        return run_subspace(
+            obs32, lambda: helmholtz_prior(Vh, dtype=torch.float32, device=device),
+            label, HELM_SAMPLES, HELM_RANK, chunk_size=HELM_CHUNK,
+            jac_chunk_size=HELM_CHUNK,
+        )
+
+    label = f"helmholtz float32 nx={HELM_NX}"
+    launches, proj = run(label)
     check(set(proj.stage_seconds) == {"fused", "ghep"},
           f"helmholtz stages {sorted(proj.stage_seconds)}: not the fused pass")
     check(proj.samples.n_failures == 0,
@@ -864,13 +1058,46 @@ def phase_helmholtz(device):
     log(f"helmholtz Jacobian float32 against float64 (2 samples): max|dJ| / "
         f"max|J| {rel:.3e} (limit {JAC_TOL_F32})")
     check(rel <= JAC_TOL_F32, f"helmholtz J float32 vs float64 {rel:.3e}")
+    if profile:
+        profile_run(label, lambda: run(f"{label} (profiled)"))
     return {"helmholtz": launches}
+
+
+# the port's kernels by a part of their names in a profiler trace
+KERNEL_NAMES = (("K1 chain", "banded_factorize_kernel"),
+                ("K1 Schur step", "schur_rows_kernel"),
+                ("K2", "banded_solve_kernel"), ("K3/K4", "gj_inverse_kernel"))
+
+
+def profile_run(label, fn):
+    """fn() once under torch.profiler (--profile): wall, device busy
+    share, each port kernel's device time, share and launches, and the
+    table of device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events (kernels, copies) carry their own durations; one
+    # stream, so their sum is the busy time
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_us = sum(e.device_time_total for e in events)
+    parts = []
+    for key, pattern in KERNEL_NAMES:
+        mine = [e.device_time_total for e in events if pattern in e.name]
+        if mine:
+            parts.append(f"{key} {sum(mine) / 1e6:.3f} s "
+                         f"({100 * sum(mine) / device_us:.1f}%, {len(mine)} launches)")
+    log(f"profile {label}: wall {wall:.3f} s, device busy {device_us / 1e6:.3f} s "
+        f"({100 * device_us / 1e6 / wall:.1f}%); " + "; ".join(parts))
+    log(prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=25))
 
 
 def phase_profile(obs32, prior32):
     """Device time by kernel over one more main-path run (--profile)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from hippyflow_tpu_torch.models import (
         ActiveSubspaceParameterList,
         ActiveSubspaceProjector,
@@ -881,21 +1108,8 @@ def phase_profile(obs32, prior32):
     params["samples_per_process"] = N_SAMPLES
     params["verbose"], params["seed"] = False, SEED + 1
     proj = ActiveSubspaceProjector(obs32, prior32, parameters=params)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        proj.construct_input_subspace()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events (kernels, copies) carry their own durations; one
-    # stream, so their sum is the busy time
-    device_us = sum(
-        e.device_time_total for e in prof.events()
-        if e.device_type.name == "CUDA"
-    )
-    log(f"profile: wall {wall:.3f} s, device busy {device_us / 1e6:.3f} s "
-        f"({100 * device_us / 1e6 / wall:.1f}%), stages {proj.stage_seconds}")
-    log(prof.key_averages().table(sort_by="self_device_time_total",
-                                  row_limit=25))
+    profile_run(f"main float32 nx={NX} cold start (seed {SEED + 1})",
+                proj.construct_input_subspace)
 
 
 def run_phases(device, argv):
@@ -938,20 +1152,31 @@ def run_phases(device, argv):
         phase_profile(obs32, prior32)
     del obs32, prior32, levels64
     torch.cuda.empty_cache()
-    paths.update(phase_lane192(device))
+    paths.update(phase_lane192(device, "--profile" in argv))
     torch.cuda.empty_cache()
-    paths.update(phase_helmholtz(device))
+    paths.update(phase_helmholtz(device, "--profile" in argv))
 
     for name in ("banded_factorize", "banded_solve"):
         report[name].update(s193_report[name])
     for name, key in (("K3", "batched_inverse"), ("K4", "batched_inverse_rank1")):
         report[key] = {**inv_report[(name, NX192)],
                        **{f"{k}_s65": v for k, v in inv_report[(name, NX)].items()}}
+    k3 = report["batched_inverse"]
+    for tag, rec in ((f"cr_s{NX192 + 1}", inv_report[("clusters", NX192)]),
+                     (f"cr_s{NX + 1}", inv_report[("clusters", NX)]),
+                     *((f"cr{key[1]}_s{NX192 + 1}", r)
+                       for key, r in inv_report.items()
+                       if key[0] == "clusters_level"),
+                     *((tag, r) for tag, r in s193_report.items()
+                       if tag.startswith("rows_")),
+                     (f"s{s_helm}", s516[f32]["k3_clusters"]),
+                     (f"s{s_helm}_f64", s516[f64]["k3_clusters"])):
+        k3.update({f"{k}_{tag}": v for k, v in rec.items()})
     for dtype, sfx in ((f32, f"s{s_helm}"), (f64, f"s{s_helm}_f64")):
         r = s516[dtype]
         report["banded_factorize"].update({
             f"max_abs_err_{sfx}": r["max_abs_err"], f"ms_{sfx}": r["k1"][0],
-            f"plain_ms_{sfx}": r["k1"][1],
+            f"plain_ms_{sfx}": r["k1"][1], **bound_keys(sfx, *r["k1_bound"]),
             f"rows_plain_ms_{sfx}": r["k1_rows_plain"]})
         report["banded_solve"].update({
             f"max_abs_err_{sfx}": max(r["k2_max_abs_err_k1"],
@@ -960,18 +1185,21 @@ def run_phases(device, argv):
             f"plain_ms_k200_{sfx}": r["k2_k200"][1],
             f"ms_k1_{sfx}": r["k2_k1"][0], f"plain_ms_k1_{sfx}": r["k2_k1"][1],
             f"ms_k1_fwd_{sfx}": r["k2_k1_fwd"][0],
-            f"plain_ms_k1_fwd_{sfx}": r["k2_k1_fwd"][1]})
-        report["batched_inverse"].update({
-            f"ms_{sfx}": r["k3"][0], f"plain_ms_{sfx}": r["k3"][1],
-            f"inv_ms_{sfx}": r["k3_inv"]})
+            f"plain_ms_k1_fwd_{sfx}": r["k2_k1_fwd"][1],
+            **bound_keys(f"k200_{sfx}", *r["k2_bound"][200]),
+            **bound_keys(f"k1_{sfx}", *r["k2_bound"][1])})
+        # K3's time at s=516 is the cluster sweep's (ms_, inv_ms_ above);
+        # this phase adds the plain version's, timed in turns with it
+        report["batched_inverse"]["plain_ms_" + sfx] = r["k3"][1]
     for s, rec in sorted(coarse.items()):
         r = rec[f32]
         report["banded_factorize"].update({
             f"max_abs_err_s{s}": r["max_abs_err"], f"ms_s{s}": r["k1"][0],
-            f"plain_ms_s{s}": r["k1"][1]})
+            f"plain_ms_s{s}": r["k1"][1], **bound_keys(f"s{s}", *r["k1_bound"])})
         report["banded_solve"].update({
             f"max_abs_err_k1_s{s}": r["k2_max_abs_err_k1"],
-            f"ms_k1_s{s}": r["k2_k1"][0], f"plain_ms_k1_s{s}": r["k2_k1"][1]})
+            f"ms_k1_s{s}": r["k2_k1"][0], f"plain_ms_k1_s{s}": r["k2_k1"][1],
+            **bound_keys(f"k1_s{s}", *r["k2_bound"][1])})
     pallas = "hippyflow_tpu/ops/pallas_kernels.py"
     sources = {
         "banded_factorize": ("banded_factorize.cu", f"{pallas}:468"),

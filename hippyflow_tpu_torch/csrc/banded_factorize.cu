@@ -29,7 +29,8 @@
 //   T_j = D_j - M_j B_{j-1} of its panel, reading Dinv_{j-1} and B_{j-1}
 //   from device memory (L2), where the previous row just wrote them; the
 //   Gauss-Jordan kernel of K3 (csrc/batched_inverse.cu) then inverts
-//   Dinv[:, j] in place.  2 nb launches per factorization, and
+//   Dinv[:, j] in place, with the cluster of c blocks per matrix that the
+//   host picked.  2 nb launches per factorization, and
 //   N ceil(s/16) blocks per Schur step instead of N.  Products are plain
 //   IEEE multiply-adds in the working type (no TF32).  Measured faster than
 //   the chain at s=65 too (9.7 against 11.7 ms at N=256, float32); the
@@ -232,8 +233,8 @@ int launch_factorize(const void* band, void* m_out, void* dinv_out, int n,
 
 template <typename T>
 int launch_factorize_rows(const void* band, void* m_out, void* dinv_out,
-                          int n, int nb, int s, int w, void* stream,
-                          int (*invert)(void*, int, int, long long, int,
+                          int n, int nb, int s, int w, int c, void* stream,
+                          int (*invert)(void*, int, int, long long, int, int,
                                         void*)) {
   const size_t smem = hf_schur_smem_elems(s) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
@@ -249,7 +250,7 @@ int launch_factorize_rows(const void* band, void* m_out, void* dinv_out,
         static_cast<const T*>(band), static_cast<T*>(m_out), dinv, nb, s, j);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const int code = invert(dinv + j * ss, n, s, nb * ss, w, stream);
+    const int code = invert(dinv + j * ss, n, s, nb * ss, w, c, stream);
     if (code != 0) return code;
   }
   return 0;
@@ -271,15 +272,17 @@ extern "C" int hf_banded_factorize_f64(const void* band, void* m_out,
 
 extern "C" int hf_banded_factorize_rows_f32(const void* band, void* m_out,
                                             void* dinv_out, int n, int nb,
-                                            int s, int w, void* stream) {
-  return launch_factorize_rows<float>(band, m_out, dinv_out, n, nb, s, w,
+                                            int s, int w, int c,
+                                            void* stream) {
+  return launch_factorize_rows<float>(band, m_out, dinv_out, n, nb, s, w, c,
                                       stream, hf_batched_inverse_f32);
 }
 
 extern "C" int hf_banded_factorize_rows_f64(const void* band, void* m_out,
                                             void* dinv_out, int n, int nb,
-                                            int s, int w, void* stream) {
-  return launch_factorize_rows<double>(band, m_out, dinv_out, n, nb, s, w,
+                                            int s, int w, int c,
+                                            void* stream) {
+  return launch_factorize_rows<double>(band, m_out, dinv_out, n, nb, s, w, c,
                                        stream, hf_batched_inverse_f64);
 }
 

@@ -15,162 +15,313 @@
 //     X[~p, p]  <- -C P^{-1}
 //     X[~p, ~p] <- Y - C P^{-1} R
 //
-// and after the last step X holds its inverse.  P^{-1} itself comes from w
-// rank-1 Gauss-Jordan steps on the small [P | I] tile, as in the TPU
-// kernel.  No pivoting relies on diagonally dominant or SPD inputs (the
-// diagonal blocks of the prior's K and M and of the bc-symmetrized Newton
-// operator), the same contract as the TPU kernels.
+// and after the last step X holds its inverse.  No pivoting relies on
+// diagonally dominant or SPD inputs (the diagonal blocks of the prior's K
+// and M and of the bc-symmetrized Newton operator) and on the helmholtz
+// Schur complements, whose identity residuals stay within a few times the
+// pivoted inverse's: the same contract as the TPU kernels.
 //
-// What bounds it on the card: each block step is one pass over the s x s
-// matrix (read and write) with w multiply-adds per element, so s / w
-// passes in all; the work of one matrix is sequential in its passes and
-// the batch gives the parallelism, so a pass costs its latencies more than
-// its arithmetic.  The design: one thread block per matrix; the matrix
-// lives in the output buffer, which stays in L2 (96 float64 matrices of
+// What bounds it on this card: 2 s^3 flops per matrix against 2 s^2
+// elements moved, so at s=193 and 516 the arithmetic bound is 15-40 times
+// the byte bound; but the ceil(s / w) block steps of one matrix are
+// sequential, each one pass over the s x s matrix in L2, and a step costs
+// its latencies: the pass itself, which one SM runs far below its
+// arithmetic and L2 rates, and a fixed part (staging the pivot columns,
+// the w dependent pivot steps, the barriers).  With one thread block per matrix, 16
+// matrices of s=516 keep 16 of the 132 SMs busy.  The design:
+//
+// * A cluster of c thread blocks per matrix (grid N c, cluster (c, 1, 1),
+//   1 <= c <= 8, picked by the host: `gj_cluster` in ops/hopper_kernels.py)
+//   splits its columns: rank r owns a run of whole 32-column chunks, so
+//   that loads stay coalesced, and writes only those.  Each step: (a) a
+//   cluster barrier, whose release/acquire orders the previous step's L2
+//   writes; (b) every block stages the pivot columns C = X[:, p] (with P
+//   in them) and its own slice of the pivot rows R in shared memory; (c) a
+//   cluster barrier, after which the blocks that own the pivot columns may
+//   overwrite them; (d) each block forms its slice of P^{-1} R and applies
+//   the rank-w update to its own columns.  A block needs nothing of
+//   another but C and P, through L2: no distributed shared memory.  Matrix
+//   reads bypass L1 (ld.cg).  Every c, 1 included, is one cluster
+//   launch with the same barriers.
+// * P^{-1} in one warp: lane l < 2w holds column l of [P | I] in
+//   registers, and pivot step k takes the pivot and the column-k
+//   multipliers from lane k by warp shuffles, so the w pivot steps need no
+//   block barrier.  Every block of the cluster forms P^{-1} itself.
+// * In the update each thread owns 4 columns (2 in float64), 32 apart: it
+//   keeps their slices of P^{-1} R in registers and reads each row's pivot
+//   columns once, as 16-byte shared-memory broadcasts, for all of them,
+//   with four rows in flight.
+//
+// The matrix lives in the output buffer (in L2: 96 float64 matrices of
 // 193 x 193 are 29 MB of the 50 MB L2), so the same code takes any s and
-// both dtypes; only the w pivot rows and columns are staged in shared
-// memory.  (Keeping the whole matrix in shared memory where it fits was
-// measured 9% faster at s=193 in float32 and slower at s=65 in float64,
-// too little for a second design.)  In the pass each thread owns one
-// column j: it keeps P^{-1} R[:, j] in registers and reads each row's
-// pivot columns as 16-byte shared-memory broadcasts, four rows in flight
-// at a time.  `stride` (elements between consecutive matrices) lets K1's
-// row-panel design invert Dinv[:, j] of a (N, nb, s, s) factor in place.
+// both dtypes.  Plain IEEE arithmetic in the working type (no tensor
+// cores: a float32 mma would be TF32); the pivot row is scaled by the
+// pivot's rounded reciprocal, where the plain version divides.  `stride`
+// (elements between consecutive matrices) lets K1's row-panel design
+// invert Dinv[:, j] of a (N, nb, s, s) factor in place.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kRowUnroll = 4;
+constexpr int kStageUnroll = 4;
+
+// IEEE round-to-nearest reciprocals
+__device__ __forceinline__ float hf_rcp(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double hf_rcp(double x) { return __drcp_rn(x); }
+
+// Columns of the update one thread owns (32 apart, so each load of a warp
+// stays one coalesced row segment): a row's pivot columns, read once from
+// shared memory, serve all of them.  Fewer in float64, for registers.
+template <typename T>
+struct GjCols {
+  static constexpr int n = 4;
+};
+template <>
+struct GjCols<double> {
+  static constexpr int n = 2;
+};
+
+// P^{-1} of the wp x wp pivot block P (rows at stride HF_GJ_ROW in shared
+// memory) by one warp, into pinv (same stride).  Lane l < 2 wp holds
+// column l of [P | I]; pivot step k scales row k by the pivot's reciprocal
+// (a division's latency, twice, would lie on the chain of w dependent
+// steps) and subtracts the multiples of it from the other rows, with the
+// pivot and the multipliers (column k) shuffled from lane k.  Called by all
+// 32 lanes of one warp.
+template <typename T>
+__device__ __forceinline__ void pivot_block_inverse(const T* P, int wp,
+                                                    T* pinv) {
+  const int lane = threadIdx.x & 31;
+  T col[HF_GJ_MAX_W];
+#pragma unroll
+  for (int r = 0; r < HF_GJ_MAX_W; ++r) {
+    T v = T(0);
+    if (r < wp) {
+      v = lane < wp ? P[r * HF_GJ_ROW + lane]
+                    : (lane - wp == r ? T(1) : T(0));
+    }
+    col[r] = v;
+  }
+  // rows past wp are zero in every lane, so they are shuffled and updated
+  // without a branch (a shuffle under a per-row branch costs the warp a
+  // reconvergence each)
+#pragma unroll
+  for (int k = 0; k < HF_GJ_MAX_W; ++k) {
+    if (k < wp) {
+      T m[HF_GJ_MAX_W];
+#pragma unroll
+      for (int r = 0; r < HF_GJ_MAX_W; ++r) {
+        m[r] = __shfl_sync(0xffffffffu, col[r], k);
+      }
+      const T rk = col[k] * hf_rcp(m[k]);
+#pragma unroll
+      for (int r = 0; r < HF_GJ_MAX_W; ++r) {
+        if (r != k) col[r] -= m[r] * rk;
+      }
+      col[k] = rk;
+    }
+  }
+  if (lane >= wp && lane < 2 * wp) {
+#pragma unroll
+    for (int r = 0; r < HF_GJ_MAX_W; ++r) {
+      if (r < wp) pinv[r * HF_GJ_ROW + lane - wp] = col[r];
+    }
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(HF_GJ_THREADS)
     gj_inverse_kernel(T* x, int s, long long stride, int w) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = (int)cg::this_cluster().num_blocks();
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int mc = hf_gj_own_cols(s, nc);
   T* cs = reinterpret_cast<T*>(smem_raw);  // (s, 16) pivot columns
-  T* rs = cs + (size_t)s * HF_GJ_MAX_W;    // (w, s) pivot rows as read
-  T* rn = rs + (size_t)w * s;              // (w, s) pivot rows after the step
-  T* ga = rn + (size_t)w * s;              // (w, 2w) ping-pong tiles of the
-  T* gb = ga + 2 * w * w;                  // pivot block's [P | I]
-  T* a = x + (size_t)blockIdx.x * stride;
+  T* rs = cs + (size_t)s * HF_GJ_ROW;      // (w, mc) own pivot rows as read
+  T* rn = rs + (size_t)w * mc;             // (w, mc) own pivot rows after
+  T* pinv = rn + (size_t)w * mc;           // (w, 16) P^{-1}
+  T* a = x + (size_t)(blockIdx.x / nc) * stride;
   const int tid = threadIdx.x, nth = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
+  // this block's columns [j0, j0 + ncols): chunks [ch0, ch0 + nch)
   const int nchunk = (s + 31) >> 5;
+  const int ch0 = rank * nchunk / nc;
+  const int nch = (rank + 1) * nchunk / nc - ch0;
+  const int j0 = 32 * ch0;
+  const int ncols = min(s, 32 * (ch0 + nch)) - j0;
+  const int ncs = s * HF_GJ_ROW;
 
   for (int kb = 0; kb < s; kb += w) {
     const int wp = min(w, s - kb);
-    const int w2 = 2 * wp;
-    for (int e = tid; e < wp * s; e += nth) rs[e] = a[(size_t)kb * s + e];
-    for (int e = tid; e < s * wp; e += nth) {
-      const int i = e / wp, l = e - (e / wp) * wp;
-      cs[i * HF_GJ_MAX_W + l] = a[(size_t)i * s + kb + l];
+    // (a) every block's writes of the previous step are visible
+    if (kb > 0) cg::this_cluster().sync();
+    // (b) stage the pivot columns (zero past wp) and the own pivot rows,
+    // the loads of kStageUnroll entries in flight before their stores
+    for (int e0 = tid; e0 < ncs; e0 += nth * kStageUnroll) {
+      T v[kStageUnroll];
+#pragma unroll
+      for (int u = 0; u < kStageUnroll; ++u) {
+        const int e = e0 + u * nth;
+        const int l = e & (HF_GJ_ROW - 1);
+        v[u] = (e < ncs && l < wp)
+                   ? __ldcg(a + (size_t)(e / HF_GJ_ROW) * s + kb + l)
+                   : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kStageUnroll; ++u) {
+        const int e = e0 + u * nth;
+        if (e < ncs) cs[e] = v[u];
+      }
     }
-    for (int e = tid; e < wp * w2; e += nth) {
-      const int r = e / w2, c = e - (e / w2) * w2;
-      ga[e] = c < wp ? a[(size_t)(kb + r) * s + kb + c]
-                     : (c - wp == r ? T(1) : T(0));
+    const int nrs = wp * mc;
+    for (int e0 = tid; e0 < nrs; e0 += nth * kStageUnroll) {
+      T v[kStageUnroll];
+#pragma unroll
+      for (int u = 0; u < kStageUnroll; ++u) {
+        const int e = e0 + u * nth;
+        const int r = e / mc, jj = e - (e / mc) * mc;
+        v[u] = (e < nrs && jj < ncols)
+                   ? __ldcg(a + (size_t)(kb + r) * s + j0 + jj)
+                   : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kStageUnroll; ++u) {
+        const int e = e0 + u * nth;
+        if (e < nrs) rs[e] = v[u];
+      }
     }
     __syncthreads();
+    if (warp == 0) pivot_block_inverse(cs + (size_t)kb * HF_GJ_ROW, wp, pinv);
+    // (c) every block has staged the pivot columns; P^{-1} is published
+    cg::this_cluster().sync();
 
-    // P^{-1}: wp rank-1 steps on [P | I], reading one tile and writing the
-    // other so that a step needs a single barrier.
-    T* src = ga;
-    T* dst = gb;
-    for (int k = 0; k < wp; ++k) {
-      const T piv = src[k * w2 + k];
-      for (int e = tid; e < wp * w2; e += nth) {
-        const int r = e / w2, c = e - (e / w2) * w2;
-        const T rk = src[k * w2 + c] / piv;
-        dst[e] = r == k ? rk : src[e] - src[r * w2 + k] * rk;
-      }
-      __syncthreads();
-      T* t = src;
-      src = dst;
-      dst = t;
-    }
-
-    // New pivot rows: P^{-1} R off the block, P^{-1} on it.
-    for (int e = tid; e < wp * s; e += nth) {
-      const int r = e / s, j = e - (e / s) * s;
+    // (d) own slice of the new pivot rows: P^{-1} R off the block, P^{-1}
+    // on it
+    for (int e = tid; e < nrs; e += nth) {
+      const int r = e / mc, jj = e - (e / mc) * mc;
+      if (jj >= ncols) continue;
+      const int j = j0 + jj;
       T v;
       if (j >= kb && j < kb + wp) {
-        v = src[r * w2 + wp + (j - kb)];
+        v = pinv[r * HF_GJ_ROW + j - kb];
       } else {
         v = T(0);
-        for (int m = 0; m < wp; ++m) v += src[r * w2 + wp + m] * rs[m * s + j];
+        for (int m = 0; m < wp; ++m) v += pinv[r * HF_GJ_ROW + m] * rs[m * mc + jj];
       }
       rn[e] = v;
     }
     __syncthreads();
 
-    // Rank-wp update of the other rows: X[i, j] <- X[i, j] - C[i] rn[:, j],
-    // with X[i, p] read as 0.  Warp items are (32-column chunk, row group).
-    for (int item = warp; item < nchunk * nwarps; item += nwarps) {
-      const int j = (item % nchunk) * 32 + lane;
-      const int g = item / nchunk;
-      if (j >= s) continue;
-      T r[HF_GJ_MAX_W];
+    // rank-wp update of the own columns: X[i, j] <- X[i, j] - C[i] rn[:, j],
+    // with X[i, p] read as 0; warp items are (run of 32 q columns, row
+    // group), lane l taking columns l, l + 32, ... of the run
+    constexpr int q = GjCols<T>::n;
+    const int nrun = (ncols + 32 * q - 1) / (32 * q);
+    for (int item = warp; item < nrun * nwarps; item += nwarps) {
+      const int jb = (item % nrun) * 32 * q + lane;
+      const int g = item / nrun;
+      if (jb >= ncols) continue;
+      T r[q][HF_GJ_MAX_W];
+      bool own[q], load[q];
 #pragma unroll
-      for (int l = 0; l < HF_GJ_MAX_W; ++l) r[l] = l < wp ? rn[l * s + j] : T(0);
-      const bool jpiv = j >= kb && j < kb + wp;
+      for (int c = 0; c < q; ++c) {
+        const int jj = jb + 32 * c, j = j0 + jj;
+        own[c] = jj < ncols;
+        load[c] = own[c] && !(j >= kb && j < kb + wp);
+#pragma unroll
+        for (int l = 0; l < HF_GJ_MAX_W; ++l) {
+          r[c][l] = (own[c] && l < wp) ? rn[l * mc + jj] : T(0);
+        }
+      }
       for (int i0 = g; i0 < s; i0 += nwarps * kRowUnroll) {
-        T v[kRowUnroll];
+        T v[kRowUnroll][q];
 #pragma unroll
         for (int u = 0; u < kRowUnroll; ++u) {
           const int i = i0 + u * nwarps;
-          v[u] = (i < s && !jpiv) ? a[(size_t)i * s + j] : T(0);
+#pragma unroll
+          for (int c = 0; c < q; ++c) {
+            v[u][c] = (i < s && load[c])
+                          ? __ldcg(a + (size_t)i * s + j0 + jb + 32 * c)
+                          : T(0);
+          }
         }
 #pragma unroll
         for (int u = 0; u < kRowUnroll; ++u) {
           const int i = i0 + u * nwarps;
-          if (i < s) {
-            if (i >= kb && i < kb + wp) {
-              a[(size_t)i * s + j] = rn[(i - kb) * s + j];
-            } else {
-              T cv[HF_GJ_MAX_W];
-              hf_load16(cs + i * HF_GJ_MAX_W, cv);
+          if (i >= s) continue;
+          T* ai = a + (size_t)i * s + j0 + jb;
+          if (i >= kb && i < kb + wp) {
+#pragma unroll
+            for (int c = 0; c < q; ++c) {
+              if (own[c]) ai[32 * c] = rn[(i - kb) * mc + jb + 32 * c];
+            }
+          } else {
+            T cv[HF_GJ_ROW];
+            hf_load16(cs + i * HF_GJ_ROW, cv);
+#pragma unroll
+            for (int c = 0; c < q; ++c) {
               T d = T(0);
 #pragma unroll
               for (int l = 0; l < HF_GJ_MAX_W; ++l) {
-                if (l < wp) d += cv[l] * r[l];
+                if (l < wp) d += cv[l] * r[c][l];
               }
-              a[(size_t)i * s + j] = v[u] - d;
+              if (own[c]) ai[32 * c] = v[u][c] - d;
             }
           }
         }
       }
     }
-    __syncthreads();
   }
 }
 
 template <typename T>
-int launch_inverse(void* x, int n, int s, long long stride, int w,
+int launch_inverse(void* x, int n, int s, long long stride, int w, int c,
                    void* stream) {
-  if (w < 1 || w > HF_GJ_MAX_W) return (int)cudaErrorInvalidValue;
-  const size_t smem = hf_gj_smem_elems(s, w) * sizeof(T);
+  if (w < 1 || w > HF_GJ_MAX_W || c < 1 || c > HF_GJ_MAX_CLUSTER) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = hf_gj_smem_elems(s, w, c) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       gj_inverse_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gj_inverse_kernel<T><<<n, HF_GJ_THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<T*>(x), s, stride, w);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n * (unsigned)c, 1, 1);
+  cfg.blockDim = dim3(HF_GJ_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gj_inverse_kernel<T>, static_cast<T*>(x), s,
+                           stride, w);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
 extern "C" int hf_batched_inverse_f32(void* x, int n, int s, long long stride,
-                                      int w, void* stream) {
-  return launch_inverse<float>(x, n, s, stride, w, stream);
+                                      int w, int c, void* stream) {
+  return launch_inverse<float>(x, n, s, stride, w, c, stream);
 }
 
 extern "C" int hf_batched_inverse_f64(void* x, int n, int s, long long stride,
-                                      int w, void* stream) {
-  return launch_inverse<double>(x, n, s, stride, w, stream);
+                                      int w, int c, void* stream) {
+  return launch_inverse<double>(x, n, s, stride, w, c, stream);
 }
 
-extern "C" long long hf_gj_smem_bytes(int s, int w, int itemsize) {
-  return (long long)(hf_gj_smem_elems(s, w) * itemsize);
+extern "C" long long hf_gj_smem_bytes(int s, int w, int c, int itemsize) {
+  if (c < 1) return -1;
+  return (long long)(hf_gj_smem_elems(s, w, c) * itemsize);
 }

@@ -10,8 +10,14 @@
 // Threads per block, and rows per block, of K1's row-panel Schur step.
 #define HF_SCHUR_THREADS 256
 #define HF_SCHUR_PANEL 16
-// Widest pivot block the Gauss-Jordan inverse takes.
-#define HF_GJ_MAX_W 16
+// Widest pivot block the Gauss-Jordan inverse takes (the TPU kernel's 13;
+// the update keeps this many entries per column in registers), and the
+// row stride of its staged pivot columns (whole 16-byte vectors).
+#define HF_GJ_MAX_W 13
+#define HF_GJ_ROW 16
+// Largest cluster of thread blocks per matrix of the Gauss-Jordan inverse
+// (the portable cluster size).
+#define HF_GJ_MAX_CLUSTER 8
 
 // Shared-memory elements of one block of K1's one-block chain: the
 // Dinv_{j-1}, B_{j-1} and M_j tiles (s x s each), the (s, 2s) Gauss-Jordan
@@ -26,13 +32,24 @@ inline std::size_t hf_schur_smem_elems(int s) {
   return 2 * (std::size_t)HF_SCHUR_PANEL * s;
 }
 
-// Shared-memory elements of one Gauss-Jordan block at pivot width w: the
-// pivot columns (s rows of HF_GJ_MAX_W, for 16-byte loads), the pivot rows
-// before and after the step (w x s each) and two (w x 2w) tiles of the
-// pivot block's own inverse.
-inline std::size_t hf_gj_smem_elems(int s, int w) {
-  return (std::size_t)HF_GJ_MAX_W * s + 2 * (std::size_t)w * s +
-         4 * (std::size_t)w * w;
+// Columns one block of a Gauss-Jordan cluster of c blocks owns at most:
+// the s columns in 32-column chunks, rank r of c taking chunks
+// [r nchunk / c, (r + 1) nchunk / c).
+__host__ __device__ inline int hf_gj_own_cols(int s, int c) {
+  const int nchunk = (s + 31) / 32;
+  const int cols = 32 * ((nchunk + c - 1) / c);
+  return cols < s ? cols : s;
+}
+
+// Shared-memory elements of one Gauss-Jordan block at pivot width w in a
+// cluster of c: the pivot columns (s rows of HF_GJ_ROW, for 16-byte
+// loads), the block's own slice of the pivot rows before and after the
+// step (w x own columns each) and the pivot block's inverse (w rows of
+// HF_GJ_ROW).
+inline std::size_t hf_gj_smem_elems(int s, int w, int c) {
+  return (std::size_t)HF_GJ_ROW * s +
+         2 * (std::size_t)w * hf_gj_own_cols(s, c) +
+         (std::size_t)w * HF_GJ_ROW;
 }
 
 // A 16-byte vector of T, and a[0..n) = p[0..n) from shared memory: in
@@ -81,8 +98,10 @@ inline std::size_t hf_solve_smem_elems(int s, int kt, int panel_rows) {
 }
 
 // K3/K4 host entries (csrc/batched_inverse.cu), also launched row by row
-// by K1's row-panel design.
+// by K1's row-panel design: n matrices of s x s, `stride` elements apart,
+// pivot width w (1 to HF_GJ_MAX_W), c blocks per matrix (1 to
+// HF_GJ_MAX_CLUSTER); any other w or c returns cudaErrorInvalidValue.
 extern "C" int hf_batched_inverse_f32(void* x, int n, int s, long long stride,
-                                      int w, void* stream);
+                                      int w, int c, void* stream);
 extern "C" int hf_batched_inverse_f64(void* x, int n, int s, long long stride,
-                                      int w, void* stream);
+                                      int w, int c, void* stream);

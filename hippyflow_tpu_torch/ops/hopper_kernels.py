@@ -15,6 +15,10 @@ Pallas kernel of ``hippyflow_tpu/ops/pallas_kernels.py``:
   (``force="pallas_rank1"`` in the JAX package): the same kernel at pivot
   width 1.
 
+K3/K4 split each matrix's columns over a cluster of thread blocks; the
+cluster size comes from ``gj_cluster`` (``cluster=`` forces one), and K1's
+row design passes the same choice down to the K3 launches it makes.
+
 Each wrapper takes batched tensors with a leading sample axis.  On a CUDA
 tensor it launches its kernel or raises; on a CPU tensor it runs its plain
 PyTorch version (``banded_factorize_plain``, ``banded_solve_plain``,
@@ -62,6 +66,10 @@ NVCC_FLAGS = (
 SOLVE_TILE = 32
 # Pivot-block widths of K3 (the TPU kernel's 13) and K4.
 GJ_WIDTH = 13
+# Most thread blocks per matrix of K3/K4 (the portable cluster size), and
+# the fewest matrix columns per block worth a split (``gj_cluster``).
+GJ_MAX_CLUSTER = 8
+GJ_MIN_COLS = 48
 
 _lock = threading.Lock()
 _lib = None
@@ -137,9 +145,9 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         signatures = {
             "hf_banded_factorize": [p, p, p, i, i, i, p],
-            "hf_banded_factorize_rows": [p, p, p, i, i, i, i, p],
+            "hf_banded_factorize_rows": [p, p, p, i, i, i, i, i, p],
             "hf_banded_solve": [p, p, p, p, p, i, i, i, i, i, i, i, p],
-            "hf_batched_inverse": [p, i, i, ll, i, p],
+            "hf_batched_inverse": [p, i, i, ll, i, i, p],
         }
         for stem, argtypes in signatures.items():
             for sfx in ("f32", "f64"):
@@ -150,7 +158,7 @@ def _library():
             ("hf_factorize_smem_bytes", [i, i]),
             ("hf_schur_smem_bytes", [i, i]),
             ("hf_solve_smem_bytes", [i, i, i, i]),
-            ("hf_gj_smem_bytes", [i, i, i]),
+            ("hf_gj_smem_bytes", [i, i, i, i]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -188,6 +196,10 @@ def _smem_limit(dev) -> int:
     return int(getattr(props, "shared_memory_per_block_optin", 232448))
 
 
+def _sm_count(dev) -> int:
+    return int(torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
 def _raise_on(lib, code: int, name: str):
     if code != 0:
         msg = lib.hf_error_string(code).decode()
@@ -222,67 +234,145 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def batched_inverse_plain(X, w: int = GJ_WIDTH):
+def gj_cluster(n: int, s: int, sm_count: int) -> int:
+    """Thread blocks per matrix of K3/K4 for n matrices of s x s on a card
+    of ``sm_count`` SMs: the largest c with n c <= 3/4 sm_count and
+    c <= s / GJ_MIN_COLS, at most GJ_MAX_CLUSTER, at least 1.
+
+    Measured on the H100 (``PERF.md``): the cluster scheduler places a
+    cluster's blocks inside one GPC, so well before n c reaches the SM count
+    some blocks share an SM or wait for a second wave, and the matrix takes
+    as long as its slowest block (16 matrices of s=516 ran slower at c=8
+    than at 6); and below about GJ_MIN_COLS columns per block the
+    per-step costs every block pays (staging all pivot columns, the pivot
+    inverse, two cluster barriers) outweigh the split (s=65: c=1).  At
+    every K3 shape of the lanes (K1's rows, each cyclic-reduction level of
+    the structured prior, the helmholtz Schur complements) the c it picks
+    above 1 measured faster than c=1."""
+    return max(1, min(GJ_MAX_CLUSTER, 3 * sm_count // (4 * max(n, 1)),
+                      s // GJ_MIN_COLS))
+
+
+def gj_slices(s: int, c: int):
+    """The column ranges [lo, hi) that the c blocks of a K3/K4 cluster own:
+    rank r takes the 32-column chunks [r m / c, (r + 1) m / c) of the
+    m = ceil(s / 32) of a row (possibly none)."""
+    m = -(-s // 32)
+    return [(min(s, 32 * (r * m // c)), min(s, 32 * ((r + 1) * m // c)))
+            for r in range(c)]
+
+
+def _pivot_block_inverse(P):
+    """(N, w, w) -> P^-1 by w rank-1 Gauss-Jordan steps on [P | I]."""
+    N, wp, _ = P.shape
+    aug = torch.cat(
+        [P, torch.eye(wp, dtype=P.dtype, device=P.device).expand(N, wp, wp)],
+        dim=2,
+    )
+    for k in range(wp):
+        row = aug[:, k : k + 1, :] / aug[:, k : k + 1, k : k + 1]
+        col = aug[:, :, k : k + 1].clone()
+        col[:, k] = 0.0
+        aug = aug - col * row
+        aug[:, k : k + 1] = row
+    return aug[:, :, wp:]
+
+
+def batched_inverse_plain(X, w: int = GJ_WIDTH, slices: int = 1):
     """Plain PyTorch Gauss-Jordan inverse without pivoting, in pivot blocks
     of width w (the algorithm of the JAX package's ``blocked_inverse`` and
     ``_small_gj_inverse``, written in place as K3/K4 run it): per block
     step, the w x w pivot block P is inverted by w rank-1 steps on
     [P | I]; the pivot rows become P^-1 R (P^-1 on the block itself), and
     the other rows X - C P^-1 R with their pivot columns read as zero.
-    X (N, s, s) -> (N, s, s)."""
-    N, s, _ = X.shape
+
+    ``slices`` runs the schedule of a cluster of that many blocks: per
+    step, the pivot columns C (P among them) are staged first, then the
+    column slices of ``gj_slices`` are updated one after another, those
+    that hold pivot columns last.  X (N, s, s) -> (N, s, s)."""
+    if slices < 1:
+        raise ValueError(f"slices={slices}: at least 1")
+    s = X.shape[-1]
     X = X.clone()
+    cols = gj_slices(s, slices)
     for kb in range(0, s, w):
         p = slice(kb, min(kb + w, s))
-        wp = p.stop - kb
-        aug = torch.cat(
-            [X[:, p, p],
-             torch.eye(wp, dtype=X.dtype, device=X.device).expand(N, wp, wp)],
-            dim=2,
-        )
-        for k in range(wp):
-            row = aug[:, k : k + 1, :] / aug[:, k : k + 1, k : k + 1]
-            col = aug[:, :, k : k + 1].clone()
-            col[:, k] = 0.0
-            aug = aug - col * row
-            aug[:, k : k + 1] = row
-        Pinv = aug[:, :, wp:]
-        Rn = Pinv @ X[:, p, :]
-        Rn[:, :, p] = Pinv
         C = X[:, :, p].clone()
+        Pinv = _pivot_block_inverse(C[:, p])
         C[:, p] = 0.0
-        X[:, :, p] = 0.0
-        X = X - C @ Rn
-        X[:, p, :] = Rn
+        owners = [c for c in cols if c[0] < p.stop and kb < c[1]]
+        for lo, hi in [c for c in cols if c not in owners] + owners:
+            if lo == hi:
+                continue
+            Rn = Pinv @ X[:, p, lo:hi]
+            a, b = max(lo, kb), min(hi, p.stop)
+            if a < b:
+                Rn[:, :, a - lo : b - lo] = Pinv[:, :, a - kb : b - kb]
+                X[:, :, a:b] = 0.0
+            X[:, :, lo:hi] -= C @ Rn
+            X[:, p, lo:hi] = Rn
     return X
 
 
-def batched_inverse(X, rank1: bool = False):
+def _inverse_launch(X, n: int, s: int, stride: int, w: int, cluster):
+    """K3/K4 on n matrices of s x s at X.data_ptr(), ``stride`` elements
+    apart, in place; cluster None takes ``gj_cluster``'s choice."""
+    if cluster is None:
+        cluster = gj_cluster(n, s, _sm_count(X.device))
+    lib = _library()
+    _smem_check("batched_inverse",
+                lib.hf_gj_smem_bytes(s, w, cluster, X.element_size()),
+                X.device, f"s={s} at pivot width {w} in clusters of {cluster}")
+    if n == 0 or s == 0:
+        return
+    _launch(lib, getattr(lib, f"hf_batched_inverse_{_suffix(X.dtype)}"),
+            "batched_inverse", X.device, X.data_ptr(), n, s, stride, w, cluster)
+    if w == 1:
+        batched_inverse.rank1_launches += 1
+    else:
+        batched_inverse.launches += 1
+
+
+def batched_inverse(X, rank1: bool = False, cluster: int | None = None):
     """K3 (pivot blocks of 13) or, with ``rank1``, K4 (rank-1 updates, the
     JAX package's ``force="pallas_rank1"``).  X (N, s, s) -> X^-1, without
     pivoting: the inputs must not need it (diagonally dominant or SPD
     blocks, and the Schur complements of the helmholtz bands, whose
-    identity residuals stay within a few times the pivoted inverse's)."""
+    identity residuals stay within a few times the pivoted inverse's).
+
+    On the card ``cluster`` forces the thread blocks per matrix (1 to
+    GJ_MAX_CLUSTER; the kernel refuses any other); None takes
+    ``gj_cluster``'s choice.  On the CPU the plain version runs the same
+    schedule with ``cluster`` column slices (None: 1)."""
     w = 1 if rank1 else GJ_WIDTH
     if X.device.type == "cpu":
-        return batched_inverse_plain(X, w)
+        return batched_inverse_plain(X, w, 1 if cluster is None else cluster)
     if X.ndim != 3 or X.shape[1] != X.shape[2]:
         raise ValueError(f"batched_inverse: shape {tuple(X.shape)}, want (N, s, s)")
     N, s, _ = X.shape
     _check_cuda("batched_inverse", [X], [X.shape])
-    lib = _library()
-    _smem_check("batched_inverse", lib.hf_gj_smem_bytes(s, w, X.element_size()),
-                X.device, f"s={s} at pivot width {w}")
     out = X.clone()
-    if N == 0 or s == 0:
-        return out
-    _launch(lib, getattr(lib, f"hf_batched_inverse_{_suffix(X.dtype)}"),
-            "batched_inverse", X.device, out.data_ptr(), N, s, s * s, w)
-    if rank1:
-        batched_inverse.rank1_launches += 1
-    else:
-        batched_inverse.launches += 1
+    _inverse_launch(out, N, s, s * s, w, cluster)
     return out
+
+
+def batched_inverse_row_(buf, j: int, cluster: int | None = None):
+    """K3 on block row j of an (N, nb, s, s) buffer, in place: buf[:, j]
+    <- buf[:, j]^-1, the other rows untouched (the launch K1's row design
+    makes at each block row).  Returns buf."""
+    if buf.device.type == "cpu":
+        buf[:, j] = batched_inverse_plain(buf[:, j], GJ_WIDTH,
+                                          1 if cluster is None else cluster)
+        return buf
+    if buf.ndim != 4 or buf.shape[2] != buf.shape[3]:
+        raise ValueError(f"batched_inverse_row_: shape {tuple(buf.shape)}, "
+                         "want (N, nb, s, s)")
+    N, nb, s, _ = buf.shape
+    if not 0 <= j < nb:
+        raise ValueError(f"batched_inverse_row_: row {j} of {nb}")
+    _check_cuda("batched_inverse_row_", [buf], [buf.shape])
+    _inverse_launch(buf[:, j], N, s, nb * s * s, GJ_WIDTH, cluster)
+    return buf
 
 
 batched_inverse.launches = 0
@@ -331,8 +421,9 @@ def banded_factorize(band, design: str | None = None):
 
     On the card, ``design`` 'chain' (one thread block per sample runs the
     whole row chain; s whose five s x s tiles fit in shared memory) or
-    'rows' (a Schur-step launch and a K3 launch per block row; any s up
-    to the row panels' shared memory); None takes 'chain' where it fits."""
+    'rows' (a Schur-step launch and a K3 launch per block row, in
+    clusters of ``gj_cluster(N, s, SMs)`` blocks per matrix; any s up to
+    the row panels' shared memory); None takes 'chain' where it fits."""
     if band.device.type == "cpu":
         return banded_factorize_plain(band)
     if band.ndim != 4 or band.shape[-1] != 3 * band.shape[-2]:
@@ -346,13 +437,15 @@ def banded_factorize(band, design: str | None = None):
     chain = lib.hf_factorize_smem_bytes(s, item)
     if design is None:
         design = "chain" if chain <= _smem_limit(band.device) else "rows"
+    cluster = gj_cluster(N, s, _sm_count(band.device))
     if design == "chain":
         _smem_check("banded_factorize", chain, band.device,
                     f"the one-block chain at s={s}")
     else:
         _smem_check("banded_factorize", lib.hf_schur_smem_bytes(s, item),
                     band.device, f"the row-panel Schur step at s={s}")
-        _smem_check("banded_factorize", lib.hf_gj_smem_bytes(s, GJ_WIDTH, item),
+        _smem_check("banded_factorize",
+                    lib.hf_gj_smem_bytes(s, GJ_WIDTH, cluster, item),
                     band.device, f"the row-panel inverse at s={s}")
     M = torch.empty((N, nb, s, s), dtype=band.dtype, device=band.device)
     Dinv = torch.empty_like(M)
@@ -360,7 +453,7 @@ def banded_factorize(band, design: str | None = None):
         return M, Dinv
     args = (band.data_ptr(), M.data_ptr(), Dinv.data_ptr(), N, nb, s)
     if design == "rows":
-        args += (GJ_WIDTH,)
+        args += (GJ_WIDTH, cluster)
     stem = "hf_banded_factorize" + ("" if design == "chain" else "_rows")
     _launch(lib, getattr(lib, f"{stem}_{_suffix(band.dtype)}"),
             "banded_factorize", band.device, *args)

@@ -150,6 +150,64 @@ def test_batched_inverse_matches_plain(cuda, s, dtype, n, rank1):
     assert (X @ Y - eye).abs().max().item() < 1e3 * torch.finfo(dtype).eps
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, None])
+@pytest.mark.parametrize("rank1", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s", [17, 65, 193, 516])
+def test_batched_inverse_clusters_match_plain(cuda, s, dtype, rank1, cluster):
+    """K3 and K4 with each forced number of blocks per matrix (and the
+    picked one, None) against the plain version, with the identity
+    residual: one 32-column chunk at s=17 (blocks without columns), a
+    ragged last chunk and pivot blocks across chunk edges at 65, 193, 516."""
+    X = _dd_batch(3, s, dtype, cuda, seed=s + 7)
+    hk.reset_launch_counts()
+    Y = hk.batched_inverse(X, rank1=rank1, cluster=cluster)
+    Y_p = hk.batched_inverse_plain(X, 1 if rank1 else hk.GJ_WIDTH)
+    torch.cuda.synchronize()
+    assert (hk.batched_inverse.rank1_launches, hk.batched_inverse.launches) == (
+        (1, 0) if rank1 else (0, 1))
+    assert _rel(Y, Y_p) < TOL[dtype]
+    eye = torch.eye(s, dtype=dtype, device=cuda)
+    assert (X @ Y - eye).abs().max().item() < 1e3 * torch.finfo(dtype).eps
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,s", [(32, 193), (16, 193), (4, 65)])
+def test_batched_inverse_row_strided_in_a_factor(cuda, n, s, dtype, cluster):
+    """K3 on one block row of an (N, nb, s, s) buffer, as K1's row design
+    calls it: the row is inverted in place and its neighbours come out
+    bit for bit untouched."""
+    nb, j = 8, 5
+    buf = torch.stack([_dd_batch(n, s, dtype, cuda, seed=q) for q in range(nb)],
+                      dim=1).contiguous()
+    before = buf.clone()
+    hk.reset_launch_counts()
+    hk.batched_inverse_row_(buf, j, cluster=cluster)
+    want = hk.batched_inverse_plain(before[:, j])
+    torch.cuda.synchronize()
+    assert hk.batched_inverse.launches == 1
+    assert _rel(buf[:, j], want) < TOL[dtype]
+    for q in range(nb):
+        if q != j:
+            assert torch.equal(buf[:, q], before[:, q]), q
+
+
+@pytest.mark.parametrize("cluster", [0, 9, -1])
+def test_batched_inverse_refuses_a_bad_cluster(cuda, cluster):
+    """The kernel takes 1 to 8 blocks per matrix; any other count is
+    refused at the launch and the wrapper raises (no other path runs)."""
+    X = _dd_batch(2, 65, torch.float32, cuda)
+    hk.reset_launch_counts()
+    for rank1 in (False, True):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            hk.batched_inverse(X, rank1=rank1, cluster=cluster)
+    buf = X.reshape(1, 2, 65, 65).contiguous()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hk.batched_inverse_row_(buf, 0, cluster=cluster)
+    assert hk.batched_inverse.launches == hk.batched_inverse.rank1_launches == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("s,nb,design", [(193, 4, None), (65, 65, "rows")])
 def test_factorize_rows_design(cuda, dtype, s, nb, design):

@@ -208,7 +208,7 @@ def test_library_path_is_keyed_on_the_sources():
         assert (hk.CSRC / name).exists()
 
 
-@pytest.mark.parametrize("call", ["factorize", "solve"])
+@pytest.mark.parametrize("call", ["factorize", "solve", "inverse", "inverse_row"])
 def test_non_cpu_tensors_never_take_the_plain_versions(call):
     """A tensor that is not on the CPU goes to the kernel or raises: a
     "meta" tensor (no data, no card needed) is refused, not computed by
@@ -219,9 +219,14 @@ def test_non_cpu_tensors_never_take_the_plain_versions(call):
     with pytest.raises(RuntimeError, match="meta"):
         if call == "factorize":
             hk.banded_factorize(band)
-        else:
+        elif call == "solve":
             hk.banded_solve(blk, blk, blk, blk[..., :2], False)
+        elif call == "inverse":
+            hk.batched_inverse(blk[:, 0], cluster=2)
+        else:
+            hk.batched_inverse_row_(blk, 1, cluster=2)
     assert hk.banded_factorize.launches == hk.banded_solve.launches == 0
+    assert hk.batched_inverse.launches == 0
 
 
 H100_SMEM = 232448  # shared memory one block may opt into on the H100
@@ -246,6 +251,57 @@ def test_solve_tiles_pick_the_widest_tile_then_panel(s, k, itemsize, want):
     if got is not None:
         rows, kt = got
         assert (s * rows + 2 * s * kt) * itemsize <= H100_SMEM
+
+
+@pytest.mark.parametrize("n,s,want", [
+    (16, 516, 6),  # helmholtz Schur complements: 96 of the 99 blocks
+    (32, 193, 3),  # K1's rows in the nx=192 lane, chunk 32
+    (16, 193, 4),  # the same at N=16: at least 48 columns a block
+    (96, 193, 1),  # the prior's cyclic reduction
+    (32, 65, 1),  # nx=64 cyclic reduction: too narrow to split
+    (67, 193, 1),  # n > 132 / 2: one block per matrix
+    (1, 17, 1),  # s < 32: one chunk
+    (1, 31, 1),
+    (2, 96, 2),
+    (1, 1024, 8),  # capped at the portable cluster size
+    (0, 516, 8),
+    (1000, 516, 1),  # more matrices than SMs
+])
+def test_gj_cluster_keeps_a_margin_of_sms_and_columns(n, s, want):
+    c = hk.gj_cluster(n, s, 132)
+    assert c == want
+    assert 1 <= c <= hk.GJ_MAX_CLUSTER
+    assert c == 1 or (4 * n * c <= 3 * 132 and c * hk.GJ_MIN_COLS <= s)
+
+
+@pytest.mark.parametrize("s,c", [(516, 8), (193, 4), (193, 7), (65, 3),
+                                 (17, 8), (33, 2), (5, 3)])
+def test_gj_slices_split_a_row_into_whole_chunks(s, c):
+    """The column slices of a K3 cluster tile [0, s) in order, each a run
+    of whole 32-column chunks (the last ragged), balanced to one chunk."""
+    sl = hk.gj_slices(s, c)
+    assert len(sl) == c and sl[0][0] == 0 and sl[-1][1] == s
+    assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+    assert all(lo % 32 == 0 and (hi % 32 == 0 or hi == s) for lo, hi in sl)
+    chunks = [-(-(hi - lo) // 32) for lo, hi in sl]
+    assert max(chunks) - min(chunks) <= 1
+
+
+def test_batched_inverse_row_inverts_one_block_row_in_place():
+    """The strided call of K1's row design: buf[:, j] is inverted in place
+    (with any column schedule) and every other block row is untouched."""
+    rng = np.random.default_rng(3)
+    buf = interop.tensor(rng.standard_normal((3, 4, 40, 40)) + 40 * np.eye(40),
+                         **F64)
+    want = buf.clone()
+    want[:, 2] = torch.linalg.inv(buf[:, 2])
+    for c in (None, 1, 2):
+        got = hk.batched_inverse_row_(buf.clone(), 2, cluster=c)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-13)
+        for j in (0, 1, 3):
+            assert torch.equal(got[:, j], buf[:, j])
+    with pytest.raises(ValueError, match="slices"):
+        hk.batched_inverse(buf[:, 0], cluster=0)
 
 
 def test_wrappers_reject_malformed_shapes():

@@ -153,6 +153,32 @@ def test_batched_inverse_matches_pallas_interpret(kind, rank1, s, n):
         np.testing.assert_allclose(got, blk, rtol=0, atol=TOL * np.abs(blk).max())
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_blocked_inverses(s: int):
+    """Two diagonally dominant s x s matrices, and their inverses by the
+    Pallas kernel K3 replaces (interpret mode) and by ``blocked_inverse``."""
+    X = _inverse_inputs("random", s, 2)
+    return (X, np.asarray(j_batched_inverse(jnp.asarray(X), force="pallas")),
+            np.asarray(j_blocked_inverse(jnp.asarray(X), 13)))
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("s", [17, 65, 193])
+def test_batched_inverse_cluster_schedule_matches_jax(s, c):
+    """K3's schedule for a cluster of c blocks per matrix (pivot columns
+    staged first, the column slices updated one after another, the pivot
+    columns' owners last) against the Pallas kernel and ``blocked_inverse``;
+    s=17 has one 32-column chunk (c - 1 slices are empty), s=193 seven with
+    a ragged last one; the wrapper takes the same schedule on the CPU."""
+    X, want_pallas, want_blocked = _jax_blocked_inverses(s)
+    Xt = interop.tensor(X, **F64)
+    got = hk.batched_inverse_plain(Xt, 13, slices=c)
+    for want in (want_pallas, want_blocked):
+        np.testing.assert_allclose(_np(got), want, rtol=0,
+                                   atol=TOL * np.abs(want).max())
+    assert torch.equal(hk.batched_inverse(Xt, cluster=c), got)
+
+
 def test_batched_inverse_widths_agree_and_keep_input():
     X = interop.tensor(_inverse_inputs("random", 29, 4), **F64)
     X0 = X.clone()
