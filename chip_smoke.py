@@ -4,6 +4,11 @@
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --profile   # also: device-time tables of the main
                                       # path and the two large lanes
+    python3 chip_smoke.py --parent DIR   # also time the K1 chain of another
+                                      # checkout of this repository, unpacked
+                                      # into DIR inside this one (it builds
+                                      # its kernels there), in turns with
+                                      # this one's designs
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin``, ``PATH`` or
 ``/usr/local/cuda/bin``); imports nothing of JAX.  Phases, one summary line
@@ -15,8 +20,13 @@ each:
 3. kernels: K1 (``banded_factorize``) and K2 (``banded_solve``) against their
    plain PyTorch versions on confusion bands at nx=64 (N=256, nb=s=65,
    k=1 and k=100) in float32 and float64, with residuals and timings; K1's
-   row-panel design at s=65 against the one-block chain and the plain
-   version;
+   row-panel design at s=65 against the chain and the plain version; a
+   ``K1 designs`` line per dtype at N=256 and at the main path's N=1024
+   (the chain, the rows, with ``--parent`` that checkout's chain; each
+   held against the plain version
+   and the chain against the rows, then timed in turns, beside the bound
+   and the design that ``design=None`` takes; the same at every K1 shape
+   of the lanes in phases 5-7);
 4. inverses: K3 and K4 (``batched_inverse``) against their plain version on
    the prior's cyclic-reduction blocks at nx=64 (N=32, s=65) and nx=192
    (N=96, s=193), both dtypes, with the identity residual and timings; K3
@@ -290,6 +300,83 @@ def time_k3_clusters(X, label, row=None, reps=5):
             "inv_ms": inv_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def load_parent(path):
+    """The kernel module of another checkout of this repository (``--parent
+    DIR``: its ``hippyflow_tpu_torch/ops/hopper_kernels.py``, which builds
+    its own sources into its own directory), for timing an earlier design
+    in turns with this one.  DIR must lie inside this checkout: nothing is
+    written around it."""
+    import importlib.util
+
+    path = os.path.realpath(path)
+    if os.path.commonpath([path, os.path.realpath(REPO)]) != os.path.realpath(REPO):
+        raise SystemExit(f"--parent {path}: not inside {REPO}")
+    src = os.path.join(path, "hippyflow_tpu_torch", "ops", "hopper_kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_hopper_kernels", src)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    mod.build_kernels()
+    return mod
+
+
+def k1_designs(band64, label, parent=None, dtypes=(torch.float32, torch.float64),
+               reps=3):
+    """K1's designs on one band: the chain where the shape takes it, the
+    rows, and (``parent``) the chain of an earlier checkout, each held
+    against the plain version (and the chain against the rows) within TOL,
+    then timed in turns (the list forwards, then backwards), beside the
+    bound and the design that ``design=None`` takes.  Returns
+    {dtype name: {...}} for the kernels' JSON line."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    N, nb, s, _ = band64.shape
+    limit = hk._smem_limit(band64.device)
+    out = {}
+    for dtype in dtypes:
+        name, tol = str(dtype)[6:], TOL[dtype]["diff"]
+        band = band64.to(dtype)
+        item = band.element_size()
+        runs = {"rows": lambda: hk.banded_factorize(band, design="rows")}
+        if parent is not None and (5 * s * s + 2 * s + 1) * item <= limit:
+            runs["parent chain"] = lambda: parent.banded_factorize(band, design="chain")
+        picked, _ = hk.factorize_design(s, item, limit)
+        if hk.chain_geometry(s, item, limit) is not None:
+            runs["chain"] = lambda: hk.banded_factorize(band, design="chain")
+        M_p, D_p = hk.banded_factorize_plain(band)
+        scale = D_p.abs().max().item()
+        worst, rows = 0.0, None
+        for key, fn in runs.items():
+            M, Dinv = fn()
+            torch.cuda.synchronize()
+            err = max((M - M_p).abs().max().item(), (Dinv - D_p).abs().max().item())
+            check(err <= tol * scale and not M[:, 0].any(),
+                  f"K1 {label} {name} {key}: against plain {err / scale:.3e}")
+            worst = max(worst, err)
+            if key == "rows":
+                rows = (M, Dinv)
+            elif key == "chain":
+                diff = max(rel_err(M, rows[0]), rel_err(Dinv, rows[1]))
+                check(diff <= tol, f"K1 {label} {name} {key}: against rows {diff:.3e}")
+            del M, Dinv
+        del rows, M_p, D_p
+        ms = {key: [] for key in runs}
+        order = list(runs)
+        for keys in (order, order[::-1]):
+            for key in keys:
+                ms[key].append(cuda_ms(runs[key], reps))
+        ms = {key: sum(v) / len(v) for key, v in ms.items()}
+        best = min((k for k in ms if k != "parent chain"), key=ms.get)
+        b_ms, b_by = k1_bound(N, nb, s, dtype)
+        log(f"K1 designs {label} {name} N={N} nb={nb} s={s}: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; bound {b_ms:.4f} ms ({b_by}); picked {picked} "
+            f"({ms[picked]:.4f} ms), fastest {best}; max abs err {worst:.3e}")
+        out[name] = {"ms": ms, "picked": picked, "fastest": best,
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst}
+    return out
+
+
 def setup(dtype, device, nx=NX, with_prior=True):
     from hippyflow_tpu_torch.applications.confusion import (
         confusion_linear_observable,
@@ -326,8 +413,10 @@ def newton_bands(obs64, prior64, n, device):
     return band, gen
 
 
-def phase_kernels(obs64, prior64, device):
-    """K1/K2 against their plain versions at the main path's shapes."""
+def phase_kernels(obs64, prior64, device, parent=None):
+    """K1/K2 against their plain versions at the main path's shapes, and
+    K1's designs at N=256 and at the main path's N=1024 (the 256 bands
+    four times over, float32)."""
     from hippyflow_tpu_torch.ops import hopper_kernels as hk
     from hippyflow_tpu_torch.ops.structured import (
         block_tridiag_matmat,
@@ -382,7 +471,8 @@ def phase_kernels(obs64, prior64, device):
             continue
         bb1, bb100 = rhs64[1].to(dtype), rhs64[100].to(dtype)
         k1_ms, k1_plain = paired_ms(
-            lambda: hk.banded_factorize(band), lambda: hk.banded_factorize_plain(band)
+            lambda: hk.banded_factorize(band),
+            lambda: hk.banded_factorize_plain(band), reps=2
         )
         k2_ms, k2_plain = paired_ms(
             lambda: hk.banded_solve(M, Dinv, B, bb100, True),
@@ -410,6 +500,11 @@ def phase_kernels(obs64, prior64, device):
                              "ms_k1": k2_ms1, "plain_ms_k1": k2_plain1,
                              **bound_keys("k1", *k2_bound(N, nb, s, 1, dtype))},
         }
+    designs = {f"n{N}_s{s}": k1_designs(band64, f"nx={NX} Newton bands", parent)}
+    designs[f"n{N_SAMPLES}_s{s}"] = k1_designs(
+        torch.cat([band64.float()] * (N_SAMPLES // N)), f"nx={NX} Newton bands",
+        parent, dtypes=(torch.float32,), reps=2)
+    report["banded_factorize"]["designs"] = designs
     return report, band64
 
 
@@ -500,7 +595,7 @@ def phase_inverses(priors):
     return report
 
 
-def phase_s193(obs64, prior64, device):
+def phase_s193(obs64, prior64, device, parent=None):
     """K1 (row panels) and K2 (streamed at k=1, panels at k=100), each
     picked by shape, against their plain versions on Newton bands of the
     nx=192 problem."""
@@ -547,7 +642,7 @@ def phase_s193(obs64, prior64, device):
             continue
         bb1, bb100 = rhs64[1].to(dtype), rhs64[100].to(dtype)
         k1 = paired_ms(lambda: hk.banded_factorize(band),
-                       lambda: hk.banded_factorize_plain(band), reps=2)
+                       lambda: hk.banded_factorize_plain(band), reps=1)
         k2 = paired_ms(lambda: hk.banded_solve(M, Dinv, B, bb100, True),
                        lambda: hk.banded_solve_plain(M, Dinv, B, bb100, True),
                        reps=2)
@@ -570,6 +665,13 @@ def phase_s193(obs64, prior64, device):
                              **bound_keys("s193", *k2_bound(N, nb, s, 100, dtype)),
                              **bound_keys("k1_s193", *k2_bound(N, nb, s, 1, dtype))},
         }
+    # K1's designs at the nx=192 lane's chunk (32) and Jacobian chunk (16)
+    report["designs"] = {
+        f"n{N}_s{s}": k1_designs(band64, f"nx={NX192} Newton bands", parent,
+                                 reps=2),
+        f"n{2 * N}_s{s}": k1_designs(
+            torch.cat([band64.float()] * 2), f"nx={NX192} Newton bands", parent,
+            dtypes=(torch.float32,), reps=2)}
     # K3 as K1's rows call it in the nx=192 lane (chunk 32) and at N=16:
     # one block row of an (N, 8, s, s) buffer (the band's diagonal blocks)
     D = band64[:, :8, :, s : 2 * s].to(torch.float32)
@@ -608,7 +710,7 @@ def warm_start_levels(obs, vel, nx, depth, dtype, device):
     return levels
 
 
-def check_band_kernels(band64, ks, label, gen, reps=2):
+def check_band_kernels(band64, ks, label, gen, reps=2, parent=None):
     """K1 and K2 (for each (k, trans) of ``ks``) against their plain
     versions on float64 bands, in both dtypes, with the residuals of the
     kernels' solves; float32 times.  Returns {dtype: {...}}."""
@@ -665,10 +767,11 @@ def check_band_kernels(band64, ks, label, gen, reps=2):
                 line += f", K2 k={k} {t[0]:.3f} ms (plain {t[1]:.3f})"
         log(line)
         out[dtype] = rec
+    out["designs"] = k1_designs(band64, label, parent)
     return out
 
 
-def phase_coarse(levels, prior64, n, device):
+def phase_coarse(levels, prior64, n, device, parent=None):
     """K1 and K2 (k=1, the Newton solves) at the grid-sequencing levels'
     block sizes, on their own Newton bands: prior samples of m and u
     restricted from the fine grid, N = the lane's chunk."""
@@ -689,12 +792,13 @@ def phase_coarse(levels, prior64, n, device):
             problem.bound.assemble_A_banded(x[n:], x[:n]), problem.bc
         ).contiguous()
         s = band.shape[-2]
-        report[s] = check_band_kernels(band, ((1, False),), f"coarse s={s}", gen)
+        report[s] = check_band_kernels(band, ((1, False),), f"coarse s={s}", gen,
+                                       parent=parent)
         del band
     return report
 
 
-def phase_s516(device):
+def phase_s516(device, parent=None):
     """K1, K2 and K3 at the helmholtz lane's block size on its own bands
     (the operator at prior samples of m, N=16), both dtypes, against the
     pivoted plain versions; the Schur complements T_j = D_j - M_j B_{j-1}
@@ -824,6 +928,7 @@ def phase_s516(device):
         report[dtype] = rec
         del band, B, M, Dinv, M_p, D_p, T, T1
         torch.cuda.empty_cache()
+    report["designs"] = k1_designs(band64, "helmholtz bands", parent, reps=1)
     return s, report
 
 
@@ -902,6 +1007,8 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
         "banded_solve": hk.banded_solve.launches,
         "batched_inverse": hk.batched_inverse.launches,
         "batched_inverse_rank1": hk.batched_inverse.rank1_launches,
+        **{f"banded_factorize_{d}": n
+           for d, n in hk.banded_factorize.launches_by_design.items()},
     }
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = proj.stage_seconds
@@ -920,7 +1027,9 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
         f"{label} samples={n_samples} rank={rank}: total {total:.3f} s "
         f"(prior {total - sum(st.values()):.3f}, {stages}); {newton}; "
         f"resampled failures {proj.samples.n_failures}; launches K1 "
-        f"{launches['banded_factorize']} K2 {launches['banded_solve']} K3 "
+        f"{launches['banded_factorize']} (chain "
+        f"{launches['banded_factorize_chain']}, rows "
+        f"{launches['banded_factorize_rows']}) K2 {launches['banded_solve']} K3 "
         f"{launches['batched_inverse']} K4 {launches['batched_inverse_rank1']}; "
         f"peak {peak_gb:.2f} GB"
     )
@@ -1064,7 +1173,7 @@ def phase_helmholtz(device, profile=False):
 
 
 # the port's kernels by a part of their names in a profiler trace
-KERNEL_NAMES = (("K1 chain", "banded_factorize_kernel"),
+KERNEL_NAMES = (("K1 chain", "banded_chain_kernel"),
                 ("K1 Schur step", "schur_rows_kernel"),
                 ("K2", "banded_solve_kernel"), ("K3/K4", "gj_inverse_kernel"))
 
@@ -1112,30 +1221,30 @@ def phase_profile(obs32, prior32):
                 proj.construct_input_subspace)
 
 
-def run_phases(device, argv):
+def run_phases(device, argv, parent=None):
     """Phases 3-11; returns the kernels' JSON records."""
     from hippyflow_tpu_torch.applications.confusion import load_ns_velocity
     from hippyflow_tpu_torch.models import StructuredBiLaplacianPrior
 
     f64, f32 = torch.float64, torch.float32
     obs64, prior64 = setup(f64, device)
-    report, band64 = phase_kernels(obs64, prior64, device)
+    report, band64 = phase_kernels(obs64, prior64, device, parent)
     phase_rows_s65(band64)
     del band64
     sprior64 = StructuredBiLaplacianPrior(obs64.problem.Vu, gamma=0.1,
                                           delta=1.0, dtype=f64, device=device)
     obs192, sprior192 = setup(f64, device, nx=NX192)
     inv_report = phase_inverses({NX: sprior64, NX192: sprior192})
-    s193_report = phase_s193(obs192, sprior192, device)
+    s193_report = phase_s193(obs192, sprior192, device, parent)
     coarse = {}
     for nx, obs, prior, n in ((NX, obs64, prior64, N_SAMPLES),
                               (NX192, obs192, sprior192, CHUNK192)):
         levels = warm_start_levels(obs, load_ns_velocity(nx), nx,
                                    GRIDSEQ_DEPTH[nx], f64, device)
-        coarse.update(phase_coarse(levels, prior, n, device))
+        coarse.update(phase_coarse(levels, prior, n, device, parent))
     del obs192, sprior192
     torch.cuda.empty_cache()
-    s_helm, s516 = phase_s516(device)
+    s_helm, s516 = phase_s516(device, parent)
     torch.cuda.empty_cache()
     phase_parity(obs64, prior64)
     phase_parity(obs64, sprior64)
@@ -1156,6 +1265,11 @@ def run_phases(device, argv):
     torch.cuda.empty_cache()
     paths.update(phase_helmholtz(device, "--profile" in argv))
 
+    designs = report["banded_factorize"]["designs"]
+    designs.update(s193_report["designs"])
+    designs.update({f"n{N_SAMPLES if s in (33, 17) else CHUNK192}_s{s}":
+                    rec["designs"] for s, rec in coarse.items()})
+    designs[f"n{N_BAND_HELM}_s{s_helm}"] = s516["designs"]
     for name in ("banded_factorize", "banded_solve"):
         report[name].update(s193_report[name])
     for name, key in (("K3", "batched_inverse"), ("K4", "batched_inverse_rank1")):
@@ -1215,6 +1329,10 @@ def run_phases(device, argv):
          **report[name]}
         for name, (src, rep) in sources.items()
     ]
+    # K1's two designs: their launches on each path
+    kernels[0]["launches_by_design"] = {
+        d: {path: p[f"banded_factorize_{d}"] for path, p in paths.items()}
+        for d in ("chain", "rows")}
     return kernels
 
 
@@ -1238,7 +1356,10 @@ def main(argv) -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, "
         f"{len(hk.SOURCES)} sources in parallel) -> {os.path.relpath(lib, REPO)}")
 
-    kernels = run_phases(device, argv)
+    parent = None
+    if "--parent" in argv:
+        parent = load_parent(argv[argv.index("--parent") + 1])
+    kernels = run_phases(device, argv, parent)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

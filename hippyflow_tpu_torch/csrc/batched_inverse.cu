@@ -71,10 +71,6 @@ namespace {
 constexpr int kRowUnroll = 4;
 constexpr int kStageUnroll = 4;
 
-// IEEE round-to-nearest reciprocals
-__device__ __forceinline__ float hf_rcp(float x) { return __frcp_rn(x); }
-__device__ __forceinline__ double hf_rcp(double x) { return __drcp_rn(x); }
-
 // Columns of the update one thread owns (32 apart, so each load of a warp
 // stays one coalesced row segment): a row's pivot columns, read once from
 // shared memory, serve all of them.  Fewer in float64, for registers.
@@ -86,54 +82,6 @@ template <>
 struct GjCols<double> {
   static constexpr int n = 2;
 };
-
-// P^{-1} of the wp x wp pivot block P (rows at stride HF_GJ_ROW in shared
-// memory) by one warp, into pinv (same stride).  Lane l < 2 wp holds
-// column l of [P | I]; pivot step k scales row k by the pivot's reciprocal
-// (a division's latency, twice, would lie on the chain of w dependent
-// steps) and subtracts the multiples of it from the other rows, with the
-// pivot and the multipliers (column k) shuffled from lane k.  Called by all
-// 32 lanes of one warp.
-template <typename T>
-__device__ __forceinline__ void pivot_block_inverse(const T* P, int wp,
-                                                    T* pinv) {
-  const int lane = threadIdx.x & 31;
-  T col[HF_GJ_MAX_W];
-#pragma unroll
-  for (int r = 0; r < HF_GJ_MAX_W; ++r) {
-    T v = T(0);
-    if (r < wp) {
-      v = lane < wp ? P[r * HF_GJ_ROW + lane]
-                    : (lane - wp == r ? T(1) : T(0));
-    }
-    col[r] = v;
-  }
-  // rows past wp are zero in every lane, so they are shuffled and updated
-  // without a branch (a shuffle under a per-row branch costs the warp a
-  // reconvergence each)
-#pragma unroll
-  for (int k = 0; k < HF_GJ_MAX_W; ++k) {
-    if (k < wp) {
-      T m[HF_GJ_MAX_W];
-#pragma unroll
-      for (int r = 0; r < HF_GJ_MAX_W; ++r) {
-        m[r] = __shfl_sync(0xffffffffu, col[r], k);
-      }
-      const T rk = col[k] * hf_rcp(m[k]);
-#pragma unroll
-      for (int r = 0; r < HF_GJ_MAX_W; ++r) {
-        if (r != k) col[r] -= m[r] * rk;
-      }
-      col[k] = rk;
-    }
-  }
-  if (lane >= wp && lane < 2 * wp) {
-#pragma unroll
-    for (int r = 0; r < HF_GJ_MAX_W; ++r) {
-      if (r < wp) pinv[r * HF_GJ_ROW + lane - wp] = col[r];
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(HF_GJ_THREADS)
@@ -197,7 +145,7 @@ __global__ void __launch_bounds__(HF_GJ_THREADS)
       }
     }
     __syncthreads();
-    if (warp == 0) pivot_block_inverse(cs + (size_t)kb * HF_GJ_ROW, wp, pinv);
+    if (warp == 0) pivot_block_inverse(cs + (size_t)kb * HF_GJ_ROW, HF_GJ_ROW, wp, pinv);
     // (c) every block has staged the pivot columns; P^{-1} is published
     cg::this_cluster().sync();
 

@@ -3,7 +3,7 @@
 
 #include <cstddef>
 
-// Threads per block of K1's one-block chain and of K2.
+// Threads per block of K2.
 #define HF_THREADS 256
 // Threads per block of the Gauss-Jordan inverse (K3/K4).
 #define HF_GJ_THREADS 512
@@ -19,11 +19,20 @@
 // (the portable cluster size).
 #define HF_GJ_MAX_CLUSTER 8
 
-// Shared-memory elements of one block of K1's one-block chain: the
-// Dinv_{j-1}, B_{j-1} and M_j tiles (s x s each), the (s, 2s) Gauss-Jordan
-// tile, and the pivot row and column scratch (s + 1 and s).
-inline std::size_t hf_factorize_smem_elems(int s) {
-  return 5 * (std::size_t)s * s + 2 * (std::size_t)s + 1;
+// Most threads per block of K1's chain.
+#define HF_CHAIN_MAX_THREADS 640
+
+// Shared-memory elements of one block of K1's chain, tiles of s rows at
+// stride ld: the Dinv_{j-1}, T_j (A_j before the first product) and
+// B_{j-1} tiles and the M_j tile, which the Gauss-Jordan scratch overlays:
+// two buffers of staged pivot columns (s rows of HF_GJ_ROW), the pivot
+// block's inverse, and the new pivot rows (HF_GJ_MAX_W rows).
+inline std::size_t hf_factorize_smem_elems(int s, int ld) {
+  const std::size_t tile = (std::size_t)s * ld;
+  const std::size_t scratch = 2 * (std::size_t)HF_GJ_ROW * s +
+                              (std::size_t)HF_GJ_ROW * HF_GJ_MAX_W +
+                              (std::size_t)HF_GJ_MAX_W * ld;
+  return 3 * tile + (tile > scratch ? tile : scratch);
 }
 
 // Shared-memory elements of one block of K1's row-panel Schur step: the
@@ -83,6 +92,81 @@ __device__ __forceinline__ void hf_load16(const T* p, T (&a)[n]) {
     for (int q = 0; q < n; ++q) a[q] = p[q];
   }
 }
+
+#ifdef __CUDACC__
+// IEEE round-to-nearest reciprocals
+__device__ __forceinline__ float hf_rcp(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double hf_rcp(double x) { return __drcp_rn(x); }
+
+// P^{-1} of a wp x wp pivot block P by one warp, into pinv (rows at
+// stride HF_GJ_ROW in shared memory).  Lane l < 2 wp holds column l of
+// [P | I] in col (rows past wp zero in every lane); pivot step k scales
+// row k by the pivot's reciprocal (a division's latency, twice, would lie
+// on the chain of w dependent steps) and subtracts the multiples of it
+// from the other rows, with the pivot and the multipliers (column k)
+// shuffled from lane k.  Called by all 32 lanes of one warp.  Shared by
+// K3/K4 and K1's chain.
+template <typename T>
+__device__ __forceinline__ void pivot_block_inverse_cols(
+    T (&col)[HF_GJ_MAX_W], int wp, T* pinv) {
+  const int lane = threadIdx.x & 31;
+  // rows past wp are zero in every lane, so they are shuffled and updated
+  // without a branch (a shuffle under a per-row branch costs the warp a
+  // reconvergence each)
+#pragma unroll
+  for (int k = 0; k < HF_GJ_MAX_W; ++k) {
+    if (k < wp) {
+      T m[HF_GJ_MAX_W];
+#pragma unroll
+      for (int r = 0; r < HF_GJ_MAX_W; ++r) {
+        m[r] = __shfl_sync(0xffffffffu, col[r], k);
+      }
+      const T rk = col[k] * hf_rcp(m[k]);
+#pragma unroll
+      for (int r = 0; r < HF_GJ_MAX_W; ++r) {
+        if (r != k) col[r] -= m[r] * rk;
+      }
+      col[k] = rk;
+    }
+  }
+  if (lane >= wp && lane < 2 * wp) {
+#pragma unroll
+    for (int r = 0; r < HF_GJ_MAX_W; ++r) {
+      if (r < wp) pinv[r * HF_GJ_ROW + lane - wp] = col[r];
+    }
+  }
+}
+
+// What a lane holds of [P | I] given its column of P: the identity's
+// columns in lanes wp.., zeros in rows past wp.
+template <typename T>
+__device__ __forceinline__ void pivot_block_augment(T (&col)[HF_GJ_MAX_W],
+                                                    int wp) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < HF_GJ_MAX_W; ++r) {
+    if (lane >= wp) col[r] = (lane - wp == r) ? T(1) : T(0);
+    if (r >= wp) col[r] = T(0);
+  }
+}
+
+// The same with P read from shared memory (rows at stride ldp).
+template <typename T>
+__device__ __forceinline__ void pivot_block_inverse(const T* P, int ldp,
+                                                    int wp, T* pinv) {
+  const int lane = threadIdx.x & 31;
+  T col[HF_GJ_MAX_W];
+  // every load is started before the first is used: addresses are clamped
+  // into P, and what lies outside it is replaced afterwards
+  const int lc = lane < wp ? lane : wp - 1;
+#pragma unroll
+  for (int r = 0; r < HF_GJ_MAX_W; ++r) {
+    col[r] = P[(r < wp ? r : wp - 1) * ldp + lc];
+  }
+  pivot_block_augment(col, wp);
+  pivot_block_inverse_cols(col, wp, pinv);
+}
+#endif  // __CUDACC__
 
 // Rows of one factor panel of K2's panel design: 64, 32 or 16 (the host
 // picks them by s and the element size); 0 selects the streamed design.

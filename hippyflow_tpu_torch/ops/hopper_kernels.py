@@ -24,17 +24,21 @@ tensor it launches its kernel or raises; on a CPU tensor it runs its plain
 PyTorch version (``banded_factorize_plain``, ``banded_solve_plain``,
 ``batched_inverse_plain``), which is what the kernels are checked against
 on the card.  K1 and K2 have two designs each, picked by shape: K1's
-one-block chain (where its five s x s tiles fit: s <= 107 in float32, 76
-in float64) and row panels (larger s, s=516 included; ``design=`` forces
-one), and K2's panel solve (many rhs columns; panel rows and column tile
-from ``solve_tiles``) and streamed solve (few); none is a plain version.
+chain (one launch runs each sample's whole row chain in shared memory:
+register-tiled products, an in-place Gauss-Jordan in 13-wide pivot blocks
+with the next pivot block inverted beside the update; where its four
+s x s tiles fit: s <= 120 in float32, 84 in float64) and row panels
+(larger s, s=193 and 516; ``design=`` forces one), and K2's panel solve
+(many rhs columns; panel rows and column tile from ``solve_tiles``) and
+streamed solve (few); none is a plain version.
 
 The CUDA sources are compiled with ``nvcc`` for ``sm_90a``, one process per
 source in parallel, and linked into a shared library with a plain C
 interface, at first use, into
 ``hippyflow_tpu_torch/_build/<hash of the sources and flags>/``, and loaded
 with ``ctypes``.  Each wrapper counts its launches in a ``launches``
-attribute (``batched_inverse.rank1_launches`` for K4;
+attribute (``batched_inverse.rank1_launches`` for K4,
+``banded_factorize.launches_by_design`` for K1's two designs;
 ``reset_launch_counts`` zeroes them all); K1's row design launches K3 once
 per block row from C, and counts those launches in
 ``batched_inverse.launches``.
@@ -144,7 +148,7 @@ def _library():
         lib = ctypes.CDLL(str(build_kernels()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         signatures = {
-            "hf_banded_factorize": [p, p, p, i, i, i, p],
+            "hf_banded_factorize": [p, p, p, i, i, i, i, i, p],
             "hf_banded_factorize_rows": [p, p, p, i, i, i, i, i, p],
             "hf_banded_solve": [p, p, p, p, p, i, i, i, i, i, i, i, p],
             "hf_batched_inverse": [p, i, i, ll, i, i, p],
@@ -155,7 +159,7 @@ def _library():
                 fn.argtypes = argtypes
                 fn.restype = i
         for name, argtypes in (
-            ("hf_factorize_smem_bytes", [i, i]),
+            ("hf_factorize_smem_bytes", [i, i, i]),
             ("hf_schur_smem_bytes", [i, i]),
             ("hf_solve_smem_bytes", [i, i, i, i]),
             ("hf_gj_smem_bytes", [i, i, i, i]),
@@ -200,6 +204,18 @@ def _sm_count(dev) -> int:
     return int(torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
+# What a thread block takes of its SM's shared memory beyond its request
+BLOCK_SMEM_RESERVE = 1024
+
+
+def _sm_smem(dev) -> int:
+    """Shared memory of one SM: what one block may opt into, and its
+    reserve, where the device properties do not name it."""
+    props = torch.cuda.get_device_properties(dev)
+    return int(getattr(props, "shared_memory_per_multiprocessor",
+                       _smem_limit(dev) + BLOCK_SMEM_RESERVE))
+
+
 def _raise_on(lib, code: int, name: str):
     if code != 0:
         msg = lib.hf_error_string(code).decode()
@@ -224,6 +240,7 @@ def _launch(lib, fn, name: str, dev, *args) -> None:
 
 def reset_launch_counts() -> None:
     banded_factorize.launches = 0
+    banded_factorize.launches_by_design = {"chain": 0, "rows": 0}
     banded_solve.launches = 0
     batched_inverse.launches = 0
     batched_inverse.rank1_launches = 0
@@ -399,10 +416,12 @@ def banded_factorize_plain(band):
     return M, Dinv
 
 
-def banded_factorize_rows_plain(band):
-    """The row-panel design of K1 in plain PyTorch: per block row, the Schur
-    step M_j = A_j Dinv_{j-1}, T_j = D_j - M_j B_{j-1}, then the K3
-    inverse of T_j.  Same result as ``banded_factorize_plain``."""
+def banded_factorize_rows_plain(band, slices: int = 1):
+    """K1's schedule in plain PyTorch (the chain's, and with ``slices`` = c
+    the row-panel design's with K3 in clusters of c blocks): per block row,
+    the Schur step M_j = A_j Dinv_{j-1}, T_j = D_j - M_j B_{j-1}, then the
+    blocked Gauss-Jordan inverse of T_j on the column slices of
+    ``gj_slices``.  Same result as ``banded_factorize_plain``."""
     N, nb, s, _ = band.shape
     A, D, B = band[..., :s], band[..., s : 2 * s], band[..., 2 * s :]
     M = torch.zeros((N, nb, s, s), dtype=band.dtype, device=band.device)
@@ -412,58 +431,150 @@ def banded_factorize_rows_plain(band):
         if j > 0:
             M[:, j] = A[:, j] @ Dinv[:, j - 1]
             T = T - M[:, j] @ B[:, j - 1]
-        Dinv[:, j] = batched_inverse_plain(T, GJ_WIDTH)
+        Dinv[:, j] = batched_inverse_plain(T, GJ_WIDTH, slices)
     return M, Dinv
+
+
+# K1's chain: outputs per thread of its products (CHAIN_TILE x CHAIN_TILE),
+# the row stride of its staged pivot columns, and its most threads a block
+# (csrc/banded_factorize.cu, csrc/common.cuh)
+CHAIN_TILE = 4
+CHAIN_GJ_ROW = 16
+CHAIN_MAX_THREADS = 640
+
+
+def chain_ld(s: int, itemsize: int, padded: bool = True) -> int:
+    """Row stride, in elements, of a shared-memory tile of K1's chain with
+    s columns: whole 4-column product tiles in whole 16-byte vectors, and
+    (``padded``) an odd number of vectors, so that a walk down a column
+    spreads over the banks (s = 64 or 96 like s = 65)."""
+    vec = 16 // itemsize
+    q = -(-s // CHAIN_TILE) * CHAIN_TILE // vec
+    if padded and q % 2 == 0:
+        q += 1
+    return q * vec
+
+
+def chain_smem_elems(s: int, ld: int) -> int:
+    """Shared-memory elements of one block of K1's chain (the mirror of
+    ``hf_factorize_smem_elems``): the Dinv_{j-1}, T_j and B_{j-1} tiles
+    and the M_j tile, which the Gauss-Jordan scratch overlays."""
+    scratch = 2 * CHAIN_GJ_ROW * s + CHAIN_GJ_ROW * GJ_WIDTH + GJ_WIDTH * ld
+    return 3 * s * ld + max(s * ld, scratch)
+
+
+def chain_geometry(s: int, itemsize: int, limit: int):
+    """(ld, bytes) of K1's chain at block size s under a shared-memory
+    limit in bytes: the tiles' row stride and the block's shared memory;
+    the padded stride where it fits, else the unpadded; None where neither
+    fits.  On the H100 (232448 bytes) the chain fits s <= 120 in float32
+    (70720 bytes at s=65: three blocks per SM) and s <= 84 in float64."""
+    for padded in (True, False):
+        ld = chain_ld(s, itemsize, padded)
+        need = chain_smem_elems(s, ld) * itemsize
+        if need <= limit:
+            return ld, need
+    return None
+
+
+def chain_threads(n: int, s: int, sm_count: int, need: int, sm_smem: int) -> int:
+    """Threads per block of K1's chain for n samples, each block asking
+    ``need`` bytes of shared memory on SMs that have ``sm_smem``.  A block
+    has one 4 x 4 product tile per thread (in whole warps) where that is
+    possible:
+
+    * every block has an SM to itself (n <= SMs): at least 256 threads,
+      because the Gauss-Jordan phases are latency-bound and want warps,
+      at most CHAIN_MAX_THREADS;
+    * more than two blocks per SM, and shared memory lets three share one
+      (float32 at s <= 65): half the tiles' threads, in 64s, so that
+      registers let them;
+    * else the tiles' threads, at most CHAIN_MAX_THREADS / 2 (two passes
+      above that).
+
+    The rule follows a sweep of 64 to 640 threads at the lanes' shapes
+    (``ops/chain_threads_sweep.py``; ``PERF.md`` has its times)."""
+    tiles = (-(-s // CHAIN_TILE)) ** 2
+    full = 32 * -(-tiles // 32)
+    if n <= sm_count:
+        return min(CHAIN_MAX_THREADS, max(256, full))
+    if n > 2 * sm_count and sm_smem // (need + BLOCK_SMEM_RESERVE) >= 3:
+        return max(64, 64 * -(-tiles // 128))
+    return min(CHAIN_MAX_THREADS // 2, max(64, full))
+
+
+def factorize_design(s: int, itemsize: int, limit: int,
+                     design: str | None = None):
+    """(design, chain geometry or None) that ``banded_factorize`` takes at
+    block size s under a shared-memory limit in bytes: ``design`` as given,
+    else the chain where its tiles fit, else the rows.  Raises ValueError
+    for a chain whose tiles do not fit.
+
+    Measured on the H100 (``PERF.md``, ms, float32 / float64): wherever
+    the chain fits it is the faster design: N=256, s=65 2.73 / 6.29
+    against the rows' 10.42 / 16.57; N=32, s=97 5.79 against 10.81; s=49
+    1.02 / 1.55 against 2.67 / 3.05; s=25 0.27 / 0.34 against 0.63 / 0.68;
+    N=1024, s=33 1.66 / 3.45 against 7.90 / 11.23; s=17 0.34 / 0.46
+    against 2.08 / 2.48."""
+    if design not in (None, "chain", "rows"):
+        raise ValueError(f"design={design!r}: 'chain', 'rows' or None")
+    geometry = None if design == "rows" else chain_geometry(s, itemsize, limit)
+    if design == "chain" and geometry is None:
+        raise ValueError(
+            f"banded_factorize: the chain at s={s} needs more than the "
+            f"card's {limit} bytes of shared memory per block")
+    return ("rows" if geometry is None else "chain"), geometry
 
 
 def banded_factorize(band, design: str | None = None):
     """K1.  band (N, nb, s, 3s) -> (M, Dinv), each (N, nb, s, s).
 
     On the card, ``design`` 'chain' (one thread block per sample runs the
-    whole row chain; s whose five s x s tiles fit in shared memory) or
-    'rows' (a Schur-step launch and a K3 launch per block row, in
-    clusters of ``gj_cluster(N, s, SMs)`` blocks per matrix; any s up to
-    the row panels' shared memory); None takes 'chain' where it fits."""
+    whole row chain in shared memory; s whose tiles fit: s <= 120 in
+    float32, 84 in float64) or 'rows' (a Schur-step launch and a K3 launch
+    per block row, in clusters of ``gj_cluster(N, s, SMs)`` blocks per
+    matrix; any s up to the row panels' shared memory); None takes what
+    ``factorize_design`` picks: the chain where it fits, which is where it
+    measured faster."""
     if band.device.type == "cpu":
         return banded_factorize_plain(band)
     if band.ndim != 4 or band.shape[-1] != 3 * band.shape[-2]:
         raise ValueError(f"band shape {tuple(band.shape)}, want (N, nb, s, 3s)")
-    if design not in (None, "chain", "rows"):
-        raise ValueError(f"design={design!r}: 'chain', 'rows' or None")
     N, nb, s, _ = band.shape
     _check_cuda("banded_factorize", [band], [band.shape])
+    dev, item = band.device, band.element_size()
+    design, geometry = factorize_design(s, item, _smem_limit(dev), design)
     lib = _library()
-    item = band.element_size()
-    chain = lib.hf_factorize_smem_bytes(s, item)
-    if design is None:
-        design = "chain" if chain <= _smem_limit(band.device) else "rows"
-    cluster = gj_cluster(N, s, _sm_count(band.device))
     if design == "chain":
-        _smem_check("banded_factorize", chain, band.device,
-                    f"the one-block chain at s={s}")
+        ld, need = geometry
+        _smem_check("banded_factorize", lib.hf_factorize_smem_bytes(s, ld, item),
+                    dev, f"the chain at s={s}")
+        args = (ld, chain_threads(N, s, _sm_count(dev), need, _sm_smem(dev)))
     else:
+        cluster = gj_cluster(N, s, _sm_count(dev))
         _smem_check("banded_factorize", lib.hf_schur_smem_bytes(s, item),
-                    band.device, f"the row-panel Schur step at s={s}")
+                    dev, f"the row-panel Schur step at s={s}")
         _smem_check("banded_factorize",
                     lib.hf_gj_smem_bytes(s, GJ_WIDTH, cluster, item),
-                    band.device, f"the row-panel inverse at s={s}")
-    M = torch.empty((N, nb, s, s), dtype=band.dtype, device=band.device)
+                    dev, f"the row-panel inverse at s={s}")
+        args = (GJ_WIDTH, cluster)
+    M = torch.empty((N, nb, s, s), dtype=band.dtype, device=dev)
     Dinv = torch.empty_like(M)
     if N == 0 or nb == 0:
         return M, Dinv
-    args = (band.data_ptr(), M.data_ptr(), Dinv.data_ptr(), N, nb, s)
-    if design == "rows":
-        args += (GJ_WIDTH, cluster)
     stem = "hf_banded_factorize" + ("" if design == "chain" else "_rows")
     _launch(lib, getattr(lib, f"{stem}_{_suffix(band.dtype)}"),
-            "banded_factorize", band.device, *args)
+            "banded_factorize", dev, band.data_ptr(), M.data_ptr(),
+            Dinv.data_ptr(), N, nb, s, *args)
     banded_factorize.launches += 1
+    banded_factorize.launches_by_design[design] += 1
     if design == "rows":
         batched_inverse.launches += nb  # K3 inverts each block row
     return M, Dinv
 
 
 banded_factorize.launches = 0
+banded_factorize.launches_by_design = {"chain": 0, "rows": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -94,8 +94,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         hk.banded_factorize(band.half())
     with pytest.raises(ValueError, match="contiguous"):
         hk.banded_factorize(torch.zeros((2, 17, 17, 102), device=cuda)[..., ::2])
-    # s=193 (the nx=192 lane) is too wide for the one-block chain; the
-    # wrapper takes the row panels there unless told otherwise
+    # s=193 (the nx=192 lane) is too wide for the chain; the wrapper takes
+    # the row panels there unless told otherwise
     with pytest.raises(ValueError, match="shared memory"):
         hk.banded_factorize(torch.zeros((1, 2, 193, 579), device=cuda),
                             design="chain")
@@ -213,7 +213,7 @@ def test_batched_inverse_refuses_a_bad_cluster(cuda, cluster):
 def test_factorize_rows_design(cuda, dtype, s, nb, design):
     """K1's row-panel design: at s=193 (picked by shape) and at s=65 (forced),
     against the plain factorization, its plain decomposition and, at s=65,
-    the one-block chain."""
+    the chain."""
     band = _band(s, 3, dtype, cuda, seed=3, nb=nb)
     M, Dinv = hk.banded_factorize(band, design=design)
     M_p, D_p = hk.banded_factorize_plain(band)
@@ -225,6 +225,55 @@ def test_factorize_rows_design(cuda, dtype, s, nb, design):
     if design == "rows":
         M_c, D_c = hk.banded_factorize(band, design="chain")
         assert _rel(M, M_c) < TOL[dtype] and _rel(Dinv, D_c) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s,nb", [(17, 17), (25, 25), (33, 6), (49, 49), (64, 5),
+                                  (65, 65), (84, 4), (96, 3), (97, 5), (120, 3)])
+def test_factorize_chain(cuda, dtype, s, nb):
+    """K1's chain against the plain version, the schedule's plain version
+    and the row design: one 32-column chunk (17, 25), pivot blocks across
+    chunk edges and ragged last chunks (33, 49, 65, 97), strides that need
+    padding (64, 96) and the largest sizes that fit (84 in float64, 120 in
+    float32).  Tiles that do not fit raise before any launch."""
+    band = _band(s, 3, dtype, cuda, seed=s, nb=nb)
+    hk.reset_launch_counts()
+    if hk.chain_geometry(s, band.element_size(), hk._smem_limit(cuda)) is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            hk.banded_factorize(band, design="chain")
+        assert hk.banded_factorize.launches == 0
+        return
+    M, Dinv = hk.banded_factorize(band, design="chain")
+    M_p, D_p = hk.banded_factorize_plain(band)
+    M_s, D_s = hk.banded_factorize_rows_plain(band)
+    M_r, D_r = hk.banded_factorize(band, design="rows")
+    torch.cuda.synchronize()
+    assert hk.banded_factorize.launches_by_design == {"chain": 1, "rows": 1}
+    assert not M[:, 0].any()
+    for got, want in ((M, M_p), (Dinv, D_p), (M, M_s), (Dinv, D_s), (M, M_r),
+                      (Dinv, D_r)):
+        assert _rel(got, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("s,dtype", [(65, torch.float32), (97, torch.float32),
+                                     (120, torch.float32), (33, torch.float64),
+                                     (84, torch.float64), (65, torch.float64)])
+def test_chain_geometry_mirrors_the_library(cuda, s, dtype):
+    """The wrapper's shared-memory count is the library's, and the library
+    refuses a stride that is no whole vector or too narrow, and a thread
+    count that is no whole warp, leaves warp 0 alone or is too large."""
+    lib = hk._library()
+    item = torch.finfo(dtype).bits // 8
+    ld, need = hk.chain_geometry(s, item, hk._smem_limit(cuda))
+    assert lib.hf_factorize_smem_bytes(s, ld, item) == need
+    band = _band(s, 1, dtype, cuda, nb=2)
+    M, Dinv = torch.empty_like(band[..., :s]), torch.empty_like(band[..., :s])
+    fn = getattr(lib, f"hf_banded_factorize_{hk._suffix(dtype)}")
+    for bad in ((ld + 1, 256), (s - 1, 256), (ld, 250), (ld, 32),
+                (ld, hk.CHAIN_MAX_THREADS + 32)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            hk._launch(lib, fn, "banded_factorize", cuda, band.data_ptr(),
+                       M.data_ptr(), Dinv.data_ptr(), 1, 2, s, *bad)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -287,11 +336,11 @@ def test_kernels_at_the_new_block_sizes(cuda, dtype, s):
     band = _band(s, 2, torch.float64, cuda, seed=s, nb=nb)
     b = band.to(dtype)
     B = b[..., 2 * s :].contiguous()
-    lib, limit = hk._library(), hk._smem_limit(cuda)
+    limit = hk._smem_limit(cuda)
     item = b.element_size()
     M_p, D_p = hk.banded_factorize_plain(b)
     designs = ["rows"]
-    if lib.hf_factorize_smem_bytes(s, item) <= limit:
+    if hk.chain_geometry(s, item, limit) is not None:
         designs.append("chain")
     for design in designs:
         M, Dinv = hk.banded_factorize(b, design=design)
