@@ -39,60 +39,46 @@
 //   that fit the card's 227 KB: R=64 at s <= 193; at s=516 (helmholtz)
 //   R=32, kt=32 in float32 (198 KB) and R=16, kt=16 in float64 (198 KB;
 //   one 64-row float64 panel alone is 264 KB).
-// * streamed (k < 8, the Newton solves): one output element per thread,
-//   the factor blocks read where they lie (L1/L2); shared memory holds
-//   only the carry and its partner.
+// * streamed (k < 8, the Newton solves; bound by the bytes of the factor,
+//   each read once, and by the chain of 3 nb - 2 dependent products): the
+//   addresses of the factor blocks do not depend on the carry, so the
+//   factor is fetched ahead of the recurrence.  A cluster of c thread
+//   blocks works on one sample (c = 1 to 8, picked by the host:
+//   `stream_cluster` in ops/hopper_kernels.py; c = 1 is a plain launch).
+//   Rank r owns rows [r s / c, (r + 1) s / c) of every factor block, a
+//   contiguous run of memory, so each byte of the factor is read by one
+//   block only.  The run passes in chunks of whole rows through a ring of
+//   shared-memory stages: thread 0 issues one bulk copy
+//   (`cp.async.bulk`, completion counted by an `mbarrier` per stage) per
+//   chunk, up to the ring's depth ahead of the chunk being used, across
+//   products and across the cluster barrier, and the warps give a stage
+//   back through a second `mbarrier`.  A bulk copy needs 16-byte ends and
+//   a slab starts on an element (s is odd on most lanes), so a copy takes
+//   the 16-byte span around its chunk and the reader adds the offset.
+//   One access pattern serves both orientations:
+//   - op(H) = H: a warp takes two rows of the chunk, its lanes stride
+//     over the row (conflict-free), a shuffle tree sums them, and the
+//     result goes into every rank's copy of the carry (distributed shared
+//     memory); one cluster barrier per product;
+//   - op(H) = H^T: a warp owns 32 output columns and one of `rsplit` row
+//     splits of the chunk, each lane with four independent accumulators;
+//     the block's partial sums over its slab of rows go to the ranks that
+//     own the outputs, which after one cluster barrier add them up: the
+//     carry a rank needs for the next product is the slice it has summed.
+//   The rhs rows of the next product are fetched one product ahead
+//   (`cp.async`), and each rank reads and writes only its own rows of the
+//   rhs and the output.
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "common.cuh"
 
-namespace {
+namespace cg = cooperative_groups;
 
-// One sweep step on a column tile: out = op(G) (in - op(H) carry), or
-// out = in - op(H) carry when G is null, with op(X) = X^T when the flag is
-// set.  H is null on the sweep's first row.  `in` and `out` point at row j
-// of the (s, k) rhs block at the tile's first column and may alias.  The
-// result is also the new carry; `carry` and `tmp` swap roles when there
-// is no G.  H and G are read where they lie.
-template <typename T>
-__device__ void sweep_step(const T* __restrict__ H, bool trans_h,
-                           const T* __restrict__ G, bool trans_g, const T* in,
-                           T* out, int s, int k, int kw, T*& carry, T*& tmp) {
-  const int n_el = s * kw;
-  for (int e = threadIdx.x; e < n_el; e += blockDim.x) {
-    const int i = e / kw, c = e - (e / kw) * kw;
-    T acc = in[(size_t)i * k + c];
-    if (H != nullptr) {
-      if (trans_h) {
-        for (int l = 0; l < s; ++l) acc -= H[l * s + i] * carry[l * kw + c];
-      } else {
-        for (int l = 0; l < s; ++l) acc -= H[i * s + l] * carry[l * kw + c];
-      }
-    }
-    tmp[e] = acc;
-    if (G == nullptr) out[(size_t)i * k + c] = acc;
-  }
-  __syncthreads();
-  if (G == nullptr) {
-    T* t = carry;
-    carry = tmp;
-    tmp = t;
-    return;
-  }
-  for (int e = threadIdx.x; e < n_el; e += blockDim.x) {
-    const int i = e / kw, c = e - (e / kw) * kw;
-    T acc = T(0);
-    if (trans_g) {
-      for (int l = 0; l < s; ++l) acc += G[l * s + i] * tmp[l * kw + c];
-    } else {
-      for (int l = 0; l < s; ++l) acc += G[i * s + l] * tmp[l * kw + c];
-    }
-    carry[e] = acc;
-    out[(size_t)i * k + c] = acc;
-  }
-  __syncthreads();
-}
+namespace {
 
 // y = op(A) x, or y = in - op(A) x when `in` is given, on one (s, kw)
 // column tile: x and y (s, kw) in shared memory, `in` and `y_out` (may be
@@ -150,7 +136,12 @@ __device__ void panel_product(const T* __restrict__ A, bool trans,
   __syncthreads();
 }
 
-// The sweep step of `sweep_step` with both products through panels.
+// One sweep step on a column tile: out = op(G) (in - op(H) carry), or
+// out = in - op(H) carry when G is null, with op(X) = X^T when the flag is
+// set, both products through panels.  H is null on the sweep's first row.
+// `in` and `out` point at row j of the (s, k) rhs block at the tile's first
+// column and may alias.  The result is also the new carry; `carry` and
+// `tmp` swap roles when there is no G.
 template <typename T, int kPanelRows>
 __device__ void panel_step(const T* __restrict__ H, bool trans_h,
                            const T* __restrict__ G, bool trans_g, const T* in,
@@ -178,20 +169,6 @@ __device__ void panel_step(const T* __restrict__ H, bool trans_h,
                                carry, out, s, k, kw, panel);
 }
 
-// kPanelRows = 0: the streamed design.
-template <typename T, int kPanelRows>
-__device__ __forceinline__ void step(const T* H, bool trans_h, const T* G,
-                                     bool trans_g, const T* in, T* out, int s,
-                                     int k, int kw, T* panel, T*& carry,
-                                     T*& tmp) {
-  if constexpr (kPanelRows > 0) {
-    panel_step<T, kPanelRows>(H, trans_h, G, trans_g, in, out, s, k, kw,
-                              panel, carry, tmp);
-  } else {
-    sweep_step<T>(H, trans_h, G, trans_g, in, out, s, k, kw, carry, tmp);
-  }
-}
-
 template <typename T, int kPanelRows>
 __global__ void banded_solve_kernel(const T* __restrict__ m,
                                     const T* __restrict__ dinv,
@@ -204,7 +181,7 @@ __global__ void banded_solve_kernel(const T* __restrict__ m,
   const int ss = s * s;
   const int c0 = blockIdx.y * kt;
   const int kw = min(kt, k - c0);
-  // [panel (panels only) | carry | tmp]
+  // [panel | carry | tmp]
   T* panel = smem;
   T* carry = smem + hf_solve_panel_elems(s, kPanelRows);
   T* tmp = carry + s * kt;
@@ -220,25 +197,25 @@ __global__ void banded_solve_kernel(const T* __restrict__ m,
   if (!trans) {
     for (int j = 0; j < nb; ++j) {  // fwd
       const T* H = j > 0 ? m_n + (size_t)j * ss : nullptr;
-      step<T, kPanelRows>(H, false, nullptr, false, rhs_n + j * rb,
+      panel_step<T, kPanelRows>(H, false, nullptr, false, rhs_n + j * rb,
                           out_n + j * rb, s, k, kw, panel, carry, tmp);
     }
     for (int j = nb - 1; j >= 0; --j) {  // bwd, in place
       const T* H = j < nb - 1 ? b_n + (size_t)j * ss : nullptr;
-      step<T, kPanelRows>(H, false, d_n + (size_t)j * ss, false,
+      panel_step<T, kPanelRows>(H, false, d_n + (size_t)j * ss, false,
                           out_n + j * rb, out_n + j * rb, s, k, kw, panel,
                           carry, tmp);
     }
   } else {
     for (int j = 0; j < nb; ++j) {  // fwd_t
       const T* H = j > 0 ? b_n + (size_t)(j - 1) * ss : nullptr;
-      step<T, kPanelRows>(H, true, d_n + (size_t)j * ss, true,
+      panel_step<T, kPanelRows>(H, true, d_n + (size_t)j * ss, true,
                           rhs_n + j * rb, out_n + j * rb, s, k, kw, panel,
                           carry, tmp);
     }
     for (int j = nb - 1; j >= 0; --j) {  // bwd_t, in place
       const T* H = j < nb - 1 ? m_n + (size_t)(j + 1) * ss : nullptr;
-      step<T, kPanelRows>(H, true, nullptr, false, out_n + j * rb,
+      panel_step<T, kPanelRows>(H, true, nullptr, false, out_n + j * rb,
                           out_n + j * rb, s, k, kw, panel, carry, tmp);
     }
   }
@@ -267,9 +244,6 @@ int launch_solve(const void* m, const void* dinv, const void* b,
                  const void* rhs, void* out, int n, int nb, int s, int k,
                  int kt, int trans, int panel_rows, void* stream) {
   switch (panel_rows) {
-    case 0:
-      return launch_solve<T, 0>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
-                                stream);
     case 16:
       return launch_solve<T, 16>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
                                  stream);
@@ -284,9 +258,558 @@ int launch_solve(const void* m, const void* dinv, const void* b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The streamed design
+// ---------------------------------------------------------------------------
+
+// Independent accumulators of a lane in a transposed product, and rows of
+// a chunk a warp takes at once in a forward product of one column.
+constexpr int kStreamAcc = 4;
+// Cycles a wait on a ring barrier may last before the block gives up (a
+// lost copy must end the launch with an error, not hang the card).
+constexpr long long kStreamTimeout = 4000000000ll;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  long long t0 = 0;
+  for (uint32_t spins = 1;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spins & 0xfffu) == 0) {
+      const long long now = clock64();
+      if (t0 == 0) {
+        t0 = now;
+      } else if (now - t0 > kStreamTimeout) {
+        __trap();
+      }
+    }
+  }
+}
+
+// `bytes` (a multiple of 16) from device memory at src to shared memory at
+// dst (both on 16 bytes), counted down on `bar` as they land.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The factor block of product t of the 3 nb - 2 of a solve, in the order
+// the sweeps take them (m, d, b: the sample's M, Dinv and B).
+template <typename T, bool kTrans>
+__device__ __forceinline__ const T* stream_block(const T* m, const T* d,
+                                                 const T* b, int nb, size_t ss,
+                                                 int t) {
+  if constexpr (!kTrans) {
+    if (t < nb - 1) return m + (size_t)(t + 1) * ss;           // fwd: M_{t+1}
+    if (t == nb - 1) return d + (size_t)(nb - 1) * ss;         // bwd, last row
+    const int u = t - nb, j = nb - 2 - (u >> 1);               // bwd: B_j, Dinv_j
+    return ((u & 1) ? d : b) + (size_t)j * ss;
+  } else {
+    if (t == 0) return d;                                      // fwd_t, row 0
+    if (t < 2 * nb - 1) {                                      // B_{j-1}, Dinv_j
+      const int j = (t + 1) >> 1;
+      return (t & 1) ? b + (size_t)(j - 1) * ss : d + (size_t)j * ss;
+    }
+    return m + (size_t)(nb - 1 - (t - (2 * nb - 1))) * ss;     // bwd_t: M_{j+1}
+  }
+}
+
+// What product t subtracts its result from (`in`: a row block of the rhs
+// or of the output, null when the product stands alone) and where its
+// result goes (`out`, null when it is only the next carry).  rb: elements
+// of one (s, k) row block.
+template <typename T, bool kTrans>
+__device__ __forceinline__ void stream_rows(const T* rhs, T* out, int nb,
+                                            size_t rb, int t, const T** in_t,
+                                            T** out_t) {
+  *in_t = nullptr;
+  *out_t = nullptr;
+  if (t < 0 || t >= 3 * nb - 2) return;
+  if constexpr (!kTrans) {
+    if (t < nb - 1) {  // y_j = b_j - M_j y_{j-1}
+      *in_t = rhs + (size_t)(t + 1) * rb;
+      *out_t = out + (size_t)(t + 1) * rb;
+    } else if (t == nb - 1) {  // x = Dinv y on the last row
+      *out_t = out + (size_t)(nb - 1) * rb;
+    } else {
+      const int u = t - nb, j = nb - 2 - (u >> 1);
+      if (u & 1) {  // x_j = Dinv_j tmp
+        *out_t = out + (size_t)j * rb;
+      } else {  // tmp = y_j - B_j x_{j+1}
+        *in_t = out + (size_t)j * rb;
+      }
+    }
+  } else {
+    if (t == 0) {  // z_0 = Dinv_0^T b_0
+      *out_t = out;
+    } else if (t < 2 * nb - 1) {
+      const int j = (t + 1) >> 1;
+      if (t & 1) {  // tmp = b_j - B_{j-1}^T z_{j-1}
+        *in_t = rhs + (size_t)j * rb;
+      } else {  // z_j = Dinv_j^T tmp
+        *out_t = out + (size_t)j * rb;
+      }
+    } else {  // x_j = z_j - M_{j+1}^T x_{j+1}
+      const int j = nb - 2 - (t - (2 * nb - 1));
+      *in_t = out + (size_t)j * rb;
+      *out_t = out + (size_t)j * rb;
+    }
+  }
+}
+
+// One block's ring of factor chunks.  Chunk q of the solve is chunk q % nch
+// of the slab of product q / nch; it lands in stage q % nstage.
+template <typename T, bool kTrans>
+struct StreamRing {
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned char* stages;
+  const T* m;
+  const T* d;
+  const T* b;
+  size_t ss;
+  uint32_t stage_bytes;
+  int nb, s, rows, nstage, nch, r0, slab_rows;
+  int total;   // chunks of the whole solve
+  int issued;  // chunks requested so far (thread 0)
+  int next;    // the chunk to use next (every thread)
+
+  __device__ __forceinline__ const T* chunk_src(int q, int* row0, int* nrows) const {
+    const int t = q / nch, ci = q - t * nch;
+    *row0 = ci * rows;
+    *nrows = min(rows, slab_rows - *row0);
+    return stream_block<T, kTrans>(m, d, b, nb, ss, t) +
+           (size_t)(r0 + *row0) * s;
+  }
+
+  // thread 0: request every chunk below `upto`; a stage is free once all
+  // warps have given back the chunk that used it a round earlier
+  __device__ __forceinline__ void issue(int upto) {
+    upto = min(upto, total);
+    while (issued < upto) {
+      const int st = issued % nstage, round = issued / nstage;
+      if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
+      int row0, nrows;
+      const uintptr_t a = (uintptr_t)chunk_src(issued, &row0, &nrows);
+      const uintptr_t a0 = a & ~(uintptr_t)15;
+      const uintptr_t a1 =
+          (a + (size_t)nrows * s * sizeof(T) + 15) & ~(uintptr_t)15;
+      mbar_expect_tx(&full[st], (uint32_t)(a1 - a0));
+      bulk_load(stages + (size_t)st * stage_bytes, (const void*)a0,
+                (uint32_t)(a1 - a0), &full[st]);
+      ++issued;
+    }
+  }
+
+  // every thread: the next chunk, once it has landed (thread 0 first
+  // requests the chunks up to a ring's depth ahead)
+  __device__ __forceinline__ const T* acquire(int* row0, int* nrows) {
+    const int q = next;
+    if (threadIdx.x == 0) issue(q + max(1, nstage - 1));
+    const int st = q % nstage;
+    mbar_wait(&full[st], (q / nstage) & 1);
+    const uintptr_t a = (uintptr_t)chunk_src(q, row0, nrows);
+    return reinterpret_cast<const T*>(stages + (size_t)st * stage_bytes +
+                                      (a & 15));
+  }
+
+  // every thread, after its last read of the chunk
+  __device__ __forceinline__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[next % nstage]);
+    ++next;
+  }
+};
+
+template <bool kCluster>
+__device__ __forceinline__ void stream_sync() {
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// p in the shared memory of rank q of the cluster.
+template <bool kCluster, typename T>
+__device__ __forceinline__ T* stream_remote(T* p, int q) {
+  if constexpr (kCluster) {
+    return cg::this_cluster().map_shared_rank(p, q);
+  } else {
+    return p;
+  }
+}
+
+// Forward product: rows [r0, r0 + slab_rows) of v_new = in - H v_old (or
+// H v_old), written into every rank's v_new and, where `out` is given,
+// into the output.  in_s: the slab's rows of `in` in shared memory.
+template <typename T, int KW, bool kCluster>
+__device__ __forceinline__ void stream_forward(
+    StreamRing<T, false>& ring, const T* v_old, T* v_new, const T* in_s,
+    T* out, int k, int kw, int nc) {
+  constexpr int RW = KW == 1 ? 2 : 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int s = ring.s;
+  for (int ci = 0; ci < ring.nch; ++ci) {
+    int row0, nrows;
+    const T* base = ring.acquire(&row0, &nrows);
+    for (int rr = warp * RW; rr < nrows; rr += nwarps * RW) {
+      T acc[RW][KW];
+      const T* row[RW];
+#pragma unroll
+      for (int u = 0; u < RW; ++u) {
+        row[u] = base + (size_t)min(rr + u, nrows - 1) * s;
+#pragma unroll
+        for (int c = 0; c < KW; ++c) acc[u][c] = T(0);
+      }
+#pragma unroll 4
+      for (int l = lane; l < s; l += 32) {
+        T vv[KW];
+#pragma unroll
+        for (int c = 0; c < KW; ++c) vv[c] = c < kw ? v_old[l * kw + c] : T(0);
+#pragma unroll
+        for (int u = 0; u < RW; ++u) {
+          const T h = row[u][l];
+#pragma unroll
+          for (int c = 0; c < KW; ++c) acc[u][c] += h * vv[c];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RW; ++u) {
+#pragma unroll
+        for (int c = 0; c < KW; ++c) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            acc[u][c] += __shfl_xor_sync(0xffffffffu, acc[u][c], off);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RW; ++u) {
+        if (rr + u >= nrows) continue;
+        const int ii = row0 + rr + u, i = ring.r0 + ii;
+#pragma unroll
+        for (int c = 0; c < KW; ++c) {
+          if (c >= kw) continue;
+          const T val = in_s != nullptr ? in_s[ii * kw + c] - acc[u][c] : acc[u][c];
+          if (lane < nc) stream_remote<kCluster>(v_new, lane)[i * kw + c] = val;
+          if (lane == 0 && out != nullptr) out[(size_t)i * k + c] = val;
+        }
+      }
+    }
+    ring.release();
+  }
+  stream_sync<kCluster>();
+}
+
+// Transposed product on the rank's slab of rows l: the partial sums
+// sum_l H[l, i] v[l] for all s outputs i go to the ranks that own them
+// (`inbox`: (nc, mslab, kw) on every rank), and after the cluster barrier
+// the rank adds up its own outputs: v = in - sum (or the sum) on
+// [r0, r0 + slab_rows), also written to `out` where given.  part:
+// (rsplit, s, kw) partial sums of the block's row splits.
+template <typename T, int KW, bool kCluster>
+__device__ __forceinline__ void stream_transposed(
+    StreamRing<T, true>& ring, T* v, T* part, T* inbox, const T* in_s, T* out,
+    int k, int kw, int nc, int rank, int rsplit) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int s = ring.s;
+  const int groups = (s + 31) >> 5;
+  const int mslab = hf_stream_slab(s, nc);
+  for (int ci = 0; ci < ring.nch; ++ci) {
+    int row0, nrows;
+    const T* base = ring.acquire(&row0, &nrows);
+    const T* vl = v + (size_t)(ring.r0 + row0) * kw;
+    for (int item = warp; item < groups * rsplit; item += nwarps) {
+      const int g = item % groups, rs = item / groups;
+      const int i = 32 * g + lane;
+      const T* col = base + min(i, s - 1);
+      T acc[kStreamAcc][KW];
+#pragma unroll
+      for (int u = 0; u < kStreamAcc; ++u) {
+#pragma unroll
+        for (int c = 0; c < KW; ++c) acc[u][c] = T(0);
+      }
+      for (int rr0 = rs; rr0 < nrows; rr0 += rsplit * kStreamAcc) {
+#pragma unroll
+        for (int u = 0; u < kStreamAcc; ++u) {
+          const int rr = rr0 + u * rsplit;
+          const int rc = min(rr, nrows - 1);
+          const T h = rr < nrows ? col[(size_t)rc * s] : T(0);
+#pragma unroll
+          for (int c = 0; c < KW; ++c) {
+            if (c < kw) acc[u][c] += h * vl[rc * kw + c];
+          }
+        }
+      }
+      if (i < s) {
+#pragma unroll
+        for (int c = 0; c < KW; ++c) {
+          if (c >= kw) continue;
+          T sum = T(0);
+#pragma unroll
+          for (int u = 0; u < kStreamAcc; ++u) sum += acc[u][c];
+          T* p = part + ((size_t)rs * s + i) * kw + c;
+          *p = ci == 0 ? sum : *p + sum;
+        }
+      }
+    }
+    ring.release();
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < s * kw; e += blockDim.x) {
+    const int i = e / kw, c = e - i * kw;
+    T sum = T(0);
+    for (int rs = 0; rs < rsplit; ++rs) sum += part[(size_t)rs * s * kw + e];
+    const int q = ((i + 1) * nc - 1) / s;  // the rank that owns output i
+    stream_remote<kCluster>(inbox, q)[((size_t)rank * mslab + i - q * s / nc) * kw + c] = sum;
+  }
+  stream_sync<kCluster>();
+  for (int e = threadIdx.x; e < ring.slab_rows * kw; e += blockDim.x) {
+    const int ii = e / kw, c = e - ii * kw;
+    T sum = T(0);
+    for (int q = 0; q < nc; ++q) sum += inbox[((size_t)q * mslab + ii) * kw + c];
+    const T val = in_s != nullptr ? in_s[e] - sum : sum;
+    v[(size_t)(ring.r0 + ii) * kw + c] = val;
+    if (out != nullptr) out[(size_t)(ring.r0 + ii) * k + c] = val;
+  }
+  __syncthreads();
+}
+
+// Grid (N c, column tiles), cluster (c, 1, 1) where kCluster.  KW: 1, or
+// HF_STREAM_MAX_COLS for any tile of 1 to 7 columns.
+template <typename T, int KW, bool kTrans, bool kCluster>
+__global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
+    banded_stream_kernel(const T* __restrict__ m, const T* __restrict__ dinv,
+                         const T* __restrict__ b, const T* __restrict__ rhs,
+                         T* __restrict__ out, int nb, int s, int k, int kt,
+                         int rows, int nstage, int rsplit) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  int nc = 1, rank = 0;
+  if constexpr (kCluster) {
+    nc = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.y * kt;
+  const int kw = min(kt, k - c0);
+  const size_t n = blockIdx.x / nc;
+  const size_t ss = (size_t)s * s;
+  const size_t rb = (size_t)s * k;
+  const T* rhs_n = rhs + n * nb * rb + c0;
+  T* out_n = out + n * nb * rb + c0;
+  const int mslab = hf_stream_slab(s, nc);
+  const int ntot = 3 * nb - 2;
+
+  StreamRing<T, kTrans> ring;
+  ring.full = reinterpret_cast<uint64_t*>(smem_raw);
+  ring.empty = ring.full + HF_STREAM_MAX_STAGES;
+  T* carry = reinterpret_cast<T*>(smem_raw + HF_STREAM_BAR_BYTES);
+  const size_t carry_bytes =
+      (hf_stream_carry_elems(s, kt, nc, rsplit, kTrans) * sizeof(T) + 15) / 16 * 16;
+  ring.stages = smem_raw + HF_STREAM_BAR_BYTES + carry_bytes;
+  ring.stage_bytes = (uint32_t)hf_stream_stage_bytes(s, rows, (int)sizeof(T));
+  ring.m = m + n * nb * ss;
+  ring.d = dinv + n * nb * ss;
+  ring.b = b + n * nb * ss;
+  ring.ss = ss;
+  ring.nb = nb;
+  ring.s = s;
+  ring.rows = rows;
+  ring.nstage = nstage;
+  ring.r0 = rank * s / nc;
+  ring.slab_rows = (rank + 1) * s / nc - ring.r0;
+  ring.nch = (ring.slab_rows + rows - 1) / rows;
+  ring.total = ntot * ring.nch;
+  ring.issued = 0;
+  ring.next = 0;
+  if (tid == 0) {
+    for (int q = 0; q < nstage; ++q) {
+      mbar_init(&ring.full[q], 1);
+      mbar_init(&ring.empty[q], (int)(blockDim.x >> 5));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) ring.issue(max(1, nstage - 1));
+
+  // the carry region, in tile elements of kt columns (kw <= kt of them
+  // used): see hf_stream_carry_elems
+  const size_t full_el = (size_t)s * kt, slab_el = (size_t)mslab * kt;
+  T* in_buf;  // (2, mslab, kw): the slab's rows of `in`, a product ahead
+  T* v0;      // forward: the carry, twice; transposed: the carry
+  T* part = nullptr;
+  T* inbox = nullptr;
+  if constexpr (!kTrans) {
+    v0 = carry;
+    in_buf = carry + 2 * full_el;
+  } else {
+    v0 = carry;
+    part = carry + full_el;
+    inbox = part + (size_t)rsplit * full_el;
+    in_buf = inbox + 2 * (size_t)nc * slab_el;
+  }
+
+  // the carry before the first product is the first row of the rhs: all
+  // of it on a forward sweep (which also is y_0, kept in the output), the
+  // rank's slab on a transposed one
+  if constexpr (!kTrans) {
+    for (int e = tid; e < s * kw; e += blockDim.x) {
+      const int i = e / kw, c = e - i * kw;
+      const T val = rhs_n[(size_t)i * k + c];
+      v0[e] = val;
+      if (i >= ring.r0 && i < ring.r0 + ring.slab_rows) {
+        out_n[(size_t)i * k + c] = val;
+      }
+    }
+  } else {
+    for (int e = tid; e < ring.slab_rows * kw; e += blockDim.x) {
+      const int ii = e / kw, c = e - ii * kw;
+      v0[(size_t)(ring.r0 + ii) * kw + c] = rhs_n[(size_t)(ring.r0 + ii) * k + c];
+    }
+  }
+  // every block of the cluster runs before any writes into its shared
+  // memory; the block's own writes above are visible to all its warps
+  stream_sync<kCluster>();
+
+  auto prefetch_in = [&](int t) {
+    const T* in_t;
+    T* out_t;
+    stream_rows<T, kTrans>(rhs_n, out_n, nb, rb, t, &in_t, &out_t);
+    if (in_t != nullptr) {
+      T* dst = in_buf + (size_t)(t & 1) * slab_el;
+      for (int e = tid; e < ring.slab_rows * kw; e += blockDim.x) {
+        const int ii = e / kw, c = e - ii * kw;
+        __pipeline_memcpy_async(dst + e, in_t + (size_t)(ring.r0 + ii) * k + c,
+                                sizeof(T));
+      }
+    }
+    __pipeline_commit();
+  };
+
+  prefetch_in(0);
+  int cur = 0;
+  for (int t = 0; t < ntot; ++t) {
+    const T* in_t;
+    T* out_t;
+    stream_rows<T, kTrans>(rhs_n, out_n, nb, rb, t, &in_t, &out_t);
+    __pipeline_wait_prior(0);
+    prefetch_in(t + 1);
+    __syncthreads();  // the rows of `in` fetched by other threads
+    const T* in_s = in_t != nullptr ? in_buf + (size_t)(t & 1) * slab_el : nullptr;
+    if constexpr (!kTrans) {
+      stream_forward<T, KW, kCluster>(ring, v0 + (size_t)cur * full_el,
+                                      v0 + (size_t)(cur ^ 1) * full_el, in_s,
+                                      out_t, k, kw, nc);
+      cur ^= 1;
+    } else {
+      stream_transposed<T, KW, kCluster>(
+          ring, v0, part, inbox + (size_t)(t & 1) * nc * slab_el, in_s, out_t, k,
+          kw, nc, rank, rsplit);
+    }
+  }
+}
+
+template <typename T, int KW, bool kTrans, bool kCluster>
+int launch_stream(const void* m, const void* dinv, const void* b,
+                  const void* rhs, void* out, int n, int nb, int s, int k,
+                  int kt, int c, int rows, int nstage, int threads, int rsplit,
+                  void* stream) {
+  auto kernel = banded_stream_kernel<T, KW, kTrans, kCluster>;
+  const size_t smem =
+      hf_stream_smem_bytes(s, kt, c, rows, nstage, rsplit, kTrans, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n * (unsigned)c, (unsigned)((k + kt - 1) / kt), 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCluster ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(m),
+                           static_cast<const T*>(dinv), static_cast<const T*>(b),
+                           static_cast<const T*>(rhs), static_cast<T*>(out), nb,
+                           s, k, kt, rows, nstage, rsplit);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+template <typename T>
+int launch_stream(const void* m, const void* dinv, const void* b,
+                  const void* rhs, void* out, int n, int nb, int s, int k,
+                  int kt, int trans, int c, int rows, int nstage, int threads,
+                  int rsplit, void* stream) {
+  if (kt < 1 || kt > HF_STREAM_MAX_COLS || c < 1 || c > HF_STREAM_MAX_CLUSTER ||
+      c > s || rows < 1 || nstage < 2 || nstage > HF_STREAM_MAX_STAGES ||
+      threads < 32 || threads > HF_STREAM_MAX_THREADS || threads % 32 != 0 ||
+      rsplit < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define HF_STREAM_CASE(KW, TRANS, CLUSTER)                                    \
+  if ((kt == 1) == (KW == 1) && (trans != 0) == TRANS && (c > 1) == CLUSTER)  \
+    return launch_stream<T, KW, TRANS, CLUSTER>(m, dinv, b, rhs, out, n, nb,  \
+                                                s, k, kt, c, rows, nstage,    \
+                                                threads, rsplit, stream);
+  HF_STREAM_CASE(1, false, false)
+  HF_STREAM_CASE(1, false, true)
+  HF_STREAM_CASE(1, true, false)
+  HF_STREAM_CASE(1, true, true)
+  HF_STREAM_CASE(HF_STREAM_MAX_COLS, false, false)
+  HF_STREAM_CASE(HF_STREAM_MAX_COLS, false, true)
+  HF_STREAM_CASE(HF_STREAM_MAX_COLS, true, false)
+  HF_STREAM_CASE(HF_STREAM_MAX_COLS, true, true)
+#undef HF_STREAM_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// panel_rows: 64, 32 or 16 (panel design) or 0 (streamed design).
+// The panel design; panel_rows: 64, 32 or 16.
 extern "C" int hf_banded_solve_f32(const void* m, const void* dinv,
                                    const void* b, const void* rhs, void* out,
                                    int n, int nb, int s, int k, int kt,
@@ -306,6 +829,39 @@ extern "C" int hf_banded_solve_f64(const void* m, const void* dinv,
 extern "C" long long hf_solve_smem_bytes(int s, int kt, int panel_rows,
                                          int itemsize) {
   return (long long)(hf_solve_smem_elems(s, kt, panel_rows) * itemsize);
+}
+
+// The streamed design (kt <= 7 columns a tile): c blocks per sample (1 to
+// 8), ring stages of `rows` rows, `nstage` of them (2 to 16), `threads` per
+// block (whole warps, at most HF_STREAM_MAX_THREADS) and `rsplit` row
+// splits of a transposed product; anything else returns
+// cudaErrorInvalidValue.
+extern "C" int hf_banded_solve_stream_f32(const void* m, const void* dinv,
+                                          const void* b, const void* rhs,
+                                          void* out, int n, int nb, int s,
+                                          int k, int kt, int trans, int c,
+                                          int rows, int nstage, int threads,
+                                          int rsplit, void* stream) {
+  return launch_stream<float>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans, c,
+                              rows, nstage, threads, rsplit, stream);
+}
+
+extern "C" int hf_banded_solve_stream_f64(const void* m, const void* dinv,
+                                          const void* b, const void* rhs,
+                                          void* out, int n, int nb, int s,
+                                          int k, int kt, int trans, int c,
+                                          int rows, int nstage, int threads,
+                                          int rsplit, void* stream) {
+  return launch_stream<double>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans, c,
+                               rows, nstage, threads, rsplit, stream);
+}
+
+extern "C" long long hf_stream_smem_bytes_c(int s, int kt, int c, int rows,
+                                            int nstage, int rsplit, int trans,
+                                            int itemsize) {
+  if (c < 1 || rows < 1 || nstage < 1 || rsplit < 1) return -1;
+  return (long long)hf_stream_smem_bytes(s, kt, c, rows, nstage, rsplit,
+                                         trans != 0, itemsize);
 }
 
 extern "C" const char* hf_error_string(int code) {

@@ -181,6 +181,54 @@ inline std::size_t hf_solve_smem_elems(int s, int kt, int panel_rows) {
   return hf_solve_panel_elems(s, panel_rows) + 2 * (std::size_t)s * kt;
 }
 
+// K2's streamed design (few rhs columns): a cluster of c thread blocks per
+// sample, each of which owns one slab of rows of every factor block and
+// draws it through a ring of `nstage` shared-memory stages of `rows` rows.
+// Most columns of a column tile, blocks of a cluster, stages of a ring and
+// threads of a block (17 warps: one per 32 columns at s = 516).
+#define HF_STREAM_MAX_COLS 7
+#define HF_STREAM_MAX_CLUSTER 8
+#define HF_STREAM_MAX_STAGES 16
+#define HF_STREAM_MAX_THREADS 544
+// Bytes ahead of the carry: the ring's full and empty barriers.
+#define HF_STREAM_BAR_BYTES (16 * HF_STREAM_MAX_STAGES)
+
+// Rows of the widest slab: rank r of c owns rows [r s / c, (r + 1) s / c).
+__host__ __device__ inline int hf_stream_slab(int s, int c) {
+  return (s + c - 1) / c;
+}
+
+// Bytes of one ring stage: `rows` rows of s elements and the 16-byte
+// alignment of a copy's two ends (a slab starts on an element, the bulk
+// copy that fetches it on 16 bytes).
+__host__ __device__ inline std::size_t hf_stream_stage_bytes(int s, int rows,
+                                                          int itemsize) {
+  return ((std::size_t)rows * s * itemsize + 15) / 16 * 16 + 16;
+}
+
+// Elements of a streamed block's carry region for an (s, kt) column tile.
+// Forward sweeps: the carry, twice (every block holds all of it), and the
+// rhs rows of its slab, twice (fetched one product ahead).  Transposed
+// sweeps: the carry, the partial sums of the `rsplit` row splits, the
+// partial sums the c ranks send (twice), and the rhs rows (twice).
+__host__ __device__ inline std::size_t hf_stream_carry_elems(int s, int kt,
+                                                          int c, int rsplit,
+                                                          bool trans) {
+  const std::size_t full = (std::size_t)s * kt;
+  const std::size_t slab = (std::size_t)hf_stream_slab(s, c) * kt;
+  return trans ? full * (1 + rsplit) + 2 * c * slab + 2 * slab
+               : 2 * full + 2 * slab;
+}
+
+inline std::size_t hf_stream_smem_bytes(int s, int kt, int c, int rows,
+                                        int nstage, int rsplit, bool trans,
+                                        int itemsize) {
+  const std::size_t carry =
+      (hf_stream_carry_elems(s, kt, c, rsplit, trans) * itemsize + 15) / 16 * 16;
+  return HF_STREAM_BAR_BYTES + carry +
+         (std::size_t)nstage * hf_stream_stage_bytes(s, rows, itemsize);
+}
+
 // K3/K4 host entries (csrc/batched_inverse.cu), also launched row by row
 // by K1's row-panel design: n matrices of s x s, `stride` elements apart,
 // pivot width w (1 to HF_GJ_MAX_W), c blocks per matrix (1 to

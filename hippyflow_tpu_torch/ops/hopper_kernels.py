@@ -151,6 +151,8 @@ def _library():
             "hf_banded_factorize": [p, p, p, i, i, i, i, i, p],
             "hf_banded_factorize_rows": [p, p, p, i, i, i, i, i, p],
             "hf_banded_solve": [p, p, p, p, p, i, i, i, i, i, i, i, p],
+            "hf_banded_solve_stream": [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                       i, i, i, p],
             "hf_batched_inverse": [p, i, i, ll, i, i, p],
         }
         for stem, argtypes in signatures.items():
@@ -162,6 +164,7 @@ def _library():
             ("hf_factorize_smem_bytes", [i, i, i]),
             ("hf_schur_smem_bytes", [i, i]),
             ("hf_solve_smem_bytes", [i, i, i, i]),
+            ("hf_stream_smem_bytes_c", [i, i, i, i, i, i, i, i]),
             ("hf_gj_smem_bytes", [i, i, i, i]),
         ):
             fn = getattr(lib, name)
@@ -582,36 +585,147 @@ banded_factorize.launches_by_design = {"chain": 0, "rows": 0}
 # ---------------------------------------------------------------------------
 
 
-def banded_solve_plain(M, Dinv, B, bb, trans: bool):
+def stream_slabs(s: int, c: int):
+    """The row ranges [lo, hi) of every factor block that the c blocks of a
+    cluster of K2's streamed design own: rank r takes [r s / c,
+    (r + 1) s / c), a contiguous run of memory."""
+    return [(r * s // c, (r + 1) * s // c) for r in range(c)]
+
+
+def banded_solve_plain(M, Dinv, B, bb, trans: bool, slices: int = 1):
     """Plain PyTorch back-solve through (M, Dinv, B), each (N, nb, s, s);
-    bb (N, nb, s, k) -> x (N, nb, s, k) with A x = b, or A^T x = b."""
-    nb = M.shape[1]
+    bb (N, nb, s, k) -> x (N, nb, s, k) with A x = b, or A^T x = b.
+
+    ``slices`` runs the schedule of a cluster of that many blocks of the
+    streamed design: every product is formed slab by slab over the row
+    ranges of ``stream_slabs``: H v as the rows of each slab in turn,
+    H^T v as the partial sums over each slab's rows, added up."""
+    nb, s = M.shape[1], M.shape[-1]
+    if not 1 <= slices <= max(s, 1):
+        raise ValueError(f"slices={slices}: from 1 to s={s}")
+    slabs = stream_slabs(s, slices)
+
+    def mul(H, v):  # H v
+        if slices == 1:
+            return H @ v
+        return torch.cat([H[:, lo:hi] @ v for lo, hi in slabs], dim=1)
+
+    def mul_t(H, v):  # H^T v
+        if slices == 1:
+            return H.mT @ v
+        return sum(H[:, lo:hi].mT @ v[:, lo:hi] for lo, hi in slabs)
+
     xs = [None] * nb
     if not trans:
         ys = [bb[:, 0]]
         for j in range(1, nb):
-            ys.append(bb[:, j] - M[:, j] @ ys[-1])
-        xs[-1] = Dinv[:, -1] @ ys[-1]
+            ys.append(bb[:, j] - mul(M[:, j], ys[-1]))
+        xs[-1] = mul(Dinv[:, -1], ys[-1])
         for j in range(nb - 2, -1, -1):
-            xs[j] = Dinv[:, j] @ (ys[j] - B[:, j] @ xs[j + 1])
+            xs[j] = mul(Dinv[:, j], ys[j] - mul(B[:, j], xs[j + 1]))
         return torch.stack(xs, dim=1)
-    Dt, Bt, Mt = Dinv.mT, B.mT, M.mT
-    zs = [Dt[:, 0] @ bb[:, 0]]
+    zs = [mul_t(Dinv[:, 0], bb[:, 0])]
     for j in range(1, nb):
-        zs.append(Dt[:, j] @ (bb[:, j] - Bt[:, j - 1] @ zs[-1]))
+        zs.append(mul_t(Dinv[:, j], bb[:, j] - mul_t(B[:, j - 1], zs[-1])))
     xs[-1] = zs[-1]
     for j in range(nb - 2, -1, -1):
-        xs[j] = zs[j] - Mt[:, j + 1] @ xs[j + 1]
+        xs[j] = zs[j] - mul_t(M[:, j + 1], xs[j + 1])
     return torch.stack(xs, dim=1)
 
 
 # K2 streams its factor blocks through shared-memory panels from this many
-# rhs columns (the Jacobian's 100 and 200) and reads them where they lie
-# below it (the Newton and forward solves' 1); measured on the H100 at s=65
-# and s=193
+# rhs columns (the Jacobian's 100 and 200); below it (the Newton and forward
+# solves' 1) the streamed design draws each sample's factor once through a
+# ring of stages, in clusters of thread blocks; measured on the H100 at
+# s=65 and s=193
 PANELS_MIN_K = 8
 # Rows of K2's factor panel, widest first
 PANEL_ROWS = (64, 32, 16)
+# The streamed design (csrc/common.cuh): most columns of a tile, blocks of a
+# cluster, stages of a ring and warps of a block; the bytes of its ring
+# barriers; the most bytes of one ring stage; and the fewest rows of a
+# factor block per cluster rank worth a split (``stream_cluster``)
+STREAM_MAX_COLS = 7
+STREAM_MAX_CLUSTER = 8
+STREAM_MAX_STAGES = 16
+STREAM_MAX_WARPS = 17
+STREAM_BAR_BYTES = 256
+STREAM_STAGE_BYTES = 32768
+STREAM_MIN_ROWS = 24
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def stream_cluster(blocks: int, s: int, sm_count: int) -> int:
+    """Thread blocks per sample of K2's streamed design for ``blocks``
+    (sample, column tile) pairs of block size s on a card of ``sm_count``
+    SMs: the largest c with blocks c <= sm_count and at least
+    STREAM_MIN_ROWS rows of a factor block per rank, at most
+    STREAM_MAX_CLUSTER, at least 1."""
+    return max(1, min(STREAM_MAX_CLUSTER, sm_count // max(blocks, 1),
+                      s // STREAM_MIN_ROWS))
+
+
+def stream_carry_elems(s: int, kt: int, c: int, rsplit: int, trans: bool) -> int:
+    """Elements of a streamed block's carry region (the mirror of
+    ``hf_stream_carry_elems``)."""
+    full, slab = s * kt, -(-s // c) * kt
+    if trans:
+        return full * (1 + rsplit) + 2 * c * slab + 2 * slab
+    return 2 * full + 2 * slab
+
+
+def stream_smem_bytes(s: int, kt: int, c: int, rows: int, nstage: int,
+                      rsplit: int, trans: bool, itemsize: int) -> int:
+    """Shared memory of one streamed block (the mirror of
+    ``hf_stream_smem_bytes``): the ring's barriers, the carry region and
+    ``nstage`` stages of ``rows`` factor rows."""
+    return (STREAM_BAR_BYTES
+            + _round16(stream_carry_elems(s, kt, c, rsplit, trans) * itemsize)
+            + nstage * (_round16(rows * s * itemsize) + 16))
+
+
+def stream_geometry(blocks: int, s: int, kt: int, itemsize: int, c: int,
+                    trans: bool, sm_count: int, limit: int, sm_smem: int):
+    """(rows per stage, stages, threads, row splits, bytes) of K2's streamed
+    design for ``blocks`` (sample, column tile) pairs in clusters of c, or
+    None where not even two one-row stages fit ``limit`` bytes.
+
+    Where the grid has more blocks than the card SMs, as many blocks as it
+    takes for one wave (at most 8) share an SM's shared memory and threads.
+    A stage holds at most STREAM_STAGE_BYTES, in equal chunks of a rank's
+    slab; the ring takes what shared memory is left, up to
+    STREAM_MAX_STAGES.  Transposed, a warp owns 32 columns and the warps
+    left split the rows; forward, a warp takes two rows of a chunk (one at
+    kt > 1)."""
+    slab, groups = -(-s // c), -(-s // 32)
+    for share in range(max(1, min(8, -(-blocks * c // sm_count))), 0, -1):
+        budget = min(limit, sm_smem // share - BLOCK_SMEM_RESERVE)
+        wmax = max(1, min(16, 32 // share))
+        rows = max(1, min(slab, (STREAM_STAGE_BYTES - 16) // (s * itemsize)))
+        rows = -(-slab // -(-slab // rows))
+        rsplit = max(1, min(8, wmax // groups)) if trans else 1
+        while True:
+            if trans:
+                warps = min(groups * rsplit,
+                            STREAM_MAX_WARPS if share == 1 else wmax)
+            else:
+                warps = min(wmax, max(4, -(-rows // (2 if kt == 1 else 1))))
+            nstage = min(
+                STREAM_MAX_STAGES,
+                (budget - stream_smem_bytes(s, kt, c, rows, 0, rsplit, trans,
+                                            itemsize))
+                // (_round16(rows * s * itemsize) + 16))
+            if nstage >= (2 if share == 1 else 3):
+                return (rows, nstage, 32 * warps, rsplit,
+                        stream_smem_bytes(s, kt, c, rows, nstage, rsplit, trans,
+                                          itemsize))
+            if rows == 1:
+                break
+            rows = -(-rows // 2)
+    return None
 
 
 def solve_tiles(s: int, k: int, itemsize: int, limit: int,
@@ -620,26 +734,40 @@ def solve_tiles(s: int, k: int, itemsize: int, limit: int,
     a shared-memory limit in bytes: the panel design (panels=None: from
     k >= PANELS_MIN_K) takes the widest column tile, up to SOLVE_TILE,
     then the widest panel that fit; the streamed design (panel rows 0) the
-    widest column tile.  None when nothing fits."""
+    widest column tile, up to STREAM_MAX_COLS, whose transposed solve fits
+    in one block per sample.  None when nothing fits."""
     if panels is None:
         panels = k >= PANELS_MIN_K
+    if not panels:
+        for kt in range(max(1, min(STREAM_MAX_COLS, k)), 0, -1):
+            rsplit = max(1, min(8, 16 // -(-s // 32)))
+            if stream_smem_bytes(s, kt, 1, 1, 2, rsplit, True, itemsize) <= limit:
+                return 0, kt
+        return None
     need = lambda rows, kt: (s * rows + 2 * s * kt) * itemsize
     kt = max(1, min(SOLVE_TILE, k))
     while kt >= 1:
-        for rows in PANEL_ROWS if panels else (0,):
+        for rows in PANEL_ROWS:
             if need(rows, kt) <= limit:
                 return rows, kt
         kt //= 2
     return None
 
 
-def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None):
+def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None,
+                 cluster: int | None = None):
     """K2.  M, Dinv, B (N, nb, s, s); bb (N, nb, s, k) -> x (N, nb, s, k)
     with A x = b (trans=False) or A^T x = b (trans=True).  On the card,
     ``tiles`` (panel rows, column tile) forces a design (panel rows 0: the
-    streamed one); None takes ``solve_tiles``'s choice."""
+    streamed one, whose column tile is at most STREAM_MAX_COLS); None takes
+    ``solve_tiles``'s choice.  ``cluster`` forces the thread blocks per
+    sample of the streamed design (1 to STREAM_MAX_CLUSTER; the kernel
+    refuses others, and the panel design takes none); None takes
+    ``stream_cluster``'s choice.  On the CPU the plain version runs the
+    products in ``cluster`` slabs (None: 1)."""
     if bb.device.type == "cpu":
-        return banded_solve_plain(M, Dinv, B, bb, trans)
+        return banded_solve_plain(M, Dinv, B, bb, trans,
+                                  1 if cluster is None else cluster)
     if M.ndim != 4 or bb.ndim != 4:
         raise ValueError("banded_solve takes 4-d factor blocks and rhs")
     N, nb, s, _ = M.shape
@@ -647,7 +775,8 @@ def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None):
     fac = (N, nb, s, s)
     _check_cuda("banded_solve", [bb, M, Dinv, B], [(N, nb, s, k), fac, fac, fac])
     lib = _library()
-    item, limit = bb.element_size(), _smem_limit(bb.device)
+    dev = bb.device
+    item, limit = bb.element_size(), _smem_limit(dev)
     if tiles is None:
         tiles = solve_tiles(s, k, item, limit)
         if tiles is None:
@@ -658,15 +787,40 @@ def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None):
     rows, kt = tiles
     if rows not in (0,) + PANEL_ROWS or kt < 1:
         raise ValueError(f"banded_solve: tiles={tiles!r}")
-    _smem_check("banded_solve", lib.hf_solve_smem_bytes(s, kt, rows, item),
-                bb.device, f"the solve at s={s} with tiles {tiles}")
+    if rows == 0 and kt > STREAM_MAX_COLS:
+        raise ValueError(f"banded_solve: tiles={tiles!r}: the streamed design "
+                         f"takes column tiles of at most {STREAM_MAX_COLS}")
+    if rows > 0 and cluster is not None:
+        raise ValueError("banded_solve: cluster= belongs to the streamed "
+                         f"design, not to tiles={tiles!r}")
     out = torch.empty_like(bb)
+    args = (M.data_ptr(), Dinv.data_ptr(), B.data_ptr(), bb.data_ptr(),
+            out.data_ptr(), N, nb, s, k, kt, int(bool(trans)))
+    if rows > 0:
+        _smem_check("banded_solve", lib.hf_solve_smem_bytes(s, kt, rows, item),
+                    dev, f"the solve at s={s} with tiles {tiles}")
+        stem, args = "hf_banded_solve", args + (rows,)
+    else:
+        blocks = N * -(-k // kt)
+        if cluster is None:
+            cluster = stream_cluster(blocks, s, _sm_count(dev))
+        geometry = None
+        if cluster >= 1:
+            geometry = stream_geometry(blocks, s, kt, item, cluster, bool(trans),
+                                       _sm_count(dev), limit, _sm_smem(dev))
+        if cluster >= 1 and geometry is None:
+            raise ValueError(
+                f"banded_solve: the streamed solve at s={s} with column tile "
+                f"{kt} in clusters of {cluster} needs more than the card's "
+                f"{limit} bytes of shared memory per block")
+        # a cluster size the kernel does not take goes to it all the same,
+        # with one block's geometry, and is refused there
+        stem = "hf_banded_solve_stream"
+        args += (cluster,) + (geometry or (1, 2, 32, 1))[:4]
     if N == 0 or nb == 0 or k == 0:
         return out
-    _launch(lib, getattr(lib, f"hf_banded_solve_{_suffix(bb.dtype)}"),
-            "banded_solve", bb.device, M.data_ptr(), Dinv.data_ptr(),
-            B.data_ptr(), bb.data_ptr(), out.data_ptr(), N, nb, s, k, kt,
-            int(bool(trans)), rows)
+    _launch(lib, getattr(lib, f"{stem}_{_suffix(bb.dtype)}"), "banded_solve",
+            dev, *args)
     banded_solve.launches += 1
     return out
 

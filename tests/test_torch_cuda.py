@@ -318,6 +318,104 @@ def test_solve_designs_at_s65(cuda, dtype, k):
         assert _rel(x, x_p) < TOL[dtype], trans
 
 
+def _factor(s, n, nb, dtype, device, seed):
+    """A factor (M, Dinv, B) of a diagonally dominant band and the band in
+    float64."""
+    band = _band(s, n, torch.float64, device, seed=seed, nb=nb)
+    M, Dinv = hk.banded_factorize(band.to(dtype))
+    return M, Dinv, band[..., 2 * s :].to(dtype).contiguous(), band
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 6, 8])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s", [17, 25, 33, 49, 65, 97, 193, 516])
+def test_solve_streamed_clusters_match_plain(cuda, s, dtype, trans, cluster):
+    """K2's streamed design at every block size of the lanes with each
+    forced number of blocks per sample, at k=1, 5 and 7 (the k=1 template
+    and the general one), against the plain version and as a residual of
+    the band: slabs of one to three chunks, ragged last chunks, and slabs
+    that start off 16 bytes (odd s)."""
+    nb = 3 if s == 516 else 6
+    M, Dinv, B, band = _factor(s, 3, nb, dtype, cuda, seed=s)
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    apply = block_tridiag_matmat_trans if trans else block_tridiag_matmat
+    for k in (1, 5, 7):
+        bb = torch.randn(3, nb, s, k, dtype=torch.float64, device=cuda,
+                         generator=gen)
+        hk.reset_launch_counts()
+        x = hk.banded_solve(M, Dinv, B, bb.to(dtype), trans, tiles=(0, k),
+                            cluster=cluster)
+        x_p = hk.banded_solve_plain(M, Dinv, B, bb.to(dtype), trans)
+        torch.cuda.synchronize()
+        assert hk.banded_solve.launches == 1
+        assert _rel(x, x_p) < TOL[dtype], k
+        bf = bb.reshape(3, nb * s, k)
+        res = torch.linalg.vector_norm(
+            apply(band, x.double().reshape(3, nb * s, k)) - bf
+        ) / torch.linalg.vector_norm(bf)
+        assert res.item() < (1e-4 if dtype == torch.float32 else 1e-12), k
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,s,nb", [(300, 65, 5), (1100, 33, 5), (1100, 17, 17),
+                                    (40, 193, 4), (1, 65, 1), (2, 33, 2)])
+def test_solve_streamed_on_a_full_card(cuda, n, s, nb, dtype, trans):
+    """The streamed design where several blocks share an SM (more samples
+    than SMs: the nx=64 chunk and its coarse levels), with the picked
+    cluster size, and at one and two block rows; a column tile narrower
+    than k."""
+    M, Dinv, B, _ = _factor(s, n, nb, dtype, cuda, seed=n)
+    for k, tiles in ((1, None), (5, (0, 2))):
+        bb = torch.randn(n, nb, s, k, dtype=dtype, device=cuda)
+        x = hk.banded_solve(M, Dinv, B, bb, trans, tiles=tiles)
+        x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
+        torch.cuda.synchronize()
+        assert _rel(x, x_p) < TOL[dtype], k
+
+
+@pytest.mark.parametrize("args", [
+    (16, 516, 1, 4, 1, True), (16, 516, 1, 8, 8, False), (32, 193, 1, 4, 4, True),
+    (256, 65, 1, 4, 1, False), (1024, 33, 1, 4, 1, True), (2, 516, 7, 8, 3, True)])
+def test_stream_geometry_mirrors_the_library(cuda, args):
+    """The wrapper's count of the streamed design's shared memory is the
+    library's, and fits a block."""
+    blocks, s, kt, item, c, trans = args
+    limit = hk._smem_limit(cuda)
+    rows, nstage, threads, rsplit, need = hk.stream_geometry(
+        blocks, s, kt, item, c, trans, hk._sm_count(cuda), limit, hk._sm_smem(cuda))
+    assert need <= limit and threads <= 32 * hk.STREAM_MAX_WARPS
+    assert hk._library().hf_stream_smem_bytes_c(
+        s, kt, c, rows, nstage, rsplit, int(trans), item) == need
+
+
+def test_solve_streamed_refuses_what_it_does_not_take(cuda):
+    """A cluster size outside 1 to 8 is refused at the launch; a forced
+    cluster whose shared memory does not fit, a column tile above 7 and a
+    cluster size for the panel design raise before it; no other path runs."""
+    M, Dinv, B, _ = _factor(65, 2, 3, torch.float32, cuda, seed=1)
+    bb = torch.randn(2, 3, 65, 1, device=cuda)
+    hk.reset_launch_counts()
+    for cluster in (0, 9, -1):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            hk.banded_solve(M, Dinv, B, bb, False, cluster=cluster)
+    with pytest.raises(ValueError, match="at most 7"):
+        hk.banded_solve(M, Dinv, B, bb.expand(2, 3, 65, 8).contiguous(), False,
+                        tiles=(0, 8))
+    with pytest.raises(ValueError, match="streamed"):
+        hk.banded_solve(M, Dinv, B, bb.expand(2, 3, 65, 8).contiguous(), False,
+                        tiles=(16, 8), cluster=2)
+    s = 2000
+    fac = torch.zeros((1, 1, s, s), dtype=torch.float64, device=cuda)
+    wide = torch.zeros((1, 1, s, 7), dtype=torch.float64, device=cuda)
+    for cluster in (1, 2):
+        with pytest.raises(ValueError, match="shared memory"):
+            hk.banded_solve(fac, fac, fac, wide, True, tiles=(0, 7),
+                            cluster=cluster)
+    assert hk.banded_solve.launches == 0
+
+
 def _designs(s, k, item, limit):
     """K2's (panel rows, column tile) for the streamed and the panel design
     at s and k, each the widest that fits."""

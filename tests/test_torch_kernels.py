@@ -133,6 +133,40 @@ def test_solve_plain_matches_pallas_interpret(kind, trans, k):
     )
 
 
+@pytest.mark.parametrize("slices", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("nx", [16, 32, 64])
+def test_solve_plain_in_cluster_slabs_matches_pallas_interpret(nx, k, trans, slices):
+    """The schedule of K2's streamed design in clusters of ``slices`` blocks
+    (every product formed slab by slab: rows of the output forward, partial
+    sums over slabs of rows transposed) equals the interpret-mode Pallas
+    sweeps, at the block sizes s = nx + 1 of the nx=64 lane and its coarse
+    levels (4 block rows of each band)."""
+    band = _random_band(nx, 2, seed=nx)[:, :4]
+    band[:, -1, :, 2 * (nx + 1):] = 0.0
+    ref_fac = jax.vmap(_factorize_thomas_inv_banded)(jnp.asarray(band))
+    rhs = _rhs(band, k, seed=k)
+    want = banded_solve_batch(
+        ref_fac.M, ref_fac.Dinv, ref_fac.B, jnp.asarray(rhs), trans,
+        interpret=True,
+    )
+    fac = interop.inverse_thomas_factor(*map(np.asarray, ref_fac), **F64)
+    bb = interop.tensor(rhs, **F64)
+    got = hk.banded_solve_plain(fac.M, fac.Dinv, fac.B, bb, trans, slices=slices)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    # the wrapper on the CPU runs the same schedule for cluster=slices
+    via = hk.banded_solve(fac.M, fac.Dinv, fac.B, bb, trans, cluster=slices)
+    assert torch.equal(via, got)
+
+
+def test_solve_plain_refuses_more_slabs_than_rows():
+    blk = torch.zeros((1, 2, 3, 3), **F64)
+    for slices in (0, 4):
+        with pytest.raises(ValueError, match="slices"):
+            hk.banded_solve_plain(blk, blk, blk, blk[..., :1], False, slices=slices)
+
+
 @pytest.mark.parametrize("kind", ["random", "confusion"])
 @pytest.mark.parametrize("trans", [False, True])
 def test_factor_solves_the_system(kind, trans):
@@ -230,6 +264,7 @@ def test_non_cpu_tensors_never_take_the_plain_versions(call):
 
 
 H100_SMEM = 232448  # shared memory one block may opt into on the H100
+H100_SM_SMEM = 233472  # shared memory of one of its SMs
 
 
 @pytest.mark.parametrize("s,k,itemsize,want", [
@@ -240,6 +275,8 @@ H100_SMEM = 232448  # shared memory one block may opt into on the H100
     (516, 200, 8, (16, 16)),  # one 64-row float64 panel alone is 264 KB
     (516, 1, 8, (0, 1)),
     (516, 4, 8, (0, 4)),
+    (516, 7, 4, (0, 7)),  # the streamed design's widest column tile
+    (2000, 7, 8, (0, 2)),  # a transposed 7-column carry does not fit
     (2000, 200, 8, None),  # no panel fits: the wrapper raises
 ])
 def test_solve_tiles_pick_the_widest_tile_then_panel(s, k, itemsize, want):
@@ -248,9 +285,20 @@ def test_solve_tiles_pick_the_widest_tile_then_panel(s, k, itemsize, want):
     within the limit."""
     got = hk.solve_tiles(s, k, itemsize, H100_SMEM)
     assert got == want
-    if got is not None:
+    if got is not None and got[0] > 0:
         rows, kt = got
         assert (s * rows + 2 * s * kt) * itemsize <= H100_SMEM
+    elif got is not None:
+        for trans in (False, True):
+            assert hk.stream_geometry(1, s, got[1], itemsize, 1, trans, 132,
+                                      H100_SMEM, H100_SM_SMEM) is not None
+
+
+def test_solve_tiles_stream_many_columns_in_tiles_of_seven():
+    """The streamed design forced at many columns takes column tiles of at
+    most STREAM_MAX_COLS."""
+    assert hk.solve_tiles(65, 200, 4, H100_SMEM, panels=False) == (0, 7)
+    assert hk.solve_tiles(516, 200, 8, H100_SMEM, panels=False) == (0, 7)
 
 
 @pytest.mark.parametrize("n,s,want", [
@@ -285,6 +333,80 @@ def test_gj_slices_split_a_row_into_whole_chunks(s, c):
     assert all(lo % 32 == 0 and (hi % 32 == 0 or hi == s) for lo, hi in sl)
     chunks = [-(-(hi - lo) // 32) for lo, hi in sl]
     assert max(chunks) - min(chunks) <= 1
+
+
+@pytest.mark.parametrize("blocks,s,want", [
+    (16, 516, 8),  # helmholtz chunk: 128 of the 132 SMs
+    (16, 193, 8),  # the nx=192 Jacobian chunk
+    (32, 193, 4),  # the nx=192 chunk
+    (32, 97, 4),  # its first coarse level
+    (32, 49, 2),  # at least STREAM_MIN_ROWS rows a rank
+    (32, 25, 1),
+    (256, 65, 1),  # more samples than SMs
+    (1024, 33, 1),
+    (1, 17, 1),
+    (1, 2000, 8),  # capped at the portable cluster size
+    (0, 516, 8),
+    (67, 516, 1),  # 2 blocks a sample would not fit the card
+    (66, 516, 2),
+])
+def test_stream_cluster_fills_the_card_with_slabs_worth_a_split(blocks, s, want):
+    c = hk.stream_cluster(blocks, s, 132)
+    assert c == want
+    assert 1 <= c <= hk.STREAM_MAX_CLUSTER
+    assert c == 1 or (blocks * c <= 132 and c * hk.STREAM_MIN_ROWS <= s)
+
+
+@pytest.mark.parametrize("s,c", [(516, 8), (516, 6), (193, 8), (193, 3),
+                                 (65, 4), (17, 8), (17, 17), (5, 3)])
+def test_stream_slabs_split_the_rows_evenly(s, c):
+    """The row slabs of a streamed cluster tile [0, s) in order, none
+    empty, balanced to one row, and ((i + 1) c - 1) // s (what the kernel
+    computes) is the rank that owns row i."""
+    sl = hk.stream_slabs(s, c)
+    assert len(sl) == c and sl[0][0] == 0 and sl[-1][1] == s
+    assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+    sizes = [hi - lo for lo, hi in sl]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert max(sizes) == -(-s // c)
+    for r, (lo, hi) in enumerate(sl):
+        assert all(((i + 1) * c - 1) // s == r for i in range(lo, hi))
+
+
+@pytest.mark.parametrize("blocks,s,kt,itemsize,c,trans", [
+    (16, 516, 1, 4, 8, True), (16, 516, 1, 4, 1, False), (16, 516, 1, 8, 6, True),
+    (16, 193, 1, 4, 8, False), (32, 193, 1, 4, 4, True), (32, 97, 1, 4, 4, False),
+    (256, 65, 1, 4, 1, True), (256, 65, 1, 8, 1, False), (1024, 33, 1, 4, 1, True),
+    (1024, 17, 1, 4, 1, False), (32, 25, 1, 4, 1, True), (2, 516, 7, 8, 1, True),
+    (1, 2000, 1, 8, 1, False), (1, 2000, 1, 8, 1, True),
+])
+def test_stream_geometry_fits_the_card(blocks, s, kt, itemsize, c, trans):
+    """Ring and threads of the streamed design on the H100: a stage of
+    whole rows within STREAM_STAGE_BYTES (one row where a row is longer),
+    equal chunks of the widest slab, at least two stages, the block within
+    its share of an SM's shared memory and threads, whole warps."""
+    rows, nstage, threads, rsplit, need = hk.stream_geometry(
+        blocks, s, kt, itemsize, c, trans, 132, H100_SMEM, H100_SM_SMEM)
+    slab = -(-s // c)
+    assert 1 <= rows <= slab
+    assert rows == 1 or rows * s * itemsize + 16 <= hk.STREAM_STAGE_BYTES
+    assert 2 <= nstage <= hk.STREAM_MAX_STAGES
+    assert threads % 32 == 0 and 32 <= threads <= 32 * hk.STREAM_MAX_WARPS
+    assert need == hk.stream_smem_bytes(s, kt, c, rows, nstage, rsplit, trans,
+                                        itemsize) <= H100_SMEM
+    share = min(8, -(-blocks * c // 132))
+    if share > 1:  # one wave: the blocks of an SM fit it together
+        assert share * (need + hk.BLOCK_SMEM_RESERVE) <= H100_SM_SMEM
+        assert share * threads <= 1024
+    if trans:
+        assert rsplit >= 1 and threads // 32 <= -(-s // 32) * rsplit
+    else:
+        assert rsplit == 1
+
+
+def test_stream_geometry_gives_up_where_nothing_fits():
+    assert hk.stream_geometry(1, 2000, 7, 8, 1, True, 132, H100_SMEM,
+                              H100_SM_SMEM) is None
 
 
 def test_batched_inverse_row_inverts_one_block_row_in_place():
