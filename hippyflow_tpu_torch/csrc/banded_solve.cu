@@ -262,8 +262,7 @@ int launch_solve(const void* m, const void* dinv, const void* b,
 // The streamed design
 // ---------------------------------------------------------------------------
 
-// Independent accumulators of a lane in a transposed product, and rows of
-// a chunk a warp takes at once in a forward product of one column.
+// Independent accumulators of a lane in a transposed product.
 constexpr int kStreamAcc = 4;
 // Cycles a wait on a ring barrier may last before the block gives up (a
 // lost copy must end the launch with an error, not hang the card).
@@ -394,7 +393,9 @@ __device__ __forceinline__ void stream_rows(const T* rhs, T* out, int nb,
 }
 
 // One block's ring of factor chunks.  Chunk q of the solve is chunk q % nch
-// of the slab of product q / nch; it lands in stage q % nstage.
+// of the slab of product q / nch; it lands in stage q % nstage.  The
+// position of the chunk in use and of the chunk to request are kept as
+// counters (a division per chunk and thread would show at s = 17).
 template <typename T, bool kTrans>
 struct StreamRing {
   uint64_t* full;
@@ -406,54 +407,83 @@ struct StreamRing {
   size_t ss;
   uint32_t stage_bytes;
   int nb, s, rows, nstage, nch, r0, slab_rows;
-  int total;   // chunks of the whole solve
-  int issued;  // chunks requested so far (thread 0)
-  int next;    // the chunk to use next (every thread)
+  int total;  // chunks of the whole solve
+  // the chunk in use (every thread): its product, chunk of the slab, stage
+  // and the parity of its round of the ring
+  int use_t, use_ci, use_st;
+  uint32_t use_par;
+  // the chunk to request next (thread 0)
+  int issued, req_t, req_ci, req_st, req_round;
 
-  __device__ __forceinline__ const T* chunk_src(int q, int* row0, int* nrows) const {
-    const int t = q / nch, ci = q - t * nch;
+  __device__ __forceinline__ void init() {
+    use_t = use_ci = use_st = 0;
+    use_par = 0;
+    issued = req_t = req_ci = req_st = req_round = 0;
+  }
+
+  __device__ __forceinline__ const T* chunk_src(int t, int ci, int* row0,
+                                                int* nrows) const {
     *row0 = ci * rows;
     *nrows = min(rows, slab_rows - *row0);
     return stream_block<T, kTrans>(m, d, b, nb, ss, t) +
            (size_t)(r0 + *row0) * s;
   }
 
-  // thread 0: request every chunk below `upto`; a stage is free once all
-  // warps have given back the chunk that used it a round earlier
+  // thread 0: request every chunk below `upto`; a stage is free once all warps
+  // have given back the chunk that used it a round earlier
   __device__ __forceinline__ void issue(int upto) {
     upto = min(upto, total);
     while (issued < upto) {
-      const int st = issued % nstage, round = issued / nstage;
-      if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
+      if (req_round > 0) mbar_wait(&empty[req_st], (req_round - 1) & 1);
       int row0, nrows;
-      const uintptr_t a = (uintptr_t)chunk_src(issued, &row0, &nrows);
+      const uintptr_t a = (uintptr_t)chunk_src(req_t, req_ci, &row0, &nrows);
       const uintptr_t a0 = a & ~(uintptr_t)15;
       const uintptr_t a1 =
           (a + (size_t)nrows * s * sizeof(T) + 15) & ~(uintptr_t)15;
-      mbar_expect_tx(&full[st], (uint32_t)(a1 - a0));
-      bulk_load(stages + (size_t)st * stage_bytes, (const void*)a0,
-                (uint32_t)(a1 - a0), &full[st]);
+      mbar_expect_tx(&full[req_st], (uint32_t)(a1 - a0));
+      bulk_load(stages + (size_t)req_st * stage_bytes, (const void*)a0,
+                (uint32_t)(a1 - a0), &full[req_st]);
       ++issued;
+      if (++req_ci == nch) {
+        req_ci = 0;
+        ++req_t;
+      }
+      if (++req_st == nstage) {
+        req_st = 0;
+        ++req_round;
+      }
     }
   }
 
   // every thread: the next chunk, once it has landed (thread 0 first
   // requests the chunks up to a ring's depth ahead)
   __device__ __forceinline__ const T* acquire(int* row0, int* nrows) {
-    const int q = next;
-    if (threadIdx.x == 0) issue(q + max(1, nstage - 1));
-    const int st = q % nstage;
-    mbar_wait(&full[st], (q / nstage) & 1);
-    const uintptr_t a = (uintptr_t)chunk_src(q, row0, nrows);
-    return reinterpret_cast<const T*>(stages + (size_t)st * stage_bytes +
+    if (threadIdx.x < 32) {
+      // the lanes beside thread 0 wait here, not in the poll below: a
+      // polling lane holds the warp and starves the thread that issues
+      if (threadIdx.x == 0) {
+        issue(use_t * nch + use_ci + max(1, nstage - 1));
+      }
+      __syncwarp();
+    }
+    mbar_wait(&full[use_st], use_par);
+    const uintptr_t a = (uintptr_t)chunk_src(use_t, use_ci, row0, nrows);
+    return reinterpret_cast<const T*>(stages + (size_t)use_st * stage_bytes +
                                       (a & 15));
   }
 
   // every thread, after its last read of the chunk
   __device__ __forceinline__ void release() {
     __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[next % nstage]);
-    ++next;
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[use_st]);
+    if (++use_ci == nch) {
+      use_ci = 0;
+      ++use_t;
+    }
+    if (++use_st == nstage) {
+      use_st = 0;
+      use_par ^= 1;
+    }
   }
 };
 
@@ -478,64 +508,58 @@ __device__ __forceinline__ T* stream_remote(T* p, int q) {
 
 // Forward product: rows [r0, r0 + slab_rows) of v_new = in - H v_old (or
 // H v_old), written into every rank's v_new and, where `out` is given,
-// into the output.  in_s: the slab's rows of `in` in shared memory.
+// into the output.  in_s: the slab's rows of `in` in shared memory.  A
+// group of `fg` lanes (a power of two up to 32) takes a row: 32 / fg rows
+// a warp at once, fg - 1 additions in a shuffle tree of log2 fg steps.
 template <typename T, int KW, bool kCluster>
 __device__ __forceinline__ void stream_forward(
     StreamRing<T, false>& ring, const T* v_old, T* v_new, const T* in_s,
-    T* out, int k, int kw, int nc) {
-  constexpr int RW = KW == 1 ? 2 : 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+    T* out, int k, int kw, int nc, int fg) {
+  // warp 0 feeds the ring; the others share the rows
+  const int lane = threadIdx.x & 31, warp = (int)(threadIdx.x >> 5) - 1;
+  const int nwarps = (int)(blockDim.x >> 5) - 1;
   const int s = ring.s;
+  const int rpw = 32 / fg;  // rows a warp takes at once
+  const int sub = lane & (fg - 1);
   for (int ci = 0; ci < ring.nch; ++ci) {
     int row0, nrows;
     const T* base = ring.acquire(&row0, &nrows);
-    for (int rr = warp * RW; rr < nrows; rr += nwarps * RW) {
-      T acc[RW][KW];
-      const T* row[RW];
+    for (int rb = warp * rpw; warp >= 0 && rb < nrows; rb += nwarps * rpw) {
+      const int rr = rb + lane / fg;
+      const T* row = base + (size_t)min(rr, nrows - 1) * s;
+      T acc[KW];
 #pragma unroll
-      for (int u = 0; u < RW; ++u) {
-        row[u] = base + (size_t)min(rr + u, nrows - 1) * s;
-#pragma unroll
-        for (int c = 0; c < KW; ++c) acc[u][c] = T(0);
-      }
+      for (int c = 0; c < KW; ++c) acc[c] = T(0);
 #pragma unroll 4
-      for (int l = lane; l < s; l += 32) {
-        T vv[KW];
-#pragma unroll
-        for (int c = 0; c < KW; ++c) vv[c] = c < kw ? v_old[l * kw + c] : T(0);
-#pragma unroll
-        for (int u = 0; u < RW; ++u) {
-          const T h = row[u][l];
-#pragma unroll
-          for (int c = 0; c < KW; ++c) acc[u][c] += h * vv[c];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < RW; ++u) {
+      for (int l = sub; l < s; l += fg) {
+        const T h = row[l];
 #pragma unroll
         for (int c = 0; c < KW; ++c) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            acc[u][c] += __shfl_xor_sync(0xffffffffu, acc[u][c], off);
-          }
+          if (c < kw) acc[c] += h * v_old[l * kw + c];
         }
       }
+      for (int off = fg >> 1; off > 0; off >>= 1) {
 #pragma unroll
-      for (int u = 0; u < RW; ++u) {
-        if (rr + u >= nrows) continue;
-        const int ii = row0 + rr + u, i = ring.r0 + ii;
+        for (int c = 0; c < KW; ++c) {
+          acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+        }
+      }
+      if (rr < nrows) {
+        const int ii = row0 + rr, i = ring.r0 + ii;
 #pragma unroll
         for (int c = 0; c < KW; ++c) {
           if (c >= kw) continue;
-          const T val = in_s != nullptr ? in_s[ii * kw + c] - acc[u][c] : acc[u][c];
-          if (lane < nc) stream_remote<kCluster>(v_new, lane)[i * kw + c] = val;
-          if (lane == 0 && out != nullptr) out[(size_t)i * k + c] = val;
+          const T val = in_s != nullptr ? in_s[ii * kw + c] - acc[c] : acc[c];
+          for (int q = sub; q < nc; q += fg) {
+            stream_remote<kCluster>(v_new, q)[i * kw + c] = val;
+          }
+          if (sub == 0 && out != nullptr) out[(size_t)i * k + c] = val;
         }
       }
     }
     ring.release();
   }
+  __pipeline_wait_prior(1);  // the next product's rows of `in`
   stream_sync<kCluster>();
 }
 
@@ -549,8 +573,8 @@ template <typename T, int KW, bool kCluster>
 __device__ __forceinline__ void stream_transposed(
     StreamRing<T, true>& ring, T* v, T* part, T* inbox, const T* in_s, T* out,
     int k, int kw, int nc, int rank, int rsplit) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, warp = (int)(threadIdx.x >> 5) - 1;
+  const int nwarps = (int)(blockDim.x >> 5) - 1;
   const int s = ring.s;
   const int groups = (s + 31) >> 5;
   const int mslab = hf_stream_slab(s, nc);
@@ -558,7 +582,7 @@ __device__ __forceinline__ void stream_transposed(
     int row0, nrows;
     const T* base = ring.acquire(&row0, &nrows);
     const T* vl = v + (size_t)(ring.r0 + row0) * kw;
-    for (int item = warp; item < groups * rsplit; item += nwarps) {
+    for (int item = warp; warp >= 0 && item < groups * rsplit; item += nwarps) {
       const int g = item % groups, rs = item / groups;
       const int i = 32 * g + lane;
       const T* col = base + min(i, s - 1);
@@ -602,6 +626,7 @@ __device__ __forceinline__ void stream_transposed(
     const int q = ((i + 1) * nc - 1) / s;  // the rank that owns output i
     stream_remote<kCluster>(inbox, q)[((size_t)rank * mslab + i - q * s / nc) * kw + c] = sum;
   }
+  __pipeline_wait_prior(2);  // this product's rows of `in`
   stream_sync<kCluster>();
   for (int e = threadIdx.x; e < ring.slab_rows * kw; e += blockDim.x) {
     const int ii = e / kw, c = e - ii * kw;
@@ -621,7 +646,7 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
     banded_stream_kernel(const T* __restrict__ m, const T* __restrict__ dinv,
                          const T* __restrict__ b, const T* __restrict__ rhs,
                          T* __restrict__ out, int nb, int s, int k, int kt,
-                         int rows, int nstage, int rsplit) {
+                         int rows, int nstage, int rsplit, int fgroup) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   int nc = 1, rank = 0;
   if constexpr (kCluster) {
@@ -659,12 +684,11 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
   ring.slab_rows = (rank + 1) * s / nc - ring.r0;
   ring.nch = (ring.slab_rows + rows - 1) / rows;
   ring.total = ntot * ring.nch;
-  ring.issued = 0;
-  ring.next = 0;
+  ring.init();
   if (tid == 0) {
     for (int q = 0; q < nstage; ++q) {
       mbar_init(&ring.full[q], 1);
-      mbar_init(&ring.empty[q], (int)(blockDim.x >> 5));
+      mbar_init(&ring.empty[q], (int)(blockDim.x >> 5));  // every warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -674,7 +698,7 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
   // the carry region, in tile elements of kt columns (kw <= kt of them
   // used): see hf_stream_carry_elems
   const size_t full_el = (size_t)s * kt, slab_el = (size_t)mslab * kt;
-  T* in_buf;  // (2, mslab, kw): the slab's rows of `in`, a product ahead
+  T* in_buf;  // (3, mslab, kw): the slab's rows of `in`, two products ahead
   T* v0;      // forward: the carry, twice; transposed: the carry
   T* part = nullptr;
   T* inbox = nullptr;
@@ -706,16 +730,12 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
       v0[(size_t)(ring.r0 + ii) * kw + c] = rhs_n[(size_t)(ring.r0 + ii) * k + c];
     }
   }
-  // every block of the cluster runs before any writes into its shared
-  // memory; the block's own writes above are visible to all its warps
-  stream_sync<kCluster>();
-
   auto prefetch_in = [&](int t) {
     const T* in_t;
     T* out_t;
     stream_rows<T, kTrans>(rhs_n, out_n, nb, rb, t, &in_t, &out_t);
     if (in_t != nullptr) {
-      T* dst = in_buf + (size_t)(t & 1) * slab_el;
+      T* dst = in_buf + (size_t)(t % 3) * slab_el;
       for (int e = tid; e < ring.slab_rows * kw; e += blockDim.x) {
         const int ii = e / kw, c = e - ii * kw;
         __pipeline_memcpy_async(dst + e, in_t + (size_t)(ring.r0 + ii) * k + c,
@@ -725,20 +745,28 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
     __pipeline_commit();
   };
 
+  // the rows of `in` of product t + 2 are requested at the start of product
+  // t (one product ahead left their latency in the open at s = 17) and
+  // those of product t waited for before a cluster barrier ahead of their
+  // use (forward: the last of product t - 1; transposed: the one inside
+  // product t), which makes them visible to all warps
   prefetch_in(0);
+  prefetch_in(1);
+  __pipeline_wait_prior(1);
+  // every block of the cluster runs before any writes into its shared
+  // memory; the block's own writes above are visible to all its warps
+  stream_sync<kCluster>();
   int cur = 0;
   for (int t = 0; t < ntot; ++t) {
     const T* in_t;
     T* out_t;
     stream_rows<T, kTrans>(rhs_n, out_n, nb, rb, t, &in_t, &out_t);
-    __pipeline_wait_prior(0);
-    prefetch_in(t + 1);
-    __syncthreads();  // the rows of `in` fetched by other threads
-    const T* in_s = in_t != nullptr ? in_buf + (size_t)(t & 1) * slab_el : nullptr;
+    prefetch_in(t + 2);
+    const T* in_s = in_t != nullptr ? in_buf + (size_t)(t % 3) * slab_el : nullptr;
     if constexpr (!kTrans) {
       stream_forward<T, KW, kCluster>(ring, v0 + (size_t)cur * full_el,
                                       v0 + (size_t)(cur ^ 1) * full_el, in_s,
-                                      out_t, k, kw, nc);
+                                      out_t, k, kw, nc, fgroup);
       cur ^= 1;
     } else {
       stream_transposed<T, KW, kCluster>(
@@ -752,7 +780,7 @@ template <typename T, int KW, bool kTrans, bool kCluster>
 int launch_stream(const void* m, const void* dinv, const void* b,
                   const void* rhs, void* out, int n, int nb, int s, int k,
                   int kt, int c, int rows, int nstage, int threads, int rsplit,
-                  void* stream) {
+                  int fgroup, void* stream) {
   auto kernel = banded_stream_kernel<T, KW, kTrans, kCluster>;
   const size_t smem =
       hf_stream_smem_bytes(s, kt, c, rows, nstage, rsplit, kTrans, sizeof(T));
@@ -774,7 +802,7 @@ int launch_stream(const void* m, const void* dinv, const void* b,
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(m),
                            static_cast<const T*>(dinv), static_cast<const T*>(b),
                            static_cast<const T*>(rhs), static_cast<T*>(out), nb,
-                           s, k, kt, rows, nstage, rsplit);
+                           s, k, kt, rows, nstage, rsplit, fgroup);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
@@ -783,18 +811,19 @@ template <typename T>
 int launch_stream(const void* m, const void* dinv, const void* b,
                   const void* rhs, void* out, int n, int nb, int s, int k,
                   int kt, int trans, int c, int rows, int nstage, int threads,
-                  int rsplit, void* stream) {
+                  int rsplit, int fgroup, void* stream) {
   if (kt < 1 || kt > HF_STREAM_MAX_COLS || c < 1 || c > HF_STREAM_MAX_CLUSTER ||
       c > s || rows < 1 || nstage < 2 || nstage > HF_STREAM_MAX_STAGES ||
       threads < 32 || threads > HF_STREAM_MAX_THREADS || threads % 32 != 0 ||
-      rsplit < 1) {
+      rsplit < 1 || fgroup < 1 || fgroup > 32 || (fgroup & (fgroup - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
   }
 #define HF_STREAM_CASE(KW, TRANS, CLUSTER)                                    \
   if ((kt == 1) == (KW == 1) && (trans != 0) == TRANS && (c > 1) == CLUSTER)  \
     return launch_stream<T, KW, TRANS, CLUSTER>(m, dinv, b, rhs, out, n, nb,  \
                                                 s, k, kt, c, rows, nstage,    \
-                                                threads, rsplit, stream);
+                                                threads, rsplit, fgroup,      \
+                                                stream);
   HF_STREAM_CASE(1, false, false)
   HF_STREAM_CASE(1, false, true)
   HF_STREAM_CASE(1, true, false)
@@ -833,17 +862,18 @@ extern "C" long long hf_solve_smem_bytes(int s, int kt, int panel_rows,
 
 // The streamed design (kt <= 7 columns a tile): c blocks per sample (1 to
 // 8), ring stages of `rows` rows, `nstage` of them (2 to 16), `threads` per
-// block (whole warps, at most HF_STREAM_MAX_THREADS) and `rsplit` row
-// splits of a transposed product; anything else returns
-// cudaErrorInvalidValue.
+// block (whole warps, at most HF_STREAM_MAX_THREADS), `rsplit` row splits
+// of a transposed product and `fgroup` lanes a row of a forward one (a
+// power of two up to 32); anything else returns cudaErrorInvalidValue.
 extern "C" int hf_banded_solve_stream_f32(const void* m, const void* dinv,
                                           const void* b, const void* rhs,
                                           void* out, int n, int nb, int s,
                                           int k, int kt, int trans, int c,
                                           int rows, int nstage, int threads,
-                                          int rsplit, void* stream) {
+                                          int rsplit, int fgroup,
+                                          void* stream) {
   return launch_stream<float>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans, c,
-                              rows, nstage, threads, rsplit, stream);
+                              rows, nstage, threads, rsplit, fgroup, stream);
 }
 
 extern "C" int hf_banded_solve_stream_f64(const void* m, const void* dinv,
@@ -851,9 +881,10 @@ extern "C" int hf_banded_solve_stream_f64(const void* m, const void* dinv,
                                           void* out, int n, int nb, int s,
                                           int k, int kt, int trans, int c,
                                           int rows, int nstage, int threads,
-                                          int rsplit, void* stream) {
+                                          int rsplit, int fgroup,
+                                          void* stream) {
   return launch_stream<double>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans, c,
-                               rows, nstage, threads, rsplit, stream);
+                               rows, nstage, threads, rsplit, fgroup, stream);
 }
 
 extern "C" long long hf_stream_smem_bytes_c(int s, int kt, int c, int rows,

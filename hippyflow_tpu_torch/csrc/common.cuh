@@ -185,11 +185,12 @@ inline std::size_t hf_solve_smem_elems(int s, int kt, int panel_rows) {
 // sample, each of which owns one slab of rows of every factor block and
 // draws it through a ring of `nstage` shared-memory stages of `rows` rows.
 // Most columns of a column tile, blocks of a cluster, stages of a ring and
-// threads of a block (17 warps: one per 32 columns at s = 516).
+// threads of a block (a warp that feeds the ring and 17 that compute: one
+// per 32 columns at s = 516).
 #define HF_STREAM_MAX_COLS 7
 #define HF_STREAM_MAX_CLUSTER 8
 #define HF_STREAM_MAX_STAGES 16
-#define HF_STREAM_MAX_THREADS 544
+#define HF_STREAM_MAX_THREADS 576
 // Bytes ahead of the carry: the ring's full and empty barriers.
 #define HF_STREAM_BAR_BYTES (16 * HF_STREAM_MAX_STAGES)
 
@@ -208,16 +209,17 @@ __host__ __device__ inline std::size_t hf_stream_stage_bytes(int s, int rows,
 
 // Elements of a streamed block's carry region for an (s, kt) column tile.
 // Forward sweeps: the carry, twice (every block holds all of it), and the
-// rhs rows of its slab, twice (fetched one product ahead).  Transposed
-// sweeps: the carry, the partial sums of the `rsplit` row splits, the
-// partial sums the c ranks send (twice), and the rhs rows (twice).
+// rhs rows of its slab, three times (fetched two products ahead).
+// Transposed sweeps: the carry, the partial sums of the `rsplit` row
+// splits, the partial sums the c ranks send (twice), and the rhs rows
+// (three times).
 __host__ __device__ inline std::size_t hf_stream_carry_elems(int s, int kt,
                                                           int c, int rsplit,
                                                           bool trans) {
   const std::size_t full = (std::size_t)s * kt;
   const std::size_t slab = (std::size_t)hf_stream_slab(s, c) * kt;
-  return trans ? full * (1 + rsplit) + 2 * c * slab + 2 * slab
-               : 2 * full + 2 * slab;
+  return trans ? full * (1 + rsplit) + 2 * c * slab + 3 * slab
+               : 2 * full + 3 * slab;
 }
 
 inline std::size_t hf_stream_smem_bytes(int s, int kt, int c, int rows,

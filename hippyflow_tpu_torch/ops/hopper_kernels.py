@@ -152,7 +152,7 @@ def _library():
             "hf_banded_factorize_rows": [p, p, p, i, i, i, i, i, p],
             "hf_banded_solve": [p, p, p, p, p, i, i, i, i, i, i, i, p],
             "hf_banded_solve_stream": [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                       i, i, i, p],
+                                       i, i, i, i, p],
             "hf_batched_inverse": [p, i, i, ll, i, i, p],
         }
         for stem, argtypes in signatures.items():
@@ -648,10 +648,10 @@ PANEL_ROWS = (64, 32, 16)
 STREAM_MAX_COLS = 7
 STREAM_MAX_CLUSTER = 8
 STREAM_MAX_STAGES = 16
-STREAM_MAX_WARPS = 17
+STREAM_MAX_WARPS = 18
 STREAM_BAR_BYTES = 256
 STREAM_STAGE_BYTES = 32768
-STREAM_MIN_ROWS = 24
+STREAM_MIN_ROWS = 32
 
 
 def _round16(x: int) -> int:
@@ -661,10 +661,10 @@ def _round16(x: int) -> int:
 def stream_cluster(blocks: int, s: int, sm_count: int) -> int:
     """Thread blocks per sample of K2's streamed design for ``blocks``
     (sample, column tile) pairs of block size s on a card of ``sm_count``
-    SMs: the largest c with blocks c <= sm_count and at least
+    SMs: the largest c with blocks c <= 3/4 sm_count and at least
     STREAM_MIN_ROWS rows of a factor block per rank, at most
     STREAM_MAX_CLUSTER, at least 1."""
-    return max(1, min(STREAM_MAX_CLUSTER, sm_count // max(blocks, 1),
+    return max(1, min(STREAM_MAX_CLUSTER, 3 * sm_count // (4 * max(blocks, 1)),
                       s // STREAM_MIN_ROWS))
 
 
@@ -673,8 +673,8 @@ def stream_carry_elems(s: int, kt: int, c: int, rsplit: int, trans: bool) -> int
     ``hf_stream_carry_elems``)."""
     full, slab = s * kt, -(-s // c) * kt
     if trans:
-        return full * (1 + rsplit) + 2 * c * slab + 2 * slab
-    return 2 * full + 2 * slab
+        return full * (1 + rsplit) + 2 * c * slab + 3 * slab
+    return 2 * full + 3 * slab
 
 
 def stream_smem_bytes(s: int, kt: int, c: int, rows: int, nstage: int,
@@ -689,37 +689,40 @@ def stream_smem_bytes(s: int, kt: int, c: int, rows: int, nstage: int,
 
 def stream_geometry(blocks: int, s: int, kt: int, itemsize: int, c: int,
                     trans: bool, sm_count: int, limit: int, sm_smem: int):
-    """(rows per stage, stages, threads, row splits, bytes) of K2's streamed
-    design for ``blocks`` (sample, column tile) pairs in clusters of c, or
+    """(rows per stage, stages, threads, row splits, lanes per row, bytes)
+    of K2's streamed design for ``blocks`` (sample, column tile) pairs in clusters of c, or
     None where not even two one-row stages fit ``limit`` bytes.
 
     Where the grid has more blocks than the card SMs, as many blocks as it
     takes for one wave (at most 8) share an SM's shared memory and threads.
     A stage holds at most STREAM_STAGE_BYTES, in equal chunks of a rank's
     slab; the ring takes what shared memory is left, up to
-    STREAM_MAX_STAGES.  Transposed, a warp owns 32 columns and the warps
-    left split the rows; forward, a warp takes two rows of a chunk (one at
-    kt > 1)."""
+    STREAM_MAX_STAGES.  One warp feeds the ring; of the others, transposed,
+    each owns 32 columns and those left split the rows; forward, a group
+    of about s / 8 lanes (a power of two, at most a warp) takes a row, a
+    trade of the row's length against the steps of the shuffle tree."""
     slab, groups = -(-s // c), -(-s // 32)
     for share in range(max(1, min(8, -(-blocks * c // sm_count))), 0, -1):
         budget = min(limit, sm_smem // share - BLOCK_SMEM_RESERVE)
-        wmax = max(1, min(16, 32 // share))
+        # warps that compute, beside the one that feeds the ring
+        wmax = min(16, 32 // share - 1)
         rows = max(1, min(slab, (STREAM_STAGE_BYTES - 16) // (s * itemsize)))
         rows = -(-slab // -(-slab // rows))
         rsplit = max(1, min(8, wmax // groups)) if trans else 1
+        fgroup = 1 << max(0, min(5, (s // 8).bit_length() - 1))
         while True:
             if trans:
                 warps = min(groups * rsplit,
-                            STREAM_MAX_WARPS if share == 1 else wmax)
+                            STREAM_MAX_WARPS - 1 if share == 1 else wmax)
             else:
-                warps = min(wmax, max(4, -(-rows // (2 if kt == 1 else 1))))
+                warps = min(wmax, -(-rows * fgroup // 32))
             nstage = min(
                 STREAM_MAX_STAGES,
                 (budget - stream_smem_bytes(s, kt, c, rows, 0, rsplit, trans,
                                             itemsize))
                 // (_round16(rows * s * itemsize) + 16))
             if nstage >= (2 if share == 1 else 3):
-                return (rows, nstage, 32 * warps, rsplit,
+                return (rows, nstage, 32 * (warps + 1), rsplit, fgroup,
                         stream_smem_bytes(s, kt, c, rows, nstage, rsplit, trans,
                                           itemsize))
             if rows == 1:
@@ -816,7 +819,7 @@ def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None,
         # a cluster size the kernel does not take goes to it all the same,
         # with one block's geometry, and is refused there
         stem = "hf_banded_solve_stream"
-        args += (cluster,) + (geometry or (1, 2, 32, 1))[:4]
+        args += (cluster,) + (geometry or (1, 2, 32, 1, 32))[:5]
     if N == 0 or nb == 0 or k == 0:
         return out
     _launch(lib, getattr(lib, f"{stem}_{_suffix(bb.dtype)}"), "banded_solve",

@@ -118,7 +118,7 @@ def sweep(N, s, nb, dtype, trans, device, check_only=False, parent=None):
         * bb.element_size() / HBM_BYTES_PER_S
     best = min(runs.keys() - {"plain", "parent"}, key=ms.get)
     print(head + "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-          + f"; picked c={picked} (rows, stages, threads, splits, bytes {geo}), "
+          + f"; picked c={picked} (rows, stages, threads, splits, lanes a row, bytes {geo}), "
           f"fastest {best}; bound {bound:.4f} ms", flush=True)
 
 

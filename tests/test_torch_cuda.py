@@ -383,7 +383,7 @@ def test_stream_geometry_mirrors_the_library(cuda, args):
     library's, and fits a block."""
     blocks, s, kt, item, c, trans = args
     limit = hk._smem_limit(cuda)
-    rows, nstage, threads, rsplit, need = hk.stream_geometry(
+    rows, nstage, threads, rsplit, fgroup, need = hk.stream_geometry(
         blocks, s, kt, item, c, trans, hk._sm_count(cuda), limit, hk._sm_smem(cuda))
     assert need <= limit and threads <= 32 * hk.STREAM_MAX_WARPS
     assert hk._library().hf_stream_smem_bytes_c(

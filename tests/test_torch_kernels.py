@@ -276,7 +276,7 @@ H100_SM_SMEM = 233472  # shared memory of one of its SMs
     (516, 1, 8, (0, 1)),
     (516, 4, 8, (0, 4)),
     (516, 7, 4, (0, 7)),  # the streamed design's widest column tile
-    (2000, 7, 8, (0, 2)),  # a transposed 7-column carry does not fit
+    (2000, 7, 8, (0, 1)),  # a transposed carry of 2 to 7 columns does not fit
     (2000, 200, 8, None),  # no panel fits: the wrapper raises
 ])
 def test_solve_tiles_pick_the_widest_tile_then_panel(s, k, itemsize, want):
@@ -336,25 +336,25 @@ def test_gj_slices_split_a_row_into_whole_chunks(s, c):
 
 
 @pytest.mark.parametrize("blocks,s,want", [
-    (16, 516, 8),  # helmholtz chunk: 128 of the 132 SMs
-    (16, 193, 8),  # the nx=192 Jacobian chunk
-    (32, 193, 4),  # the nx=192 chunk
-    (32, 97, 4),  # its first coarse level
-    (32, 49, 2),  # at least STREAM_MIN_ROWS rows a rank
+    (16, 516, 6),  # helmholtz chunk: 96 of the 132 SMs
+    (16, 193, 6),  # the nx=192 Jacobian chunk
+    (32, 193, 3),  # the nx=192 chunk
+    (32, 97, 3),  # its first coarse level
+    (32, 49, 1),  # fewer than STREAM_MIN_ROWS rows a rank
     (32, 25, 1),
     (256, 65, 1),  # more samples than SMs
     (1024, 33, 1),
     (1, 17, 1),
     (1, 2000, 8),  # capped at the portable cluster size
     (0, 516, 8),
-    (67, 516, 1),  # 2 blocks a sample would not fit the card
-    (66, 516, 2),
+    (50, 516, 1),  # 2 blocks a sample would pass 3/4 of the card
+    (49, 516, 2),
 ])
 def test_stream_cluster_fills_the_card_with_slabs_worth_a_split(blocks, s, want):
     c = hk.stream_cluster(blocks, s, 132)
     assert c == want
     assert 1 <= c <= hk.STREAM_MAX_CLUSTER
-    assert c == 1 or (blocks * c <= 132 and c * hk.STREAM_MIN_ROWS <= s)
+    assert c == 1 or (4 * blocks * c <= 3 * 132 and c * hk.STREAM_MIN_ROWS <= s)
 
 
 @pytest.mark.parametrize("s,c", [(516, 8), (516, 6), (193, 8), (193, 3),
@@ -385,7 +385,7 @@ def test_stream_geometry_fits_the_card(blocks, s, kt, itemsize, c, trans):
     whole rows within STREAM_STAGE_BYTES (one row where a row is longer),
     equal chunks of the widest slab, at least two stages, the block within
     its share of an SM's shared memory and threads, whole warps."""
-    rows, nstage, threads, rsplit, need = hk.stream_geometry(
+    rows, nstage, threads, rsplit, fgroup, need = hk.stream_geometry(
         blocks, s, kt, itemsize, c, trans, 132, H100_SMEM, H100_SM_SMEM)
     slab = -(-s // c)
     assert 1 <= rows <= slab
@@ -399,9 +399,10 @@ def test_stream_geometry_fits_the_card(blocks, s, kt, itemsize, c, trans):
         assert share * (need + hk.BLOCK_SMEM_RESERVE) <= H100_SM_SMEM
         assert share * threads <= 1024
     if trans:
-        assert rsplit >= 1 and threads // 32 <= -(-s // 32) * rsplit
+        assert rsplit >= 1 and threads // 32 - 1 <= -(-s // 32) * rsplit
     else:
         assert rsplit == 1
+    assert fgroup in (1, 2, 4, 8, 16, 32) and fgroup <= max(1, s // 8)
 
 
 def test_stream_geometry_gives_up_where_nothing_fits():
