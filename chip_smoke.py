@@ -4,11 +4,11 @@
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --profile   # also: device-time tables of the main
                                       # path and the two large lanes
-    python3 chip_smoke.py --parent DIR   # also time the K1 chain of another
-                                      # checkout of this repository, unpacked
-                                      # into DIR inside this one (it builds
-                                      # its kernels there), in turns with
-                                      # this one's designs
+    python3 chip_smoke.py --parent DIR   # also time the K1 chain and the
+                                      # k=1 K2 of another checkout of this
+                                      # repository, unpacked into DIR inside
+                                      # this one (it builds its kernels
+                                      # there), in turns with this one's
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin``, ``PATH`` or
 ``/usr/local/cuda/bin``); imports nothing of JAX.  Phases, one summary line
@@ -26,7 +26,13 @@ each:
    held against the plain version
    and the chain against the rows, then timed in turns, beside the bound
    and the design that ``design=None`` takes; the same at every K1 shape
-   of the lanes in phases 5-7);
+   of the lanes in phases 5-7); a ``K2 clusters`` line per orientation of
+   the k=1 solve (the streamed design with one thread block per sample,
+   with the number ``stream_cluster`` picks and with its neighbours among
+   1, 2, 3, 4, 6, 8, each held against the plain version, then timed in
+   turns with the plain version and, with ``--parent``, that checkout's
+   K2, beside the bound; the same at s=193 (N=16 and 32), at each coarse
+   level and at s=516 in both dtypes);
 4. inverses: K3 and K4 (``batched_inverse``) against their plain version on
    the prior's cyclic-reduction blocks at nx=64 (N=32, s=65) and nx=192
    (N=96, s=193), both dtypes, with the identity residual and timings; K3
@@ -125,6 +131,9 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # thread blocks per matrix at which K3 is timed beside 1 and the picked one
 K3_CLUSTERS = (2, 4, 6, 8)
+# thread blocks per sample of K2's streamed design: it is timed at 1, at the
+# picked number and at the picked number's neighbours among these
+K2_CLUSTERS = (1, 2, 3, 4, 6, 8)
 
 # Kernel against plain version, relative to the largest plain entry, and
 # relative residuals ||A x - b|| / ||b|| of the kernels' solves (taken in
@@ -300,6 +309,56 @@ def time_k3_clusters(X, label, row=None, reps=5):
             "inv_ms": inv_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def k2_clusters(M, Dinv, B, bb, trans, label, parent=None, reps=3):
+    """K2's streamed design on one factor and rhs (k < 8) with one thread
+    block per sample, with the number ``stream_cluster`` picks and with
+    that number's neighbours in K2_CLUSTERS, each held against the plain
+    version within TOL, then timed in turns (the list forwards, then
+    backwards) with the plain version and (``parent``) the K2 of an
+    earlier checkout, beside the bound.  Returns the record for the
+    kernels' JSON line."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    N, nb, s, _ = M.shape
+    k, dtype = bb.shape[-1], bb.dtype
+    picked = hk.stream_cluster(N, s, hk._sm_count(bb.device))
+    below = [c for c in K2_CLUSTERS if c < picked][-1:]
+    above = [c for c in K2_CLUSTERS if c > picked][:1]
+    counts = sorted(c for c in {1, picked, *below, *above} if c <= s)
+    x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
+    worst = 0.0
+    for c in counts:
+        x = hk.banded_solve(M, Dinv, B, bb, trans, cluster=c)
+        torch.cuda.synchronize()
+        diff = rel_err(x, x_p)
+        check(diff <= TOL[dtype]["diff"],
+              f"K2 clusters {label} {dtype} trans={trans} c={c}: against "
+              f"plain {diff:.3e}")
+        worst = max(worst, (x - x_p).abs().max().item())
+    del x, x_p
+    runs = {f"c={c}": (lambda c=c: hk.banded_solve(M, Dinv, B, bb, trans,
+                                                    cluster=c))
+            for c in counts}
+    runs["plain"] = lambda: hk.banded_solve_plain(M, Dinv, B, bb, trans)
+    if parent is not None:
+        runs["parent"] = lambda: parent.banded_solve(M, Dinv, B, bb, trans)
+    ms = {key: [] for key in runs}
+    for keys in (list(runs), list(runs)[::-1]):
+        for key in keys:
+            ms[key].append(cuda_ms(runs[key], reps))
+    ms = {key: sum(v) / len(v) for key, v in ms.items()}
+    best = min((key for key in ms if key.startswith("c=")), key=ms.get)
+    b_ms, b_by = k2_bound(N, nb, s, k, dtype)
+    log(f"K2 clusters {label} {str(dtype)[6:]} N={N} nb={nb} s={s} k={k} "
+        f"{'transposed' if trans else 'forward'}: "
+        + ", ".join(f"{key} {v:.4f} ms" for key, v in ms.items())
+        + f"; picked c={picked} ({ms['c=1'] / ms[f'c={picked}']:.2f}x c=1, "
+        f"{ms[f'c={picked}'] / ms[best]:.3f}x the fastest, {best}); bound "
+        f"{b_ms:.4f} ms ({b_by}); max abs err {worst:.3e}")
+    return {"picked": picked, "fastest": best, "ms": ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": worst}
+
+
 def load_parent(path):
     """The kernel module of another checkout of this repository (``--parent
     DIR``: its ``hippyflow_tpu_torch/ops/hopper_kernels.py``, which builds
@@ -444,7 +503,7 @@ def phase_kernels(obs64, prior64, device, parent=None):
               f"K1 {dtype}: kernel vs plain {k1_rel:.3e} > {tol['diff']}")
         line = f"kernels {str(dtype)[6:]}: K1 rel diff {k1_rel:.3e}"
         k2_err = 0.0
-        for k, trans in ((1, False), (100, True)):
+        for k, trans in ((1, False), (1, True), (100, True)):
             bb = rhs64[k].to(dtype)
             x = hk.banded_solve(M, Dinv, B, bb, trans)
             x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
@@ -498,7 +557,12 @@ def phase_kernels(obs64, prior64, device, parent=None):
                              "plain_ms": k2_plain, "bound_ms": b2,
                              "bound_by": by2, "library_ms": None,
                              "ms_k1": k2_ms1, "plain_ms_k1": k2_plain1,
-                             **bound_keys("k1", *k2_bound(N, nb, s, 1, dtype))},
+                             **bound_keys("k1", *k2_bound(N, nb, s, 1, dtype)),
+                             "clusters": {
+                                 f"n{N}_s{s}_{'trans' if t else 'fwd'}":
+                                 k2_clusters(M, Dinv, B, bb1, t,
+                                             f"nx={NX} Newton bands", parent)
+                                 for t in (False, True)}},
         }
     designs = {f"n{N}_s{s}": k1_designs(band64, f"nx={NX} Newton bands", parent)}
     designs[f"n{N_SAMPLES}_s{s}"] = k1_designs(
@@ -621,7 +685,7 @@ def phase_s193(obs64, prior64, device, parent=None):
         check(k1_rel <= tol["diff"], f"K1 s={s} {dtype}: kernel vs plain {k1_rel:.3e}")
         line = f"s={s} kernels {str(dtype)[6:]} N={N}: K1 rel diff {k1_rel:.3e}"
         k2_err = 0.0
-        for k, trans in ((1, False), (100, True)):
+        for k, trans in ((1, False), (1, True), (100, True)):
             bb = rhs64[k].to(dtype)
             x = hk.banded_solve(M, Dinv, B, bb, trans)
             x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
@@ -665,6 +729,18 @@ def phase_s193(obs64, prior64, device, parent=None):
                              **bound_keys("s193", *k2_bound(N, nb, s, 100, dtype)),
                              **bound_keys("k1_s193", *k2_bound(N, nb, s, 1, dtype))},
         }
+        # the k=1 solve at the lane's Jacobian chunk (16) and chunk (32: the
+        # 16 factors twice)
+        label = f"nx={NX192} Newton bands"
+        clusters = {f"n{N}_s{s}_{'trans' if t else 'fwd'}":
+                    k2_clusters(M, Dinv, B, bb1, t, label, parent, reps=2)
+                    for t in (False, True)}
+        M2, D2, B2, bb2 = (torch.cat([t, t]) for t in (M, Dinv, B, bb1))
+        clusters.update({f"n{2 * N}_s{s}_{'trans' if t else 'fwd'}":
+                         k2_clusters(M2, D2, B2, bb2, t, label, parent, reps=2)
+                         for t in (False, True)})
+        del M2, D2, B2, bb2
+        report["banded_solve"]["clusters"] = clusters
     # K1's designs at the nx=192 lane's chunk (32) and Jacobian chunk (16)
     report["designs"] = {
         f"n{N}_s{s}": k1_designs(band64, f"nx={NX192} Newton bands", parent,
@@ -766,6 +842,13 @@ def check_band_kernels(band64, ks, label, gen, reps=2, parent=None):
                 t = rec[f"k2_k{k}"]
                 line += f", K2 k={k} {t[0]:.3f} ms (plain {t[1]:.3f})"
         log(line)
+        if dtype == torch.float32:
+            bb1 = torch.randn(N, nb, s, 1, generator=gen, dtype=dtype,
+                              device=band64.device)
+            rec["k2_clusters"] = {
+                f"n{N}_s{s}_{'trans' if t else 'fwd'}":
+                k2_clusters(M, Dinv, B, bb1, t, label, parent)
+                for t in (False, True)}
         out[dtype] = rec
     out["designs"] = k1_designs(band64, label, parent)
     return out
@@ -914,6 +997,11 @@ def phase_s516(device, parent=None):
         rec["k3"] = paired_ms(lambda: hk.batched_inverse(T1),
                               lambda: hk.batched_inverse_plain(T1), reps=2)
         rec["k3_clusters"] = time_k3_clusters(T1, "helmholtz Schur complements")
+        rec["k2_clusters"] = {
+            f"n{N}_s{s}_{'trans' if t else 'fwd'}"
+            + ("" if dtype == torch.float32 else "_f64"):
+            k2_clusters(M, Dinv, B, bb1, t, "helmholtz bands", parent, reps=2)
+            for t in (False, True)}
         rec["k1_bound"] = k1_bound(N, nb, s, dtype)
         rec["k2_bound"] = {k: k2_bound(N, nb, s, k, dtype) for k in (1, 200)}
         log(f"timing {name} s={s} N={N} nb={nb}: K1 rows {rec['k1'][0]:.3f} ms "
@@ -1270,6 +1358,12 @@ def run_phases(device, argv, parent=None):
     designs.update({f"n{N_SAMPLES if s in (33, 17) else CHUNK192}_s{s}":
                     rec["designs"] for s, rec in coarse.items()})
     designs[f"n{N_BAND_HELM}_s{s_helm}"] = s516["designs"]
+    k2_cl = report["banded_solve"]["clusters"]
+    k2_cl.update(s193_report["banded_solve"].pop("clusters"))
+    for rec in coarse.values():
+        k2_cl.update(rec[f32]["k2_clusters"])
+    for dtype in (f32, f64):
+        k2_cl.update(s516[dtype]["k2_clusters"])
     for name in ("banded_factorize", "banded_solve"):
         report[name].update(s193_report[name])
     for name, key in (("K3", "batched_inverse"), ("K4", "batched_inverse_rank1")):

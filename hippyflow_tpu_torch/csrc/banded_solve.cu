@@ -56,12 +56,12 @@
 //   a slab starts on an element (s is odd on most lanes), so a copy takes
 //   the 16-byte span around its chunk and the reader adds the offset.
 //   One access pattern serves both orientations:
-//   - op(H) = H: a warp takes two rows of the chunk, its lanes stride
-//     over the row (conflict-free), a shuffle tree sums them, and the
-//     result goes into every rank's copy of the carry (distributed shared
+//   - op(H) = H: a group of about s / 8 lanes (a power of two, up to a
+//     warp) takes a row of the chunk and strides over it, a shuffle tree
+//     sums the group, and the result goes into every rank's copy of the carry (distributed shared
 //     memory); one cluster barrier per product;
 //   - op(H) = H^T: a warp owns 32 output columns and one of `rsplit` row
-//     splits of the chunk, each lane with four independent accumulators;
+//     splits of the chunk, each lane loading eight rows' entries at once;
 //     the block's partial sums over its slab of rows go to the ranks that
 //     own the outputs, which after one cluster barrier add them up: the
 //     carry a rank needs for the next product is the slice it has summed.
@@ -262,8 +262,15 @@ int launch_solve(const void* m, const void* dinv, const void* b,
 // The streamed design
 // ---------------------------------------------------------------------------
 
-// Independent accumulators of a lane in a transposed product.
-constexpr int kStreamAcc = 4;
+// Factor entries a lane loads, with the carry entries they meet, before it
+// multiplies any (the loads of a batch are all in flight together; written
+// one load and one multiply-add after the other, the compiler kept them so
+// and every multiply-add waited a shared-memory latency): 8 at one rhs
+// column, 2 at up to 7, for registers.
+template <int KW>
+struct StreamBatch {
+  static constexpr int n = KW == 1 ? 8 : 2;
+};
 // Cycles a wait on a ring barrier may last before the block gives up (a
 // lost copy must end the launch with an error, not hang the card).
 constexpr long long kStreamTimeout = 4000000000ll;
@@ -400,6 +407,7 @@ template <typename T, bool kTrans>
 struct StreamRing {
   uint64_t* full;
   uint64_t* empty;
+  uint32_t* offset;  // per stage: where its chunk starts, in bytes
   unsigned char* stages;
   const T* m;
   const T* d;
@@ -421,12 +429,10 @@ struct StreamRing {
     issued = req_t = req_ci = req_st = req_round = 0;
   }
 
-  __device__ __forceinline__ const T* chunk_src(int t, int ci, int* row0,
-                                                int* nrows) const {
+  __device__ __forceinline__ void chunk_rows(int ci, int* row0,
+                                             int* nrows) const {
     *row0 = ci * rows;
     *nrows = min(rows, slab_rows - *row0);
-    return stream_block<T, kTrans>(m, d, b, nb, ss, t) +
-           (size_t)(r0 + *row0) * s;
   }
 
   // thread 0: request every chunk below `upto`; a stage is free once all warps
@@ -436,8 +442,12 @@ struct StreamRing {
     while (issued < upto) {
       if (req_round > 0) mbar_wait(&empty[req_st], (req_round - 1) & 1);
       int row0, nrows;
-      const uintptr_t a = (uintptr_t)chunk_src(req_t, req_ci, &row0, &nrows);
+      chunk_rows(req_ci, &row0, &nrows);
+      const uintptr_t a =
+          (uintptr_t)(stream_block<T, kTrans>(m, d, b, nb, ss, req_t) +
+                      (size_t)(r0 + row0) * s);
       const uintptr_t a0 = a & ~(uintptr_t)15;
+      offset[req_st] = (uint32_t)(a - a0);
       const uintptr_t a1 =
           (a + (size_t)nrows * s * sizeof(T) + 15) & ~(uintptr_t)15;
       mbar_expect_tx(&full[req_st], (uint32_t)(a1 - a0));
@@ -455,10 +465,12 @@ struct StreamRing {
     }
   }
 
-  // every thread: the next chunk, once it has landed (thread 0 first
-  // requests the chunks up to a ring's depth ahead)
+  // every thread that computes: the next chunk, once it has landed.  In a
+  // cluster (kInline) thread 0 first requests the chunks up to a ring's
+  // depth ahead; a block on its own has thread 0 do nothing else.
+  template <bool kInline>
   __device__ __forceinline__ const T* acquire(int* row0, int* nrows) {
-    if (threadIdx.x < 32) {
+    if (kInline && threadIdx.x < 32) {
       // the lanes beside thread 0 wait here, not in the poll below: a
       // polling lane holds the warp and starves the thread that issues
       if (threadIdx.x == 0) {
@@ -467,9 +479,9 @@ struct StreamRing {
       __syncwarp();
     }
     mbar_wait(&full[use_st], use_par);
-    const uintptr_t a = (uintptr_t)chunk_src(use_t, use_ci, row0, nrows);
+    chunk_rows(use_ci, row0, nrows);
     return reinterpret_cast<const T*>(stages + (size_t)use_st * stage_bytes +
-                                      (a & 15));
+                                      offset[use_st]);
   }
 
   // every thread, after its last read of the chunk
@@ -487,13 +499,37 @@ struct StreamRing {
   }
 };
 
+// The warps that compute, of one block: all of them in a cluster, where
+// warp 0 feeds the ring between its barriers, and all but warp 0 in a block
+// on its own, where warp 0 only feeds the ring and joins no barrier (named
+// barrier 1; its work would lie on the path of every product at s = 17).
+template <bool kCluster>
+__device__ __forceinline__ void stream_block_sync() {
+  if constexpr (kCluster) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync 1, %0;\n" ::"r"(blockDim.x - 32) : "memory");
+  }
+}
+
+// The same across the cluster.
 template <bool kCluster>
 __device__ __forceinline__ void stream_sync() {
   if constexpr (kCluster) {
     cg::this_cluster().sync();
   } else {
-    __syncthreads();
+    stream_block_sync<false>();
   }
+}
+
+// Index and number of the threads that share a block's elementwise loops.
+template <bool kCluster>
+__device__ __forceinline__ int stream_tid() {
+  return kCluster ? (int)threadIdx.x : (int)threadIdx.x - 32;
+}
+template <bool kCluster>
+__device__ __forceinline__ int stream_threads() {
+  return kCluster ? (int)blockDim.x : (int)blockDim.x - 32;
 }
 
 // p in the shared memory of rank q of the cluster.
@@ -514,7 +550,8 @@ __device__ __forceinline__ T* stream_remote(T* p, int q) {
 template <typename T, int KW, bool kCluster>
 __device__ __forceinline__ void stream_forward(
     StreamRing<T, false>& ring, const T* v_old, T* v_new, const T* in_s,
-    T* out, int k, int kw, int nc, int fg) {
+    T* out, int k, int kw_, int nc, int fg) {
+  const int kw = KW == 1 ? 1 : kw_;
   // warp 0 feeds the ring; the others share the rows
   const int lane = threadIdx.x & 31, warp = (int)(threadIdx.x >> 5) - 1;
   const int nwarps = (int)(blockDim.x >> 5) - 1;
@@ -523,21 +560,39 @@ __device__ __forceinline__ void stream_forward(
   const int sub = lane & (fg - 1);
   for (int ci = 0; ci < ring.nch; ++ci) {
     int row0, nrows;
-    const T* base = ring.acquire(&row0, &nrows);
+    const T* base = ring.template acquire<kCluster>(&row0, &nrows);
     for (int rb = warp * rpw; warp >= 0 && rb < nrows; rb += nwarps * rpw) {
       const int rr = rb + lane / fg;
       const T* row = base + (size_t)min(rr, nrows - 1) * s;
-      T acc[KW];
+      constexpr int U = StreamBatch<KW>::n;
+      T acc[KW], acc1[KW];
 #pragma unroll
-      for (int c = 0; c < KW; ++c) acc[c] = T(0);
-#pragma unroll 4
-      for (int l = sub; l < s; l += fg) {
-        const T h = row[l];
+      for (int c = 0; c < KW; ++c) acc[c] = acc1[c] = T(0);
+      for (int l0 = sub; l0 < s; l0 += U * fg) {
+        T h[U], vv[U][KW];
 #pragma unroll
-        for (int c = 0; c < KW; ++c) {
-          if (c < kw) acc[c] += h * v_old[l * kw + c];
+        for (int u = 0; u < U; ++u) {
+          const int l = l0 + u * fg;
+          h[u] = l < s ? row[l] : T(0);
+#pragma unroll
+          for (int c = 0; c < KW; ++c) {
+            vv[u][c] = (l < s && c < kw) ? v_old[l * kw + c] : T(0);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int c = 0; c < KW; ++c) {
+            if (u & 1) {
+              acc1[c] += h[u] * vv[u][c];
+            } else {
+              acc[c] += h[u] * vv[u][c];
+            }
+          }
         }
       }
+#pragma unroll
+      for (int c = 0; c < KW; ++c) acc[c] += acc1[c];
       for (int off = fg >> 1; off > 0; off >>= 1) {
 #pragma unroll
         for (int c = 0; c < KW; ++c) {
@@ -572,7 +627,8 @@ __device__ __forceinline__ void stream_forward(
 template <typename T, int KW, bool kCluster>
 __device__ __forceinline__ void stream_transposed(
     StreamRing<T, true>& ring, T* v, T* part, T* inbox, const T* in_s, T* out,
-    int k, int kw, int nc, int rank, int rsplit) {
+    int k, int kw_, int nc, int rank, int rsplit) {
+  const int kw = KW == 1 ? 1 : kw_;
   const int lane = threadIdx.x & 31, warp = (int)(threadIdx.x >> 5) - 1;
   const int nwarps = (int)(blockDim.x >> 5) - 1;
   const int s = ring.s;
@@ -580,37 +636,38 @@ __device__ __forceinline__ void stream_transposed(
   const int mslab = hf_stream_slab(s, nc);
   for (int ci = 0; ci < ring.nch; ++ci) {
     int row0, nrows;
-    const T* base = ring.acquire(&row0, &nrows);
+    const T* base = ring.template acquire<kCluster>(&row0, &nrows);
     const T* vl = v + (size_t)(ring.r0 + row0) * kw;
     for (int item = warp; warp >= 0 && item < groups * rsplit; item += nwarps) {
       const int g = item % groups, rs = item / groups;
       const int i = 32 * g + lane;
       const T* col = base + min(i, s - 1);
-      T acc[kStreamAcc][KW];
+      constexpr int U = StreamBatch<KW>::n;
+      T acc[2][KW];
 #pragma unroll
-      for (int u = 0; u < kStreamAcc; ++u) {
+      for (int c = 0; c < KW; ++c) acc[0][c] = acc[1][c] = T(0);
+      for (int rr0 = rs; rr0 < nrows; rr0 += rsplit * U) {
+        T h[U], vv[U][KW];
 #pragma unroll
-        for (int c = 0; c < KW; ++c) acc[u][c] = T(0);
-      }
-      for (int rr0 = rs; rr0 < nrows; rr0 += rsplit * kStreamAcc) {
-#pragma unroll
-        for (int u = 0; u < kStreamAcc; ++u) {
+        for (int u = 0; u < U; ++u) {
           const int rr = rr0 + u * rsplit;
-          const int rc = min(rr, nrows - 1);
-          const T h = rr < nrows ? col[(size_t)rc * s] : T(0);
+          h[u] = rr < nrows ? col[rr * s] : T(0);
 #pragma unroll
           for (int c = 0; c < KW; ++c) {
-            if (c < kw) acc[u][c] += h * vl[rc * kw + c];
+            vv[u][c] = (rr < nrows && c < kw) ? vl[rr * kw + c] : T(0);
           }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int c = 0; c < KW; ++c) acc[u & 1][c] += h[u] * vv[u][c];
         }
       }
       if (i < s) {
 #pragma unroll
         for (int c = 0; c < KW; ++c) {
           if (c >= kw) continue;
-          T sum = T(0);
-#pragma unroll
-          for (int u = 0; u < kStreamAcc; ++u) sum += acc[u][c];
+          const T sum = acc[0][c] + acc[1][c];
           T* p = part + ((size_t)rs * s + i) * kw + c;
           *p = ci == 0 ? sum : *p + sum;
         }
@@ -618,8 +675,9 @@ __device__ __forceinline__ void stream_transposed(
     }
     ring.release();
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < s * kw; e += blockDim.x) {
+  stream_block_sync<kCluster>();
+  for (int e = stream_tid<kCluster>(); e < s * kw;
+       e += stream_threads<kCluster>()) {
     const int i = e / kw, c = e - i * kw;
     T sum = T(0);
     for (int rs = 0; rs < rsplit; ++rs) sum += part[(size_t)rs * s * kw + e];
@@ -628,7 +686,8 @@ __device__ __forceinline__ void stream_transposed(
   }
   __pipeline_wait_prior(2);  // this product's rows of `in`
   stream_sync<kCluster>();
-  for (int e = threadIdx.x; e < ring.slab_rows * kw; e += blockDim.x) {
+  for (int e = stream_tid<kCluster>(); e < ring.slab_rows * kw;
+       e += stream_threads<kCluster>()) {
     const int ii = e / kw, c = e - ii * kw;
     T sum = T(0);
     for (int q = 0; q < nc; ++q) sum += inbox[((size_t)q * mslab + ii) * kw + c];
@@ -636,13 +695,18 @@ __device__ __forceinline__ void stream_transposed(
     v[(size_t)(ring.r0 + ii) * kw + c] = val;
     if (out != nullptr) out[(size_t)(ring.r0 + ii) * k + c] = val;
   }
-  __syncthreads();
+  stream_block_sync<kCluster>();
 }
 
 // Grid (N c, column tiles), cluster (c, 1, 1) where kCluster.  KW: 1, or
-// HF_STREAM_MAX_COLS for any tile of 1 to 7 columns.
+// HF_STREAM_MAX_COLS for any tile of 1 to 7 columns.  One block per sample
+// (more samples than SMs on the lanes that take it) keeps to 64 registers,
+// so that the blocks of one wave share an SM; a cluster's block has an SM
+// to itself and takes what lets its loads run ahead.
 template <typename T, int KW, bool kTrans, bool kCluster>
-__global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
+__global__ void __launch_bounds__(
+    kCluster ? HF_STREAM_MAX_THREADS : HF_STREAM_MAX_THREADS_ONE,
+    kCluster ? 1 : 2)
     banded_stream_kernel(const T* __restrict__ m, const T* __restrict__ dinv,
                          const T* __restrict__ b, const T* __restrict__ rhs,
                          T* __restrict__ out, int nb, int s, int k, int kt,
@@ -655,7 +719,7 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
   }
   const int tid = threadIdx.x;
   const int c0 = blockIdx.y * kt;
-  const int kw = min(kt, k - c0);
+  const int kw = KW == 1 ? 1 : min(kt, k - c0);
   const size_t n = blockIdx.x / nc;
   const size_t ss = (size_t)s * s;
   const size_t rb = (size_t)s * k;
@@ -667,6 +731,7 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
   StreamRing<T, kTrans> ring;
   ring.full = reinterpret_cast<uint64_t*>(smem_raw);
   ring.empty = ring.full + HF_STREAM_MAX_STAGES;
+  ring.offset = reinterpret_cast<uint32_t*>(ring.empty + HF_STREAM_MAX_STAGES);
   T* carry = reinterpret_cast<T*>(smem_raw + HF_STREAM_BAR_BYTES);
   const size_t carry_bytes =
       (hf_stream_carry_elems(s, kt, nc, rsplit, kTrans) * sizeof(T) + 15) / 16 * 16;
@@ -688,12 +753,19 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
   if (tid == 0) {
     for (int q = 0; q < nstage; ++q) {
       mbar_init(&ring.full[q], 1);
-      mbar_init(&ring.empty[q], (int)(blockDim.x >> 5));  // every warp
+      mbar_init(&ring.empty[q], stream_threads<kCluster>() >> 5);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) ring.issue(max(1, nstage - 1));
+  if constexpr (kCluster) {
+    if (tid == 0) ring.issue(max(1, nstage - 1));
+  } else if (tid < 32) {
+    // a block on its own: thread 0 requests every chunk of the solve, each
+    // as soon as its stage is free, and its warp does nothing else
+    if (tid == 0) ring.issue(ring.total);
+    return;
+  }
 
   // the carry region, in tile elements of kt columns (kw <= kt of them
   // used): see hf_stream_carry_elems
@@ -716,7 +788,8 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
   // of it on a forward sweep (which also is y_0, kept in the output), the
   // rank's slab on a transposed one
   if constexpr (!kTrans) {
-    for (int e = tid; e < s * kw; e += blockDim.x) {
+    for (int e = stream_tid<kCluster>(); e < s * kw;
+         e += stream_threads<kCluster>()) {
       const int i = e / kw, c = e - i * kw;
       const T val = rhs_n[(size_t)i * k + c];
       v0[e] = val;
@@ -725,18 +798,18 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
       }
     }
   } else {
-    for (int e = tid; e < ring.slab_rows * kw; e += blockDim.x) {
+    for (int e = stream_tid<kCluster>(); e < ring.slab_rows * kw;
+         e += stream_threads<kCluster>()) {
       const int ii = e / kw, c = e - ii * kw;
       v0[(size_t)(ring.r0 + ii) * kw + c] = rhs_n[(size_t)(ring.r0 + ii) * k + c];
     }
   }
-  auto prefetch_in = [&](int t) {
-    const T* in_t;
-    T* out_t;
-    stream_rows<T, kTrans>(rhs_n, out_n, nb, rb, t, &in_t, &out_t);
+  // request the slab's rows of `in` (null: none) into buffer q of in_buf
+  auto prefetch_in = [&](int q, const T* in_t) {
     if (in_t != nullptr) {
-      T* dst = in_buf + (size_t)(t % 3) * slab_el;
-      for (int e = tid; e < ring.slab_rows * kw; e += blockDim.x) {
+      T* dst = in_buf + (size_t)q * slab_el;
+      for (int e = stream_tid<kCluster>(); e < ring.slab_rows * kw;
+           e += stream_threads<kCluster>()) {
         const int ii = e / kw, c = e - ii * kw;
         __pipeline_memcpy_async(dst + e, in_t + (size_t)(ring.r0 + ii) * k + c,
                                 sizeof(T));
@@ -749,29 +822,41 @@ __global__ void __launch_bounds__(HF_STREAM_MAX_THREADS)
   // t (one product ahead left their latency in the open at s = 17) and
   // those of product t waited for before a cluster barrier ahead of their
   // use (forward: the last of product t - 1; transposed: the one inside
-  // product t), which makes them visible to all warps
-  prefetch_in(0);
-  prefetch_in(1);
+  // product t), which makes them visible to all warps.  in_t, out_t: those
+  // of products t, t + 1 and t + 2, decoded once each
+  const T* in_t[3];
+  T* out_t[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    stream_rows<T, kTrans>(rhs_n, out_n, nb, rb, q, &in_t[q], &out_t[q]);
+  }
+  prefetch_in(0, in_t[0]);
+  prefetch_in(1, in_t[1]);
   __pipeline_wait_prior(1);
   // every block of the cluster runs before any writes into its shared
   // memory; the block's own writes above are visible to all its warps
   stream_sync<kCluster>();
   int cur = 0;
+  int buf = 0;  // t % 3
   for (int t = 0; t < ntot; ++t) {
-    const T* in_t;
-    T* out_t;
-    stream_rows<T, kTrans>(rhs_n, out_n, nb, rb, t, &in_t, &out_t);
-    prefetch_in(t + 2);
-    const T* in_s = in_t != nullptr ? in_buf + (size_t)(t % 3) * slab_el : nullptr;
+    prefetch_in(buf == 0 ? 2 : buf - 1, in_t[2]);  // buffer (t + 2) % 3
+    const T* in_s = in_t[0] != nullptr ? in_buf + (size_t)buf * slab_el : nullptr;
+    T* const out_now = out_t[0];
+    in_t[0] = in_t[1];
+    out_t[0] = out_t[1];
+    in_t[1] = in_t[2];
+    out_t[1] = out_t[2];
+    stream_rows<T, kTrans>(rhs_n, out_n, nb, rb, t + 3, &in_t[2], &out_t[2]);
+    buf = buf == 2 ? 0 : buf + 1;
     if constexpr (!kTrans) {
       stream_forward<T, KW, kCluster>(ring, v0 + (size_t)cur * full_el,
                                       v0 + (size_t)(cur ^ 1) * full_el, in_s,
-                                      out_t, k, kw, nc, fgroup);
+                                      out_now, k, kw, nc, fgroup);
       cur ^= 1;
     } else {
       stream_transposed<T, KW, kCluster>(
-          ring, v0, part, inbox + (size_t)(t & 1) * nc * slab_el, in_s, out_t, k,
-          kw, nc, rank, rsplit);
+          ring, v0, part, inbox + (size_t)(t & 1) * nc * slab_el, in_s, out_now,
+          k, kw, nc, rank, rsplit);
     }
   }
 }
@@ -814,7 +899,8 @@ int launch_stream(const void* m, const void* dinv, const void* b,
                   int rsplit, int fgroup, void* stream) {
   if (kt < 1 || kt > HF_STREAM_MAX_COLS || c < 1 || c > HF_STREAM_MAX_CLUSTER ||
       c > s || rows < 1 || nstage < 2 || nstage > HF_STREAM_MAX_STAGES ||
-      threads < 32 || threads > HF_STREAM_MAX_THREADS || threads % 32 != 0 ||
+      threads < 64 || threads % 32 != 0 ||
+      threads > (c > 1 ? HF_STREAM_MAX_THREADS : HF_STREAM_MAX_THREADS_ONE) ||
       rsplit < 1 || fgroup < 1 || fgroup > 32 || (fgroup & (fgroup - 1)) != 0) {
     return (int)cudaErrorInvalidValue;
   }

@@ -185,14 +185,16 @@ inline std::size_t hf_solve_smem_elems(int s, int kt, int panel_rows) {
 // sample, each of which owns one slab of rows of every factor block and
 // draws it through a ring of `nstage` shared-memory stages of `rows` rows.
 // Most columns of a column tile, blocks of a cluster, stages of a ring and
-// threads of a block (a warp that feeds the ring and 17 that compute: one
-// per 32 columns at s = 516).
+// threads of a block in a cluster (a warp that feeds the ring and 17 that
+// compute: one per 32 columns at s = 516) and of a block on its own.
 #define HF_STREAM_MAX_COLS 7
 #define HF_STREAM_MAX_CLUSTER 8
 #define HF_STREAM_MAX_STAGES 16
 #define HF_STREAM_MAX_THREADS 576
-// Bytes ahead of the carry: the ring's full and empty barriers.
-#define HF_STREAM_BAR_BYTES (16 * HF_STREAM_MAX_STAGES)
+#define HF_STREAM_MAX_THREADS_ONE 512
+// Bytes ahead of the carry: the ring's full and empty barriers and the
+// byte offset of each stage's chunk.
+#define HF_STREAM_BAR_BYTES (20 * HF_STREAM_MAX_STAGES)
 
 // Rows of the widest slab: rank r of c owns rows [r s / c, (r + 1) s / c).
 __host__ __device__ inline int hf_stream_slab(int s, int c) {

@@ -642,14 +642,16 @@ PANELS_MIN_K = 8
 # Rows of K2's factor panel, widest first
 PANEL_ROWS = (64, 32, 16)
 # The streamed design (csrc/common.cuh): most columns of a tile, blocks of a
-# cluster, stages of a ring and warps of a block; the bytes of its ring
-# barriers; the most bytes of one ring stage; and the fewest rows of a
+# cluster, stages of a ring and warps of a block (in a cluster, and on its
+# own); the bytes of its ring
+# barriers and chunk offsets; the most bytes of one ring stage; and the fewest rows of a
 # factor block per cluster rank worth a split (``stream_cluster``)
 STREAM_MAX_COLS = 7
 STREAM_MAX_CLUSTER = 8
 STREAM_MAX_STAGES = 16
 STREAM_MAX_WARPS = 18
-STREAM_BAR_BYTES = 256
+STREAM_MAX_WARPS_ONE = 16
+STREAM_BAR_BYTES = 320
 STREAM_STAGE_BYTES = 32768
 STREAM_MIN_ROWS = 32
 
@@ -698,22 +700,26 @@ def stream_geometry(blocks: int, s: int, kt: int, itemsize: int, c: int,
     A stage holds at most STREAM_STAGE_BYTES, in equal chunks of a rank's
     slab; the ring takes what shared memory is left, up to
     STREAM_MAX_STAGES.  One warp feeds the ring; of the others, transposed,
-    each owns 32 columns and those left split the rows; forward, a group
+    each owns 32 columns (17 warps at s=516 in a cluster; a block on its own
+    has at most 15 and takes them in two passes) and those left split the
+    rows; forward, a group
     of about s / 8 lanes (a power of two, at most a warp) takes a row, a
-    trade of the row's length against the steps of the shuffle tree."""
+    trade of the row's length against the steps of the shuffle tree, and
+    fewer lanes (s / 16, s / 32) where 4 or 8 blocks share an SM and the
+    instructions they issue, not one block's latency, set the time."""
     slab, groups = -(-s // c), -(-s // 32)
     for share in range(max(1, min(8, -(-blocks * c // sm_count))), 0, -1):
         budget = min(limit, sm_smem // share - BLOCK_SMEM_RESERVE)
         # warps that compute, beside the one that feeds the ring
-        wmax = min(16, 32 // share - 1)
+        wmax = min(16 if c > 1 else 15, 32 // share - 1)
         rows = max(1, min(slab, (STREAM_STAGE_BYTES - 16) // (s * itemsize)))
         rows = -(-slab // -(-slab // rows))
         rsplit = max(1, min(8, wmax // groups)) if trans else 1
-        fgroup = 1 << max(0, min(5, (s // 8).bit_length() - 1))
+        fgroup = 1 << max(0, min(5, (s // (8 * max(1, share // 2))).bit_length() - 1))
         while True:
             if trans:
                 warps = min(groups * rsplit,
-                            STREAM_MAX_WARPS - 1 if share == 1 else wmax)
+                            STREAM_MAX_WARPS - 1 if share == 1 and c > 1 else wmax)
             else:
                 warps = min(wmax, -(-rows * fgroup // 32))
             nstage = min(
@@ -819,7 +825,7 @@ def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None,
         # a cluster size the kernel does not take goes to it all the same,
         # with one block's geometry, and is refused there
         stem = "hf_banded_solve_stream"
-        args += (cluster,) + (geometry or (1, 2, 32, 1, 32))[:5]
+        args += (cluster,) + (geometry or (1, 2, 64, 1, 32))[:5]
     if N == 0 or nb == 0 or k == 0:
         return out
     _launch(lib, getattr(lib, f"{stem}_{_suffix(bb.dtype)}"), "banded_solve",

@@ -391,7 +391,8 @@ def test_stream_geometry_fits_the_card(blocks, s, kt, itemsize, c, trans):
     assert 1 <= rows <= slab
     assert rows == 1 or rows * s * itemsize + 16 <= hk.STREAM_STAGE_BYTES
     assert 2 <= nstage <= hk.STREAM_MAX_STAGES
-    assert threads % 32 == 0 and 32 <= threads <= 32 * hk.STREAM_MAX_WARPS
+    assert threads % 32 == 0 and 32 <= threads <= 32 * (
+        hk.STREAM_MAX_WARPS if c > 1 else hk.STREAM_MAX_WARPS_ONE)
     assert need == hk.stream_smem_bytes(s, kt, c, rows, nstage, rsplit, trans,
                                         itemsize) <= H100_SMEM
     share = min(8, -(-blocks * c // 132))
