@@ -1263,7 +1263,9 @@ def phase_helmholtz(device, profile=False):
 # the port's kernels by a part of their names in a profiler trace
 KERNEL_NAMES = (("K1 chain", "banded_chain_kernel"),
                 ("K1 Schur step", "schur_rows_kernel"),
-                ("K2", "banded_solve_kernel"), ("K3/K4", "gj_inverse_kernel"))
+                ("K2 panels", "banded_solve_kernel"),
+                ("K2 streamed", "banded_stream_kernel"),
+                ("K3/K4", "gj_inverse_kernel"))
 
 
 def profile_run(label, fn):

@@ -47,27 +47,32 @@
 //   `stream_cluster` in ops/hopper_kernels.py; c = 1 is a plain launch).
 //   Rank r owns rows [r s / c, (r + 1) s / c) of every factor block, a
 //   contiguous run of memory, so each byte of the factor is read by one
-//   block only.  The run passes in chunks of whole rows through a ring of
-//   shared-memory stages: thread 0 issues one bulk copy
+//   block only.  The run passes in chunks of whole rows (up to 64 KB)
+//   through a ring of shared-memory stages: thread 0 issues one bulk copy
 //   (`cp.async.bulk`, completion counted by an `mbarrier` per stage) per
-//   chunk, up to the ring's depth ahead of the chunk being used, across
+//   chunk, as far ahead of the chunk in use as the ring is deep, across
 //   products and across the cluster barrier, and the warps give a stage
-//   back through a second `mbarrier`.  A bulk copy needs 16-byte ends and
-//   a slab starts on an element (s is odd on most lanes), so a copy takes
-//   the 16-byte span around its chunk and the reader adds the offset.
-//   One access pattern serves both orientations:
-//   - op(H) = H: a group of about s / 8 lanes (a power of two, up to a
-//     warp) takes a row of the chunk and strides over it, a shuffle tree
-//     sums the group, and the result goes into every rank's copy of the carry (distributed shared
-//     memory); one cluster barrier per product;
+//   back through a second `mbarrier`.  Warp 0 takes no part in the
+//   products: in a block on its own it only feeds the ring and joins no
+//   barrier; in a cluster it feeds the ring between the barriers.  A bulk
+//   copy needs 16-byte ends and a slab starts on an element (s is odd on
+//   most lanes), so a copy takes the 16-byte span around its chunk and
+//   the reader adds the offset.  One access pattern serves both
+//   orientations:
+//   - op(H) = H: a group of lanes (a power of two, up to a warp; about
+//     s / 16) takes a row of the chunk and strides over it, a shuffle
+//     tree sums the group, and the result goes into every rank's copy of
+//     the carry (distributed shared memory); one cluster barrier per
+//     product;
 //   - op(H) = H^T: a warp owns 32 output columns and one of `rsplit` row
-//     splits of the chunk, each lane loading eight rows' entries at once;
-//     the block's partial sums over its slab of rows go to the ranks that
-//     own the outputs, which after one cluster barrier add them up: the
-//     carry a rank needs for the next product is the slice it has summed.
-//   The rhs rows of the next product are fetched one product ahead
-//   (`cp.async`), and each rank reads and writes only its own rows of the
-//   rhs and the output.
+//     splits of the chunk; the block's partial sums over its slab of rows
+//     go to the ranks that own the outputs, which after one cluster
+//     barrier add them up: the carry a rank needs for the next product is
+//     the slice it has summed.
+//   In both a lane loads eight factor entries and the carry entries they
+//   meet before it multiplies any.  The rhs rows of a product are fetched
+//   two products ahead (`cp.async`), and each rank reads and writes only
+//   its own rows of the rhs and the output.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -198,25 +203,25 @@ __global__ void banded_solve_kernel(const T* __restrict__ m,
     for (int j = 0; j < nb; ++j) {  // fwd
       const T* H = j > 0 ? m_n + (size_t)j * ss : nullptr;
       panel_step<T, kPanelRows>(H, false, nullptr, false, rhs_n + j * rb,
-                          out_n + j * rb, s, k, kw, panel, carry, tmp);
+                                out_n + j * rb, s, k, kw, panel, carry, tmp);
     }
     for (int j = nb - 1; j >= 0; --j) {  // bwd, in place
       const T* H = j < nb - 1 ? b_n + (size_t)j * ss : nullptr;
       panel_step<T, kPanelRows>(H, false, d_n + (size_t)j * ss, false,
-                          out_n + j * rb, out_n + j * rb, s, k, kw, panel,
-                          carry, tmp);
+                                out_n + j * rb, out_n + j * rb, s, k, kw,
+                                panel, carry, tmp);
     }
   } else {
     for (int j = 0; j < nb; ++j) {  // fwd_t
       const T* H = j > 0 ? b_n + (size_t)(j - 1) * ss : nullptr;
       panel_step<T, kPanelRows>(H, true, d_n + (size_t)j * ss, true,
-                          rhs_n + j * rb, out_n + j * rb, s, k, kw, panel,
-                          carry, tmp);
+                                rhs_n + j * rb, out_n + j * rb, s, k, kw,
+                                panel, carry, tmp);
     }
     for (int j = nb - 1; j >= 0; --j) {  // bwd_t, in place
       const T* H = j < nb - 1 ? m_n + (size_t)(j + 1) * ss : nullptr;
       panel_step<T, kPanelRows>(H, true, nullptr, false, out_n + j * rb,
-                          out_n + j * rb, s, k, kw, panel, carry, tmp);
+                                out_n + j * rb, s, k, kw, panel, carry, tmp);
     }
   }
 }
@@ -271,6 +276,7 @@ template <int KW>
 struct StreamBatch {
   static constexpr int n = KW == 1 ? 8 : 2;
 };
+
 // Cycles a wait on a ring barrier may last before the block gives up (a
 // lost copy must end the launch with an error, not hang the card).
 constexpr long long kStreamTimeout = 4000000000ll;

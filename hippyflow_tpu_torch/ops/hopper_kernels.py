@@ -652,7 +652,7 @@ STREAM_MAX_STAGES = 16
 STREAM_MAX_WARPS = 18
 STREAM_MAX_WARPS_ONE = 16
 STREAM_BAR_BYTES = 320
-STREAM_STAGE_BYTES = 32768
+STREAM_STAGE_BYTES = 65536
 STREAM_MIN_ROWS = 32
 
 
@@ -689,6 +689,33 @@ def stream_smem_bytes(s: int, kt: int, c: int, rows: int, nstage: int,
             + nstage * (_round16(rows * s * itemsize) + 16))
 
 
+def stream_lanes(s: int, rows: int, wmax: int, share: int) -> int:
+    """Lanes that take one row of a forward product of K2's streamed
+    design, for chunks of ``rows`` rows on ``wmax`` warps where ``share``
+    blocks share an SM: a power of two, at most a warp; about s / 16, so
+    that a lane meets its part of a row in two batches of loads and the
+    shuffle tree stays short; halved while a chunk's rows need more lanes
+    than the block's share of an SM's 32 wmax (a second pass over the
+    warps for a few rows costs more than longer parts, and where blocks
+    share an SM the instructions they issue, not one block's latency, set
+    the time).  Fitted to ``ops/stream_solve_sweep.py --lanes``."""
+    lanes = 1 << max(0, min(5, (-(-s // 16) - 1).bit_length()))
+    while lanes > 1 and rows * lanes > 32 * wmax // share:
+        lanes //= 2
+    return lanes
+
+
+def stream_splits(groups: int, wmax: int, rows: int) -> int:
+    """Row splits of a transposed product of K2's streamed design whose
+    outputs fill ``groups`` warps, on ``wmax`` warps and chunks of ``rows``
+    rows: the warps left over split a chunk's rows, 4 ways at most where
+    the outputs fill one or two warps and 2 ways above, and no thinner
+    than 6 rows a split (more warps cost more at the block's barriers than
+    their shorter parts save).  Fitted to ``ops/stream_solve_sweep.py
+    --splits``."""
+    return max(1, min(wmax // groups, 4 if groups <= 2 else 2, rows // 6))
+
+
 def stream_geometry(blocks: int, s: int, kt: int, itemsize: int, c: int,
                     trans: bool, sm_count: int, limit: int, sm_smem: int):
     """(rows per stage, stages, threads, row splits, lanes per row, bytes)
@@ -702,11 +729,7 @@ def stream_geometry(blocks: int, s: int, kt: int, itemsize: int, c: int,
     STREAM_MAX_STAGES.  One warp feeds the ring; of the others, transposed,
     each owns 32 columns (17 warps at s=516 in a cluster; a block on its own
     has at most 15 and takes them in two passes) and those left split the
-    rows; forward, a group
-    of about s / 8 lanes (a power of two, at most a warp) takes a row, a
-    trade of the row's length against the steps of the shuffle tree, and
-    fewer lanes (s / 16, s / 32) where 4 or 8 blocks share an SM and the
-    instructions they issue, not one block's latency, set the time."""
+    rows; forward, a group of ``stream_lanes`` lanes takes a row."""
     slab, groups = -(-s // c), -(-s // 32)
     for share in range(max(1, min(8, -(-blocks * c // sm_count))), 0, -1):
         budget = min(limit, sm_smem // share - BLOCK_SMEM_RESERVE)
@@ -714,9 +737,9 @@ def stream_geometry(blocks: int, s: int, kt: int, itemsize: int, c: int,
         wmax = min(16 if c > 1 else 15, 32 // share - 1)
         rows = max(1, min(slab, (STREAM_STAGE_BYTES - 16) // (s * itemsize)))
         rows = -(-slab // -(-slab // rows))
-        rsplit = max(1, min(8, wmax // groups)) if trans else 1
-        fgroup = 1 << max(0, min(5, (s // (8 * max(1, share // 2))).bit_length() - 1))
         while True:
+            rsplit = stream_splits(groups, wmax, rows) if trans else 1
+            fgroup = stream_lanes(s, rows, wmax, share)
             if trans:
                 warps = min(groups * rsplit,
                             STREAM_MAX_WARPS - 1 if share == 1 and c > 1 else wmax)
@@ -749,7 +772,7 @@ def solve_tiles(s: int, k: int, itemsize: int, limit: int,
         panels = k >= PANELS_MIN_K
     if not panels:
         for kt in range(max(1, min(STREAM_MAX_COLS, k)), 0, -1):
-            rsplit = max(1, min(8, 16 // -(-s // 32)))
+            rsplit = stream_splits(-(-s // 32), 15, s)
             if stream_smem_bytes(s, kt, 1, 1, 2, rsplit, True, itemsize) <= limit:
                 return 0, kt
         return None

@@ -1,20 +1,23 @@
 """Times K2's streamed design at each cluster size beside ``stream_cluster``'s pick.
 
     python3 -m hippyflow_tpu_torch.ops.stream_solve_sweep [--check]
-        [--parent DIR] [--stage-bytes B ...]
+        [--parent DIR] [--stage-bytes B ...] [--lanes L ...] [--splits R ...]
 
 Needs one CUDA card and ``nvcc``.  For each (N, s, nb) at which the lanes
 launch the k=1 solve (random contracting factor blocks: the work does not
 depend on the values), in float32 and at s=516 also float64, forward and
 transposed, one line: every cluster size of CLUSTERS held against the
 plain version, then timed in turns (the list forwards, then backwards;
-mean of REPS launches after a warm-up), with the picked size, the plain
+mean of REPS launches after a warm-up, 10 REPS below s=100), with the picked size, the plain
 loop's time and the bound (each factor block read once at 3.35 TB/s).
 ``--check`` stops after the comparison; ``--parent DIR`` adds the K2 of
 another checkout of this repository (its own build) to the turns;
-``--stage-bytes`` repeats the sweep at other ring-stage sizes.  The rules
-``stream_cluster`` and ``stream_geometry`` of ``hopper_kernels`` were
-fitted to these lines.
+``--stage-bytes`` repeats the sweep at other ring-stage sizes, and
+``--lanes L ...`` at forced numbers of lanes per row of a forward product
+(forward only), and ``--splits R ...`` at forced numbers of row splits of
+a transposed product (transposed only).  The rules ``stream_cluster``,
+``stream_lanes``, ``stream_splits`` and ``stream_geometry`` of
+``hopper_kernels`` were fitted to these lines.
 """
 
 from __future__ import annotations
@@ -109,7 +112,7 @@ def sweep(N, s, nb, dtype, trans, device, check_only=False, parent=None):
     ms = {key: [] for key in runs}
     for keys in (list(runs), list(runs)[::-1]):
         for key in keys:
-            ms[key].append(mean_ms(runs[key]))
+            ms[key].append(mean_ms(runs[key], REPS if s >= 100 else 10 * REPS))
     ms = {key: sum(v) / len(v) for key, v in ms.items()}
     geo = hk.stream_geometry(N, s, 1, bb.element_size(), picked, trans,
                              hk._sm_count(device), hk._smem_limit(device),
@@ -136,15 +139,35 @@ def main(argv) -> None:
         while i < len(argv) and argv[i].isdigit():
             sizes.append(int(argv[i]))
             i += 1
+    forced = [(None, None)]
+    for flag, what in (("--lanes", False), ("--splits", True)):
+        if flag in argv:
+            i = argv.index(flag) + 1
+            while i < len(argv) and argv[i].isdigit():
+                forced.append((what, int(argv[i])))
+                i += 1
+    rules = hk.stream_lanes, hk.stream_splits
     for size in sizes:
         hk.STREAM_STAGE_BYTES = size
-        print(f"ring stages of at most {size} bytes", flush=True)
-        for N, s, nb, dtypes in SHAPES:
-            for dtype in dtypes:
-                for trans in (False, True):
-                    sweep(N, s, nb, dtype, trans, device, "--check" in argv,
-                          parent)
-                torch.cuda.empty_cache()
+        for trans_only, value in forced:
+            hk.stream_lanes, hk.stream_splits = rules
+            label = "lanes per row and row splits by the rules"
+            if trans_only is False:
+                hk.stream_lanes = lambda s, rows, wmax, share: value
+                label = f"{value} lanes per row"
+            elif trans_only:
+                hk.stream_splits = lambda groups, wmax, rows: min(
+                    value, max(1, wmax // groups))
+                label = f"at most {value} row splits"
+            print(f"ring stages of at most {size} bytes, {label}", flush=True)
+            for N, s, nb, dtypes in SHAPES:
+                for dtype in dtypes:
+                    for trans in (False, True):
+                        if trans_only in (None, trans):
+                            sweep(N, s, nb, dtype, trans, device,
+                                  "--check" in argv, parent)
+                    torch.cuda.empty_cache()
+    hk.stream_lanes, hk.stream_splits = rules
 
 
 if __name__ == "__main__":

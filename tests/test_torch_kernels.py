@@ -403,7 +403,8 @@ def test_stream_geometry_fits_the_card(blocks, s, kt, itemsize, c, trans):
         assert rsplit >= 1 and threads // 32 - 1 <= -(-s // 32) * rsplit
     else:
         assert rsplit == 1
-    assert fgroup in (1, 2, 4, 8, 16, 32) and fgroup <= max(1, s // 8)
+    assert fgroup in (1, 2, 4, 8, 16, 32) and fgroup < max(2, s // 8)
+    assert fgroup == 1 or rows * fgroup <= 32 * (threads // 32 - 1)
 
 
 def test_stream_geometry_gives_up_where_nothing_fits():
