@@ -309,18 +309,21 @@ def time_k3_clusters(X, label, row=None, reps=5):
             "inv_ms": inv_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def k2_clusters(M, Dinv, B, bb, trans, label, parent=None, reps=3):
+def k2_clusters(M, Dinv, B, bb, trans, label, parent=None, reps=None):
     """K2's streamed design on one factor and rhs (k < 8) with one thread
     block per sample, with the number ``stream_cluster`` picks and with
     that number's neighbours in K2_CLUSTERS, each held against the plain
     version within TOL, then timed in turns (the list forwards, then
     backwards) with the plain version and (``parent``) the K2 of an
-    earlier checkout, beside the bound.  Returns the record for the
-    kernels' JSON line."""
+    earlier checkout, beside the bound; ``reps`` launches a timing (None:
+    3, and 30 below s=100, where a launch lasts about 0.1 ms).  Returns the
+    record for the kernels' JSON line."""
     from hippyflow_tpu_torch.ops import hopper_kernels as hk
 
     N, nb, s, _ = M.shape
     k, dtype = bb.shape[-1], bb.dtype
+    if reps is None:
+        reps = 3 if s >= 100 else 30
     picked = hk.stream_cluster(N, s, hk._sm_count(bb.device))
     below = [c for c in K2_CLUSTERS if c < picked][-1:]
     above = [c for c in K2_CLUSTERS if c > picked][:1]

@@ -286,13 +286,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
                "r"(count)
                : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
                : "memory");
 }
 
@@ -348,17 +350,17 @@ __device__ __forceinline__ const T* stream_block(const T* m, const T* d,
                                                  const T* b, int nb, size_t ss,
                                                  int t) {
   if constexpr (!kTrans) {
-    if (t < nb - 1) return m + (size_t)(t + 1) * ss;           // fwd: M_{t+1}
-    if (t == nb - 1) return d + (size_t)(nb - 1) * ss;         // bwd, last row
-    const int u = t - nb, j = nb - 2 - (u >> 1);               // bwd: B_j, Dinv_j
+    if (t < nb - 1) return m + (size_t)(t + 1) * ss;    // fwd: M_{t+1}
+    if (t == nb - 1) return d + (size_t)(nb - 1) * ss;  // bwd, last row
+    const int u = t - nb, j = nb - 2 - (u >> 1);        // bwd: B_j, Dinv_j
     return ((u & 1) ? d : b) + (size_t)j * ss;
   } else {
-    if (t == 0) return d;                                      // fwd_t, row 0
-    if (t < 2 * nb - 1) {                                      // B_{j-1}, Dinv_j
+    if (t == 0) return d;  // fwd_t, row 0
+    if (t < 2 * nb - 1) {  // fwd_t: B_{j-1}, Dinv_j
       const int j = (t + 1) >> 1;
       return (t & 1) ? b + (size_t)(j - 1) * ss : d + (size_t)j * ss;
     }
-    return m + (size_t)(nb - 1 - (t - (2 * nb - 1))) * ss;     // bwd_t: M_{j+1}
+    return m + (size_t)(nb - 1 - (t - (2 * nb - 1))) * ss;  // bwd_t: M_{j+1}
   }
 }
 
@@ -441,8 +443,8 @@ struct StreamRing {
     *nrows = min(rows, slab_rows - *row0);
   }
 
-  // thread 0: request every chunk below `upto`; a stage is free once all warps
-  // have given back the chunk that used it a round earlier
+  // thread 0: request every chunk below `upto`; a stage is free once all
+  // warps have given back the chunk that used it a round earlier
   __device__ __forceinline__ void issue(int upto) {
     upto = min(upto, total);
     while (issued < upto) {
@@ -562,18 +564,19 @@ __device__ __forceinline__ void stream_forward(
   const int lane = threadIdx.x & 31, warp = (int)(threadIdx.x >> 5) - 1;
   const int nwarps = (int)(blockDim.x >> 5) - 1;
   const int s = ring.s;
-  const int rpw = 32 / fg;  // rows a warp takes at once
+  const int fg_log = __ffs(fg) - 1;
+  const int rpw = 32 >> fg_log;  // rows a warp takes at once
   const int sub = lane & (fg - 1);
   for (int ci = 0; ci < ring.nch; ++ci) {
     int row0, nrows;
     const T* base = ring.template acquire<kCluster>(&row0, &nrows);
     for (int rb = warp * rpw; warp >= 0 && rb < nrows; rb += nwarps * rpw) {
-      const int rr = rb + lane / fg;
+      const int rr = rb + (lane >> fg_log);
       const T* row = base + (size_t)min(rr, nrows - 1) * s;
       constexpr int U = StreamBatch<KW>::n;
-      T acc[KW], acc1[KW];
+      T acc[2][KW];
 #pragma unroll
-      for (int c = 0; c < KW; ++c) acc[c] = acc1[c] = T(0);
+      for (int c = 0; c < KW; ++c) acc[0][c] = acc[1][c] = T(0);
       for (int l0 = sub; l0 < s; l0 += U * fg) {
         T h[U], vv[U][KW];
 #pragma unroll
@@ -588,21 +591,16 @@ __device__ __forceinline__ void stream_forward(
 #pragma unroll
         for (int u = 0; u < U; ++u) {
 #pragma unroll
-          for (int c = 0; c < KW; ++c) {
-            if (u & 1) {
-              acc1[c] += h[u] * vv[u][c];
-            } else {
-              acc[c] += h[u] * vv[u][c];
-            }
-          }
+          for (int c = 0; c < KW; ++c) acc[u & 1][c] += h[u] * vv[u][c];
         }
       }
+      T sum[KW];
 #pragma unroll
-      for (int c = 0; c < KW; ++c) acc[c] += acc1[c];
+      for (int c = 0; c < KW; ++c) sum[c] = acc[0][c] + acc[1][c];
       for (int off = fg >> 1; off > 0; off >>= 1) {
 #pragma unroll
         for (int c = 0; c < KW; ++c) {
-          acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+          sum[c] += __shfl_xor_sync(0xffffffffu, sum[c], off);
         }
       }
       if (rr < nrows) {
@@ -610,7 +608,7 @@ __device__ __forceinline__ void stream_forward(
 #pragma unroll
         for (int c = 0; c < KW; ++c) {
           if (c >= kw) continue;
-          const T val = in_s != nullptr ? in_s[ii * kw + c] - acc[c] : acc[c];
+          const T val = in_s != nullptr ? in_s[ii * kw + c] - sum[c] : sum[c];
           for (int q = sub; q < nc; q += fg) {
             stream_remote<kCluster>(v_new, q)[i * kw + c] = val;
           }
@@ -688,7 +686,8 @@ __device__ __forceinline__ void stream_transposed(
     T sum = T(0);
     for (int rs = 0; rs < rsplit; ++rs) sum += part[(size_t)rs * s * kw + e];
     const int q = ((i + 1) * nc - 1) / s;  // the rank that owns output i
-    stream_remote<kCluster>(inbox, q)[((size_t)rank * mslab + i - q * s / nc) * kw + c] = sum;
+    T* box = stream_remote<kCluster>(inbox, q);
+    box[((size_t)rank * mslab + i - q * s / nc) * kw + c] = sum;
   }
   __pipeline_wait_prior(2);  // this product's rows of `in`
   stream_sync<kCluster>();
@@ -696,7 +695,9 @@ __device__ __forceinline__ void stream_transposed(
        e += stream_threads<kCluster>()) {
     const int ii = e / kw, c = e - ii * kw;
     T sum = T(0);
-    for (int q = 0; q < nc; ++q) sum += inbox[((size_t)q * mslab + ii) * kw + c];
+    for (int q = 0; q < nc; ++q) {
+      sum += inbox[((size_t)q * mslab + ii) * kw + c];
+    }
     const T val = in_s != nullptr ? in_s[e] - sum : sum;
     v[(size_t)(ring.r0 + ii) * kw + c] = val;
     if (out != nullptr) out[(size_t)(ring.r0 + ii) * k + c] = val;
@@ -740,7 +741,8 @@ __global__ void __launch_bounds__(
   ring.offset = reinterpret_cast<uint32_t*>(ring.empty + HF_STREAM_MAX_STAGES);
   T* carry = reinterpret_cast<T*>(smem_raw + HF_STREAM_BAR_BYTES);
   const size_t carry_bytes =
-      (hf_stream_carry_elems(s, kt, nc, rsplit, kTrans) * sizeof(T) + 15) / 16 * 16;
+      (hf_stream_carry_elems(s, kt, nc, rsplit, kTrans) * sizeof(T) + 15) /
+      16 * 16;
   ring.stages = smem_raw + HF_STREAM_BAR_BYTES + carry_bytes;
   ring.stage_bytes = (uint32_t)hf_stream_stage_bytes(s, rows, (int)sizeof(T));
   ring.m = m + n * nb * ss;
@@ -807,7 +809,8 @@ __global__ void __launch_bounds__(
     for (int e = stream_tid<kCluster>(); e < ring.slab_rows * kw;
          e += stream_threads<kCluster>()) {
       const int ii = e / kw, c = e - ii * kw;
-      v0[(size_t)(ring.r0 + ii) * kw + c] = rhs_n[(size_t)(ring.r0 + ii) * k + c];
+      v0[(size_t)(ring.r0 + ii) * kw + c] =
+          rhs_n[(size_t)(ring.r0 + ii) * k + c];
     }
   }
   // request the slab's rows of `in` (null: none) into buffer q of in_buf
@@ -846,7 +849,8 @@ __global__ void __launch_bounds__(
   int buf = 0;  // t % 3
   for (int t = 0; t < ntot; ++t) {
     prefetch_in(buf == 0 ? 2 : buf - 1, in_t[2]);  // buffer (t + 2) % 3
-    const T* in_s = in_t[0] != nullptr ? in_buf + (size_t)buf * slab_el : nullptr;
+    const T* in_s =
+        in_t[0] != nullptr ? in_buf + (size_t)buf * slab_el : nullptr;
     T* const out_now = out_t[0];
     in_t[0] = in_t[1];
     out_t[0] = out_t[1];
@@ -874,7 +878,7 @@ int launch_stream(const void* m, const void* dinv, const void* b,
                   int fgroup, void* stream) {
   auto kernel = banded_stream_kernel<T, KW, kTrans, kCluster>;
   const size_t smem =
-      hf_stream_smem_bytes(s, kt, c, rows, nstage, rsplit, kTrans, sizeof(T));
+      hf_stream_smem_size(s, kt, c, rows, nstage, rsplit, kTrans, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -884,14 +888,16 @@ int launch_stream(const void* m, const void* dinv, const void* b,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)n * (unsigned)c, (unsigned)((k + kt - 1) / kt), 1);
+  cfg.gridDim =
+      dim3((unsigned)n * (unsigned)c, (unsigned)((k + kt - 1) / kt), 1);
   cfg.blockDim = dim3((unsigned)threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = kCluster ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(m),
-                           static_cast<const T*>(dinv), static_cast<const T*>(b),
+                           static_cast<const T*>(dinv),
+                           static_cast<const T*>(b),
                            static_cast<const T*>(rhs), static_cast<T*>(out), nb,
                            s, k, kt, rows, nstage, rsplit, fgroup);
   const cudaError_t last = cudaGetLastError();
@@ -979,12 +985,12 @@ extern "C" int hf_banded_solve_stream_f64(const void* m, const void* dinv,
                                rows, nstage, threads, rsplit, fgroup, stream);
 }
 
-extern "C" long long hf_stream_smem_bytes_c(int s, int kt, int c, int rows,
-                                            int nstage, int rsplit, int trans,
-                                            int itemsize) {
+extern "C" long long hf_stream_smem_bytes(int s, int kt, int c, int rows,
+                                          int nstage, int rsplit, int trans,
+                                          int itemsize) {
   if (c < 1 || rows < 1 || nstage < 1 || rsplit < 1) return -1;
-  return (long long)hf_stream_smem_bytes(s, kt, c, rows, nstage, rsplit,
-                                         trans != 0, itemsize);
+  return (long long)hf_stream_smem_size(s, kt, c, rows, nstage, rsplit,
+                                        trans != 0, itemsize);
 }
 
 extern "C" const char* hf_error_string(int code) {

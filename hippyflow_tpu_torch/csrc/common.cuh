@@ -224,11 +224,12 @@ __host__ __device__ inline std::size_t hf_stream_carry_elems(int s, int kt,
                : 2 * full + 3 * slab;
 }
 
-inline std::size_t hf_stream_smem_bytes(int s, int kt, int c, int rows,
-                                        int nstage, int rsplit, bool trans,
-                                        int itemsize) {
+inline std::size_t hf_stream_smem_size(int s, int kt, int c, int rows,
+                                       int nstage, int rsplit, bool trans,
+                                       int itemsize) {
   const std::size_t carry =
-      (hf_stream_carry_elems(s, kt, c, rsplit, trans) * itemsize + 15) / 16 * 16;
+      (hf_stream_carry_elems(s, kt, c, rsplit, trans) * itemsize + 15) / 16 *
+      16;
   return HF_STREAM_BAR_BYTES + carry +
          (std::size_t)nstage * hf_stream_stage_bytes(s, rows, itemsize);
 }

@@ -17,7 +17,10 @@ Pallas kernel of ``hippyflow_tpu/ops/pallas_kernels.py``:
 
 K3/K4 split each matrix's columns over a cluster of thread blocks; the
 cluster size comes from ``gj_cluster`` (``cluster=`` forces one), and K1's
-row design passes the same choice down to the K3 launches it makes.
+row design passes the same choice down to the K3 launches it makes.  K2's
+few-column design splits each factor block's rows over a cluster of thread
+blocks per sample; its size comes from ``stream_cluster`` (``cluster=``
+forces one) and its ring, threads and lanes from ``stream_geometry``.
 
 Each wrapper takes batched tensors with a leading sample axis.  On a CUDA
 tensor it launches its kernel or raises; on a CPU tensor it runs its plain
@@ -30,7 +33,9 @@ with the next pivot block inverted beside the update; where its four
 s x s tiles fit: s <= 120 in float32, 84 in float64) and row panels
 (larger s, s=193 and 516; ``design=`` forces one), and K2's panel solve
 (many rhs columns; panel rows and column tile from ``solve_tiles``) and
-streamed solve (few); none is a plain version.
+streamed solve (fewer than 8: each block draws its slab of every factor
+block once through a ring of bulk copies that runs ahead of the
+recurrence); none is a plain version.
 
 The CUDA sources are compiled with ``nvcc`` for ``sm_90a``, one process per
 source in parallel, and linked into a shared library with a plain C
@@ -47,6 +52,7 @@ per block row from C, and counts those launches in
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -164,7 +170,7 @@ def _library():
             ("hf_factorize_smem_bytes", [i, i, i]),
             ("hf_schur_smem_bytes", [i, i]),
             ("hf_solve_smem_bytes", [i, i, i, i]),
-            ("hf_stream_smem_bytes_c", [i, i, i, i, i, i, i, i]),
+            ("hf_stream_smem_bytes", [i, i, i, i, i, i, i, i]),
             ("hf_gj_smem_bytes", [i, i, i, i]),
         ):
             fn = getattr(lib, name)
@@ -716,6 +722,7 @@ def stream_splits(groups: int, wmax: int, rows: int) -> int:
     return max(1, min(wmax // groups, 4 if groups <= 2 else 2, rows // 6))
 
 
+@functools.lru_cache(maxsize=None)
 def stream_geometry(blocks: int, s: int, kt: int, itemsize: int, c: int,
                     trans: bool, sm_count: int, limit: int, sm_smem: int):
     """(rows per stage, stages, threads, row splits, lanes per row, bytes)

@@ -151,6 +151,7 @@ def main(argv) -> None:
         hk.STREAM_STAGE_BYTES = size
         for trans_only, value in forced:
             hk.stream_lanes, hk.stream_splits = rules
+    hk.stream_geometry.cache_clear()
             label = "lanes per row and row splits by the rules"
             if trans_only is False:
                 hk.stream_lanes = lambda s, rows, wmax, share: value
@@ -159,6 +160,7 @@ def main(argv) -> None:
                 hk.stream_splits = lambda groups, wmax, rows: min(
                     value, max(1, wmax // groups))
                 label = f"at most {value} row splits"
+            hk.stream_geometry.cache_clear()
             print(f"ring stages of at most {size} bytes, {label}", flush=True)
             for N, s, nb, dtypes in SHAPES:
                 for dtype in dtypes:
@@ -168,6 +170,7 @@ def main(argv) -> None:
                                   "--check" in argv, parent)
                     torch.cuda.empty_cache()
     hk.stream_lanes, hk.stream_splits = rules
+    hk.stream_geometry.cache_clear()
 
 
 if __name__ == "__main__":

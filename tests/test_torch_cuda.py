@@ -387,7 +387,7 @@ def test_stream_geometry_mirrors_the_library(cuda, args):
         blocks, s, kt, item, c, trans, hk._sm_count(cuda), limit, hk._sm_smem(cuda))
     assert need <= limit and threads <= 32 * (
         hk.STREAM_MAX_WARPS if c > 1 else hk.STREAM_MAX_WARPS_ONE)
-    assert hk._library().hf_stream_smem_bytes_c(
+    assert hk._library().hf_stream_smem_bytes(
         s, kt, c, rows, nstage, rsplit, int(trans), item) == need
 
 
