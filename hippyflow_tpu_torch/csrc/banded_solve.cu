@@ -48,7 +48,7 @@
 //   Rank r owns rows [r s / c, (r + 1) s / c) of every factor block, a
 //   contiguous run of memory, so each byte of the factor is read by one
 //   block only.  The run passes in chunks of whole rows (up to 64 KB)
-//   through a ring of shared-memory stages: thread 0 issues one bulk copy
+//   through a ring of shared-memory stages: thread 0 requests one bulk copy
 //   (`cp.async.bulk`, completion counted by an `mbarrier` per stage) per
 //   chunk, as far ahead of the chunk in use as the ring is deep, across
 //   products and across the cluster barrier, and the warps give a stage
@@ -429,12 +429,12 @@ struct StreamRing {
   int use_t, use_ci, use_st;
   uint32_t use_par;
   // the chunk to request next (thread 0)
-  int issued, req_t, req_ci, req_st, req_round;
+  int requested, req_t, req_ci, req_st, req_round;
 
   __device__ __forceinline__ void init() {
     use_t = use_ci = use_st = 0;
     use_par = 0;
-    issued = req_t = req_ci = req_st = req_round = 0;
+    requested = req_t = req_ci = req_st = req_round = 0;
   }
 
   __device__ __forceinline__ void chunk_rows(int ci, int* row0,
@@ -445,9 +445,9 @@ struct StreamRing {
 
   // thread 0: request every chunk below `upto`; a stage is free once all
   // warps have given back the chunk that used it a round earlier
-  __device__ __forceinline__ void issue(int upto) {
+  __device__ __forceinline__ void request(int upto) {
     upto = min(upto, total);
-    while (issued < upto) {
+    while (requested < upto) {
       if (req_round > 0) mbar_wait(&empty[req_st], (req_round - 1) & 1);
       int row0, nrows;
       chunk_rows(req_ci, &row0, &nrows);
@@ -461,7 +461,7 @@ struct StreamRing {
       mbar_expect_tx(&full[req_st], (uint32_t)(a1 - a0));
       bulk_load(stages + (size_t)req_st * stage_bytes, (const void*)a0,
                 (uint32_t)(a1 - a0), &full[req_st]);
-      ++issued;
+      ++requested;
       if (++req_ci == nch) {
         req_ci = 0;
         ++req_t;
@@ -480,9 +480,9 @@ struct StreamRing {
   __device__ __forceinline__ const T* acquire(int* row0, int* nrows) {
     if (kInline && threadIdx.x < 32) {
       // the lanes beside thread 0 wait here, not in the poll below: a
-      // polling lane holds the warp and starves the thread that issues
+      // polling lane holds the warp and starves the thread that requests
       if (threadIdx.x == 0) {
-        issue(use_t * nch + use_ci + max(1, nstage - 1));
+        request(use_t * nch + use_ci + max(1, nstage - 1));
       }
       __syncwarp();
     }
@@ -767,11 +767,11 @@ __global__ void __launch_bounds__(
   }
   __syncthreads();
   if constexpr (kCluster) {
-    if (tid == 0) ring.issue(max(1, nstage - 1));
+    if (tid == 0) ring.request(max(1, nstage - 1));
   } else if (tid < 32) {
     // a block on its own: thread 0 requests every chunk of the solve, each
     // as soon as its stage is free, and its warp does nothing else
-    if (tid == 0) ring.issue(ring.total);
+    if (tid == 0) ring.request(ring.total);
     return;
   }
 

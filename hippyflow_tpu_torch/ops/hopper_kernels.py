@@ -649,9 +649,9 @@ PANELS_MIN_K = 8
 PANEL_ROWS = (64, 32, 16)
 # The streamed design (csrc/common.cuh): most columns of a tile, blocks of a
 # cluster, stages of a ring and warps of a block (in a cluster, and on its
-# own); the bytes of its ring
-# barriers and chunk offsets; the most bytes of one ring stage; and the fewest rows of a
-# factor block per cluster rank worth a split (``stream_cluster``)
+# own); the bytes of its ring barriers and chunk offsets; the most bytes of
+# one ring stage; and the fewest rows of a factor block per cluster rank
+# worth a split (``stream_cluster``)
 STREAM_MAX_COLS = 7
 STREAM_MAX_CLUSTER = 8
 STREAM_MAX_STAGES = 16
@@ -703,8 +703,8 @@ def stream_lanes(s: int, rows: int, wmax: int, share: int) -> int:
     shuffle tree stays short; halved while a chunk's rows need more lanes
     than the block's share of an SM's 32 wmax (a second pass over the
     warps for a few rows costs more than longer parts, and where blocks
-    share an SM the instructions they issue, not one block's latency, set
-    the time).  Fitted to ``ops/stream_solve_sweep.py --lanes``."""
+    share an SM what they all execute, not one block's latency, sets the
+    time).  Fitted to ``ops/stream_solve_sweep.py --lanes``."""
     lanes = 1 << max(0, min(5, (-(-s // 16) - 1).bit_length()))
     while lanes > 1 and rows * lanes > 32 * wmax // share:
         lanes //= 2
@@ -726,8 +726,9 @@ def stream_splits(groups: int, wmax: int, rows: int) -> int:
 def stream_geometry(blocks: int, s: int, kt: int, itemsize: int, c: int,
                     trans: bool, sm_count: int, limit: int, sm_smem: int):
     """(rows per stage, stages, threads, row splits, lanes per row, bytes)
-    of K2's streamed design for ``blocks`` (sample, column tile) pairs in clusters of c, or
-    None where not even two one-row stages fit ``limit`` bytes.
+    of K2's streamed design for ``blocks`` (sample, column tile) pairs in
+    clusters of c, or None where not even two one-row stages fit ``limit``
+    bytes.
 
     Where the grid has more blocks than the card SMs, as many blocks as it
     takes for one wave (at most 8) share an SM's shared memory and threads.

@@ -151,7 +151,6 @@ def main(argv) -> None:
         hk.STREAM_STAGE_BYTES = size
         for trans_only, value in forced:
             hk.stream_lanes, hk.stream_splits = rules
-    hk.stream_geometry.cache_clear()
             label = "lanes per row and row splits by the rules"
             if trans_only is False:
                 hk.stream_lanes = lambda s, rows, wmax, share: value
