@@ -4,11 +4,12 @@
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --profile   # also: device-time tables of the main
                                       # path and the two large lanes
-    python3 chip_smoke.py --parent DIR   # also time the K1 chain and the
-                                      # k=1 K2 of another checkout of this
-                                      # repository, unpacked into DIR inside
-                                      # this one (it builds its kernels
-                                      # there), in turns with this one's
+    python3 chip_smoke.py --parent DIR   # also time the K1 chain, K1's
+                                      # Schur step and the k=1 K2 of another
+                                      # checkout of this repository,
+                                      # unpacked into DIR inside this one
+                                      # (it builds its kernels there), in
+                                      # turns with this one's
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin``, ``PATH`` or
 ``/usr/local/cuda/bin``); imports nothing of JAX.  Phases, one summary line
@@ -44,7 +45,13 @@ each:
    through panels) against their plain versions on Newton bands of nx=192 (N=16,
    nb=s=193), both dtypes, with residuals and timings; K3 as K1's rows call
    it, on one block row of an (N, 8, s, s) buffer at N=32 and 16 (the
-   other rows must come out untouched), at each cluster size;
+   other rows must come out untouched), at each cluster size; ``K1 Schur``
+   lines at N=16 (both dtypes) and 32 (float32): K1's Schur step alone at
+   block rows 0 and 5, held against the plain step (the other rows must
+   come out untouched), then timed in turns with the plain step and the
+   library pair (``torch.bmm`` + ``torch.baddbmm``, TF32 off), beside the
+   bound; with ``--parent`` also the profiler's time per launch of that
+   checkout's Schur kernel and of this one's, in their row designs;
 6. coarse grids: K1 and K2 (k=1) against their plain versions on the
    Newton bands of the grid-sequencing levels, s=33 and 17 (N=1024, the
    nx=64 chunk) and s=97, 49 and 25 (N=32, the nx=192 chunk), both dtypes;
@@ -55,7 +62,8 @@ each:
    against the pivoted plain versions: K1 against plain, max|T T^-1 - I|
    of K3 and of ``torch.linalg.inv`` on the same Schur complements, and
    ||Ax - b|| / ||b|| through K1+K2 and through the plain pair, K3's
-   within 10x of the pivoted ones; timings, K3 at each cluster size;
+   within 10x of the pivoted ones; timings, K3 at each cluster size; a
+   ``K1 Schur`` line per dtype;
 8. parity: the float64 pipeline on ``.bench/parity_ref.npz`` against the
    stored reference spectrum (relative error <= 1e-8 over eigenvalues above
    1e-4 lambda_0), with the dense prior and again with the structured one;
@@ -83,7 +91,9 @@ time the card could take for a call at that shape, from its operations at
 the peak rate of its type and its bytes at the memory rate, whichever is
 larger, ``bound_by`` says which; ``library_ms`` is ``torch.linalg.inv``'s
 time for K3/K4 and null for K1/K2, which no single PyTorch call
-computes), and last the result line
+computes; K1's Schur step, under ``banded_factorize.schur``, has its
+launches on each path and at each shape its time, the plain step's, the
+library pair's and the bound), and last the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without printing the result line.
 """
@@ -129,6 +139,8 @@ JAC_TOL_F32 = 1e-4
 # tensor cores (IEEE double; 34e12 outside them), and HBM3 bytes per second
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# the later block row at which K1's Schur step is checked and timed alone
+SCHUR_ROW = 5
 # thread blocks per matrix at which K3 is timed beside 1 and the picked one
 K3_CLUSTERS = (2, 4, 6, 8)
 # thread blocks per sample of K2's streamed design: it is timed at 1, at the
@@ -439,6 +451,97 @@ def k1_designs(band64, label, parent=None, dtypes=(torch.float32, torch.float64)
     return out
 
 
+def k1_schur(band64, label, parent=None, dtypes=(torch.float32, torch.float64),
+             j=SCHUR_ROW, reps=10):
+    """K1's Schur step alone (``schur_step_`` with the geometry
+    ``schur_geometry`` picks) on one band, in each dtype, at block rows 0
+    and j: held against the plain step (``schur_step_plain`` on the same
+    Dinv_{j-1}, the float64 plain factorization of the rows before j)
+    within TOL, every other row of M and Dinv untouched; then at row j
+    timed in turns (the list forwards, then backwards; device time,
+    ``schur_sweep.device_ms``) with the plain step and the library pair
+    (``torch.bmm`` + ``torch.baddbmm``, TF32 off: a yardstick the port
+    never calls), beside the bound; with ``parent``, the profiler's time
+    per launch of the parent's ``schur_rows_kernel`` in its row design on
+    the band's first rows, in turns with this checkout's kernel read the
+    same way.  Returns {dtype name: record} for the kernels' JSON line."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+    from hippyflow_tpu_torch.ops.schur_sweep import (
+        device_ms,
+        kernel_ms,
+        library_pair,
+        schur_bound,
+    )
+
+    N, _, s, _ = band64.shape
+    sub64 = band64[:, : j + 2].contiguous()  # row j + 1 must stay untouched
+    _, D64 = hk.banded_factorize_plain(band64[:, :j].contiguous())
+    gen = torch.Generator(device=band64.device).manual_seed(SEED)
+    out = {}
+    for dtype in dtypes:
+        name, tol = str(dtype)[6:], TOL[dtype]["diff"]
+        band = sub64.to(dtype)
+        geometry = hk.schur_geometry(N, s, band.element_size(),
+                                     hk._sm_count(band.device),
+                                     hk._smem_limit(band.device))
+        M, Dinv = (torch.randn(N, j + 2, s, s, generator=gen, dtype=dtype,
+                               device=band.device) for _ in range(2))
+        Dinv[:, j - 1] = D64[:, j - 1].to(dtype)
+        worst = 0.0
+        for row in (0, j):
+            M0, D0 = M.clone(), Dinv.clone()
+            hk.schur_step_(band, M, Dinv, row)
+            M_p, T_p = hk.schur_step_plain(band, D0[:, row - 1] if row else None,
+                                           row)
+            torch.cuda.synchronize()
+            err = max((M[:, row] - M_p).abs().max().item(),
+                      (Dinv[:, row] - T_p).abs().max().item())
+            scale = max(M_p.abs().max().item(), T_p.abs().max().item())
+            others = [q for q in range(j + 2) if q != row]
+            check(err <= tol * scale, f"K1 Schur {label} {name} j={row}: "
+                  f"against plain {err / scale:.3e}")
+            check(torch.equal(M[:, others], M0[:, others])
+                  and torch.equal(Dinv[:, others], D0[:, others]),
+                  f"K1 Schur {label} {name} j={row}: other block rows changed")
+            worst = max(worst, err)
+        del M0, D0
+        runs = {"step": lambda: hk.schur_step_(band, M, Dinv, j),
+                "plain": lambda: hk.schur_step_plain(band, Dinv[:, j - 1], j),
+                "library": lambda: library_pair(band, Dinv[:, j - 1], j)}
+        ms = {key: [] for key in runs}
+        for keys in (list(runs), list(runs)[::-1]):
+            for key in keys:
+                ms[key].append(device_ms(runs[key], reps))
+        ms = {key: sum(v) / len(v) for key, v in ms.items()}
+        line = ", ".join(f"{key} {v:.4f} ms" for key, v in ms.items())
+        rec = {"ms": ms["step"], "plain_ms": ms["plain"],
+               "library_ms": ms["library"], "max_abs_err": worst,
+               "geometry": dict(zip(("panel", "threads", "depth",
+                                     "smem_bytes"), geometry))}
+        if parent is not None:
+            rows4 = band[:, :4].contiguous()
+            prof = {"parent": [], "rows": []}
+            for who in ("parent", "rows", "rows", "parent"):
+                mod, kernel = ((parent, "schur_rows_kernel") if who == "parent"
+                               else (hk, "schur_tile_kernel"))
+                prof[who].append(kernel_ms(
+                    lambda: mod.banded_factorize(rows4, design="rows"), kernel,
+                    skip=1)[0])
+            rec["parent_ms"] = sum(prof["parent"]) / 2
+            rec["profiled_ms"] = sum(prof["rows"]) / 2
+            line += (f"; profiled per launch in the row design: parent "
+                     f"{rec['parent_ms']:.4f} ms, this {rec['profiled_ms']:.4f} ms "
+                     f"({rec['parent_ms'] / rec['profiled_ms']:.2f}x)")
+        b_ms, b_by = schur_bound(N, s, dtype)
+        rec.update(bound_ms=b_ms, bound_by=b_by)
+        log(f"K1 Schur {label} {name} N={N} s={s} j={j}: {line}; bound "
+            f"{b_ms:.4f} ms ({b_by}); geometry {geometry[:3]} (panel, threads, "
+            f"rows in flight); max abs err {worst:.3e}")
+        out[name] = rec
+        del band, M, Dinv
+    return out
+
+
 def setup(dtype, device, nx=NX, with_prior=True):
     from hippyflow_tpu_torch.applications.confusion import (
         confusion_linear_observable,
@@ -744,6 +847,12 @@ def phase_s193(obs64, prior64, device, parent=None):
                          for t in (False, True)})
         del M2, D2, B2, bb2
         report["banded_solve"]["clusters"] = clusters
+    # K1's Schur step at the lane's Jacobian chunk (16) and chunk (32)
+    label = f"nx={NX192} Newton bands"
+    report["schur"] = {
+        f"n{N}_s{s}": k1_schur(band64, label, parent),
+        f"n{2 * N}_s{s}": k1_schur(torch.cat([band64[:, : SCHUR_ROW + 2]] * 2),
+                                   label, parent, dtypes=(torch.float32,))}
     # K1's designs at the nx=192 lane's chunk (32) and Jacobian chunk (16)
     report["designs"] = {
         f"n{N}_s{s}": k1_designs(band64, f"nx={NX192} Newton bands", parent,
@@ -1020,6 +1129,8 @@ def phase_s516(device, parent=None):
         del band, B, M, Dinv, M_p, D_p, T, T1
         torch.cuda.empty_cache()
     report["designs"] = k1_designs(band64, "helmholtz bands", parent, reps=1)
+    report["schur"] = {f"n{N}_s{s}": k1_schur(band64, "helmholtz bands", parent,
+                                              reps=5)}
     return s, report
 
 
@@ -1098,6 +1209,7 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
         "banded_solve": hk.banded_solve.launches,
         "batched_inverse": hk.batched_inverse.launches,
         "batched_inverse_rank1": hk.batched_inverse.rank1_launches,
+        "schur_step": hk.schur_step_.launches,
         **{f"banded_factorize_{d}": n
            for d, n in hk.banded_factorize.launches_by_design.items()},
     }
@@ -1120,7 +1232,8 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
         f"resampled failures {proj.samples.n_failures}; launches K1 "
         f"{launches['banded_factorize']} (chain "
         f"{launches['banded_factorize_chain']}, rows "
-        f"{launches['banded_factorize_rows']}) K2 {launches['banded_solve']} K3 "
+        f"{launches['banded_factorize_rows']}; Schur steps "
+        f"{launches['schur_step']}) K2 {launches['banded_solve']} K3 "
         f"{launches['batched_inverse']} K4 {launches['batched_inverse_rank1']}; "
         f"peak {peak_gb:.2f} GB"
     )
@@ -1184,7 +1297,8 @@ def phase_lane192(device, profile=False):
     for name, lv in (("nx192", levels), ("nx192_cold", None)):
         cold = " cold start" if lv is None else f" grid-sequenced depth {len(lv)}"
         launches, _ = run(lv, f"lane float32 nx={NX192}{cold}")
-        for key in ("banded_factorize", "banded_solve", "batched_inverse"):
+        for key in ("banded_factorize", "banded_solve", "batched_inverse",
+                    "schur_step"):
             check(launches[key] > 0, f"{key} was not launched on {name}")
         paths[name] = launches
     # the prior build alone with gj_cluster's choice and with one block per
@@ -1245,7 +1359,8 @@ def phase_helmholtz(device, profile=False):
           f"helmholtz stages {sorted(proj.stage_seconds)}: not the fused pass")
     check(proj.samples.n_failures == 0,
           f"helmholtz: {proj.samples.n_failures} resampled failures")
-    for key in ("banded_factorize", "banded_solve", "batched_inverse"):
+    for key in ("banded_factorize", "banded_solve", "batched_inverse",
+                "schur_step"):
         check(launches[key] > 0, f"{key} was not launched on the helmholtz lane")
     obs64, _ = helmholtz_linear_observable(
         nx=HELM_NX, frequency=HELM_FREQ, dtype=torch.float64, device=device)
@@ -1265,7 +1380,7 @@ def phase_helmholtz(device, profile=False):
 
 # the port's kernels by a part of their names in a profiler trace
 KERNEL_NAMES = (("K1 chain", "banded_chain_kernel"),
-                ("K1 Schur step", "schur_rows_kernel"),
+                ("K1 Schur step", "schur_tile_kernel"),
                 ("K2 panels", "banded_solve_kernel"),
                 ("K2 streamed", "banded_stream_kernel"),
                 ("K3/K4", "gj_inverse_kernel"))
@@ -1363,6 +1478,7 @@ def run_phases(device, argv, parent=None):
     designs.update({f"n{N_SAMPLES if s in (33, 17) else CHUNK192}_s{s}":
                     rec["designs"] for s, rec in coarse.items()})
     designs[f"n{N_BAND_HELM}_s{s_helm}"] = s516["designs"]
+    schur = {**s193_report.pop("schur"), **s516["schur"]}
     k2_cl = report["banded_solve"]["clusters"]
     k2_cl.update(s193_report["banded_solve"].pop("clusters"))
     for rec in coarse.values():
@@ -1428,10 +1544,16 @@ def run_phases(device, argv, parent=None):
          **report[name]}
         for name, (src, rep) in sources.items()
     ]
-    # K1's two designs: their launches on each path
+    # K1's two designs: their launches on each path; its Schur step's
     kernels[0]["launches_by_design"] = {
         d: {path: p[f"banded_factorize_{d}"] for path, p in paths.items()}
         for d in ("chain", "rows")}
+    kernels[0]["schur"] = {
+        "source": "hippyflow_tpu_torch/csrc/banded_factorize.cu",
+        "replaces": f"{pallas}:445", "launches": sum(
+            p["schur_step"] for p in paths.values()),
+        "launches_by_path": {path: p["schur_step"] for path, p in paths.items()},
+        **schur}
     return kernels
 
 
@@ -1444,6 +1566,8 @@ def main(argv) -> int:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # IEEE float32 products in the plain versions and the library yardsticks
+    torch.backends.cuda.matmul.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log(f"device: {kind}; torch {torch.__version__} CUDA {torch.version.cuda}; "

@@ -55,14 +55,23 @@
 //     starting them cost the block more cycles per block row, at every s,
 //     than the loads expose at the top of the row.
 // * Row panels (larger s; the chain's tiles need 596 KB at s=193): one
-//   launch pair per block row j over all samples.  `schur_rows_kernel`
-//   runs on a grid of sample x 16-row panel and writes M_j and
-//   T_j = D_j - M_j B_{j-1} of its panel, reading Dinv_{j-1} and B_{j-1}
-//   from device memory (L2), where the previous row just wrote them; the
-//   Gauss-Jordan kernel of K3 (csrc/batched_inverse.cu) then inverts
-//   Dinv[:, j] in place, with the cluster of c blocks per matrix that the
-//   host picked.  2 nb launches per factorization, and
-//   N ceil(s/16) blocks per Schur step instead of N.
+//   launch pair per block row j over all samples.  `schur_tile_kernel`
+//   runs on a grid of sample x row panel and writes M_j and
+//   T_j = D_j - M_j B_{j-1} of its panel; the Gauss-Jordan kernel of K3
+//   (csrc/batched_inverse.cu) then inverts Dinv[:, j] in place, with the
+//   cluster of c blocks per matrix that the host picked.  2 nb launches
+//   per factorization.  The Schur step is two panel products whose right
+//   operands (Dinv_{j-1}, which the previous row just wrote, and B_{j-1})
+//   every panel of the sample reads from L2: 4 N s^3 multiply-adds over
+//   N ceil(s/P) blocks.  Each thread keeps an 8 x 4 tile of outputs in
+//   registers over the left operand, transposed in shared memory, and
+//   reads the right operands straight from device memory, coalesced,
+//   several rows ahead of their use.  Staging them in shared memory
+//   (4-byte asynchronous copies into a ring, or bulk copies into landing
+//   buffers and a move into padded rows) was built and measured slower:
+//   the block barrier a chunk and the staging itself cost more than the
+//   L2 loads they replace (PERF.md).  The host (`schur_geometry` in
+//   ops/hopper_kernels.py) picks the panel and the rows in flight.
 //
 // Products are plain IEEE multiply-adds in the working type (no TF32); the
 // pivot row is scaled by the pivot's rounded reciprocal.
@@ -112,14 +121,22 @@ __device__ __forceinline__ void hf_store16(T* p, const T (&a)[n]) {
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void tile_fma(const T (&a)[kTile],
-                                         const T (&v)[kTile],
-                                         T (&acc)[kTile][kTile]) {
+template <typename T, int TM>
+__device__ __forceinline__ void tile_fma(const T (&a)[TM], const T (&v)[kTile],
+                                         T (&acc)[TM][kTile]) {
 #pragma unroll
-  for (int r = 0; r < kTile; ++r) {
+  for (int r = 0; r < TM; ++r) {
 #pragma unroll
     for (int q = 0; q < kTile; ++q) acc[r][q] += a[r] * v[q];
+  }
+}
+
+template <typename T, int TM>
+__device__ __forceinline__ void tile_zero(T (&acc)[TM][kTile]) {
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+#pragma unroll
+    for (int q = 0; q < kTile; ++q) acc[r][q] = T(0);
   }
 }
 
@@ -133,11 +150,7 @@ template <typename T>
 __device__ __forceinline__ void tile_product(const T* at, int lda, const T* b,
                                              int ldb, int s,
                                              T (&acc)[kTile][kTile]) {
-#pragma unroll
-  for (int r = 0; r < kTile; ++r) {
-#pragma unroll
-    for (int q = 0; q < kTile; ++q) acc[r][q] = T(0);
-  }
+  tile_zero(acc);
   T a0[kTile], v0[kTile], a1[kTile], v1[kTile];
   hf_load16(at, a0);
   hf_load16(b, v0);
@@ -566,21 +579,94 @@ __global__ void __launch_bounds__(HF_CHAIN_MAX_THREADS)
   }
 }
 
-// Row panel [r0, r0 + 16) of one sample's row j: M_j = A_j Dinv_{j-1} into
-// m_out and T_j = D_j - M_j B_{j-1} into dinv_out[:, j] (inverted next by
-// K3).  The A_j and M_j panels are kept transposed in shared memory,
-// (s, 16), so that the 16 rows a thread accumulates are contiguous; each
-// thread owns one output column c and reads Dinv_{j-1}[:, c] and
-// B_{j-1}[:, c] straight from device memory, coalesced across the warp.
+// Columns one warp of the Schur step covers: lane l takes columns
+// cb + l + 32 u, u < kTile, of its group of kGroupCols; and the rows of a
+// thread's tile.
+constexpr int kGroupCols = 32 * kTile;
+constexpr int kSchurRows = 8;
+
+// v[u] = row[cc[u]]: one coalesced 128-byte load per u across the warp,
+// through L1 (the warps of a block that share a column group read the
+// same rows).
 template <typename T>
-__global__ void __launch_bounds__(HF_SCHUR_THREADS)
-    schur_rows_kernel(const T* __restrict__ band, T* __restrict__ m_out,
-                      T* dinv_out, int nb, int s, int j) {
-  extern __shared__ unsigned char smem_raw[];
-  T* at = reinterpret_cast<T*>(smem_raw);  // (s, 16): A_j panel transposed
-  T* mt = at + (size_t)s * HF_SCHUR_PANEL;  // (s, 16): M_j panel transposed
-  const int r0 = blockIdx.y * HF_SCHUR_PANEL;
-  const int rows = min(HF_SCHUR_PANEL, s - r0);
+__device__ __forceinline__ void load_cols(T (&v)[kTile], const T* row,
+                                          const int (&cc)[kTile]) {
+#pragma unroll
+  for (int u = 0; u < kTile; ++u) v[u] = __ldg(row + cc[u]);
+}
+
+// acc[r][u] += sum_l pt[l pp + i0 + r] src[l sld + cc[u]], l < s: the
+// left operand transposed in shared memory (rows of pp, 16-byte loads
+// that the warp shares), the right one straight from device memory, D of
+// its rows in flight in registers ahead of the multiply-adds (the loads
+// of row l + D are issued as row l is used).
+template <typename T, int D>
+__device__ __forceinline__ void direct_product(const T* pt, int pp, int i0,
+                                               const T* src, int sld, int s,
+                                               const int (&cc)[kTile],
+                                               T (&acc)[kSchurRows][kTile]) {
+  T v[D][kTile];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    load_cols(v[d], src + (size_t)min(d, s - 1) * sld, cc);
+  }
+  const T* a_row = pt + i0;
+  const T* next = src + (size_t)D * sld;  // the row D steps ahead
+  int k = 0;
+  // whole passes whose loads ahead stay inside the operand: no clamps,
+  // addresses stepped
+  for (; k + 2 * D <= s; k += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      T a[kSchurRows];
+      hf_load16(a_row, a);
+      a_row += pp;
+      tile_fma(a, v[d], acc);
+      load_cols(v[d], next, cc);
+      next += sld;
+    }
+  }
+  for (; k + D <= s; k += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      T a[kSchurRows];
+      hf_load16(pt + (size_t)(k + d) * pp + i0, a);
+      tile_fma(a, v[d], acc);
+      load_cols(v[d], src + (size_t)min(k + d + D, s - 1) * sld, cc);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    if (k + d < s) {
+      T a[kSchurRows];
+      hf_load16(pt + (size_t)(k + d) * pp + i0, a);
+      tile_fma(a, v[d], acc);
+    }
+  }
+}
+
+// The Schur step of block row j (j >= 1) for row panel [r0, r0 + P) of one
+// sample: M_j = A_j Dinv_{j-1} into m_out and T_j = D_j - M_j B_{j-1} into
+// dinv_out[:, j] (which K3 inverts next); at j = 0, M_0 = 0 and T_0 = D_0.
+// Each thread accumulates a kSchurRows x kTile tile of the panel's outputs
+// in registers: rows i0.., and the columns cb + lane + 32 u of its warp's
+// group of kGroupCols.  The left operand (A_j's panel, then M_j's) lies
+// transposed in shared memory, (s, P + 4): per row l the warp's lanes
+// share one 16-byte load of it.  The right ones, Dinv_{j-1} and then
+// B_{j-1} (rows 3s apart in the band; at s = 193 a row starts on 4 bytes),
+// are read straight from device memory, a 128-byte line per u across the
+// warp, through L1 and L2 (every panel of the sample reads them), D rows
+// ahead of their use: no block barrier and no staging in the inner loop.
+template <typename T, int D>
+__global__ void __launch_bounds__(HF_SCHUR_MAX_THREADS)
+    schur_tile_kernel(const T* __restrict__ band, T* __restrict__ m_out,
+                      T* dinv_out, int nb, int s, int j, int P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int pp = hf_schur_pp(P);
+  T* pt = reinterpret_cast<T*>(smem_raw);  // (s, pp): A_j's panel, then M_j's
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int r0 = blockIdx.y * P;
+  const int rows = min(P, s - r0);
   const size_t ss = (size_t)s * s;
   const size_t row = (size_t)blockIdx.x * nb + j;
   const int w3 = 3 * s;
@@ -588,61 +674,134 @@ __global__ void __launch_bounds__(HF_SCHUR_THREADS)
   T* mj = m_out + row * ss + (size_t)r0 * s;
   T* tj = dinv_out + row * ss + (size_t)r0 * s;
   if (j == 0) {
-    for (int e = threadIdx.x; e < rows * s; e += blockDim.x) {
-      const int r = e / s, c = e - (e / s) * s;
+    for (int e = tid; e < rows * s; e += nth) {
+      const int r = e / s, c = e - r * s;
       mj[e] = T(0);
       tj[e] = bj[(size_t)r * w3 + s + c];
     }
     return;
   }
-  const T* dprev = dinv_out + (row - 1) * ss;
-  const T* bprev = band + (row - 1) * ss * 3 + 2 * s;  // row stride 3s
-  for (int e = threadIdx.x; e < HF_SCHUR_PANEL * s; e += blockDim.x) {
-    const int r = e / s, l = e - (e / s) * s;
-    if (r < rows) {
-      __pipeline_memcpy_async(at + l * HF_SCHUR_PANEL + r,
-                              bj + (size_t)r * w3 + l, sizeof(T));
-    } else {
-      at[l * HF_SCHUR_PANEL + r] = T(0);
-    }
-  }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-  for (int c = threadIdx.x; c < s; c += blockDim.x) {
-    T acc[HF_SCHUR_PANEL];
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ncg = (s + kGroupCols - 1) / kGroupCols;
+  const int ti = warp / ncg, i0 = kSchurRows * ti;
+  const int cb = kGroupCols * (warp - ti * ncg) + lane;
+  int cc[kTile];  // the thread's columns, clamped into the row
 #pragma unroll
-    for (int r = 0; r < HF_SCHUR_PANEL; ++r) acc[r] = T(0);
-    for (int l = 0; l < s; ++l) {
-      const T d = dprev[(size_t)l * s + c];
-#pragma unroll
-      for (int r = 0; r < HF_SCHUR_PANEL; ++r) {
-        acc[r] += at[l * HF_SCHUR_PANEL + r] * d;
+  for (int u = 0; u < kTile; ++u) cc[u] = min(cb + 32 * u, s - 1);
+  // A_j's panel, transposed: pt[l pp + r] = A_j[r0 + r, l], zero past the
+  // panel's rows.  A warp copies 4 rows x 8 columns at a time: whole
+  // 32-byte sectors of the band, into 32 distinct banks
+  {
+    const int nl8 = (s + 7) / 8, groups = P / 4 * nl8;
+    for (int e = tid; e < 32 * groups; e += nth) {
+      const int g = e >> 5, rb = g / nl8;
+      const int r = 4 * rb + ((e >> 3) & 3), l = 8 * (g - rb * nl8) + (e & 7);
+      if (l < s) {
+        if (r < rows) {
+          __pipeline_memcpy_async(pt + (size_t)l * pp + r,
+                                  bj + (size_t)r * w3 + l, sizeof(T));
+        } else {
+          pt[(size_t)l * pp + r] = T(0);
+        }
       }
     }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+  }
+  __syncthreads();
+  T acc[kSchurRows][kTile];
+  tile_zero(acc);
+  direct_product<T, D>(pt, pp, i0, dinv_out + (row - 1) * ss, s, s, cc, acc);
+  // M_j: to device memory, and transposed over A_j's panel once every
+  // read of that has ended
+  __syncthreads();
 #pragma unroll
-    for (int r = 0; r < HF_SCHUR_PANEL; ++r) {
-      mt[c * HF_SCHUR_PANEL + r] = acc[r];
-      if (r < rows) mj[(size_t)r * s + c] = acc[r];
+  for (int u = 0; u < kTile; ++u) {
+    const int c = cb + 32 * u;
+    if (c < s) {
+#pragma unroll
+      for (int r = 0; r < kSchurRows; ++r) {
+        if (i0 + r < rows) mj[(size_t)(i0 + r) * s + c] = acc[r][u];
+      }
+      T v[kSchurRows];
+#pragma unroll
+      for (int r = 0; r < kSchurRows; ++r) v[r] = acc[r][u];
+      hf_store16(pt + (size_t)c * pp + i0, v);
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < s; c += blockDim.x) {
-    T acc[HF_SCHUR_PANEL];
+  tile_zero(acc);
+  direct_product<T, D>(pt, pp, i0, band + (row - 1) * ss * 3 + 2 * s, w3, s,
+                       cc, acc);
 #pragma unroll
-    for (int r = 0; r < HF_SCHUR_PANEL; ++r) acc[r] = T(0);
-    for (int l = 0; l < s; ++l) {
-      const T b = bprev[(size_t)l * w3 + c];
+  for (int u = 0; u < kTile; ++u) {
+    const int c = cb + 32 * u;
+    if (c < s) {
 #pragma unroll
-      for (int r = 0; r < HF_SCHUR_PANEL; ++r) {
-        acc[r] += mt[l * HF_SCHUR_PANEL + r] * b;
+      for (int r = 0; r < kSchurRows; ++r) {
+        if (i0 + r < rows) {
+          tj[(size_t)(i0 + r) * s + c] =
+              bj[(size_t)(i0 + r) * w3 + s + c] - acc[r][u];
+        }
       }
     }
-#pragma unroll
-    for (int r = 0; r < HF_SCHUR_PANEL; ++r) {
-      if (r < rows) tj[(size_t)r * s + c] = bj[(size_t)r * w3 + s + c] - acc[r];
-    }
   }
+}
+
+// The Schur step's geometry: panels of P rows, a multiple of kSchurRows,
+// a warp for each (row tile, group of kGroupCols columns), at most
+// HF_SCHUR_MAX_THREADS, and D (4 or 8) rows of the right operand in
+// flight.
+struct SchurGeometry {
+  int panel, threads, depth;
+};
+
+inline bool schur_takes(int s, const SchurGeometry& g) {
+  if (s < 1 || (g.depth != 4 && g.depth != 8)) return false;
+  const long long warps =
+      (long long)(g.panel / kSchurRows) * ((s + kGroupCols - 1) / kGroupCols);
+  return g.panel >= kSchurRows && g.panel <= HF_SCHUR_MAX_PANEL &&
+         g.panel % kSchurRows == 0 && g.threads == 32 * warps &&
+         g.threads <= HF_SCHUR_MAX_THREADS;
+}
+
+template <typename T>
+using SchurKernel = void (*)(const T*, T*, T*, int, int, int, int);
+
+// The kernel of a geometry schur_takes, with its shared memory opted into.
+template <typename T>
+int schur_configure(int s, const SchurGeometry& g, SchurKernel<T>* kernel,
+                    size_t* smem) {
+  *kernel = g.depth == 8 ? schur_tile_kernel<T, 8> : schur_tile_kernel<T, 4>;
+  *smem = hf_schur_smem_size(s, g.panel, (int)sizeof(T));
+  return (int)cudaFuncSetAttribute(*kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)*smem);
+}
+
+template <typename T>
+int schur_launch(SchurKernel<T> kernel, size_t smem, const void* band,
+                 void* m_out, void* dinv_out, int n, int nb, int s, int j,
+                 const SchurGeometry& g, void* stream) {
+  const dim3 grid(n, (s + g.panel - 1) / g.panel);
+  kernel<<<grid, g.threads, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(band), static_cast<T*>(m_out),
+      static_cast<T*>(dinv_out), nb, s, j, g.panel);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_schur(const void* band, void* m_out, void* dinv_out, int n, int nb,
+                 int s, int j, const SchurGeometry& g, void* stream) {
+  if (!schur_takes(s, g) || j < 0 || j >= nb) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SchurKernel<T> kernel;
+  size_t smem;
+  const int err = schur_configure<T>(s, g, &kernel, &smem);
+  if (err != 0) return err;
+  return schur_launch<T>(kernel, smem, band, m_out, dinv_out, n, nb, s, j, g,
+                         stream);
 }
 
 template <typename T>
@@ -667,24 +826,22 @@ int launch_factorize(const void* band, void* m_out, void* dinv_out, int n,
 
 template <typename T>
 int launch_factorize_rows(const void* band, void* m_out, void* dinv_out,
-                          int n, int nb, int s, int w, int c, void* stream,
+                          int n, int nb, int s, int w, int c,
+                          const SchurGeometry& g, void* stream,
                           int (*invert)(void*, int, int, long long, int, int,
                                         void*)) {
-  const size_t smem = hf_schur_smem_elems(s) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      schur_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n, (s + HF_SCHUR_PANEL - 1) / HF_SCHUR_PANEL);
+  if (!schur_takes(s, g)) return (int)cudaErrorInvalidValue;
+  SchurKernel<T> kernel;
+  size_t smem;
+  int code = schur_configure<T>(s, g, &kernel, &smem);
+  if (code != 0) return code;
   const long long ss = (long long)s * s;
   T* dinv = static_cast<T*>(dinv_out);
   for (int j = 0; j < nb; ++j) {
-    schur_rows_kernel<T><<<grid, HF_SCHUR_THREADS, smem,
-                           (cudaStream_t)stream>>>(
-        static_cast<const T*>(band), static_cast<T*>(m_out), dinv, nb, s, j);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const int code = invert(dinv + j * ss, n, s, nb * ss, w, c, stream);
+    code = schur_launch<T>(kernel, smem, band, m_out, dinv_out, n, nb, s, j, g,
+                           stream);
+    if (code != 0) return code;
+    code = invert(dinv + j * ss, n, s, nb * ss, w, c, stream);
     if (code != 0) return code;
   }
   return 0;
@@ -708,26 +865,53 @@ extern "C" int hf_banded_factorize_f64(const void* band, void* m_out,
                                   stream);
 }
 
+// The row design: n samples, per block row the Schur step (row panels of
+// `panel` rows, `threads` threads a block, `depth` rows of the right
+// operand in flight), then K3 at pivot width w in
+// clusters of c blocks; what the kernels do not take returns
+// cudaErrorInvalidValue before any launch.
 extern "C" int hf_banded_factorize_rows_f32(const void* band, void* m_out,
                                             void* dinv_out, int n, int nb,
-                                            int s, int w, int c,
+                                            int s, int w, int c, int panel,
+                                            int threads, int depth,
                                             void* stream) {
-  return launch_factorize_rows<float>(band, m_out, dinv_out, n, nb, s, w, c,
-                                      stream, hf_batched_inverse_f32);
+  return launch_factorize_rows<float>(
+      band, m_out, dinv_out, n, nb, s, w, c,
+      {panel, threads, depth}, stream,
+      hf_batched_inverse_f32);
 }
 
 extern "C" int hf_banded_factorize_rows_f64(const void* band, void* m_out,
                                             void* dinv_out, int n, int nb,
-                                            int s, int w, int c,
+                                            int s, int w, int c, int panel,
+                                            int threads, int depth,
                                             void* stream) {
-  return launch_factorize_rows<double>(band, m_out, dinv_out, n, nb, s, w, c,
-                                       stream, hf_batched_inverse_f64);
+  return launch_factorize_rows<double>(
+      band, m_out, dinv_out, n, nb, s, w, c,
+      {panel, threads, depth}, stream,
+      hf_batched_inverse_f64);
+}
+
+// The Schur step of block row j alone (M_j into m, T_j into dinv[:, j];
+// Dinv_{j-1} read from dinv[:, j - 1]), with the row design's geometry.
+extern "C" int hf_schur_step_f32(const void* band, void* m, void* dinv, int n,
+                                 int nb, int s, int j, int panel,
+                                 int threads, int depth, void* stream) {
+  return launch_schur<float>(band, m, dinv, n, nb, s, j,
+                             {panel, threads, depth}, stream);
+}
+
+extern "C" int hf_schur_step_f64(const void* band, void* m, void* dinv, int n,
+                                 int nb, int s, int j, int panel,
+                                 int threads, int depth, void* stream) {
+  return launch_schur<double>(band, m, dinv, n, nb, s, j,
+                              {panel, threads, depth}, stream);
 }
 
 extern "C" long long hf_factorize_smem_bytes(int s, int ld, int itemsize) {
   return (long long)(hf_factorize_smem_elems(s, ld) * itemsize);
 }
 
-extern "C" long long hf_schur_smem_bytes(int s, int itemsize) {
-  return (long long)(hf_schur_smem_elems(s) * itemsize);
+extern "C" long long hf_schur_smem_bytes(int s, int panel, int itemsize) {
+  return (long long)hf_schur_smem_size(s, panel, itemsize);
 }

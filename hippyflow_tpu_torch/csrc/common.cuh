@@ -7,9 +7,10 @@
 #define HF_THREADS 256
 // Threads per block of the Gauss-Jordan inverse (K3/K4).
 #define HF_GJ_THREADS 512
-// Threads per block, and rows per block, of K1's row-panel Schur step.
-#define HF_SCHUR_THREADS 256
-#define HF_SCHUR_PANEL 16
+// K1's row-panel Schur step: most threads per block (one output tile
+// each) and most rows of a panel.
+#define HF_SCHUR_MAX_THREADS 512
+#define HF_SCHUR_MAX_PANEL 64
 // Widest pivot block the Gauss-Jordan inverse takes (the TPU kernel's 13;
 // the update keeps this many entries per column in registers), and the
 // row stride of its staged pivot columns (whole 16-byte vectors).
@@ -35,10 +36,15 @@ inline std::size_t hf_factorize_smem_elems(int s, int ld) {
   return 3 * tile + (tile > scratch ? tile : scratch);
 }
 
-// Shared-memory elements of one block of K1's row-panel Schur step: the
-// A_j and M_j row panels (HF_SCHUR_PANEL x s each).
-inline std::size_t hf_schur_smem_elems(int s) {
-  return 2 * (std::size_t)HF_SCHUR_PANEL * s;
+// Row stride, in elements, of the Schur step's transposed panel of P rows:
+// P and a 16-byte pad, so that the 16-byte stores down a column (M_j's
+// panel) from the lanes of a warp fall in distinct banks.
+__host__ __device__ inline int hf_schur_pp(int panel) { return panel + 4; }
+
+// Shared memory of one block of K1's row-panel Schur step: the panel,
+// transposed (s x hf_schur_pp(panel): A_j's, then M_j's).
+inline std::size_t hf_schur_smem_size(int s, int panel, int itemsize) {
+  return (std::size_t)s * hf_schur_pp(panel) * itemsize;
 }
 
 // Columns one block of a Gauss-Jordan cluster of c blocks owns at most:

@@ -99,9 +99,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         hk.banded_factorize(torch.zeros((1, 2, 193, 579), device=cuda),
                             design="chain")
-    # no design takes row panels this wide in float64
+    # no design takes block rows this wide in float64: the Schur step's
+    # 4-row panels fit, K3's pivot columns (16 x 1500) do not
     with pytest.raises(ValueError, match="shared memory"):
-        hk.banded_factorize(torch.zeros((1, 1, 1000, 3000), dtype=torch.float64,
+        hk.banded_factorize(torch.zeros((1, 1, 1500, 4500), dtype=torch.float64,
                                         device=cuda))
     M, Dinv = hk.banded_factorize(band)
     B = band[..., 34:].contiguous()
@@ -225,6 +226,121 @@ def test_factorize_rows_design(cuda, dtype, s, nb, design):
     if design == "rows":
         M_c, D_c = hk.banded_factorize(band, design="chain")
         assert _rel(M, M_c) < TOL[dtype] and _rel(Dinv, D_c) < TOL[dtype]
+
+
+def _schur_case(s, n, dtype, device, nb=3, seed=0):
+    """A band (n, nb, s, 3s) and M, Dinv buffers (n, nb, s, s) filled with
+    random entries (rows the step must leave alone), Dinv's rows scaled
+    like inverses of the band's diagonal blocks."""
+    band = _band(s, n, dtype, device, seed=seed, nb=nb)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    M = torch.randn(n, nb, s, s, dtype=dtype, device=device, generator=gen)
+    Dinv = torch.randn(n, nb, s, s, dtype=dtype, device=device,
+                       generator=gen) / s**0.5
+    return band, M, Dinv
+
+
+def _check_schur(band, M, Dinv, j, dtype, want=None, **geometry):
+    """The Schur step at row j against its plain version (``want``: its
+    (M_j, T_j), else computed here); every other row of M and Dinv bit for
+    bit untouched."""
+    M0, D0 = M.clone(), Dinv.clone()
+    if want is None:
+        want = hk.schur_step_plain(band, D0[:, j - 1] if j else None, j)
+    hk.schur_step_(band, M, Dinv, j, **geometry)
+    torch.cuda.synchronize()
+    assert _rel(M[:, j], want[0]) < TOL[dtype] if j else not M[:, j].any()
+    assert _rel(Dinv[:, j], want[1]) < TOL[dtype]
+    others = [q for q in range(M.shape[1]) if q != j]
+    assert torch.equal(M[:, others], M0[:, others])
+    assert torch.equal(Dinv[:, others], D0[:, others])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 3, 16, 32])
+@pytest.mark.parametrize("s", [17, 25, 33, 65, 97, 193, 516])
+def test_schur_step_matches_plain(cuda, s, n, dtype):
+    """K1's Schur step with the geometry ``schur_geometry`` picks, at the
+    block sizes of every K1 shape of the lanes and ragged panels, at j = 0
+    (M_0 = 0, T_0 = D_0) and at later rows."""
+    band, M, Dinv = _schur_case(s, n, dtype, cuda, seed=s + n)
+    hk.reset_launch_counts()
+    for j in (0, 1, 2):
+        _check_schur(band, M, Dinv, j, dtype)
+    assert hk.schur_step_.launches == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s", [17, 33, 193, 516])
+def test_schur_step_every_geometry(cuda, s, dtype):
+    """Every geometry the sweep tries (``ops/schur_sweep.py``: panel
+    heights, rows in flight) that fits, against the plain version; the
+    others raise before any launch."""
+    from hippyflow_tpu_torch.ops.schur_sweep import geometries
+
+    band, M, Dinv = _schur_case(s, 3, dtype, cuda, seed=s)
+    want = hk.schur_step_plain(band, Dinv[:, 0].clone(), 1)
+    fits, refused = geometries(3, s, band.element_size(), hk._sm_count(cuda),
+                               hk._smem_limit(cuda))
+    hk.reset_launch_counts()
+    for forced in refused:
+        with pytest.raises(ValueError, match="shared memory"):
+            hk.schur_step_(band, M, Dinv, 1, **forced)
+    assert hk.schur_step_.launches == 0
+    assert fits
+    for forced in fits.values():
+        _check_schur(band, M, Dinv, 1, dtype, want, **forced)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s", [17, 65, 193, 516])
+def test_schur_geometry_mirrors_the_library(cuda, s, dtype):
+    """The wrapper's shared-memory count is the library's, and the library
+    refuses what the kernel does not take: a panel of no whole 8-row tiles
+    or past the most, other than a warp per tile and column group or too
+    many threads, rows in flight other than 4 or 8, a row outside the
+    band."""
+    lib = hk._library()
+    item = torch.finfo(dtype).bits // 8
+    for panel in (8, 16, 32, 64):
+        assert lib.hf_schur_smem_bytes(s, panel, item) == \
+            hk.schur_smem_bytes(s, panel, item)
+    band, M, Dinv = _schur_case(s, 1, dtype, cuda, nb=2)
+    P, threads, d, _ = hk.schur_geometry(
+        1, s, item, hk._sm_count(cuda), hk._smem_limit(cuda))
+    fn = getattr(lib, f"hf_schur_step_{hk._suffix(dtype)}")
+    bad = [(4, 32 * -(-s // 128), d, 1), (12, threads, d, 1), (0, threads, d, 1),
+           (hk.SCHUR_MAX_PANEL + 8, threads, d, 1), (P, threads - 32, d, 1),
+           (P, threads + 32, d, 1), (P, threads + 1, d, 1), (P, threads, 2, 1),
+           (P, threads, 16, 1), (P, threads, d, 2), (P, threads, d, -1)]
+    if s > 256:  # 8 tiles of 8 rows in three or more column groups
+        bad.append((64, 32 * 8 * -(-s // 128), d, 1))
+    for panel, th, depth, j in bad:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            hk._launch(lib, fn, "schur_step_", cuda, band.data_ptr(),
+                       M.data_ptr(), Dinv.data_ptr(), 1, 2, s, j, panel, th,
+                       depth)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s,nb,n", [(25, 6, 32), (97, 5, 3), (193, 6, 16),
+                                    (193, 4, 32), (516, 3, 16)])
+def test_factorize_rows_end_to_end(cuda, dtype, s, nb, n):
+    """K1's row design (a Schur step and a K3 launch per block row) against
+    the plain factorization and its plain schedule in the picked panels,
+    with its launch counts."""
+    band = _band(s, n, dtype, cuda, seed=s + nb, nb=nb)
+    hk.reset_launch_counts()
+    M, Dinv = hk.banded_factorize(band, design="rows")
+    P = hk.schur_geometry(n, s, band.element_size(), hk._sm_count(cuda),
+                          hk._smem_limit(cuda))[0]
+    M_p, D_p = hk.banded_factorize_plain(band)
+    M_r, D_r = hk.banded_factorize_rows_plain(band, rows=P)
+    torch.cuda.synchronize()
+    assert (hk.schur_step_.launches, hk.batched_inverse.launches) == (nb, nb)
+    assert not M[:, 0].any()
+    for got, want in ((M, M_p), (Dinv, D_p), (M, M_r), (Dinv, D_r)):
+        assert _rel(got, want) < TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

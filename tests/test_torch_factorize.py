@@ -199,3 +199,151 @@ def test_factorize_design_takes_the_chain_where_it_fits(s, itemsize, want):
 def test_factorize_design_refuses_before_any_launch(s, itemsize, design, match):
     with pytest.raises(ValueError, match=match):
         hk.factorize_design(s, itemsize, H100_SMEM, design)
+
+
+# K1's row design: the Schur step's panel schedule and its launch geometry
+
+SCHUR_CASES = [("random", 17, 4), ("random", 33, 5), ("random", 65, 4),
+               ("confusion", 17, 4), ("confusion", 33, 3)]
+
+
+@functools.lru_cache(maxsize=None)
+def _schur_case(kind: str, s: int, nb: int):
+    """(band, Pallas M, Pallas Dinv) of one input, at its own nb."""
+    band = (_random_band if kind == "random" else _confusion_band)(s, nb)
+    M_ref, D_ref = banded_factorize_batch(jnp.asarray(band), interpret=True)
+    return band, np.asarray(M_ref), np.asarray(D_ref)
+
+
+@pytest.mark.parametrize("rows", [4, 8, 12, None])
+@pytest.mark.parametrize("kind,s,nb", SCHUR_CASES)
+def test_schur_step_schedule_matches_pallas(kind, s, nb, rows):
+    """The Schur step on the kernel's schedule (row panels of ``rows``, no
+    divisor of s; None: one panel) at j = 0, 1 and the last row, on the
+    Pallas kernel's Dinv_{j-1}: M_j against the Pallas M_j, and T_j against
+    D_j - M_j B_{j-1} of the Pallas M_j and, inverted as the row design
+    inverts it, against the Pallas Dinv_j."""
+    band, M_ref, D_ref = _schur_case(kind, s, nb)
+    assert rows is None or s % rows
+    t = interop.tensor(band, **F64)
+    scale = max(np.abs(M_ref).max(), np.abs(D_ref).max())
+    for j in (0, 1, nb - 1):
+        dinv_prev = interop.tensor(D_ref[:, j - 1], **F64) if j else None
+        M, T = hk.schur_step_plain(t, dinv_prev, j, rows=rows)
+        T_ref = band[:, j, :, s : 2 * s].copy()
+        if j:
+            T_ref -= M_ref[:, j] @ band[:, j - 1, :, 2 * s :]
+        assert np.abs(M.numpy() - M_ref[:, j]).max() <= TOL * scale
+        assert np.abs(T.numpy() - T_ref).max() <= TOL * np.abs(T_ref).max()
+        Dinv = hk.batched_inverse_plain(T)
+        assert np.abs(Dinv.numpy() - D_ref[:, j]).max() <= TOL * scale
+
+
+@pytest.mark.parametrize("rows", [4, 8, 12])
+@pytest.mark.parametrize("kind,s,nb", SCHUR_CASES)
+def test_rows_schedule_in_panels_matches_pallas(kind, s, nb, rows):
+    """``banded_factorize_rows_plain`` with the Schur step in row panels of
+    ``rows`` against the interpret-mode Pallas kernel."""
+    band, M_ref, D_ref = _schur_case(kind, s, nb)
+    M, Dinv = hk.banded_factorize_rows_plain(interop.tensor(band, **F64),
+                                             rows=rows)
+    for got, ref in ((M.numpy(), M_ref), (Dinv.numpy(), D_ref)):
+        assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()
+
+
+def test_schur_step_plain_refuses_a_row_outside_the_band():
+    band = interop.tensor(_random_band(5, 2), **F64)
+    for j in (-1, 2):
+        with pytest.raises(ValueError, match="row"):
+            hk.schur_step_plain(band, None, j)
+    with pytest.raises(ValueError, match="rows"):
+        hk.schur_step_plain(band, band[:, 0, :, :5], 1, rows=0)
+
+
+def test_schur_step_on_the_cpu_writes_its_row_only():
+    """``schur_step_`` on CPU tensors runs the plain step in place: row j of
+    M and Dinv becomes (M_j, T_j), the other rows stay as they were."""
+    band = interop.tensor(_random_band(9, 3), **F64)
+    rng = np.random.default_rng(0)
+    M = interop.tensor(rng.standard_normal((2, 3, 9, 9)), **F64)
+    Dinv = interop.tensor(rng.standard_normal((2, 3, 9, 9)), **F64)
+    M0, D0 = M.clone(), Dinv.clone()
+    hk.schur_step_(band, M, Dinv, 1, panel=4)
+    M_p, T_p = hk.schur_step_plain(band, D0[:, 0], 1)
+    assert torch.allclose(M[:, 1], M_p, rtol=0, atol=1e-13)
+    assert torch.allclose(Dinv[:, 1], T_p, rtol=0, atol=1e-13)
+    for q in (0, 2):
+        assert torch.equal(M[:, q], M0[:, q]) and torch.equal(Dinv[:, q], D0[:, q])
+
+
+SHAPES_ALL = [(n, s, item) for n in (1, 3, 16, 32, 256) for item in (4, 8)
+              for s in (1, 2, 5, 17, 25, 33, 49, 65, 97, 120, 129, 193, 516)]
+
+
+@pytest.mark.parametrize("n,s,item", SHAPES_ALL)
+def test_schur_geometry_is_one_the_kernel_takes(n, s, item):
+    """At every shape the picked geometry is one the kernel takes: one
+    8-row tile a panel, a warp for each 128-column group, at most
+    SCHUR_MAX_THREADS, the mirror's shared memory within the card's; 8
+    rows in flight in float32, 4 in float64."""
+    P, threads, depth, need = hk.schur_geometry(n, s, item, H100_SMS,
+                                                H100_SMEM)
+    assert hk.schur_takes(s, P, threads, depth)
+    assert P == hk.SCHUR_ROWS == 8
+    assert threads == 32 * -(-s // 128) <= hk.SCHUR_MAX_THREADS
+    assert need == hk.schur_smem_bytes(s, P, item) == s * (P + 4) * item
+    assert need <= H100_SMEM
+    assert depth == (8 if item == 4 else 4)
+
+
+@pytest.mark.parametrize("n,s,item,want", [
+    (16, 193, 4, (8, 64, 8)),
+    (32, 193, 4, (8, 64, 8)),
+    (16, 516, 4, (8, 160, 8)),  # 5 column groups
+    (16, 193, 8, (8, 64, 4)),
+    (16, 516, 8, (8, 160, 4)),
+    (1, 17, 4, (8, 32, 8)),
+])
+def test_schur_geometry_at_the_lane_shapes(n, s, item, want):
+    assert hk.schur_geometry(n, s, item, H100_SMS, H100_SMEM)[:3] == want
+
+
+@pytest.mark.parametrize("forced", [
+    dict(panel=4),  # no whole tiles
+    dict(panel=12),
+    dict(panel=72),  # past the most rows
+    dict(depth=2),
+    dict(depth=16),
+])
+def test_schur_geometry_refuses_before_any_launch(forced):
+    with pytest.raises(ValueError, match="shared memory"):
+        hk.schur_geometry(16, 193, 4, H100_SMS, H100_SMEM, **forced)
+
+
+def test_schur_geometry_takes_forced_parts():
+    """Forced parts are kept, the others follow the rule."""
+    assert hk.schur_geometry(16, 193, 4, H100_SMS, H100_SMEM, panel=32)[:3] \
+        == (32, 256, 8)
+    assert hk.schur_geometry(16, 193, 4, H100_SMS, H100_SMEM, panel=64)[:3] \
+        == (64, 512, 8)
+    assert hk.schur_geometry(32, 193, 4, H100_SMS, H100_SMEM, depth=4)[:3] \
+        == (8, 64, 4)
+
+
+def test_schur_geometry_refuses_a_block_row_too_wide():
+    """s=3000: a panel needs 24 warps, more than a block has, so the row
+    design raises before any launch; s=1500 still fits, with 12 warps."""
+    for item in (4, 8):
+        with pytest.raises(ValueError, match="shared memory"):
+            hk.schur_geometry(1, 3000, item, H100_SMS, H100_SMEM)
+    assert hk.schur_geometry(1, 1500, 8, H100_SMS, H100_SMEM)[:3] == (
+        8, 384, 4)
+
+
+@pytest.mark.parametrize("s,panel,item,want", [
+    (193, 16, 4, 193 * 20 * 4),
+    (516, 32, 4, 516 * 36 * 4),
+    (17, 4, 8, 17 * 8 * 8),
+])
+def test_schur_smem_mirror(s, panel, item, want):
+    assert hk.schur_smem_bytes(s, panel, item) == want
