@@ -453,8 +453,8 @@ def k1_designs(band64, label, parent=None, dtypes=(torch.float32, torch.float64)
 
 def k1_schur(band64, label, parent=None, dtypes=(torch.float32, torch.float64),
              j=SCHUR_ROW, reps=10):
-    """K1's Schur step alone (``schur_step_`` with the geometry
-    ``schur_geometry`` picks) on one band, in each dtype, at block rows 0
+    """K1's Schur step alone (``schur_step_``) on one band, in each dtype,
+    at block rows 0
     and j: held against the plain step (``schur_step_plain`` on the same
     Dinv_{j-1}, the float64 plain factorization of the rows before j)
     within TOL, every other row of M and Dinv untouched; then at row j
@@ -481,9 +481,8 @@ def k1_schur(band64, label, parent=None, dtypes=(torch.float32, torch.float64),
     for dtype in dtypes:
         name, tol = str(dtype)[6:], TOL[dtype]["diff"]
         band = sub64.to(dtype)
-        geometry = hk.schur_geometry(N, s, band.element_size(),
-                                     hk._sm_count(band.device),
-                                     hk._smem_limit(band.device))
+        threads, smem = hk.schur_geometry(s, band.element_size(),
+                                          hk._smem_limit(band.device))
         M, Dinv = (torch.randn(N, j + 2, s, s, generator=gen, dtype=dtype,
                                device=band.device) for _ in range(2))
         Dinv[:, j - 1] = D64[:, j - 1].to(dtype)
@@ -516,8 +515,7 @@ def k1_schur(band64, label, parent=None, dtypes=(torch.float32, torch.float64),
         line = ", ".join(f"{key} {v:.4f} ms" for key, v in ms.items())
         rec = {"ms": ms["step"], "plain_ms": ms["plain"],
                "library_ms": ms["library"], "max_abs_err": worst,
-               "geometry": dict(zip(("panel", "threads", "depth",
-                                     "smem_bytes"), geometry))}
+               "threads": threads, "smem_bytes": smem}
         if parent is not None:
             rows4 = band[:, :4].contiguous()
             prof = {"parent": [], "rows": []}
@@ -535,8 +533,8 @@ def k1_schur(band64, label, parent=None, dtypes=(torch.float32, torch.float64),
         b_ms, b_by = schur_bound(N, s, dtype)
         rec.update(bound_ms=b_ms, bound_by=b_by)
         log(f"K1 Schur {label} {name} N={N} s={s} j={j}: {line}; bound "
-            f"{b_ms:.4f} ms ({b_by}); geometry {geometry[:3]} (panel, threads, "
-            f"rows in flight); max abs err {worst:.3e}")
+            f"{b_ms:.4f} ms ({b_by}); {threads} threads a block; max abs err "
+            f"{worst:.3e}")
         out[name] = rec
         del band, M, Dinv
     return out

@@ -63,15 +63,14 @@
 //   per factorization.  The Schur step is two panel products whose right
 //   operands (Dinv_{j-1}, which the previous row just wrote, and B_{j-1})
 //   every panel of the sample reads from L2: 4 N s^3 multiply-adds over
-//   N ceil(s/P) blocks.  Each thread keeps an 8 x 4 tile of outputs in
-//   registers over the left operand, transposed in shared memory, and
-//   reads the right operands straight from device memory, coalesced,
-//   several rows ahead of their use.  Staging them in shared memory
-//   (4-byte asynchronous copies into a ring, or bulk copies into landing
-//   buffers and a move into padded rows) was built and measured slower:
-//   the block barrier a chunk and the staging itself cost more than the
-//   L2 loads they replace (PERF.md).  The host (`schur_geometry` in
-//   ops/hopper_kernels.py) picks the panel and the rows in flight.
+//   N ceil(s/8) blocks of 8-row panels.  Each thread keeps an 8 x 4 tile
+//   of outputs in registers over the left operand, transposed in shared
+//   memory, and reads the right operands straight from device memory,
+//   coalesced, several rows ahead of their use.  Staging them in shared
+//   memory instead (a three-stage ring of asynchronous copies, 16 bytes
+//   where rows are aligned, with panels of 8, 16 and 32 rows sharing each
+//   staged row, lanes laid out 1 x 32, 2 x 16 or 4 x 8) was built on
+//   these tiles and measured slower at every lane shape (PERF.md).
 //
 // Products are plain IEEE multiply-adds in the working type (no TF32); the
 // pivot row is scaled by the pivot's rounded reciprocal.
@@ -579,38 +578,52 @@ __global__ void __launch_bounds__(HF_CHAIN_MAX_THREADS)
   }
 }
 
-// Columns one warp of the Schur step covers: lane l takes columns
-// cb + l + 32 u, u < kTile, of its group of kGroupCols; and the rows of a
-// thread's tile.
+// The Schur step: rows of a thread's tile (and of a panel), the columns
+// one warp covers (lane l takes cb + l + 32 u, u < kTile, of its group),
+// and the rows of the right operand a thread has in flight: 8 in float32,
+// 4 in float64 (8 would spill its registers).
+constexpr int kSchurRows = HF_SCHUR_ROWS;
 constexpr int kGroupCols = 32 * kTile;
-constexpr int kSchurRows = 8;
-
-// v[u] = row[cc[u]]: one coalesced 128-byte load per u across the warp,
-// through L1 (the warps of a block that share a column group read the
-// same rows).
 template <typename T>
-__device__ __forceinline__ void load_cols(T (&v)[kTile], const T* row,
+constexpr int kSchurDepth = sizeof(T) == 4 ? 8 : 4;
+
+// v[u] = row[cc[u]], u < NU: one coalesced 128-byte load per u across
+// the warp, through L1 (the warps of a block that share a column group
+// read the same rows).
+template <int NU, typename T>
+__device__ __forceinline__ void load_cols(T (&v)[NU], const T* row,
                                           const int (&cc)[kTile]) {
 #pragma unroll
-  for (int u = 0; u < kTile; ++u) v[u] = __ldg(row + cc[u]);
+  for (int u = 0; u < NU; ++u) v[u] = __ldg(row + cc[u]);
 }
 
-// acc[r][u] += sum_l pt[l pp + i0 + r] src[l sld + cc[u]], l < s: the
-// left operand transposed in shared memory (rows of pp, 16-byte loads
+template <int NU, typename T>
+__device__ __forceinline__ void cols_fma(const T (&a)[kSchurRows],
+                                         const T (&v)[NU],
+                                         T (&acc)[kSchurRows][kTile]) {
+#pragma unroll
+  for (int r = 0; r < kSchurRows; ++r) {
+#pragma unroll
+    for (int u = 0; u < NU; ++u) acc[r][u] += a[r] * v[u];
+  }
+}
+
+// acc[r][u] += sum_l pt[l pp + r] src[l sld + cc[u]], l < s, u < NU:
+// the left operand transposed in shared memory (rows of pp, 16-byte loads
 // that the warp shares), the right one straight from device memory, D of
 // its rows in flight in registers ahead of the multiply-adds (the loads
 // of row l + D are issued as row l is used).
-template <typename T, int D>
-__device__ __forceinline__ void direct_product(const T* pt, int pp, int i0,
+template <typename T, int D, int NU>
+__device__ __forceinline__ void direct_product(const T* pt, int pp,
                                                const T* src, int sld, int s,
                                                const int (&cc)[kTile],
                                                T (&acc)[kSchurRows][kTile]) {
-  T v[D][kTile];
+  T v[D][NU];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    load_cols(v[d], src + (size_t)min(d, s - 1) * sld, cc);
+    load_cols<NU>(v[d], src + (size_t)min(d, s - 1) * sld, cc);
   }
-  const T* a_row = pt + i0;
+  const T* a_row = pt;
   const T* next = src + (size_t)D * sld;  // the row D steps ahead
   int k = 0;
   // whole passes whose loads ahead stay inside the operand: no clamps,
@@ -621,8 +634,8 @@ __device__ __forceinline__ void direct_product(const T* pt, int pp, int i0,
       T a[kSchurRows];
       hf_load16(a_row, a);
       a_row += pp;
-      tile_fma(a, v[d], acc);
-      load_cols(v[d], next, cc);
+      cols_fma<NU>(a, v[d], acc);
+      load_cols<NU>(v[d], next, cc);
       next += sld;
     }
   }
@@ -630,43 +643,62 @@ __device__ __forceinline__ void direct_product(const T* pt, int pp, int i0,
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       T a[kSchurRows];
-      hf_load16(pt + (size_t)(k + d) * pp + i0, a);
-      tile_fma(a, v[d], acc);
-      load_cols(v[d], src + (size_t)min(k + d + D, s - 1) * sld, cc);
+      hf_load16(pt + (size_t)(k + d) * pp, a);
+      cols_fma<NU>(a, v[d], acc);
+      load_cols<NU>(v[d], src + (size_t)min(k + d + D, s - 1) * sld, cc);
     }
   }
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     if (k + d < s) {
       T a[kSchurRows];
-      hf_load16(pt + (size_t)(k + d) * pp + i0, a);
-      tile_fma(a, v[d], acc);
+      hf_load16(pt + (size_t)(k + d) * pp, a);
+      cols_fma<NU>(a, v[d], acc);
     }
   }
 }
 
-// The Schur step of block row j (j >= 1) for row panel [r0, r0 + P) of one
+// The same over the warp's whole group, or over its first 32 columns
+// alone where the group holds no more (the last group where s is 1 to 32
+// past a multiple of kGroupCols: 4 columns at s = 516), so that the warp
+// loads and multiplies only those.  A group of 2 or 3 chunks (s = 193)
+// takes the whole group: a second code path beside the first warp's cost
+// the block more than the idle chunk (PERF.md).
+template <typename T>
+__device__ __forceinline__ void group_product(bool one, const T* pt, int pp,
+                                              const T* src, int sld, int s,
+                                              const int (&cc)[kTile],
+                                              T (&acc)[kSchurRows][kTile]) {
+  constexpr int D = kSchurDepth<T>;
+  if (one) {
+    direct_product<T, D, 1>(pt, pp, src, sld, s, cc, acc);
+  } else {
+    direct_product<T, D, kTile>(pt, pp, src, sld, s, cc, acc);
+  }
+}
+
+// The Schur step of block row j (j >= 1) for row panel [r0, r0 + 8) of one
 // sample: M_j = A_j Dinv_{j-1} into m_out and T_j = D_j - M_j B_{j-1} into
 // dinv_out[:, j] (which K3 inverts next); at j = 0, M_0 = 0 and T_0 = D_0.
 // Each thread accumulates a kSchurRows x kTile tile of the panel's outputs
-// in registers: rows i0.., and the columns cb + lane + 32 u of its warp's
-// group of kGroupCols.  The left operand (A_j's panel, then M_j's) lies
-// transposed in shared memory, (s, P + 4): per row l the warp's lanes
+// in registers: the panel's rows, and the columns cb + lane + 32 u of its
+// warp's group of kGroupCols.  The left operand (A_j's panel, then M_j's)
+// lies transposed in shared memory, (s, 12): per row l the warp's lanes
 // share one 16-byte load of it.  The right ones, Dinv_{j-1} and then
 // B_{j-1} (rows 3s apart in the band; at s = 193 a row starts on 4 bytes),
 // are read straight from device memory, a 128-byte line per u across the
 // warp, through L1 and L2 (every panel of the sample reads them), D rows
-// ahead of their use: no block barrier and no staging in the inner loop.
-template <typename T, int D>
+// ahead of their use: no block barrier in the loop.
+template <typename T>
 __global__ void __launch_bounds__(HF_SCHUR_MAX_THREADS)
     schur_tile_kernel(const T* __restrict__ band, T* __restrict__ m_out,
-                      T* dinv_out, int nb, int s, int j, int P) {
+                      T* dinv_out, int nb, int s, int j) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int pp = hf_schur_pp(P);
+  constexpr int pp = HF_SCHUR_PP;
   T* pt = reinterpret_cast<T*>(smem_raw);  // (s, pp): A_j's panel, then M_j's
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int r0 = blockIdx.y * P;
-  const int rows = min(P, s - r0);
+  const int r0 = blockIdx.y * kSchurRows;
+  const int rows = min(kSchurRows, s - r0);
   const size_t ss = (size_t)s * s;
   const size_t row = (size_t)blockIdx.x * nb + j;
   const int w3 = 3 * s;
@@ -681,10 +713,8 @@ __global__ void __launch_bounds__(HF_SCHUR_MAX_THREADS)
     }
     return;
   }
-  const int lane = tid & 31, warp = tid >> 5;
-  const int ncg = (s + kGroupCols - 1) / kGroupCols;
-  const int ti = warp / ncg, i0 = kSchurRows * ti;
-  const int cb = kGroupCols * (warp - ti * ncg) + lane;
+  const int lane = tid & 31, cg = kGroupCols * (tid >> 5), cb = cg + lane;
+  const bool one = s - cg <= 32;  // the group holds one 32-column chunk
   int cc[kTile];  // the thread's columns, clamped into the row
 #pragma unroll
   for (int u = 0; u < kTile; ++u) cc[u] = min(cb + 32 * u, s - 1);
@@ -692,7 +722,7 @@ __global__ void __launch_bounds__(HF_SCHUR_MAX_THREADS)
   // panel's rows.  A warp copies 4 rows x 8 columns at a time: whole
   // 32-byte sectors of the band, into 32 distinct banks
   {
-    const int nl8 = (s + 7) / 8, groups = P / 4 * nl8;
+    const int nl8 = (s + 7) / 8, groups = kSchurRows / 4 * nl8;
     for (int e = tid; e < 32 * groups; e += nth) {
       const int g = e >> 5, rb = g / nl8;
       const int r = 4 * rb + ((e >> 3) & 3), l = 8 * (g - rb * nl8) + (e & 7);
@@ -711,7 +741,7 @@ __global__ void __launch_bounds__(HF_SCHUR_MAX_THREADS)
   __syncthreads();
   T acc[kSchurRows][kTile];
   tile_zero(acc);
-  direct_product<T, D>(pt, pp, i0, dinv_out + (row - 1) * ss, s, s, cc, acc);
+  group_product<T>(one, pt, pp, dinv_out + (row - 1) * ss, s, s, cc, acc);
   // M_j: to device memory, and transposed over A_j's panel once every
   // read of that has ended
   __syncthreads();
@@ -721,86 +751,67 @@ __global__ void __launch_bounds__(HF_SCHUR_MAX_THREADS)
     if (c < s) {
 #pragma unroll
       for (int r = 0; r < kSchurRows; ++r) {
-        if (i0 + r < rows) mj[(size_t)(i0 + r) * s + c] = acc[r][u];
+        if (r < rows) mj[(size_t)r * s + c] = acc[r][u];
       }
       T v[kSchurRows];
 #pragma unroll
       for (int r = 0; r < kSchurRows; ++r) v[r] = acc[r][u];
-      hf_store16(pt + (size_t)c * pp + i0, v);
+      hf_store16(pt + (size_t)c * pp, v);
     }
   }
   __syncthreads();
   tile_zero(acc);
-  direct_product<T, D>(pt, pp, i0, band + (row - 1) * ss * 3 + 2 * s, w3, s,
-                       cc, acc);
+  group_product<T>(one, pt, pp, band + (row - 1) * ss * 3 + 2 * s, w3, s, cc,
+                   acc);
 #pragma unroll
   for (int u = 0; u < kTile; ++u) {
     const int c = cb + 32 * u;
     if (c < s) {
 #pragma unroll
       for (int r = 0; r < kSchurRows; ++r) {
-        if (i0 + r < rows) {
-          tj[(size_t)(i0 + r) * s + c] =
-              bj[(size_t)(i0 + r) * w3 + s + c] - acc[r][u];
+        if (r < rows) {
+          tj[(size_t)r * s + c] = bj[(size_t)r * w3 + s + c] - acc[r][u];
         }
       }
     }
   }
 }
 
-// The Schur step's geometry: panels of P rows, a multiple of kSchurRows,
-// a warp for each (row tile, group of kGroupCols columns), at most
-// HF_SCHUR_MAX_THREADS, and D (4 or 8) rows of the right operand in
-// flight.
-struct SchurGeometry {
-  int panel, threads, depth;
-};
-
-inline bool schur_takes(int s, const SchurGeometry& g) {
-  if (s < 1 || (g.depth != 4 && g.depth != 8)) return false;
-  const long long warps =
-      (long long)(g.panel / kSchurRows) * ((s + kGroupCols - 1) / kGroupCols);
-  return g.panel >= kSchurRows && g.panel <= HF_SCHUR_MAX_PANEL &&
-         g.panel % kSchurRows == 0 && g.threads == 32 * warps &&
-         g.threads <= HF_SCHUR_MAX_THREADS;
-}
-
+// The Schur step's launch at block size s: a block per (sample, panel), a
+// warp per kGroupCols columns, its shared memory opted into;
+// cudaErrorInvalidValue (before any launch) where s needs more threads
+// than a block takes.
 template <typename T>
-using SchurKernel = void (*)(const T*, T*, T*, int, int, int, int);
-
-// The kernel of a geometry schur_takes, with its shared memory opted into.
-template <typename T>
-int schur_configure(int s, const SchurGeometry& g, SchurKernel<T>* kernel,
-                    size_t* smem) {
-  *kernel = g.depth == 8 ? schur_tile_kernel<T, 8> : schur_tile_kernel<T, 4>;
-  *smem = hf_schur_smem_size(s, g.panel, (int)sizeof(T));
-  return (int)cudaFuncSetAttribute(*kernel,
+int schur_configure(int s, int* threads, size_t* smem) {
+  *threads = hf_schur_threads(s);
+  *smem = hf_schur_smem_size(s, (int)sizeof(T));
+  if (s < 1 || *threads > HF_SCHUR_MAX_THREADS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaFuncSetAttribute(schur_tile_kernel<T>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)*smem);
 }
 
 template <typename T>
-int schur_launch(SchurKernel<T> kernel, size_t smem, const void* band,
-                 void* m_out, void* dinv_out, int n, int nb, int s, int j,
-                 const SchurGeometry& g, void* stream) {
-  const dim3 grid(n, (s + g.panel - 1) / g.panel);
-  kernel<<<grid, g.threads, smem, (cudaStream_t)stream>>>(
+int schur_launch(int threads, size_t smem, const void* band, void* m_out,
+                 void* dinv_out, int n, int nb, int s, int j, void* stream) {
+  const dim3 grid(n, (s + kSchurRows - 1) / kSchurRows);
+  schur_tile_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(band), static_cast<T*>(m_out),
-      static_cast<T*>(dinv_out), nb, s, j, g.panel);
+      static_cast<T*>(dinv_out), nb, s, j);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_schur(const void* band, void* m_out, void* dinv_out, int n, int nb,
-                 int s, int j, const SchurGeometry& g, void* stream) {
-  if (!schur_takes(s, g) || j < 0 || j >= nb) {
-    return (int)cudaErrorInvalidValue;
-  }
-  SchurKernel<T> kernel;
+                 int s, int j, void* stream) {
+  if (j < 0 || j >= nb) return (int)cudaErrorInvalidValue;
+  int threads;
   size_t smem;
-  const int err = schur_configure<T>(s, g, &kernel, &smem);
+  const int err = schur_configure<T>(s, &threads, &smem);
   if (err != 0) return err;
-  return schur_launch<T>(kernel, smem, band, m_out, dinv_out, n, nb, s, j, g,
+  return schur_launch<T>(threads, smem, band, m_out, dinv_out, n, nb, s, j,
                          stream);
 }
 
@@ -826,19 +837,17 @@ int launch_factorize(const void* band, void* m_out, void* dinv_out, int n,
 
 template <typename T>
 int launch_factorize_rows(const void* band, void* m_out, void* dinv_out,
-                          int n, int nb, int s, int w, int c,
-                          const SchurGeometry& g, void* stream,
+                          int n, int nb, int s, int w, int c, void* stream,
                           int (*invert)(void*, int, int, long long, int, int,
                                         void*)) {
-  if (!schur_takes(s, g)) return (int)cudaErrorInvalidValue;
-  SchurKernel<T> kernel;
+  int threads;
   size_t smem;
-  int code = schur_configure<T>(s, g, &kernel, &smem);
+  int code = schur_configure<T>(s, &threads, &smem);
   if (code != 0) return code;
   const long long ss = (long long)s * s;
   T* dinv = static_cast<T*>(dinv_out);
   for (int j = 0; j < nb; ++j) {
-    code = schur_launch<T>(kernel, smem, band, m_out, dinv_out, n, nb, s, j, g,
+    code = schur_launch<T>(threads, smem, band, m_out, dinv_out, n, nb, s, j,
                            stream);
     if (code != 0) return code;
     code = invert(dinv + j * ss, n, s, nb * ss, w, c, stream);
@@ -865,53 +874,41 @@ extern "C" int hf_banded_factorize_f64(const void* band, void* m_out,
                                   stream);
 }
 
-// The row design: n samples, per block row the Schur step (row panels of
-// `panel` rows, `threads` threads a block, `depth` rows of the right
-// operand in flight), then K3 at pivot width w in
-// clusters of c blocks; what the kernels do not take returns
-// cudaErrorInvalidValue before any launch.
+// The row design: n samples, per block row the Schur step, then K3 at
+// pivot width w in clusters of c blocks; what the kernels do not take
+// returns cudaErrorInvalidValue before any launch.
 extern "C" int hf_banded_factorize_rows_f32(const void* band, void* m_out,
                                             void* dinv_out, int n, int nb,
-                                            int s, int w, int c, int panel,
-                                            int threads, int depth,
+                                            int s, int w, int c,
                                             void* stream) {
-  return launch_factorize_rows<float>(
-      band, m_out, dinv_out, n, nb, s, w, c,
-      {panel, threads, depth}, stream,
-      hf_batched_inverse_f32);
+  return launch_factorize_rows<float>(band, m_out, dinv_out, n, nb, s, w, c,
+                                      stream, hf_batched_inverse_f32);
 }
 
 extern "C" int hf_banded_factorize_rows_f64(const void* band, void* m_out,
                                             void* dinv_out, int n, int nb,
-                                            int s, int w, int c, int panel,
-                                            int threads, int depth,
+                                            int s, int w, int c,
                                             void* stream) {
-  return launch_factorize_rows<double>(
-      band, m_out, dinv_out, n, nb, s, w, c,
-      {panel, threads, depth}, stream,
-      hf_batched_inverse_f64);
+  return launch_factorize_rows<double>(band, m_out, dinv_out, n, nb, s, w, c,
+                                       stream, hf_batched_inverse_f64);
 }
 
 // The Schur step of block row j alone (M_j into m, T_j into dinv[:, j];
-// Dinv_{j-1} read from dinv[:, j - 1]), with the row design's geometry.
+// Dinv_{j-1} read from dinv[:, j - 1]), as the row design launches it.
 extern "C" int hf_schur_step_f32(const void* band, void* m, void* dinv, int n,
-                                 int nb, int s, int j, int panel,
-                                 int threads, int depth, void* stream) {
-  return launch_schur<float>(band, m, dinv, n, nb, s, j,
-                             {panel, threads, depth}, stream);
+                                 int nb, int s, int j, void* stream) {
+  return launch_schur<float>(band, m, dinv, n, nb, s, j, stream);
 }
 
 extern "C" int hf_schur_step_f64(const void* band, void* m, void* dinv, int n,
-                                 int nb, int s, int j, int panel,
-                                 int threads, int depth, void* stream) {
-  return launch_schur<double>(band, m, dinv, n, nb, s, j,
-                              {panel, threads, depth}, stream);
+                                 int nb, int s, int j, void* stream) {
+  return launch_schur<double>(band, m, dinv, n, nb, s, j, stream);
 }
 
 extern "C" long long hf_factorize_smem_bytes(int s, int ld, int itemsize) {
   return (long long)(hf_factorize_smem_elems(s, ld) * itemsize);
 }
 
-extern "C" long long hf_schur_smem_bytes(int s, int panel, int itemsize) {
-  return (long long)hf_schur_smem_size(s, panel, itemsize);
+extern "C" long long hf_schur_smem_bytes(int s, int itemsize) {
+  return (long long)hf_schur_smem_size(s, itemsize);
 }

@@ -7,10 +7,11 @@
 #define HF_THREADS 256
 // Threads per block of the Gauss-Jordan inverse (K3/K4).
 #define HF_GJ_THREADS 512
-// K1's row-panel Schur step: most threads per block (one output tile
-// each) and most rows of a panel.
+// K1's row-panel Schur step: rows of a panel (one tile of outputs per
+// thread), and the most threads a block (a warp per 128 columns: s up to
+// 2048).
+#define HF_SCHUR_ROWS 8
 #define HF_SCHUR_MAX_THREADS 512
-#define HF_SCHUR_MAX_PANEL 64
 // Widest pivot block the Gauss-Jordan inverse takes (the TPU kernel's 13;
 // the update keeps this many entries per column in registers), and the
 // row stride of its staged pivot columns (whole 16-byte vectors).
@@ -36,15 +37,19 @@ inline std::size_t hf_factorize_smem_elems(int s, int ld) {
   return 3 * tile + (tile > scratch ? tile : scratch);
 }
 
-// Row stride, in elements, of the Schur step's transposed panel of P rows:
-// P and a 16-byte pad, so that the 16-byte stores down a column (M_j's
+// Row stride, in elements, of the Schur step's transposed panel: its rows
+// and a 16-byte pad, so that the 16-byte stores down a column (M_j's
 // panel) from the lanes of a warp fall in distinct banks.
-__host__ __device__ inline int hf_schur_pp(int panel) { return panel + 4; }
+#define HF_SCHUR_PP (HF_SCHUR_ROWS + 4)
 
-// Shared memory of one block of K1's row-panel Schur step: the panel,
-// transposed (s x hf_schur_pp(panel): A_j's, then M_j's).
-inline std::size_t hf_schur_smem_size(int s, int panel, int itemsize) {
-  return (std::size_t)s * hf_schur_pp(panel) * itemsize;
+// Threads of one block of the Schur step at block size s: a warp per 128
+// columns.
+inline int hf_schur_threads(int s) { return 32 * ((s + 127) / 128); }
+
+// Shared memory of one block of the Schur step: the panel, transposed
+// (s x HF_SCHUR_PP: A_j's, then M_j's).
+inline std::size_t hf_schur_smem_size(int s, int itemsize) {
+  return (std::size_t)s * HF_SCHUR_PP * itemsize;
 }
 
 // Columns one block of a Gauss-Jordan cluster of c blocks owns at most:

@@ -155,8 +155,8 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         signatures = {
             "hf_banded_factorize": [p, p, p, i, i, i, i, i, p],
-            "hf_banded_factorize_rows": [p, p, p] + [i] * 8 + [p],
-            "hf_schur_step": [p, p, p] + [i] * 7 + [p],
+            "hf_banded_factorize_rows": [p, p, p, i, i, i, i, i, p],
+            "hf_schur_step": [p, p, p, i, i, i, i, p],
             "hf_banded_solve": [p, p, p, p, p, i, i, i, i, i, i, i, p],
             "hf_banded_solve_stream": [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                        i, i, i, i, p],
@@ -169,7 +169,7 @@ def _library():
                 fn.restype = i
         for name, argtypes in (
             ("hf_factorize_smem_bytes", [i, i, i]),
-            ("hf_schur_smem_bytes", [i, i, i]),
+            ("hf_schur_smem_bytes", [i, i]),
             ("hf_solve_smem_bytes", [i, i, i, i]),
             ("hf_stream_smem_bytes", [i, i, i, i, i, i, i, i]),
             ("hf_gj_smem_bytes", [i, i, i, i]),
@@ -537,79 +537,46 @@ def chain_threads(n: int, s: int, sm_count: int, need: int, sm_smem: int) -> int
 
 
 # K1's row-panel Schur step (csrc/banded_factorize.cu, csrc/common.cuh):
-# columns of an output tile (a lane's, 32 apart), of a warp's group, and
-# rows of a tile; the most threads a block and rows a panel, and the rows
-# of the right operand in flight the kernel takes; the rule's panel (one
-# tile)
-SCHUR_TILE = 4
-SCHUR_GROUP_COLS = 32 * SCHUR_TILE
+# rows of a panel (and of a thread's tile of outputs), columns a warp
+# covers, and the most threads a block
 SCHUR_ROWS = 8
+SCHUR_GROUP_COLS = 128
 SCHUR_MAX_THREADS = 512
-SCHUR_MAX_PANEL = 64
-SCHUR_DEPTHS = (4, 8)
-SCHUR_PANEL = SCHUR_ROWS
 
 
-def schur_smem_bytes(s: int, panel: int, itemsize: int) -> int:
+def schur_smem_bytes(s: int, itemsize: int) -> int:
     """Shared memory of one Schur-step block (the mirror of
-    ``hf_schur_smem_bytes``): the panel, transposed, rows of panel + 4."""
-    return s * (panel + 4) * itemsize
+    ``hf_schur_smem_bytes``): the panel, transposed, rows of SCHUR_ROWS +
+    4."""
+    return s * (SCHUR_ROWS + 4) * itemsize
 
 
-def schur_threads(s: int, panel: int) -> int:
-    """Threads of one Schur-step block: a warp for each tile of SCHUR_ROWS
-    rows and group of SCHUR_GROUP_COLS columns."""
-    return 32 * (panel // SCHUR_ROWS) * -(-s // SCHUR_GROUP_COLS)
-
-
-def schur_takes(s: int, panel: int, threads: int, depth: int) -> bool:
-    """Whether the kernel takes a geometry (the mirror of ``schur_takes``
-    in csrc/banded_factorize.cu)."""
-    return (s >= 1 and depth in SCHUR_DEPTHS
-            and SCHUR_ROWS <= panel <= SCHUR_MAX_PANEL
-            and panel % SCHUR_ROWS == 0
-            and threads == schur_threads(s, panel)
-            and threads <= SCHUR_MAX_THREADS)
-
-
-@functools.lru_cache(maxsize=None)
-def schur_geometry(N: int, s: int, itemsize: int, sm_count: int, smem: int,
-                   panel: int | None = None, depth: int | None = None):
-    """(panel rows, threads, depth, bytes) of K1's Schur step for N samples
-    of block size s on a card of ``sm_count`` SMs with ``smem`` bytes of
-    shared memory a block: panels of one tile of SCHUR_ROWS rows (the most
-    blocks, each a warp per 128 columns), and 8 rows of the right operand
-    in flight in float32, 4 in float64 (8 spill its registers).  ``panel``
-    and ``depth`` force either.  Raises ValueError where the kernel does
-    not take the geometry, before any launch.
-
-    Fitted to ``ops/schur_sweep.py`` on the H100 (``PERF.md``): at the
-    lanes' shapes this geometry was the fastest the sweep tried or within
-    3% of it (taller panels lost up to 1.7x; float64 with 8 rows in flight
-    26-46x)."""
-    p = panel or SCHUR_PANEL
-    d = depth or (8 if itemsize == 4 else 4)
-    threads = schur_threads(s, p)
-    need = schur_smem_bytes(s, p, itemsize)
-    if not (schur_takes(s, p, threads, d) and need <= smem):
+def schur_geometry(s: int, itemsize: int, smem: int):
+    """(threads, bytes) of one block of K1's Schur step at block size s on
+    a card with ``smem`` bytes of shared memory a block: a warp per
+    SCHUR_GROUP_COLS columns (the mirror of ``hf_schur_threads``) and the
+    transposed panel.  Raises ValueError where the kernel does not take s,
+    before any launch."""
+    threads = 32 * -(-s // SCHUR_GROUP_COLS)
+    need = schur_smem_bytes(s, itemsize)
+    if not (s >= 1 and threads <= SCHUR_MAX_THREADS and need <= smem):
         raise ValueError(
-            f"banded_factorize: the Schur-step geometry (panel={p}, depth={d}) "
-            f"of s={s} does not fit: {threads} threads (at most "
-            f"{SCHUR_MAX_THREADS}) and {need} bytes of the card's {smem} of "
-            "shared memory per block")
-    return p, threads, d, need
+            f"banded_factorize: the Schur step of s={s} does not fit: "
+            f"{threads} threads (at most {SCHUR_MAX_THREADS}) and {need} "
+            f"bytes of the card's {smem} of shared memory per block")
+    return threads, need
 
 
-def schur_step_(band, M, Dinv, j: int, **geometry):
+def schur_step_(band, M, Dinv, j: int):
     """K1's Schur step alone at block row j, in place, as the row design
     runs it before K3: M[:, j] <- A_j Dinv[:, j - 1] and Dinv[:, j] <-
     D_j - M_j B_{j-1} (M_0 = 0, T_0 = D_0); the other rows untouched.
-    band (N, nb, s, 3s); M, Dinv (N, nb, s, s).  On the card ``geometry``
-    (panel, depth) forces parts of ``schur_geometry``'s choice; on the CPU
-    the plain version runs the same panels.  Returns (M, Dinv)."""
+    band (N, nb, s, 3s); M, Dinv (N, nb, s, s).  On the CPU the plain
+    version runs the kernel's panels of SCHUR_ROWS rows.  Returns (M,
+    Dinv)."""
     if band.device.type == "cpu":
         M[:, j], Dinv[:, j] = schur_step_plain(
-            band, Dinv[:, j - 1] if j > 0 else None, j, geometry.get("panel"))
+            band, Dinv[:, j - 1] if j > 0 else None, j, SCHUR_ROWS)
         return M, Dinv
     if band.ndim != 4 or band.shape[-1] != 3 * band.shape[-2]:
         raise ValueError(f"band shape {tuple(band.shape)}, want (N, nb, s, 3s)")
@@ -618,14 +585,14 @@ def schur_step_(band, M, Dinv, j: int, **geometry):
         raise ValueError(f"schur_step_: row {j} of {nb}")
     _check_cuda("schur_step_", [band, M, Dinv],
                 [band.shape, (N, nb, s, s), (N, nb, s, s)])
-    dev, item = band.device, band.element_size()
-    g = schur_geometry(N, s, item, _sm_count(dev), _smem_limit(dev), **geometry)
+    dev = band.device
+    schur_geometry(s, band.element_size(), _smem_limit(dev))
     if N == 0:
         return M, Dinv
     lib = _library()
     _launch(lib, getattr(lib, f"hf_schur_step_{_suffix(band.dtype)}"),
             "schur_step_", dev, band.data_ptr(), M.data_ptr(), Dinv.data_ptr(),
-            N, nb, s, j, *g[:3])
+            N, nb, s, j)
     schur_step_.launches += 1
     return M, Dinv
 
@@ -682,11 +649,11 @@ def banded_factorize(band, design: str | None = None):
         args = (ld, chain_threads(N, s, _sm_count(dev), need, _sm_smem(dev)))
     else:
         cluster = gj_cluster(N, s, _sm_count(dev))
-        schur = schur_geometry(N, s, item, _sm_count(dev), _smem_limit(dev))
+        schur_geometry(s, item, _smem_limit(dev))
         _smem_check("banded_factorize",
                     lib.hf_gj_smem_bytes(s, GJ_WIDTH, cluster, item),
                     dev, f"the row-panel inverse at s={s}")
-        args = (GJ_WIDTH, cluster, *schur[:3])
+        args = (GJ_WIDTH, cluster)
     M = torch.empty((N, nb, s, s), dtype=band.dtype, device=dev)
     Dinv = torch.empty_like(M)
     if N == 0 or nb == 0:

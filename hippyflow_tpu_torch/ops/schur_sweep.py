@@ -1,25 +1,21 @@
-"""Times K1's Schur step at each panel height and stage size beside ``schur_geometry``'s pick.
+"""Times K1's Schur step at the lanes' shapes beside the plain step, the library pair and the bound.
 
     python3 -m hippyflow_tpu_torch.ops.schur_sweep [--check] [--parent DIR]
-        [--panels P ...] [--depths D ...]
 
 Needs one CUDA card and ``nvcc``.  For each (N, s) at which the lanes run
 K1's row design (a diagonally dominant random band and a random
 Dinv_{j-1}: the work does not depend on the values), in float32 and also
-float64, one line: the step at block row 1 at every geometry of
-``geometries`` that fits (panel heights PANELS and rows in flight DEPTHS,
-and the rule's own), each held against the plain version, then timed in
-turns (the
-list forwards, then backwards), with the picked geometry, the plain
-version's time, the library pair's (``library_pair``: one batched product
-and one fused multiply-subtract, TF32 off; a yardstick the port never
-calls) and the bound.  ``--check`` stops after the comparison;
+float64, one line: the step at block row 1, held against the plain
+version, then timed in turns (the list forwards, then backwards) with the
+plain version and the library pair (``library_pair``: one batched
+product and one fused multiply-subtract, TF32 off; a yardstick the port
+never calls), beside the bound.  ``--check`` stops after the comparison;
 ``--parent DIR`` adds the Schur step of another checkout of this
-repository (its own build; it has no entry for the step alone, so its
-time per launch comes from the profiler over its row design on the same
-band, the first row's copy left out), and beside it this checkout's, read
-the same way; ``--panels`` and ``--depths`` replace the lists.  The
-rule ``schur_geometry`` of ``hopper_kernels`` was fitted to these lines.
+repository (its own build; its time per launch comes from the profiler
+over its row design on the same band, the first row's copy left out, so
+that any generation of the kernel is read the same way), and beside it
+this checkout's, read the same way in turns, and this checkout's step
+alone, read by the profiler.
 """
 
 from __future__ import annotations
@@ -33,9 +29,6 @@ import torch
 from . import hopper_kernels as hk
 from .stream_solve_sweep import load_parent
 
-# panel heights and rows in flight the sweep tries
-PANELS = (8, 16, 24, 32, 48, 64)
-DEPTHS = (4, 8)
 # (N, s, dtypes): the nx=192 lane's Jacobian chunk and chunk, the
 # helmholtz chunk
 SHAPES = (
@@ -122,53 +115,22 @@ def random_case(N: int, s: int, nb: int, dtype, device, seed: int = 0):
     return band, torch.zeros_like(dinv), dinv
 
 
-def geometries(N, s, itemsize, sm_count, smem, panels=PANELS, depths=DEPTHS):
-    """({geometry: the arguments that force it}, [arguments that fit
-    nothing]) over the lists, the rule's own geometry included."""
-    fits, refused = {}, []
-    for p in panels:
-        for d in depths:
-            forced = dict(panel=p, depth=d)
-            try:
-                g = hk.schur_geometry(N, s, itemsize, sm_count, smem, **forced)
-            except ValueError:
-                refused.append(forced)
-                continue
-            fits.setdefault(g[:3], forced)
-    g = hk.schur_geometry(N, s, itemsize, sm_count, smem)
-    fits.setdefault(g[:3], dict(panel=g[0], depth=g[2]))
-    return fits, refused
-
-
-def _name(g) -> str:
-    return f"P={g[0]} t={g[1]} d={g[2]}"
-
-
-def sweep(N, s, dtype, device, lists, check_only=False, parent=None):
+def sweep(N, s, dtype, device, check_only=False, parent=None):
     band, M, Dinv = random_case(N, s, 3, dtype, device)
     M_p, T_p = hk.schur_step_plain(band, Dinv[:, 0], 1)
-    sm, limit, item = hk._sm_count(device), hk._smem_limit(device), band.element_size()
-    fits, _ = geometries(N, s, item, sm, limit, *lists)
-    picked = hk.schur_geometry(N, s, item, sm, limit)
-    worst = 0.0
-    for forced in fits.values():
-        hk.schur_step_(band, M, Dinv, 1, **forced)
-        torch.cuda.synchronize()
-        err = max((M[:, 1] - M_p).abs().max() / M_p.abs().max(),
-                  (Dinv[:, 1] - T_p).abs().max() / T_p.abs().max()).item()
-        if not err <= TOL[dtype]:
-            raise AssertionError(f"N={N} s={s} {dtype} {forced}: against "
-                                 f"plain {err:.3e}")
-        worst = max(worst, err)
-    head = (f"K1 Schur step {str(dtype)[6:]} N={N} s={s}: {len(fits)} "
-            f"geometries, rel err {worst:.2e}")
+    hk.schur_step_(band, M, Dinv, 1)
+    torch.cuda.synchronize()
+    err = max((M[:, 1] - M_p).abs().max() / M_p.abs().max(),
+              (Dinv[:, 1] - T_p).abs().max() / T_p.abs().max()).item()
+    if not err <= TOL[dtype]:
+        raise AssertionError(f"N={N} s={s} {dtype}: against plain {err:.3e}")
+    head = f"K1 Schur step {str(dtype)[6:]} N={N} s={s}: rel err {err:.2e}"
     if check_only:
         print(head, flush=True)
         return
-    runs = {_name(g): (lambda f=f: hk.schur_step_(band, M, Dinv, 1, **f))
-            for g, f in fits.items()}
-    runs["plain"] = lambda: hk.schur_step_plain(band, Dinv[:, 0], 1)
-    runs["library"] = lambda: library_pair(band, Dinv[:, 0], 1)
+    runs = {"step": lambda: hk.schur_step_(band, M, Dinv, 1),
+            "plain": lambda: hk.schur_step_plain(band, Dinv[:, 0], 1),
+            "library": lambda: library_pair(band, Dinv[:, 0], 1)}
     ms = {key: [] for key in runs}
     for keys in (list(runs), list(runs)[::-1]):
         for key in keys:
@@ -180,26 +142,15 @@ def sweep(N, s, dtype, device, lists, check_only=False, parent=None):
         prof = {"parent": [], "this": []}
         for who in ("parent", "this", "this", "parent"):
             mod = parent if who == "parent" else hk
-            name = "schur_rows_kernel" if who == "parent" else "schur_tile_kernel"
+            name = "schur_" if who == "parent" else "schur_tile_kernel"
             prof[who].append(kernel_ms(
                 lambda: mod.banded_factorize(sub, design="rows"), name, skip=1)[0])
+        alone = kernel_ms(lambda: [hk.schur_step_(band, M, Dinv, 1)
+                                   for _ in range(REPS)], "schur_tile_kernel")[0]
         line += (f"; profiled in the row design: parent {sum(prof['parent']) / 2:.4f}, "
-                 f"this {sum(prof['this']) / 2:.4f}")
-    best = min((k for k in ms if k.startswith("P=")), key=ms.get)
+                 f"this {sum(prof['this']) / 2:.4f}; profiled alone: this {alone:.4f}")
     b_ms, b_by = schur_bound(N, s, dtype)
-    key = _name(picked)
-    print(line + f"; picked {key} ({ms[key]:.4f}), fastest {best}; bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
-
-
-def _values(argv, flag, default):
-    if flag not in argv:
-        return default
-    i, out = argv.index(flag) + 1, []
-    while i < len(argv) and argv[i].isdigit():
-        out.append(int(argv[i]))
-        i += 1
-    return tuple(out)
+    print(line + f"; bound {b_ms:.4f} ms ({b_by})", flush=True)
 
 
 def main(argv) -> None:
@@ -212,11 +163,9 @@ def main(argv) -> None:
     parent = None
     if "--parent" in argv:
         parent = load_parent(argv[argv.index("--parent") + 1])
-    lists = (_values(argv, "--panels", PANELS),
-             _values(argv, "--depths", DEPTHS))
     for N, s, dtypes in SHAPES:
         for dtype in dtypes:
-            sweep(N, s, dtype, device, lists, "--check" in argv, parent)
+            sweep(N, s, dtype, device, "--check" in argv, parent)
             torch.cuda.empty_cache()
 
 

@@ -100,7 +100,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         hk.banded_factorize(torch.zeros((1, 2, 193, 579), device=cuda),
                             design="chain")
     # no design takes block rows this wide in float64: the Schur step's
-    # 4-row panels fit, K3's pivot columns (16 x 1500) do not
+    # panels fit, K3's pivot columns (16 x 1500) do not
     with pytest.raises(ValueError, match="shared memory"):
         hk.banded_factorize(torch.zeros((1, 1, 1500, 4500), dtype=torch.float64,
                                         device=cuda))
@@ -240,14 +240,14 @@ def _schur_case(s, n, dtype, device, nb=3, seed=0):
     return band, M, Dinv
 
 
-def _check_schur(band, M, Dinv, j, dtype, want=None, **geometry):
+def _check_schur(band, M, Dinv, j, dtype, want=None):
     """The Schur step at row j against its plain version (``want``: its
     (M_j, T_j), else computed here); every other row of M and Dinv bit for
     bit untouched."""
     M0, D0 = M.clone(), Dinv.clone()
     if want is None:
         want = hk.schur_step_plain(band, D0[:, j - 1] if j else None, j)
-    hk.schur_step_(band, M, Dinv, j, **geometry)
+    hk.schur_step_(band, M, Dinv, j)
     torch.cuda.synchronize()
     assert _rel(M[:, j], want[0]) < TOL[dtype] if j else not M[:, j].any()
     assert _rel(Dinv[:, j], want[1]) < TOL[dtype]
@@ -260,9 +260,8 @@ def _check_schur(band, M, Dinv, j, dtype, want=None, **geometry):
 @pytest.mark.parametrize("n", [1, 3, 16, 32])
 @pytest.mark.parametrize("s", [17, 25, 33, 65, 97, 193, 516])
 def test_schur_step_matches_plain(cuda, s, n, dtype):
-    """K1's Schur step with the geometry ``schur_geometry`` picks, at the
-    block sizes of every K1 shape of the lanes and ragged panels, at j = 0
-    (M_0 = 0, T_0 = D_0) and at later rows."""
+    """K1's Schur step at the block sizes of every K1 shape of the lanes
+    and ragged panels, at j = 0 (M_0 = 0, T_0 = D_0) and at later rows."""
     band, M, Dinv = _schur_case(s, n, dtype, cuda, seed=s + n)
     hk.reset_launch_counts()
     for j in (0, 1, 2):
@@ -271,55 +270,31 @@ def test_schur_step_matches_plain(cuda, s, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("s", [17, 33, 193, 516])
-def test_schur_step_every_geometry(cuda, s, dtype):
-    """Every geometry the sweep tries (``ops/schur_sweep.py``: panel
-    heights, rows in flight) that fits, against the plain version; the
-    others raise before any launch."""
-    from hippyflow_tpu_torch.ops.schur_sweep import geometries
-
+@pytest.mark.parametrize("s", [128, 129, 161, 193, 225, 256, 257, 516])
+def test_schur_step_last_column_group(cuda, s, dtype):
+    """Block sizes whose last 128-column group holds 1, 2, 3 or 4 chunks of
+    32 columns (a group of one chunk its warp loads and multiplies alone),
+    whole groups, and a group of one column, at j = 1 and 2."""
     band, M, Dinv = _schur_case(s, 3, dtype, cuda, seed=s)
-    want = hk.schur_step_plain(band, Dinv[:, 0].clone(), 1)
-    fits, refused = geometries(3, s, band.element_size(), hk._sm_count(cuda),
-                               hk._smem_limit(cuda))
-    hk.reset_launch_counts()
-    for forced in refused:
-        with pytest.raises(ValueError, match="shared memory"):
-            hk.schur_step_(band, M, Dinv, 1, **forced)
-    assert hk.schur_step_.launches == 0
-    assert fits
-    for forced in fits.values():
-        _check_schur(band, M, Dinv, 1, dtype, want, **forced)
+    for j in (1, 2):
+        _check_schur(band, M, Dinv, j, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("s", [17, 65, 193, 516])
 def test_schur_geometry_mirrors_the_library(cuda, s, dtype):
     """The wrapper's shared-memory count is the library's, and the library
-    refuses what the kernel does not take: a panel of no whole 8-row tiles
-    or past the most, other than a warp per tile and column group or too
-    many threads, rows in flight other than 4 or 8, a row outside the
-    band."""
+    refuses a row outside the band and a block size that needs more
+    threads than a block takes, before any launch."""
     lib = hk._library()
     item = torch.finfo(dtype).bits // 8
-    for panel in (8, 16, 32, 64):
-        assert lib.hf_schur_smem_bytes(s, panel, item) == \
-            hk.schur_smem_bytes(s, panel, item)
+    assert lib.hf_schur_smem_bytes(s, item) == hk.schur_smem_bytes(s, item)
     band, M, Dinv = _schur_case(s, 1, dtype, cuda, nb=2)
-    P, threads, d, _ = hk.schur_geometry(
-        1, s, item, hk._sm_count(cuda), hk._smem_limit(cuda))
     fn = getattr(lib, f"hf_schur_step_{hk._suffix(dtype)}")
-    bad = [(4, 32 * -(-s // 128), d, 1), (12, threads, d, 1), (0, threads, d, 1),
-           (hk.SCHUR_MAX_PANEL + 8, threads, d, 1), (P, threads - 32, d, 1),
-           (P, threads + 32, d, 1), (P, threads + 1, d, 1), (P, threads, 2, 1),
-           (P, threads, 16, 1), (P, threads, d, 2), (P, threads, d, -1)]
-    if s > 256:  # 8 tiles of 8 rows in three or more column groups
-        bad.append((64, 32 * 8 * -(-s // 128), d, 1))
-    for panel, th, depth, j in bad:
+    for width, j in ((s, 2), (s, -1), (2049, 1), (0, 1)):
         with pytest.raises(RuntimeError, match="launch failed"):
             hk._launch(lib, fn, "schur_step_", cuda, band.data_ptr(),
-                       M.data_ptr(), Dinv.data_ptr(), 1, 2, s, j, panel, th,
-                       depth)
+                       M.data_ptr(), Dinv.data_ptr(), 1, 2, width, j)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -332,10 +307,8 @@ def test_factorize_rows_end_to_end(cuda, dtype, s, nb, n):
     band = _band(s, n, dtype, cuda, seed=s + nb, nb=nb)
     hk.reset_launch_counts()
     M, Dinv = hk.banded_factorize(band, design="rows")
-    P = hk.schur_geometry(n, s, band.element_size(), hk._sm_count(cuda),
-                          hk._smem_limit(cuda))[0]
     M_p, D_p = hk.banded_factorize_plain(band)
-    M_r, D_r = hk.banded_factorize_rows_plain(band, rows=P)
+    M_r, D_r = hk.banded_factorize_rows_plain(band, rows=hk.SCHUR_ROWS)
     torch.cuda.synchronize()
     assert (hk.schur_step_.launches, hk.batched_inverse.launches) == (nb, nb)
     assert not M[:, 0].any()

@@ -268,7 +268,7 @@ def test_schur_step_on_the_cpu_writes_its_row_only():
     M = interop.tensor(rng.standard_normal((2, 3, 9, 9)), **F64)
     Dinv = interop.tensor(rng.standard_normal((2, 3, 9, 9)), **F64)
     M0, D0 = M.clone(), Dinv.clone()
-    hk.schur_step_(band, M, Dinv, 1, panel=4)
+    hk.schur_step_(band, M, Dinv, 1)
     M_p, T_p = hk.schur_step_plain(band, D0[:, 0], 1)
     assert torch.allclose(M[:, 1], M_p, rtol=0, atol=1e-13)
     assert torch.allclose(Dinv[:, 1], T_p, rtol=0, atol=1e-13)
@@ -276,58 +276,45 @@ def test_schur_step_on_the_cpu_writes_its_row_only():
         assert torch.equal(M[:, q], M0[:, q]) and torch.equal(Dinv[:, q], D0[:, q])
 
 
-SHAPES_ALL = [(n, s, item) for n in (1, 3, 16, 32, 256) for item in (4, 8)
-              for s in (1, 2, 5, 17, 25, 33, 49, 65, 97, 120, 129, 193, 516)]
+# every block size up to 48 (ragged panels and column groups of every
+# width), the lanes' and the edges of the column groups and of the block
+SCHUR_SIZES = [(s, item) for item in (4, 8)
+               for s in (*range(1, 49), 49, 65, 97, 120, 128, 129, 193, 256,
+                         257, 516, 1500, 2047, 2048)]
 
 
-@pytest.mark.parametrize("n,s,item", SHAPES_ALL)
-def test_schur_geometry_is_one_the_kernel_takes(n, s, item):
-    """At every shape the picked geometry is one the kernel takes: one
-    8-row tile a panel, a warp for each 128-column group, at most
-    SCHUR_MAX_THREADS, the mirror's shared memory within the card's; 8
-    rows in flight in float32, 4 in float64."""
-    P, threads, depth, need = hk.schur_geometry(n, s, item, H100_SMS,
-                                                H100_SMEM)
-    assert hk.schur_takes(s, P, threads, depth)
-    assert P == hk.SCHUR_ROWS == 8
+@pytest.mark.parametrize("s,item", SCHUR_SIZES)
+def test_schur_geometry_is_one_the_kernel_takes(s, item):
+    """At every block size up to the widest the kernel takes: a warp per
+    128 columns, at most SCHUR_MAX_THREADS, the mirror's shared memory
+    (the transposed 8-row panel) within the card's."""
+    threads, need = hk.schur_geometry(s, item, H100_SMEM)
     assert threads == 32 * -(-s // 128) <= hk.SCHUR_MAX_THREADS
-    assert need == hk.schur_smem_bytes(s, P, item) == s * (P + 4) * item
-    assert need <= H100_SMEM
-    assert depth == (8 if item == 4 else 4)
+    assert need == hk.schur_smem_bytes(s, item) == s * 12 * item <= H100_SMEM
 
 
-@pytest.mark.parametrize("n,s,item,want", [
-    (16, 193, 4, (8, 64, 8)),
-    (32, 193, 4, (8, 64, 8)),
-    (16, 516, 4, (8, 160, 8)),  # 5 column groups
-    (16, 193, 8, (8, 64, 4)),
-    (16, 516, 8, (8, 160, 4)),
-    (1, 17, 4, (8, 32, 8)),
+@pytest.mark.parametrize("s,item,want", [
+    (193, 4, (64, 9264)),  # the nx=192 lane: two column groups
+    (193, 8, (64, 18528)),
+    (516, 4, (160, 24768)),  # helmholtz: five, the last of 4 columns
+    (516, 8, (160, 49536)),
+    (17, 4, (32, 816)),
+    (65, 8, (32, 6240)),
 ])
-def test_schur_geometry_at_the_lane_shapes(n, s, item, want):
-    assert hk.schur_geometry(n, s, item, H100_SMS, H100_SMEM)[:3] == want
+def test_schur_geometry_at_the_lane_shapes(s, item, want):
+    assert hk.schur_geometry(s, item, H100_SMEM) == want
 
 
-@pytest.mark.parametrize("forced", [
-    dict(panel=4),  # no whole tiles
-    dict(panel=12),
-    dict(panel=72),  # past the most rows
-    dict(depth=2),
-    dict(depth=16),
+@pytest.mark.parametrize("s,item,smem", [
+    (2049, 4, H100_SMEM),  # 17 warps, more than a block takes
+    (3000, 8, H100_SMEM),
+    (0, 4, H100_SMEM),
+    (193, 4, 193 * 12 * 4 - 1),  # one byte short
+    (516, 8, 40000),
 ])
-def test_schur_geometry_refuses_before_any_launch(forced):
+def test_schur_geometry_refuses_before_any_launch(s, item, smem):
     with pytest.raises(ValueError, match="shared memory"):
-        hk.schur_geometry(16, 193, 4, H100_SMS, H100_SMEM, **forced)
-
-
-def test_schur_geometry_takes_forced_parts():
-    """Forced parts are kept, the others follow the rule."""
-    assert hk.schur_geometry(16, 193, 4, H100_SMS, H100_SMEM, panel=32)[:3] \
-        == (32, 256, 8)
-    assert hk.schur_geometry(16, 193, 4, H100_SMS, H100_SMEM, panel=64)[:3] \
-        == (64, 512, 8)
-    assert hk.schur_geometry(32, 193, 4, H100_SMS, H100_SMEM, depth=4)[:3] \
-        == (8, 64, 4)
+        hk.schur_geometry(s, item, smem)
 
 
 def test_schur_geometry_refuses_a_block_row_too_wide():
@@ -335,15 +322,14 @@ def test_schur_geometry_refuses_a_block_row_too_wide():
     design raises before any launch; s=1500 still fits, with 12 warps."""
     for item in (4, 8):
         with pytest.raises(ValueError, match="shared memory"):
-            hk.schur_geometry(1, 3000, item, H100_SMS, H100_SMEM)
-    assert hk.schur_geometry(1, 1500, 8, H100_SMS, H100_SMEM)[:3] == (
-        8, 384, 4)
+            hk.schur_geometry(3000, item, H100_SMEM)
+    assert hk.schur_geometry(1500, 8, H100_SMEM) == (384, 144000)
 
 
-@pytest.mark.parametrize("s,panel,item,want", [
-    (193, 16, 4, 193 * 20 * 4),
-    (516, 32, 4, 516 * 36 * 4),
-    (17, 4, 8, 17 * 8 * 8),
+@pytest.mark.parametrize("s,item,want", [
+    (193, 4, 193 * 12 * 4),
+    (516, 8, 516 * 12 * 8),
+    (17, 8, 17 * 12 * 8),
 ])
-def test_schur_smem_mirror(s, panel, item, want):
-    assert hk.schur_smem_bytes(s, panel, item) == want
+def test_schur_smem_mirror(s, item, want):
+    assert hk.schur_smem_bytes(s, item) == want
