@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile   # also: device-time tables of the main
                                       # path and the two large lanes
     python3 chip_smoke.py --parent DIR   # also time the K1 chain, K1's
-                                      # Schur step and the k=1 K2 of another
+                                      # Schur step and K2 (k=1 and the
+                                      # panels) of another
                                       # checkout of this repository,
                                       # unpacked into DIR inside this one
                                       # (it builds its kernels there), in
@@ -33,7 +34,12 @@ each:
    1, 2, 3, 4, 6, 8, each held against the plain version, then timed in
    turns with the plain version and, with ``--parent``, that checkout's
    K2, beside the bound; the same at s=193 (N=16 and 32), at each coarse
-   level and at s=516 in both dtypes);
+   level and at s=516 in both dtypes); a ``K2 panels`` line per dtype
+   and orientation of the k=100 solve (the panel design at the geometry
+   ``panel_geometry`` picks and at one column tile fewer and one more,
+   each held against the plain version, then timed in turns with the
+   plain version and, with ``--parent``, that checkout's K2, beside the
+   bound; the same transposed at s=193 and at s=516, k=200, both dtypes);
 4. inverses: K3 and K4 (``batched_inverse``) against their plain version on
    the prior's cyclic-reduction blocks at nx=64 (N=32, s=65) and nx=192
    (N=96, s=193), both dtypes, with the identity residual and timings; K3
@@ -42,7 +48,8 @@ each:
    bound (a ``K3 clusters`` line; the same at each later cyclic-reduction
    level of nx=192, N=48 down to 1, and at s=193 and s=516 below);
 5. s=193: K1 (row panels) and K2 (k=1 streamed, and k=100 transposed
-   through panels) against their plain versions on Newton bands of nx=192 (N=16,
+   through panels, with a ``K2 panels`` line) against their plain versions
+   on Newton bands of nx=192 (N=16,
    nb=s=193), both dtypes, with residuals and timings; K3 as K1's rows call
    it, on one block row of an (N, 8, s, s) buffer at N=32 and 16 (the
    other rows must come out untouched), at each cluster size; ``K1 Schur``
@@ -56,8 +63,8 @@ each:
    Newton bands of the grid-sequencing levels, s=33 and 17 (N=1024, the
    nx=64 chunk) and s=97, 49 and 25 (N=32, the nx=192 chunk), both dtypes;
 7. s=516: K1 (row panels: Schur step + K3 per block row), K2 (k=1
-   streamed, both directions; k=200 transposed through panels, and the
-   panel-row choice) and K3 on the helmholtz lane's own bands (N=16,
+   streamed, both directions; k=200 transposed through panels, with a
+   ``K2 panels`` line) and K3 on the helmholtz lane's own bands (N=16,
    nb=52), both dtypes,
    against the pivoted plain versions: K1 against plain, max|T T^-1 - I|
    of K3 and of ``torch.linalg.inv`` on the same Schur complements, and
@@ -93,7 +100,9 @@ larger, ``bound_by`` says which; ``library_ms`` is ``torch.linalg.inv``'s
 time for K3/K4 and null for K1/K2, which no single PyTorch call
 computes; K1's Schur step, under ``banded_factorize.schur``, has its
 launches on each path and at each shape its time, the plain step's, the
-library pair's and the bound), and last the result line
+library pair's and the bound; K2's launches by design, panels and
+streamed, on each path, and its ``K2 panels`` records under
+``banded_solve.panels``), and last the result line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without printing the result line.
 """
@@ -374,6 +383,64 @@ def k2_clusters(M, Dinv, B, bb, trans, label, parent=None, reps=None):
             "bound_by": b_by, "max_abs_err": worst}
 
 
+def k2_panels(M, Dinv, B, bb, trans, label, parent=None, reps=2):
+    """K2's panel design on one factor and rhs (k >= 8) at the geometry
+    ``panel_geometry`` picks and at its neighbours in column tiles (the
+    same rule at one tile fewer and one more, where they fit), each held
+    against the plain version within TOL, then timed in turns (the list
+    forwards, then backwards) with the plain version and (``parent``) the
+    K2 of an earlier checkout, beside the bound.  Returns the record for
+    the kernels' JSON line."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    N, nb, s, _ = M.shape
+    k, dtype, dev = bb.shape[-1], bb.dtype, bb.device
+    args = (N, s, k, bb.element_size(), hk._sm_count(dev), hk._smem_limit(dev),
+            hk._sm_smem(dev))
+    picked = hk.panel_geometry(*args)
+    geos = {}
+    for t in (picked.tiles - 1, picked.tiles, picked.tiles + 1):
+        g = picked if t == picked.tiles else (
+            hk.panel_geometry(*args, tiles=t) if 1 <= t <= k else None)
+        if g is not None:
+            geos[f"t={g.tiles} R={g.rows} rt={g.row_tile} ls={g.lsplit}"] = g
+    x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
+    worst = 0.0
+    for key, g in geos.items():
+        x = hk.banded_solve(M, Dinv, B, bb, trans,
+                            tiles=(g.rows, g.tiles, g.row_tile, g.lsplit))
+        torch.cuda.synchronize()
+        diff = rel_err(x, x_p)
+        check(diff <= TOL[dtype]["diff"],
+              f"K2 panels {label} {dtype} trans={trans} {key}: against plain "
+              f"{diff:.3e}")
+        worst = max(worst, (x - x_p).abs().max().item())
+    del x, x_p
+    runs = {key: (lambda g=g: hk.banded_solve(
+        M, Dinv, B, bb, trans, tiles=(g.rows, g.tiles, g.row_tile, g.lsplit)))
+        for key, g in geos.items()}
+    runs["plain"] = lambda: hk.banded_solve_plain(M, Dinv, B, bb, trans)
+    if parent is not None:
+        runs["parent"] = lambda: parent.banded_solve(M, Dinv, B, bb, trans)
+    ms = {key: [] for key in runs}
+    for keys in (list(runs), list(runs)[::-1]):
+        for key in keys:
+            ms[key].append(cuda_ms(runs[key], reps))
+    ms = {key: sum(v) / len(v) for key, v in ms.items()}
+    pick = f"t={picked.tiles} R={picked.rows} rt={picked.row_tile} ls={picked.lsplit}"
+    best = min(geos, key=ms.get)
+    b_ms, b_by = k2_bound(N, nb, s, k, dtype)
+    log(f"K2 panels {label} {str(dtype)[6:]} N={N} nb={nb} s={s} k={k} "
+        f"{'transposed' if trans else 'forward'}: "
+        + ", ".join(f"{key} {v:.4f} ms" for key, v in ms.items())
+        + f"; picked {pick} ({picked.threads} threads, {picked.smem_bytes} "
+        f"bytes, {picked.share} blocks an SM; {ms[pick] / ms[best]:.3f}x the "
+        f"fastest, {best}); bound {b_ms:.4f} ms ({b_by}); max abs err "
+        f"{worst:.3e}")
+    return {"picked": picked._asdict(), "fastest": best, "ms": ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst}
+
+
 def load_parent(path):
     """The kernel module of another checkout of this repository (``--parent
     DIR``: its ``hippyflow_tpu_torch/ops/hopper_kernels.py``, which builds
@@ -462,7 +529,8 @@ def k1_schur(band64, label, parent=None, dtypes=(torch.float32, torch.float64),
     ``schur_sweep.device_ms``) with the plain step and the library pair
     (``torch.bmm`` + ``torch.baddbmm``, TF32 off: a yardstick the port
     never calls), beside the bound; with ``parent``, the profiler's time
-    per launch of the parent's ``schur_rows_kernel`` in its row design on
+    per launch of the parent's Schur kernel (any name that holds
+    ``schur_``) in its row design on
     the band's first rows, in turns with this checkout's kernel read the
     same way.  Returns {dtype name: record} for the kernels' JSON line."""
     from hippyflow_tpu_torch.ops import hopper_kernels as hk
@@ -520,7 +588,7 @@ def k1_schur(band64, label, parent=None, dtypes=(torch.float32, torch.float64),
             rows4 = band[:, :4].contiguous()
             prof = {"parent": [], "rows": []}
             for who in ("parent", "rows", "rows", "parent"):
-                mod, kernel = ((parent, "schur_rows_kernel") if who == "parent"
+                mod, kernel = ((parent, "schur_") if who == "parent"
                                else (hk, "schur_tile_kernel"))
                 prof[who].append(kernel_ms(
                     lambda: mod.banded_factorize(rows4, design="rows"), kernel,
@@ -593,7 +661,7 @@ def phase_kernels(obs64, prior64, device, parent=None):
                        device=device)
         for k in (1, 100)
     }
-    report = {}
+    report, panels = {}, {}
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
         band = band64.to(dtype)
@@ -630,6 +698,11 @@ def phase_kernels(obs64, prior64, device, parent=None):
             line += f"; K2 k={k} trans={trans} rel diff {rel:.3e} residual {res:.3e}"
             k2_err = max(k2_err, err)
         log(line)
+        sfx = "" if dtype == torch.float32 else "_f64"
+        for trans in (True, False):
+            panels[f"n{N}_s{s}_{'trans' if trans else 'fwd'}{sfx}"] = k2_panels(
+                M, Dinv, B, rhs64[100].to(dtype), trans, f"nx={NX} Newton bands",
+                parent)
         if dtype != torch.float32:
             continue
         bb1, bb100 = rhs64[1].to(dtype), rhs64[100].to(dtype)
@@ -668,6 +741,7 @@ def phase_kernels(obs64, prior64, device, parent=None):
                                              f"nx={NX} Newton bands", parent)
                                  for t in (False, True)}},
         }
+    report["banded_solve"]["panels"] = panels
     designs = {f"n{N}_s{s}": k1_designs(band64, f"nx={NX} Newton bands", parent)}
     designs[f"n{N_SAMPLES}_s{s}"] = k1_designs(
         torch.cat([band64.float()] * (N_SAMPLES // N)), f"nx={NX} Newton bands",
@@ -777,7 +851,7 @@ def phase_s193(obs64, prior64, device, parent=None):
     N, nb, s, _ = band64.shape
     rhs64 = {k: torch.randn(N, nb, s, k, generator=gen, dtype=torch.float64,
                             device=device) for k in (1, 100)}
-    report = {}
+    report, panels = {}, {}
     for dtype in (torch.float32, torch.float64):
         tol = TOL[dtype]
         band = band64.to(dtype)
@@ -806,6 +880,9 @@ def phase_s193(obs64, prior64, device, parent=None):
             line += f"; K2 k={k} trans={trans} rel diff {rel:.3e} residual {res:.3e}"
             k2_err = max(k2_err, (x - x_p).abs().max().item())
         log(line)
+        panels[f"n{N}_s{s}_trans" + ("" if dtype == torch.float32 else "_f64")] = (
+            k2_panels(M, Dinv, B, rhs64[100].to(dtype), True,
+                      f"nx={NX192} Newton bands", parent))
         if dtype != torch.float32:
             continue
         bb1, bb100 = rhs64[1].to(dtype), rhs64[100].to(dtype)
@@ -845,6 +922,7 @@ def phase_s193(obs64, prior64, device, parent=None):
                          for t in (False, True)})
         del M2, D2, B2, bb2
         report["banded_solve"]["clusters"] = clusters
+    report["banded_solve"]["panels"] = panels
     # K1's Schur step at the lane's Jacobian chunk (16) and chunk (32)
     label = f"nx={NX192} Newton bands"
     report["schur"] = {
@@ -1083,19 +1161,16 @@ def phase_s516(device, parent=None):
             key = f"k2_max_abs_err_k{k}"
             rec[key] = max(rec.get(key, 0.0), (x - x_k).abs().max().item())
         log(line)
-        tiles = hk.solve_tiles(s, 200, band.element_size(),
-                               hk._smem_limit(band.device))
-        other = {torch.float32: (64, 16), torch.float64: (32, 8)}[dtype]
         bb1, bb200 = rhs64[1].to(dtype), rhs64[200].to(dtype)
+        rec["k2_panels"] = {
+            f"n{N}_s{s}_trans" + ("" if dtype == torch.float32 else "_f64"):
+            k2_panels(M, Dinv, B, bb200, True, "helmholtz bands", parent)}
         rec["k1"] = paired_ms(lambda: hk.banded_factorize(band),
                               lambda: hk.banded_factorize_plain(band), reps=1)
         rec["k1_rows_plain"] = cuda_ms(lambda: hk.banded_factorize_rows_plain(band), 1)
         rec["k2_k200"] = paired_ms(
             lambda: hk.banded_solve(M, Dinv, B, bb200, True),
             lambda: hk.banded_solve_plain(M, Dinv, B, bb200, True), reps=2)
-        rec["k2_k200_other"] = paired_ms(
-            lambda: hk.banded_solve(M, Dinv, B, bb200, True, tiles=other),
-            lambda: hk.banded_solve(M, Dinv, B, bb200, True, tiles=tiles), reps=2)
         rec["k2_k1"] = paired_ms(
             lambda: hk.banded_solve(M, Dinv, B, bb1, True),
             lambda: hk.banded_solve_plain(M, Dinv, B, bb1, True), reps=2)
@@ -1117,9 +1192,7 @@ def phase_s516(device, parent=None):
         log(f"timing {name} s={s} N={N} nb={nb}: K1 rows {rec['k1'][0]:.3f} ms "
             f"(plain {rec['k1'][1]:.3f}, rows plain {rec['k1_rows_plain']:.3f}); "
             f"K2 k=200 trans {rec['k2_k200'][0]:.3f} ms (plain "
-            f"{rec['k2_k200'][1]:.3f}) with panel rows, column tile {tiles}, "
-            f"{other}: {rec['k2_k200_other'][0]:.3f} ms against "
-            f"{rec['k2_k200_other'][1]:.3f}; K2 k=1 trans {rec['k2_k1'][0]:.3f} ms "
+            f"{rec['k2_k200'][1]:.3f}); K2 k=1 trans {rec['k2_k1'][0]:.3f} ms "
             f"(plain {rec['k2_k1'][1]:.3f}), k=1 {rec['k2_k1_fwd'][0]:.3f} ms "
             f"(plain {rec['k2_k1_fwd'][1]:.3f}); K3 {tuple(T1.shape)} {rec['k3'][0]:.3f} "
             f"ms (plain {rec['k3'][1]:.3f})")
@@ -1210,6 +1283,8 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
         "schur_step": hk.schur_step_.launches,
         **{f"banded_factorize_{d}": n
            for d, n in hk.banded_factorize.launches_by_design.items()},
+        **{f"banded_solve_{d}": n
+           for d, n in hk.banded_solve.launches_by_design.items()},
     }
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = proj.stage_seconds
@@ -1231,7 +1306,9 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
         f"{launches['banded_factorize']} (chain "
         f"{launches['banded_factorize_chain']}, rows "
         f"{launches['banded_factorize_rows']}; Schur steps "
-        f"{launches['schur_step']}) K2 {launches['banded_solve']} K3 "
+        f"{launches['schur_step']}) K2 {launches['banded_solve']} (panels "
+        f"{launches['banded_solve_panels']}, streamed "
+        f"{launches['banded_solve_streamed']}) K3 "
         f"{launches['batched_inverse']} K4 {launches['batched_inverse_rank1']}; "
         f"peak {peak_gb:.2f} GB"
     )
@@ -1483,6 +1560,10 @@ def run_phases(device, argv, parent=None):
         k2_cl.update(rec[f32]["k2_clusters"])
     for dtype in (f32, f64):
         k2_cl.update(s516[dtype]["k2_clusters"])
+    k2_panels_rec = report["banded_solve"]["panels"]
+    k2_panels_rec.update(s193_report["banded_solve"].pop("panels"))
+    for dtype in (f32, f64):
+        k2_panels_rec.update(s516[dtype]["k2_panels"])
     for name in ("banded_factorize", "banded_solve"):
         report[name].update(s193_report[name])
     for name, key in (("K3", "batched_inverse"), ("K4", "batched_inverse_rank1")):
@@ -1546,6 +1627,9 @@ def run_phases(device, argv, parent=None):
     kernels[0]["launches_by_design"] = {
         d: {path: p[f"banded_factorize_{d}"] for path, p in paths.items()}
         for d in ("chain", "rows")}
+    kernels[1]["launches_by_design"] = {
+        d: {path: p[f"banded_solve_{d}"] for path, p in paths.items()}
+        for d in ("panels", "streamed")}
     kernels[0]["schur"] = {
         "source": "hippyflow_tpu_torch/csrc/banded_factorize.cu",
         "replaces": f"{pallas}:445", "launches": sum(

@@ -105,21 +105,6 @@ struct ChainCols<double> {
   static constexpr int rows = 1;
 };
 
-template <typename T, int n>
-__device__ __forceinline__ void hf_store16(T* p, const T (&a)[n]) {
-  using V = typename HfVec16<T>::type;
-  constexpr int m = sizeof(V) / sizeof(T);
-  static_assert(n % m == 0, "whole 16-byte vectors");
-#pragma unroll
-  for (int q = 0; q < n; q += m) {
-    V v;
-    T* t = reinterpret_cast<T*>(&v);
-#pragma unroll
-    for (int u = 0; u < m; ++u) t[u] = a[q + u];
-    *reinterpret_cast<V*>(p + q) = v;
-  }
-}
-
 template <typename T, int TM>
 __device__ __forceinline__ void tile_fma(const T (&a)[TM], const T (&v)[kTile],
                                          T (&acc)[TM][kTile]) {

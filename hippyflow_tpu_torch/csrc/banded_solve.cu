@@ -27,18 +27,23 @@
 // on the H100 at s=65 and s=193, each faster than the first design, which
 // staged both whole blocks in shared memory and which they replace):
 //
-// * panels (k >= 8, the Jacobian's k=100 and k=200 solves): each product
-//   streams its factor block through shared memory in panels of R rows of
-//   op(H) (R = 64, 32 or 16), stored transposed so that the R/8 rows a
-//   thread accumulates are contiguous (16-byte loads), filled by
-//   asynchronous copies; each warp owns R/8 rows and each lane one column
-//   of the tile, so a carry element read from shared memory feeds R/8
-//   multiply-adds.  Shared memory holds one panel, the carry and its
-//   partner: 99 KB in float32 and 198 KB in float64 at s=193, R=64,
-//   kt=32.  The host picks the widest column tile, then the widest panel,
-//   that fit the card's 227 KB: R=64 at s <= 193; at s=516 (helmholtz)
-//   R=32, kt=32 in float32 (198 KB) and R=16, kt=16 in float64 (198 KB;
-//   one 64-row float64 panel alone is 264 KB).
+// * panels (k >= 8, the Jacobian's k=100 and k=200 solves): the k columns
+//   go to `tiles` column tiles whose widths differ by at most one (the
+//   host picks the count, `panel_geometry` in ops/hopper_kernels.py, so
+//   that the grid of N x tiles blocks fills the card: 8 at N=16, 1 at
+//   N=256).  Each product streams its factor block through shared memory
+//   in panels of `rows` rows of op(H) (a multiple of 8 that splits s with
+//   at most s/8 rows past it: 72 at s=65, 200 at s=193 in float32), stored
+//   transposed and filled by asynchronous copies (16 bytes a copy where
+//   the rows of H start on 16 bytes, s=516), and waited for whole.  Each
+//   thread accumulates an RT x 4 register tile of the panel's output (RT
+//   = 4 or 8 rows; 4 columns, the padded carry's 16-byte vector) over one
+//   of `lsplit` slices of the inner index: a panel entry feeds 4
+//   multiply-adds, a carry entry RT.  The slices' partial sums go through
+//   shared memory, and the block adds them up and writes the output, so
+//   that a narrow tile still gives every thread a register tile.  Shared
+//   memory holds the panel, the carry and its partner (s x padded tile
+//   columns each) and the partial sums.
 // * streamed (k < 8, the Newton solves; bound by the bytes of the factor,
 //   each read once, and by the chain of 3 nb - 2 dependent products): the
 //   addresses of the factor blocks do not depend on the carry, so the
@@ -85,56 +90,136 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// y = op(A) x, or y = in - op(A) x when `in` is given, on one (s, kw)
-// column tile: x and y (s, kw) in shared memory, `in` and `y_out` (may be
-// null) rows of stride k in device memory.  op(A) passes through `panel`
-// (s, kPanelRows) in shared memory, panel[l * kPanelRows + r] =
-// op(A)[i0 + r, l]; the 8 warps of HF_THREADS own kPanelRows / 8 rows each.
-template <typename T, int kPanelRows>
-__device__ void panel_product(const T* __restrict__ A, bool trans,
-                              const T* x, const T* in, T* y, T* y_out, int s,
-                              int k, int kw, T* panel) {
-  constexpr int kRowsPerWarp = kPanelRows / (HF_THREADS / 32);
-  const int c = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * kRowsPerWarp;
-  for (int i0 = 0; i0 < s; i0 += kPanelRows) {
-    const int pr = min(kPanelRows, s - i0);
-    __syncthreads();  // the previous panel is consumed, x is complete
-    // op(A)[i0 + r, l] is A[l, i0 + r] (a coalesced row of A) or
-    // A[i0 + r, l] (a strided column, whose lines the next l reuse in L1);
-    // asynchronous copies, so that a thread's loads are all in flight
-    for (int e = threadIdx.x; e < s * kPanelRows; e += blockDim.x) {
-      const int l = e / kPanelRows, r = e - (e / kPanelRows) * kPanelRows;
-      const size_t src = trans ? (size_t)l * s + i0 + r : (size_t)(i0 + r) * s + l;
-      if (r < pr) {
-        __pipeline_memcpy_async(panel + e, A + src, sizeof(T));
-      } else {
-        panel[e] = T(0);
+// The panel design's layout of one block: kp padded tile columns (a
+// multiple of HF_SOLVE_COL_TILE), panels of `rows` rows, `lsplit` slices
+// of the inner index.  Thread t takes slice t / ntile and output tile
+// t % ntile of a panel: row group (RT rows) tile / cg, column group (of
+// HF_SOLVE_COL_TILE) tile % cg, neighbouring lanes on neighbouring column
+// groups.
+struct PanelLayout {
+  int s, k, kw, kp, rows, lsplit;
+};
+
+// panel[a * pa + b * pb] = src[a * sa + b] for a < na, b < nb by
+// asynchronous copies, the element e = a nb + b to thread e % blockDim.x,
+// a and b stepped, not divided out; with `vec`, 16 bytes a copy (nb, sa,
+// pa and src in whole 16-byte vectors, pb = 1).
+template <typename T>
+__device__ __forceinline__ void panel_fill(const T* src, int na, int nb,
+                                           int sa, int pa, int pb, T* panel,
+                                           bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  const int w = vec ? V : 1;
+  const int nbw = nb / w;
+  const int da = blockDim.x / nbw, db = (blockDim.x - da * nbw) * w;
+  const int tid = threadIdx.x;
+  int a = tid / nbw, b = (tid - a * nbw) * w;
+  if (vec) {
+    for (; a < na;) {
+      __pipeline_memcpy_async(panel + a * pa + b, src + (size_t)a * sa + b, 16);
+      a += da;
+      b += db;
+      if (b >= nb) {
+        b -= nb;
+        ++a;
       }
+    }
+  } else {
+    for (; a < na;) {
+      __pipeline_memcpy_async(panel + a * pa + b * pb, src + (size_t)a * sa + b,
+                              sizeof(T));
+      a += da;
+      b += db;
+      if (b >= nb) {
+        b -= nb;
+        ++a;
+      }
+    }
+  }
+}
+
+// y = op(A) x, or y = in - op(A) x when `in` is given, on one column tile
+// of kw columns: x and y (s, kp) in shared memory, `in` and `y_out` (may
+// be null) rows of stride k in device memory.  op(A) passes through
+// `panel` (s, rows) in shared memory, panel[l * rows + r] = op(A)[i0 + r,
+// l], filled by asynchronous copies of its rows below s.  Each thread
+// accumulates an RT x HF_SOLVE_COL_TILE tile of a panel's output over its
+// slice of l (a panel entry read as part of a 16-byte vector feeds
+// HF_SOLVE_COL_TILE multiply-adds, a carry entry RT), writes it to `red`
+// (lsplit, rows, kp), and the block sums the slices of each output.  A
+// thread whose tile lies past the panel's rows or the tile's columns
+// skips its products.
+template <typename T, int RT>
+__device__ void panel_product(const T* __restrict__ A, bool trans,
+                              const T* x, const T* in, T* y, T* y_out,
+                              const PanelLayout& g, T* panel, T* red) {
+  constexpr int CT = HF_SOLVE_COL_TILE;
+  const int s = g.s, rows = g.rows, kp = g.kp, kw = g.kw;
+  const int cg = kp / CT;
+  const int ntile = rows / RT * cg;
+  const int tid = threadIdx.x;
+  const int q = tid / ntile, tile = tid - q * ntile;
+  const int r0 = tile / cg * RT, c0 = (tile - tile / cg * cg) * CT;
+  const int l0 = q * s / g.lsplit, l1 = (q + 1) * s / g.lsplit;
+  T* red_q = red + (size_t)q * rows * kp;
+  // a transposed panel's rows are copied 16 bytes at a time where the rows
+  // of A start on 16 bytes (s = 516) and every panel is whole vectors
+  constexpr int V = 16 / sizeof(T);
+  const bool vec_rows = s % V == 0 && rows % V == 0 &&
+                        reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  for (int i0 = 0; i0 < s; i0 += rows) {
+    const int pr = min(rows, s - i0);
+    __syncthreads();  // the previous panel and its sums are consumed, x is complete
+    // op(A)[i0 + r, l] is A[l, i0 + r] (a row of A, copied along r) or
+    // A[i0 + r, l] (copied along the row l); all of a thread's copies in
+    // flight before the wait
+    if (trans) {
+      panel_fill<T>(A + i0, s, pr, s, rows, 1, panel, vec_rows);
+    } else {
+      panel_fill<T>(A + (size_t)i0 * s, pr, s, s, 1, rows, panel, false);
     }
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
-    if (c < kw) {
-      T acc[kRowsPerWarp];
+    if (q < g.lsplit && r0 < pr && c0 < kw) {
+      T acc[RT][CT];
 #pragma unroll
-      for (int q = 0; q < kRowsPerWarp; ++q) acc[q] = T(0);
+      for (int r = 0; r < RT; ++r) {
+#pragma unroll
+        for (int c = 0; c < CT; ++c) acc[r][c] = T(0);
+      }
+      const T* pa = panel + r0;
+      const T* px = x + c0;
 #pragma unroll 4
-      for (int l = 0; l < s; ++l) {
-        const T xv = x[l * kw + c];
-        T a[kRowsPerWarp];
-        hf_load16(panel + l * kPanelRows + r0, a);
+      for (int l = l0; l < l1; ++l) {
+        T a[RT], v[CT];
+        hf_load16(pa + l * rows, a);
+        hf_load16(px + l * kp, v);
 #pragma unroll
-        for (int q = 0; q < kRowsPerWarp; ++q) acc[q] += a[q] * xv;
+        for (int r = 0; r < RT; ++r) {
+#pragma unroll
+          for (int c = 0; c < CT; ++c) acc[r][c] += a[r] * v[c];
+        }
       }
 #pragma unroll
-      for (int q = 0; q < kRowsPerWarp; ++q) {
-        const int i = i0 + r0 + q;
-        if (r0 + q < pr) {
-          const T v = in != nullptr ? in[(size_t)i * k + c] - acc[q] : acc[q];
-          y[i * kw + c] = v;
-          if (y_out != nullptr) y_out[(size_t)i * k + c] = v;
-        }
+      for (int r = 0; r < RT; ++r) hf_store16(red_q + (r0 + r) * kp + c0, acc[r]);
+    }
+    __syncthreads();
+    // output (r, c), r < pr, c < kw, in the order e = r kw + c: r and c
+    // stepped, not divided out
+    const int dr = blockDim.x / kw, dc = blockDim.x - dr * kw;
+    for (int r = tid / kw, c = tid - tid / kw * kw; r < pr;) {
+      T sum = red[r * kp + c];
+      for (int u = 1; u < g.lsplit; ++u) sum += red[((size_t)u * rows + r) * kp + c];
+      const int i = i0 + r;
+      const T v = in != nullptr ? in[(size_t)i * g.k + c] - sum : sum;
+      y[i * kp + c] = v;
+      if (y_out != nullptr) y_out[(size_t)i * g.k + c] = v;
+      r += dr;
+      c += dc;
+      if (c >= kw) {
+        c -= kw;
+        ++r;
       }
     }
   }
@@ -147,20 +232,20 @@ __device__ void panel_product(const T* __restrict__ A, bool trans,
 // `in` and `out` point at row j of the (s, k) rhs block at the tile's first
 // column and may alias.  The result is also the new carry; `carry` and
 // `tmp` swap roles when there is no G.
-template <typename T, int kPanelRows>
+template <typename T, int RT>
 __device__ void panel_step(const T* __restrict__ H, bool trans_h,
                            const T* __restrict__ G, bool trans_g, const T* in,
-                           T* out, int s, int k, int kw, T* panel, T*& carry,
-                           T*& tmp) {
+                           T* out, const PanelLayout& g, T* panel, T* red,
+                           T*& carry, T*& tmp) {
   T* first_out = G == nullptr ? out : nullptr;
   if (H != nullptr) {
-    panel_product<T, kPanelRows>(H, trans_h, carry, in, tmp, first_out, s, k,
-                                 kw, panel);
+    panel_product<T, RT>(H, trans_h, carry, in, tmp, first_out, g, panel, red);
   } else {
-    for (int e = threadIdx.x; e < s * kw; e += blockDim.x) {
-      const int i = e / kw, c = e - (e / kw) * kw;
-      tmp[e] = in[(size_t)i * k + c];
-      if (first_out != nullptr) first_out[(size_t)i * k + c] = tmp[e];
+    for (int e = threadIdx.x; e < g.s * g.kw; e += blockDim.x) {
+      const int i = e / g.kw, c = e - (e / g.kw) * g.kw;
+      const T v = in[(size_t)i * g.k + c];
+      tmp[i * g.kp + c] = v;
+      if (first_out != nullptr) first_out[(size_t)i * g.k + c] = v;
     }
     __syncthreads();
   }
@@ -170,26 +255,34 @@ __device__ void panel_step(const T* __restrict__ H, bool trans_h,
     tmp = t;
     return;
   }
-  panel_product<T, kPanelRows>(G, trans_g, tmp, static_cast<const T*>(nullptr),
-                               carry, out, s, k, kw, panel);
+  panel_product<T, RT>(G, trans_g, tmp, static_cast<const T*>(nullptr), carry,
+                       out, g, panel, red);
 }
 
-template <typename T, int kPanelRows>
-__global__ void banded_solve_kernel(const T* __restrict__ m,
-                                    const T* __restrict__ dinv,
-                                    const T* __restrict__ b,
-                                    const T* __restrict__ rhs,
-                                    T* __restrict__ out, int nb, int s, int k,
-                                    int kt, bool trans) {
+// Grid (N, tiles): block (n, y) owns columns [y k / tiles, (y + 1) k /
+// tiles) of sample n.
+template <typename T, int RT>
+__global__ void __launch_bounds__(HF_SOLVE_MAX_THREADS)
+    banded_solve_kernel(const T* __restrict__ m, const T* __restrict__ dinv,
+                        const T* __restrict__ b, const T* __restrict__ rhs,
+                        T* __restrict__ out, int nb, int s, int k, int tiles,
+                        int rows, int lsplit, bool trans) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int ss = s * s;
-  const int c0 = blockIdx.y * kt;
-  const int kw = min(kt, k - c0);
-  // [panel | carry | tmp]
+  const int c0 = (int)((long long)blockIdx.y * k / tiles);
+  PanelLayout g;
+  g.s = s;
+  g.k = k;
+  g.kw = (int)((long long)(blockIdx.y + 1) * k / tiles) - c0;
+  g.kp = hf_solve_tile_cols(k, tiles);
+  g.rows = rows;
+  g.lsplit = lsplit;
+  // [panel | carry | tmp | partial sums]
   T* panel = smem;
-  T* carry = smem + hf_solve_panel_elems(s, kPanelRows);
-  T* tmp = carry + s * kt;
+  T* carry = panel + (size_t)s * rows;
+  T* tmp = carry + (size_t)s * g.kp;
+  T* red = tmp + (size_t)s * g.kp;
 
   const size_t n = blockIdx.x;
   const T* m_n = m + n * nb * ss;
@@ -202,65 +295,64 @@ __global__ void banded_solve_kernel(const T* __restrict__ m,
   if (!trans) {
     for (int j = 0; j < nb; ++j) {  // fwd
       const T* H = j > 0 ? m_n + (size_t)j * ss : nullptr;
-      panel_step<T, kPanelRows>(H, false, nullptr, false, rhs_n + j * rb,
-                                out_n + j * rb, s, k, kw, panel, carry, tmp);
+      panel_step<T, RT>(H, false, nullptr, false, rhs_n + j * rb,
+                        out_n + j * rb, g, panel, red, carry, tmp);
     }
     for (int j = nb - 1; j >= 0; --j) {  // bwd, in place
       const T* H = j < nb - 1 ? b_n + (size_t)j * ss : nullptr;
-      panel_step<T, kPanelRows>(H, false, d_n + (size_t)j * ss, false,
-                                out_n + j * rb, out_n + j * rb, s, k, kw,
-                                panel, carry, tmp);
+      panel_step<T, RT>(H, false, d_n + (size_t)j * ss, false, out_n + j * rb,
+                        out_n + j * rb, g, panel, red, carry, tmp);
     }
   } else {
     for (int j = 0; j < nb; ++j) {  // fwd_t
       const T* H = j > 0 ? b_n + (size_t)(j - 1) * ss : nullptr;
-      panel_step<T, kPanelRows>(H, true, d_n + (size_t)j * ss, true,
-                                rhs_n + j * rb, out_n + j * rb, s, k, kw,
-                                panel, carry, tmp);
+      panel_step<T, RT>(H, true, d_n + (size_t)j * ss, true, rhs_n + j * rb,
+                        out_n + j * rb, g, panel, red, carry, tmp);
     }
     for (int j = nb - 1; j >= 0; --j) {  // bwd_t, in place
       const T* H = j < nb - 1 ? m_n + (size_t)(j + 1) * ss : nullptr;
-      panel_step<T, kPanelRows>(H, true, nullptr, false, out_n + j * rb,
-                                out_n + j * rb, s, k, kw, panel, carry, tmp);
+      panel_step<T, RT>(H, true, nullptr, false, out_n + j * rb,
+                        out_n + j * rb, g, panel, red, carry, tmp);
     }
   }
 }
 
-template <typename T, int kPanelRows>
+template <typename T, int RT>
 int launch_solve(const void* m, const void* dinv, const void* b,
                  const void* rhs, void* out, int n, int nb, int s, int k,
-                 int kt, int trans, void* stream) {
-  const size_t smem = hf_solve_smem_elems(s, kt, kPanelRows) * sizeof(T);
+                 int tiles, int trans, int rows, int lsplit, void* stream) {
+  const size_t smem =
+      hf_solve_smem_elems(s, k, tiles, rows, lsplit) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      banded_solve_kernel<T, kPanelRows>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      banded_solve_kernel<T, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n, (k + kt - 1) / kt);
-  banded_solve_kernel<T, kPanelRows>
-      <<<grid, HF_THREADS, smem, (cudaStream_t)stream>>>(
+  const int threads = hf_solve_threads(k, tiles, rows, RT, lsplit);
+  banded_solve_kernel<T, RT>
+      <<<dim3(n, tiles), threads, smem, (cudaStream_t)stream>>>(
           static_cast<const T*>(m), static_cast<const T*>(dinv),
           static_cast<const T*>(b), static_cast<const T*>(rhs),
-          static_cast<T*>(out), nb, s, k, kt, trans != 0);
+          static_cast<T*>(out), nb, s, k, tiles, rows, lsplit, trans != 0);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_solve(const void* m, const void* dinv, const void* b,
                  const void* rhs, void* out, int n, int nb, int s, int k,
-                 int kt, int trans, int panel_rows, void* stream) {
-  switch (panel_rows) {
-    case 16:
-      return launch_solve<T, 16>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
-                                 stream);
-    case 32:
-      return launch_solve<T, 32>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
-                                 stream);
-    case 64:
-      return launch_solve<T, 64>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
-                                 stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+                 int tiles, int trans, int rows, int row_tile, int lsplit,
+                 void* stream) {
+  if (tiles < 1 || tiles > k || rows < 8 || rows % 8 != 0 || lsplit < 1 ||
+      lsplit > s || (row_tile != 4 && row_tile != 8) ||
+      hf_solve_threads(k, tiles, rows, row_tile, lsplit) >
+          HF_SOLVE_MAX_THREADS) {
+    return (int)cudaErrorInvalidValue;
   }
+  if (row_tile == 4) {
+    return launch_solve<T, 4>(m, dinv, b, rhs, out, n, nb, s, k, tiles, trans,
+                              rows, lsplit, stream);
+  }
+  return launch_solve<T, 8>(m, dinv, b, rhs, out, n, nb, s, k, tiles, trans,
+                            rows, lsplit, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -936,26 +1028,39 @@ int launch_stream(const void* m, const void* dinv, const void* b,
 
 }  // namespace
 
-// The panel design; panel_rows: 64, 32 or 16.
+// The panel design: k columns in `tiles` (1 to k) tiles, panels of
+// `rows` rows (a multiple of 8), register tiles of `row_tile` (4 or 8)
+// rows, `lsplit` (1 to s) slices of the inner index, at most
+// HF_SOLVE_MAX_THREADS threads (hf_solve_threads); anything else returns
+// cudaErrorInvalidValue.
 extern "C" int hf_banded_solve_f32(const void* m, const void* dinv,
                                    const void* b, const void* rhs, void* out,
-                                   int n, int nb, int s, int k, int kt,
-                                   int trans, int panel_rows, void* stream) {
-  return launch_solve<float>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
-                             panel_rows, stream);
+                                   int n, int nb, int s, int k, int tiles,
+                                   int trans, int rows, int row_tile,
+                                   int lsplit, void* stream) {
+  return launch_solve<float>(m, dinv, b, rhs, out, n, nb, s, k, tiles, trans,
+                             rows, row_tile, lsplit, stream);
 }
 
 extern "C" int hf_banded_solve_f64(const void* m, const void* dinv,
                                    const void* b, const void* rhs, void* out,
-                                   int n, int nb, int s, int k, int kt,
-                                   int trans, int panel_rows, void* stream) {
-  return launch_solve<double>(m, dinv, b, rhs, out, n, nb, s, k, kt, trans,
-                              panel_rows, stream);
+                                   int n, int nb, int s, int k, int tiles,
+                                   int trans, int rows, int row_tile,
+                                   int lsplit, void* stream) {
+  return launch_solve<double>(m, dinv, b, rhs, out, n, nb, s, k, tiles, trans,
+                              rows, row_tile, lsplit, stream);
 }
 
-extern "C" long long hf_solve_smem_bytes(int s, int kt, int panel_rows,
-                                         int itemsize) {
-  return (long long)(hf_solve_smem_elems(s, kt, panel_rows) * itemsize);
+extern "C" long long hf_solve_smem_bytes(int s, int k, int tiles, int rows,
+                                         int lsplit, int itemsize) {
+  if (tiles < 1 || rows < 1 || lsplit < 1) return -1;
+  return (long long)(hf_solve_smem_elems(s, k, tiles, rows, lsplit) * itemsize);
+}
+
+extern "C" int hf_solve_threads_of(int k, int tiles, int rows, int row_tile,
+                                   int lsplit) {
+  if (tiles < 1 || row_tile < 1) return -1;
+  return hf_solve_threads(k, tiles, rows, row_tile, lsplit);
 }
 
 // The streamed design (kt <= 7 columns a tile): c blocks per sample (1 to

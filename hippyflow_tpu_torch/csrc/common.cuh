@@ -3,8 +3,6 @@
 
 #include <cstddef>
 
-// Threads per block of K2.
-#define HF_THREADS 256
 // Threads per block of the Gauss-Jordan inverse (K3/K4).
 #define HF_GJ_THREADS 512
 // K1's row-panel Schur step: rows of a panel (one tile of outputs per
@@ -104,6 +102,23 @@ __device__ __forceinline__ void hf_load16(const T* p, T (&a)[n]) {
   }
 }
 
+// p[0..n) = a[0..n) in 16-byte stores (n whole vectors, p 16-byte
+// aligned).
+template <typename T, int n>
+__device__ __forceinline__ void hf_store16(T* p, const T (&a)[n]) {
+  using V = typename HfVec16<T>::type;
+  constexpr int m = sizeof(V) / sizeof(T);
+  static_assert(n % m == 0, "whole 16-byte vectors");
+#pragma unroll
+  for (int q = 0; q < n; q += m) {
+    V v;
+    T* t = reinterpret_cast<T*>(&v);
+#pragma unroll
+    for (int u = 0; u < m; ++u) t[u] = a[q + u];
+    *reinterpret_cast<V*>(p + q) = v;
+  }
+}
+
 #ifdef __CUDACC__
 // IEEE round-to-nearest reciprocals
 __device__ __forceinline__ float hf_rcp(float x) { return __frcp_rn(x); }
@@ -179,17 +194,39 @@ __device__ __forceinline__ void pivot_block_inverse(const T* P, int ldp,
 }
 #endif  // __CUDACC__
 
-// Rows of one factor panel of K2's panel design: 64, 32 or 16 (the host
-// picks them by s and the element size); 0 selects the streamed design.
-// Shared-memory elements of one K2 block: the panel (s x rows, panel
-// design only), and the carry and temporary of one (s, kt) column tile.
-__host__ __device__ inline std::size_t hf_solve_panel_elems(int s,
-                                                         int panel_rows) {
-  return (std::size_t)s * panel_rows;
+// K2's panel design (many rhs columns): the k columns in `tiles` column
+// tiles whose widths differ by at most one, a tile's carry padded to whole
+// register tiles of HF_SOLVE_COL_TILE columns; each thread accumulates an
+// RT x HF_SOLVE_COL_TILE tile of a product's output (RT = 4 or 8 rows of
+// op(H)) over one of `lsplit` slices of the inner index; at most
+// HF_SOLVE_MAX_THREADS threads a block.
+#define HF_SOLVE_COL_TILE 4
+#define HF_SOLVE_MAX_THREADS 512
+
+// Columns of the widest tile of k columns split into `tiles`, padded to
+// whole register tiles.
+__host__ __device__ inline int hf_solve_tile_cols(int k, int tiles) {
+  const int kt = (k + tiles - 1) / tiles;
+  return (kt + HF_SOLVE_COL_TILE - 1) / HF_SOLVE_COL_TILE * HF_SOLVE_COL_TILE;
 }
 
-inline std::size_t hf_solve_smem_elems(int s, int kt, int panel_rows) {
-  return hf_solve_panel_elems(s, panel_rows) + 2 * (std::size_t)s * kt;
+// Threads of one block: a thread per output tile of a panel of `rows`
+// rows and per slice of the inner index, in whole warps.
+inline int hf_solve_threads(int k, int tiles, int rows, int row_tile,
+                            int lsplit) {
+  const int work = rows / row_tile *
+                   (hf_solve_tile_cols(k, tiles) / HF_SOLVE_COL_TILE) * lsplit;
+  return (work + 31) / 32 * 32;
+}
+
+// Shared-memory elements of one block: the panel (s x rows, transposed),
+// the carry and its partner (s x padded tile columns each), and the
+// partial sums of the `lsplit` slices (rows x padded tile columns each).
+inline std::size_t hf_solve_smem_elems(int s, int k, int tiles, int rows,
+                                       int lsplit) {
+  const std::size_t kp = hf_solve_tile_cols(k, tiles);
+  return (std::size_t)s * rows + 2 * (std::size_t)s * kp +
+         (std::size_t)lsplit * rows * kp;
 }
 
 // K2's streamed design (few rhs columns): a cluster of c thread blocks per

@@ -32,7 +32,8 @@ register-tiled products, an in-place Gauss-Jordan in 13-wide pivot blocks
 with the next pivot block inverted beside the update; where its four
 s x s tiles fit: s <= 120 in float32, 84 in float64) and row panels
 (larger s, s=193 and 516; ``design=`` forces one), and K2's panel solve
-(many rhs columns; panel rows and column tile from ``solve_tiles``) and
+(many rhs columns: an even split of the columns into tiles, row panels
+that split s evenly and register tiles, from ``panel_geometry``) and
 streamed solve (fewer than 8: each block draws its slab of every factor
 block once through a ring of bulk copies that runs ahead of the
 recurrence); none is a plain version.
@@ -43,7 +44,8 @@ interface, at first use, into
 ``hippyflow_tpu_torch/_build/<hash of the sources and flags>/``, and loaded
 with ``ctypes``.  Each wrapper counts its launches in a ``launches``
 attribute (``batched_inverse.rank1_launches`` for K4,
-``banded_factorize.launches_by_design`` for K1's two designs;
+``banded_factorize.launches_by_design`` and
+``banded_solve.launches_by_design`` for K1's and K2's two designs;
 ``reset_launch_counts`` zeroes them all); K1's row design launches K3 once
 per block row from C, and counts those launches in
 ``batched_inverse.launches``.
@@ -51,6 +53,7 @@ per block row from C, and counts those launches in
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -72,8 +75,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-# Column-tile width of K2: each thread block owns this many rhs columns.
-SOLVE_TILE = 32
 # Pivot-block widths of K3 (the TPU kernel's 13) and K4.
 GJ_WIDTH = 13
 # Most thread blocks per matrix of K3/K4 (the portable cluster size), and
@@ -157,7 +158,7 @@ def _library():
             "hf_banded_factorize": [p, p, p, i, i, i, i, i, p],
             "hf_banded_factorize_rows": [p, p, p, i, i, i, i, i, p],
             "hf_schur_step": [p, p, p, i, i, i, i, p],
-            "hf_banded_solve": [p, p, p, p, p, i, i, i, i, i, i, i, p],
+            "hf_banded_solve": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
             "hf_banded_solve_stream": [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                        i, i, i, i, p],
             "hf_batched_inverse": [p, i, i, ll, i, i, p],
@@ -170,13 +171,15 @@ def _library():
         for name, argtypes in (
             ("hf_factorize_smem_bytes", [i, i, i]),
             ("hf_schur_smem_bytes", [i, i]),
-            ("hf_solve_smem_bytes", [i, i, i, i]),
+            ("hf_solve_smem_bytes", [i, i, i, i, i, i]),
             ("hf_stream_smem_bytes", [i, i, i, i, i, i, i, i]),
             ("hf_gj_smem_bytes", [i, i, i, i]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ll
+        lib.hf_solve_threads_of.argtypes = [i, i, i, i, i]
+        lib.hf_solve_threads_of.restype = i
         lib.hf_error_string.argtypes = [i]
         lib.hf_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -253,6 +256,7 @@ def reset_launch_counts() -> None:
     banded_factorize.launches_by_design = {"chain": 0, "rows": 0}
     schur_step_.launches = 0
     banded_solve.launches = 0
+    banded_solve.launches_by_design = {"panels": 0, "streamed": 0}
     batched_inverse.launches = 0
     batched_inverse.rank1_launches = 0
 
@@ -686,26 +690,41 @@ def stream_slabs(s: int, c: int):
     return [(r * s // c, (r + 1) * s // c) for r in range(c)]
 
 
-def banded_solve_plain(M, Dinv, B, bb, trans: bool, slices: int = 1):
+def banded_solve_plain(M, Dinv, B, bb, trans: bool, slices: int = 1,
+                       column_tiles: int = 1, lsplit: int = 1):
     """Plain PyTorch back-solve through (M, Dinv, B), each (N, nb, s, s);
     bb (N, nb, s, k) -> x (N, nb, s, k) with A x = b, or A^T x = b.
 
     ``slices`` runs the schedule of a cluster of that many blocks of the
     streamed design: every product is formed slab by slab over the row
     ranges of ``stream_slabs``: H v as the rows of each slab in turn,
-    H^T v as the partial sums over each slab's rows, added up."""
-    nb, s = M.shape[1], M.shape[-1]
+    H^T v as the partial sums over each slab's rows, added up.
+    ``column_tiles`` and ``lsplit`` run the panel design's: the column
+    tiles of ``column_split`` one after another, every product the sum of
+    its partial products over ``lsplit`` slices of its inner index (the
+    ranges of ``stream_slabs``), added in order."""
+    nb, s, k = M.shape[1], M.shape[-1], bb.shape[-1]
     if not 1 <= slices <= max(s, 1):
         raise ValueError(f"slices={slices}: from 1 to s={s}")
-    slabs = stream_slabs(s, slices)
+    if not 1 <= lsplit <= max(s, 1) or (lsplit > 1 and slices > 1):
+        raise ValueError(f"lsplit={lsplit}: from 1 to s={s}, and slices=1")
+    if not 1 <= column_tiles <= max(k, 1):
+        raise ValueError(f"column_tiles={column_tiles}: from 1 to k={k}")
+    if column_tiles > 1:
+        return torch.cat([banded_solve_plain(M, Dinv, B, bb[..., lo:hi], trans,
+                                             slices, 1, lsplit)
+                          for lo, hi in column_split(k, column_tiles)], dim=-1)
+    slabs = stream_slabs(s, max(slices, lsplit))
 
     def mul(H, v):  # H v
-        if slices == 1:
+        if slices == 1 and lsplit == 1:
             return H @ v
+        if lsplit > 1:
+            return sum(H[..., lo:hi] @ v[:, lo:hi] for lo, hi in slabs)
         return torch.cat([H[:, lo:hi] @ v for lo, hi in slabs], dim=1)
 
     def mul_t(H, v):  # H^T v
-        if slices == 1:
+        if slices == 1 and lsplit == 1:
             return H.mT @ v
         return sum(H[:, lo:hi].mT @ v[:, lo:hi] for lo, hi in slabs)
 
@@ -733,8 +752,20 @@ def banded_solve_plain(M, Dinv, B, bb, trans: bool, slices: int = 1):
 # ring of stages, in clusters of thread blocks; measured on the H100 at
 # s=65 and s=193
 PANELS_MIN_K = 8
-# Rows of K2's factor panel, widest first
-PANEL_ROWS = (64, 32, 16)
+# The panel design (csrc/common.cuh): columns of a thread's register tile,
+# its rows (the kernel's two templates), the most threads of a block, the
+# multiple of 8 rows a panel has, and the most blocks that share an SM
+# (the kernel's launch bounds keep two within the registers)
+SOLVE_COL_TILE = 4
+SOLVE_ROW_TILES = (4, 8)
+SOLVE_MAX_THREADS = 512
+PANEL_ROW_STEP = 8
+PANEL_MAX_SHARE = 2
+# The panel design's rule (``panel_geometry``): the threads of a block it
+# prefers (8 warps) and the fewest rows of a panel it takes where a wider
+# one fits at more column tiles
+SOLVE_GOOD_THREADS = 256
+PANEL_MIN_ROWS = 16
 # The streamed design (csrc/common.cuh): most columns of a tile, blocks of a
 # cluster, stages of a ring and warps of a block (in a cluster, and on its
 # own); the bytes of its ring barriers and chunk offsets; the most bytes of
@@ -856,14 +887,158 @@ def stream_geometry(blocks: int, s: int, kt: int, itemsize: int, c: int,
     return None
 
 
-def solve_tiles(s: int, k: int, itemsize: int, limit: int,
-                panels: bool | None = None):
-    """(panel rows, column tile) of K2 for s, k and the element size under
-    a shared-memory limit in bytes: the panel design (panels=None: from
-    k >= PANELS_MIN_K) takes the widest column tile, up to SOLVE_TILE,
-    then the widest panel that fit; the streamed design (panel rows 0) the
-    widest column tile, up to STREAM_MAX_COLS, whose transposed solve fits
-    in one block per sample.  None when nothing fits."""
+def column_split(k: int, tiles: int):
+    """The column ranges [lo, hi) of K2's panel design at k columns in
+    ``tiles`` tiles: widths that differ by at most one."""
+    return [(y * k // tiles, (y + 1) * k // tiles) for y in range(tiles)]
+
+
+def solve_tile_cols(k: int, tiles: int) -> int:
+    """Columns of the widest tile of ``column_split``, padded to whole
+    register tiles (the mirror of ``hf_solve_tile_cols``)."""
+    return -(-(-(-k // tiles)) // SOLVE_COL_TILE) * SOLVE_COL_TILE
+
+
+def panel_row_options(s: int):
+    """The panel widths of K2's panel design at block size s, widest
+    first: for each number of panels the fewest rows (a multiple of
+    PANEL_ROW_STEP) that cover s, where the rows past s are at most s / 8;
+    where no width keeps to that (s < 64), those of the fewest rows past
+    s."""
+    step = PANEL_ROW_STEP
+    widths = sorted({step * -(-(-(-s // n)) // step) for n in range(1, s + 1)},
+                    reverse=True)
+    past = {w: -(-s // w) * w - s for w in widths}
+    least = min(past.values())
+    keep = [w for w in widths if 8 * past[w] <= s]
+    return keep or [w for w in widths if past[w] == least]
+
+
+def solve_threads(k: int, tiles: int, rows: int, row_tile: int, lsplit: int) -> int:
+    """Threads of one block of K2's panel design (the mirror of
+    ``hf_solve_threads``): one per output tile of a panel and slice of the
+    inner index, in whole warps."""
+    work = rows // row_tile * (solve_tile_cols(k, tiles) // SOLVE_COL_TILE) * lsplit
+    return 32 * -(-work // 32)
+
+
+def solve_smem_bytes(s: int, k: int, tiles: int, rows: int, lsplit: int,
+                     itemsize: int) -> int:
+    """Shared memory of one block of K2's panel design (the mirror of
+    ``hf_solve_smem_bytes``): the panel, the carry twice, the slices'
+    partial sums."""
+    kp = solve_tile_cols(k, tiles)
+    return (s * rows + 2 * s * kp + lsplit * rows * kp) * itemsize
+
+
+def panel_lsplit(s: int, k: int, tiles: int, rows: int, row_tile: int) -> int:
+    """Slices of the inner index of K2's panel design: as many as the
+    block's threads take (at most SOLVE_MAX_THREADS, one per output tile
+    and slice), no slice shorter than 16 indices; 0 where the output tiles
+    of one panel alone need more threads."""
+    tiles_out = rows // row_tile * (solve_tile_cols(k, tiles) // SOLVE_COL_TILE)
+    return min(SOLVE_MAX_THREADS // tiles_out, max(1, s // 16))
+
+
+PanelGeometry = collections.namedtuple(
+    "PanelGeometry", "tiles rows row_tile lsplit threads smem_bytes share")
+
+
+@functools.lru_cache(maxsize=None)
+def panel_geometry(n: int, s: int, k: int, itemsize: int, sm_count: int,
+                   limit: int, sm_smem: int, tiles: int | None = None,
+                   rows: int | None = None, row_tile: int | None = None,
+                   lsplit: int | None = None):
+    """The geometry of K2's panel design for n samples of block size s and
+    k rhs columns on a card of ``sm_count`` SMs with ``limit`` bytes of
+    shared memory a block and ``sm_smem`` an SM: (column tiles, panel rows,
+    register-tile rows, slices of the inner index, threads, bytes, blocks
+    that share an SM), or None where nothing fits.  ``tiles``, ``rows``,
+    ``row_tile`` and ``lsplit`` force their part (rows must be a multiple
+    of PANEL_ROW_STEP, row_tile one of SOLVE_ROW_TILES, lsplit at most what
+    ``panel_lsplit`` allows).
+
+    Each block reads its sample's whole factor whatever its columns, so
+    more tiles cost L2 reads, and nothing overlaps a panel's fill but
+    another block's products.  The rule, fitted to
+    ``ops/panel_solve_sweep.py`` at the lanes' shapes (``PERF.md``):
+    the fewest column tiles from sm_count // n (at least 1: one block for
+    each SM, two waves cost twice) at which a panel of at least
+    PANEL_MIN_ROWS rows fits (float64 at s=516: 13, not 10 with 8-row
+    panels); there, of the geometries of ``panel_fits`` (every slice count
+    that fits), those with SOLVE_GOOD_THREADS threads where any has, then
+    the most blocks an SM up to what the grid puts on one, the widest
+    panel, the register tile that does not spill (8 rows in float32, 4 in
+    float64: 312 bytes of spills at 8), and the most slices."""
+    if not (1 <= k and 1 <= s):
+        return None
+    base = min(k, max(1, sm_count // max(n, 1)))
+    first = None
+    for t in [tiles] if tiles is not None else range(base, k + 1):
+        if not 1 <= t <= k:
+            continue
+        pick = _panel_fit(s, k, t, itemsize, limit, sm_smem, rows, row_tile,
+                          lsplit, -(-n * t // sm_count))
+        if pick is not None and (pick.rows >= PANEL_MIN_ROWS or tiles is not None):
+            return pick
+        first = first or pick
+    return first
+
+
+def panel_fits(s, k, t, itemsize, limit, sm_smem, r_opts=None, rt_opts=None,
+               lsplit=None):
+    """Every geometry of K2's panel design at t column tiles that fits one
+    block under ``limit`` (panel rows of ``r_opts``, register tiles of
+    ``rt_opts``, the slices of ``panel_lsplit`` halved until the block
+    fits, or ``lsplit``), each with the blocks that share an SM
+    (PANEL_MAX_SHARE where ``sm_smem`` holds them)."""
+    fits = []
+    for r in panel_row_options(s) if r_opts is None else r_opts:
+        for rt in SOLVE_ROW_TILES if rt_opts is None else rt_opts:
+            if r < PANEL_ROW_STEP or r % PANEL_ROW_STEP or rt not in SOLVE_ROW_TILES:
+                continue
+            most = panel_lsplit(s, k, t, r, rt)
+            ls = most if lsplit is None else lsplit
+            if not 1 <= ls <= min(max(most, 1), s):
+                continue
+            while ls >= 1:
+                need = solve_smem_bytes(s, k, t, r, ls, itemsize)
+                if need <= limit:
+                    share = max(1, min(PANEL_MAX_SHARE,
+                                       sm_smem // (need + BLOCK_SMEM_RESERVE)))
+                    fits.append(PanelGeometry(t, r, rt, ls,
+                                              solve_threads(k, t, r, rt, ls),
+                                              need, share))
+                    break
+                ls = ls // 2 if lsplit is None else 0
+    return fits
+
+
+def _panel_fit(s, k, t, itemsize, limit, sm_smem, rows, row_tile, lsplit,
+               waves):
+    """The geometry ``panel_geometry`` takes at t column tiles (``rows``,
+    ``row_tile``, ``lsplit`` forced where given) for a grid of ``waves``
+    blocks an SM, or None."""
+    fits = []
+    for ls in [lsplit] if lsplit is not None else range(1, max(1, s // 16) + 1):
+        fits += panel_fits(s, k, t, itemsize, limit, sm_smem,
+                           None if rows is None else [rows],
+                           None if row_tile is None else [row_tile], ls)
+    if not fits:
+        return None
+    good = min(SOLVE_GOOD_THREADS, max(g.threads for g in fits))
+    tall = SOLVE_ROW_TILES[-1] if itemsize == 4 else SOLVE_ROW_TILES[0]
+    return max(fits, key=lambda g: (g.threads >= good, min(g.share, waves),
+                                    g.rows, g.row_tile == tall, g.lsplit))
+
+
+def solve_tiles(n: int, s: int, k: int, itemsize: int, sm_count: int,
+                limit: int, sm_smem: int, panels: bool | None = None):
+    """(panel rows, column tiles) of K2 for n samples, s and k: the panel
+    design (panels=None: from k >= PANELS_MIN_K) as ``panel_geometry``
+    picks it; the streamed design (panel rows 0) the widest column tile,
+    up to STREAM_MAX_COLS, whose transposed solve fits in one block per
+    sample, as (0, column tile).  None when nothing fits."""
     if panels is None:
         panels = k >= PANELS_MIN_K
     if not panels:
@@ -872,27 +1047,28 @@ def solve_tiles(s: int, k: int, itemsize: int, limit: int,
             if stream_smem_bytes(s, kt, 1, 1, 2, rsplit, True, itemsize) <= limit:
                 return 0, kt
         return None
-    need = lambda rows, kt: (s * rows + 2 * s * kt) * itemsize
-    kt = max(1, min(SOLVE_TILE, k))
-    while kt >= 1:
-        for rows in PANEL_ROWS:
-            if need(rows, kt) <= limit:
-                return rows, kt
-        kt //= 2
-    return None
+    geo = panel_geometry(n, s, k, itemsize, sm_count, limit, sm_smem)
+    return None if geo is None else (geo.rows, geo.tiles)
 
 
 def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None,
                  cluster: int | None = None):
     """K2.  M, Dinv, B (N, nb, s, s); bb (N, nb, s, k) -> x (N, nb, s, k)
     with A x = b (trans=False) or A^T x = b (trans=True).  On the card,
-    ``tiles`` (panel rows, column tile) forces a design (panel rows 0: the
-    streamed one, whose column tile is at most STREAM_MAX_COLS); None takes
-    ``solve_tiles``'s choice.  ``cluster`` forces the thread blocks per
-    sample of the streamed design (1 to STREAM_MAX_CLUSTER; the kernel
-    refuses others, and the panel design takes none); None takes
-    ``stream_cluster``'s choice.  On the CPU the plain version runs the
-    products in ``cluster`` slabs (None: 1)."""
+    ``tiles`` forces a design: (0, column tile) the streamed one (a column
+    tile of at most STREAM_MAX_COLS); (panel rows, column tiles) or (panel
+    rows, column tiles, register-tile rows[, slices]) the panel one, the k
+    columns split into that many tiles whose widths differ by at most one
+    (``column_split``), with panels of that many rows (a multiple of
+    PANEL_ROW_STEP), register tiles of SOLVE_ROW_TILES rows (unset: as the
+    rule takes them) and that many slices of the inner index (unset: as
+    the rule takes them); a geometry that does not fit raises ValueError.
+    None takes the streamed design below PANELS_MIN_K columns and
+    ``panel_geometry``'s choice from it.  ``cluster`` forces
+    the thread blocks per sample of the streamed design (1 to
+    STREAM_MAX_CLUSTER; the kernel refuses others, and the panel design
+    takes none); None takes ``stream_cluster``'s choice.  On the CPU the
+    plain version runs the products in ``cluster`` slabs (None: 1)."""
     if bb.device.type == "cpu":
         return banded_solve_plain(M, Dinv, B, bb, trans,
                                   1 if cluster is None else cluster)
@@ -906,16 +1082,18 @@ def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None,
     dev = bb.device
     item, limit = bb.element_size(), _smem_limit(dev)
     if tiles is None:
-        tiles = solve_tiles(s, k, item, limit)
+        tiles = solve_tiles(N, s, k, item, _sm_count(dev), limit, _sm_smem(dev))
         if tiles is None:
             raise ValueError(
                 f"banded_solve: no panel and column tile of s={s}, k={k} fits "
                 f"the card's {limit} bytes of shared memory per block"
             )
-    rows, kt = tiles
-    if rows not in (0,) + PANEL_ROWS or kt < 1:
+    tiles = tuple(tiles)
+    if not (len(tiles) in (2, 3, 4) and tiles[0] >= 0 and tiles[1] >= 1
+            and (tiles[0] > 0 or len(tiles) == 2)):
         raise ValueError(f"banded_solve: tiles={tiles!r}")
-    if rows == 0 and kt > STREAM_MAX_COLS:
+    rows = tiles[0]
+    if rows == 0 and tiles[1] > STREAM_MAX_COLS:
         raise ValueError(f"banded_solve: tiles={tiles!r}: the streamed design "
                          f"takes column tiles of at most {STREAM_MAX_COLS}")
     if rows > 0 and cluster is not None:
@@ -923,12 +1101,26 @@ def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None,
                          f"design, not to tiles={tiles!r}")
     out = torch.empty_like(bb)
     args = (M.data_ptr(), Dinv.data_ptr(), B.data_ptr(), bb.data_ptr(),
-            out.data_ptr(), N, nb, s, k, kt, int(bool(trans)))
+            out.data_ptr(), N, nb, s, k)
     if rows > 0:
-        _smem_check("banded_solve", lib.hf_solve_smem_bytes(s, kt, rows, item),
+        geo = panel_geometry(N, s, k, item, _sm_count(dev), limit,
+                             _sm_smem(dev), tiles=tiles[1], rows=rows,
+                             row_tile=tiles[2] if len(tiles) > 2 else None,
+                             lsplit=tiles[3] if len(tiles) > 3 else None)
+        if geo is None:
+            raise ValueError(
+                f"banded_solve: tiles={tiles!r} at s={s}, k={k}: not a panel "
+                f"geometry the kernel takes within the card's {limit} bytes "
+                "of shared memory per block")
+        _smem_check("banded_solve",
+                    lib.hf_solve_smem_bytes(s, k, geo.tiles, geo.rows, geo.lsplit,
+                                            item),
                     dev, f"the solve at s={s} with tiles {tiles}")
-        stem, args = "hf_banded_solve", args + (rows,)
+        stem = "hf_banded_solve"
+        args += (geo.tiles, int(bool(trans)), geo.rows, geo.row_tile, geo.lsplit)
+        design = "panels"
     else:
+        kt = tiles[1]
         blocks = N * -(-k // kt)
         if cluster is None:
             cluster = stream_cluster(blocks, s, _sm_count(dev))
@@ -944,13 +1136,16 @@ def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None,
         # a cluster size the kernel does not take goes to it all the same,
         # with one block's geometry, and is refused there
         stem = "hf_banded_solve_stream"
-        args += (cluster,) + (geometry or (1, 2, 64, 1, 32))[:5]
+        args += (kt, int(bool(trans)), cluster) + (geometry or (1, 2, 64, 1, 32))[:5]
+        design = "streamed"
     if N == 0 or nb == 0 or k == 0:
         return out
     _launch(lib, getattr(lib, f"{stem}_{_suffix(bb.dtype)}"), "banded_solve",
             dev, *args)
     banded_solve.launches += 1
+    banded_solve.launches_by_design[design] += 1
     return out
 
 
 banded_solve.launches = 0
+banded_solve.launches_by_design = {"panels": 0, "streamed": 0}

@@ -506,10 +506,13 @@ def test_solve_streamed_refuses_what_it_does_not_take(cuda):
     assert hk.banded_solve.launches == 0
 
 
-def _designs(s, k, item, limit):
-    """K2's (panel rows, column tile) for the streamed and the panel design
-    at s and k, each the widest that fits."""
-    return [hk.solve_tiles(s, k, item, limit, panels=p) for p in (False, True)]
+def _designs(s, k, item, device):
+    """K2's tiles for the streamed design (0, its widest column tile) and
+    the panel design (panel rows, column tiles) at two samples of s and k,
+    as the wrapper picks them."""
+    return [hk.solve_tiles(2, s, k, item, hk._sm_count(device),
+                           hk._smem_limit(device), hk._sm_smem(device), panels=p)
+            for p in (False, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -538,7 +541,7 @@ def test_kernels_at_the_new_block_sizes(cuda, dtype, s):
     for k in (1, 200):
         bb = torch.randn(2, nb, s, k, dtype=torch.float64, device=cuda,
                          generator=gen)
-        for tiles in _designs(s, k, item, limit):
+        for tiles in _designs(s, k, item, cuda):
             for trans in (False, True):
                 x = hk.banded_solve(M, Dinv, B, bb.to(dtype), trans, tiles=tiles)
                 x_p = hk.banded_solve_plain(M, Dinv, B, bb.to(dtype), trans)
@@ -557,34 +560,116 @@ def test_kernels_at_the_new_block_sizes(cuda, dtype, s):
     assert _rel(Y, Y_p) < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype,tiles", [(torch.float32, (32, 32)),
-                                         (torch.float64, (16, 16))])
+@pytest.mark.parametrize("dtype,tiles", [(torch.float32, (48, 8)),
+                                         (torch.float64, (16, 13))])
 def test_solve_panel_choice_at_s516(cuda, dtype, tiles):
-    """At s=516 a 64-row float64 panel alone exceeds shared memory: the
-    wrapper takes 16 rows and 16 columns in float64 and 32 and 32 in
-    float32, and every panel that fits gives the same solve."""
-    s, nb, k = 516, 3, 200
-    limit = hk._smem_limit(cuda)
-    assert hk.solve_tiles(s, k, torch.finfo(dtype).bits // 8, limit) == tiles
-    band = _band(s, 1, dtype, cuda, seed=6, nb=nb)
-    M, Dinv = hk.banded_factorize(band)
-    B = band[..., 2 * s :].contiguous()
-    bb = torch.randn(1, nb, s, k, dtype=dtype, device=cuda)
+    """At s=516 (helmholtz, N=16, k=200) the wrapper takes the geometry
+    ``panel_geometry`` picks for the card (on the H100: 8 column tiles and
+    48-row panels in float32; in float64 13 tiles and 16-row panels, as 10
+    to 12 tiles fit only 8-row ones); every geometry that fits at its
+    column split and one tile fewer and more gives the same solve, and a
+    forced panel that does not fit raises before any launch."""
+    s, nb, k, N = 516, 2, 200, 16
+    item = torch.finfo(dtype).bits // 8
+    limit, sm, sm_smem = hk._smem_limit(cuda), hk._sm_count(cuda), hk._sm_smem(cuda)
+    picked = hk.panel_geometry(N, s, k, item, sm, limit, sm_smem)
+    assert hk.solve_tiles(N, s, k, item, sm, limit, sm_smem) == (picked.rows,
+                                                                 picked.tiles)
+    if (sm, limit) == (132, 232448):
+        assert (picked.rows, picked.tiles) == tiles
+    M, Dinv, B, _ = _factor(s, N, nb, dtype, cuda, seed=6)
+    bb = torch.randn(N, nb, s, k, dtype=dtype, device=cuda)
     x_p = hk.banded_solve_plain(M, Dinv, B, bb, True)
     hk.reset_launch_counts()
     x = hk.banded_solve(M, Dinv, B, bb, True)
-    assert hk.banded_solve.launches == 1
-    for other in ((64, 8), (32, 16), (32, 8), (16, 32), (16, 8)):
-        lib = hk._library()
-        if lib.hf_solve_smem_bytes(s, other[1], other[0], band.element_size()) > limit:
-            with pytest.raises(ValueError, match="shared memory"):
-                hk.banded_solve(M, Dinv, B, bb, True, tiles=other)
-            continue
-        y = hk.banded_solve(M, Dinv, B, bb, True, tiles=other)
-        torch.cuda.synchronize()
-        assert _rel(y, x_p) < TOL[dtype], other
     torch.cuda.synchronize()
+    assert hk.banded_solve.launches_by_design == {"panels": 1, "streamed": 0}
     assert _rel(x, x_p) < TOL[dtype]
+    for t in (picked.tiles - 1, picked.tiles, picked.tiles + 1):
+        for g in hk.panel_fits(s, k, t, item, limit, sm_smem):
+            y = hk.banded_solve(M, Dinv, B, bb, True, tiles=(g.rows, t, g.row_tile))
+            torch.cuda.synchronize()
+            assert _rel(y, x_p) < TOL[dtype], g
+    with pytest.raises(ValueError, match="shared memory"):
+        hk.banded_solve(M, Dinv, B, bb, True, tiles=(520, 1))
+
+
+@pytest.mark.parametrize("k", [8, 13, 100, 200])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s", [17, 25, 33, 49, 65, 97, 193, 516])
+def test_solve_panel_geometries_match_plain(cuda, s, dtype, trans, k):
+    """K2's panel design at every block size of the lanes with forced
+    column splits (1 tile, 3, the picked one, one column a tile) and every
+    panel width and register tile that fits, against the plain version and
+    as a residual of the band: ragged and one-column tiles, padded panels,
+    register tiles past the last row or column."""
+    nb = 2 if s == 516 else 3
+    M, Dinv, B, band = _factor(s, 2, nb, dtype, cuda, seed=s + k)
+    bb = torch.randn(2, nb, s, k, dtype=torch.float64, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(k))
+    x_p = hk.banded_solve_plain(M, Dinv, B, bb.to(dtype), trans)
+    limit, sm_smem = hk._smem_limit(cuda), hk._sm_smem(cuda)
+    item = torch.finfo(dtype).bits // 8
+    picked = hk.panel_geometry(2, s, k, item, hk._sm_count(cuda), limit, sm_smem)
+    apply = block_tridiag_matmat_trans if trans else block_tridiag_matmat
+    bf = bb.reshape(2, nb * s, k)
+    hk.reset_launch_counts()
+    count = 0
+    for t in sorted({1, min(3, k), picked.tiles, k}):
+        fits = hk.panel_fits(s, k, t, item, limit, sm_smem)
+        assert fits or t < picked.tiles, t
+        for g in fits:
+            x = hk.banded_solve(M, Dinv, B, bb.to(dtype), trans,
+                               tiles=(g.rows, t, g.row_tile))
+            torch.cuda.synchronize()
+            count += 1
+            assert _rel(x, x_p) < TOL[dtype], g
+            res = torch.linalg.vector_norm(
+                apply(band, x.double().reshape(2, nb * s, k)) - bf
+            ) / torch.linalg.vector_norm(bf)
+            assert res.item() < (1e-4 if dtype == torch.float32 else 1e-12), g
+    assert hk.banded_solve.launches_by_design == {"panels": count, "streamed": 0}
+
+
+@pytest.mark.parametrize("s,k,item", [(65, 100, 4), (193, 100, 8), (516, 200, 4),
+                                      (516, 200, 8), (17, 13, 8), (97, 8, 4)])
+def test_panel_geometry_mirrors_the_library(cuda, s, k, item):
+    """The wrapper's count of the panel design's shared memory and threads
+    is the library's at every geometry that fits."""
+    lib = hk._library()
+    for t in (1, 2, 7, 8, 13, k):
+        for g in hk.panel_fits(s, k, min(t, k), item, hk._smem_limit(cuda),
+                               hk._sm_smem(cuda)):
+            assert lib.hf_solve_smem_bytes(s, k, g.tiles, g.rows, g.lsplit,
+                                           item) == g.smem_bytes
+            assert lib.hf_solve_threads_of(k, g.tiles, g.rows, g.row_tile,
+                                           g.lsplit) == g.threads
+
+
+def test_solve_panels_refuse_what_they_do_not_take(cuda):
+    """The library refuses a panel width that is not a multiple of 8, a
+    register tile it was not built for, column splits outside 1 to k, no
+    slices or more than s, and more threads than a block takes; the
+    wrapper raises on a forced geometry it cannot place before any launch;
+    no other path runs."""
+    M, Dinv, B, _ = _factor(65, 2, 3, torch.float32, cuda, seed=1)
+    bb = torch.randn(2, 3, 65, 40, device=cuda)
+    out = torch.empty_like(bb)
+    lib = hk._library()
+    hk.reset_launch_counts()
+    for bad in ((2, 12, 4, 1), (2, 72, 6, 1), (0, 72, 4, 1), (41, 72, 4, 1),
+                (2, 72, 4, 0), (2, 72, 4, 66), (1, 72, 4, 3)):
+        t, rows, rt, ls = bad
+        with pytest.raises(RuntimeError, match="launch failed"):
+            hk._launch(lib, lib.hf_banded_solve_f32, "banded_solve", cuda,
+                       M.data_ptr(), Dinv.data_ptr(), B.data_ptr(), bb.data_ptr(),
+                       out.data_ptr(), 2, 3, 65, 40, t, 1, rows, rt, ls)
+    for tiles in ((12, 2), (72, 41), (72, 0), (72, 2, 6), (72, 2, 4, 9),
+                  (72, 2, 4, 1, 1)):
+        with pytest.raises(ValueError, match="tiles"):
+            hk.banded_solve(M, Dinv, B, bb, True, tiles=tiles)
+    assert hk.banded_solve.launches == 0
 
 
 def test_solve_refuses_a_size_no_design_takes(cuda):

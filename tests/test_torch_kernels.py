@@ -167,6 +167,42 @@ def test_solve_plain_refuses_more_slabs_than_rows():
             hk.banded_solve_plain(blk, blk, blk, blk[..., :1], False, slices=slices)
 
 
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k", [8, 13, 100])
+@pytest.mark.parametrize("nx", [16, 32, 64])
+def test_solve_plain_in_column_tiles_matches_pallas_interpret(nx, k, trans):
+    """The schedule of K2's panel design (the column tiles of its even
+    split solved one after another, every product summed over slices of
+    its inner index) equals the interpret-mode Pallas sweeps, at the split
+    ``panel_geometry`` picks for 2 samples in float64 on the H100 and at 3
+    tiles and 2 slices, at the block sizes s = nx + 1 of the nx=64 lane and
+    its coarse levels (4 block rows of each band)."""
+    band = _random_band(nx, 2, seed=nx + k)[:, :4]
+    band[:, -1, :, 2 * (nx + 1):] = 0.0
+    ref_fac = jax.vmap(_factorize_thomas_inv_banded)(jnp.asarray(band))
+    rhs = _rhs(band, k, seed=k)
+    want = np.asarray(banded_solve_batch(
+        ref_fac.M, ref_fac.Dinv, ref_fac.B, jnp.asarray(rhs), trans,
+        interpret=True,
+    ))
+    fac = interop.inverse_thomas_factor(*map(np.asarray, ref_fac), **F64)
+    bb = interop.tensor(rhs, **F64)
+    geo = hk.panel_geometry(2, nx + 1, k, 8, 132, H100_SMEM, H100_SM_SMEM)
+    for tiles, lsplit in {(geo.tiles, geo.lsplit), (3, 2)}:
+        got = hk.banded_solve_plain(fac.M, fac.Dinv, fac.B, bb, trans,
+                                    column_tiles=tiles, lsplit=lsplit)
+        np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def test_solve_plain_refuses_splits_it_does_not_take():
+    blk = torch.zeros((1, 2, 3, 3), **F64)
+    bb = torch.zeros((1, 2, 3, 4), **F64)
+    for kw in (dict(column_tiles=0), dict(column_tiles=5), dict(lsplit=0),
+               dict(lsplit=4), dict(lsplit=2, slices=2)):
+        with pytest.raises(ValueError, match="column_tiles|lsplit"):
+            hk.banded_solve_plain(blk, blk, blk, bb, True, **kw)
+
+
 @pytest.mark.parametrize("kind", ["random", "confusion"])
 @pytest.mark.parametrize("trans", [False, True])
 def test_factor_solves_the_system(kind, trans):
@@ -267,12 +303,17 @@ H100_SMEM = 232448  # shared memory one block may opt into on the H100
 H100_SM_SMEM = 233472  # shared memory of one of its SMs
 
 
+# samples of the lanes' solves at each block size: the nx=64 chunk, the
+# nx=192 Jacobian chunk, the helmholtz chunk, one
+LANE_SAMPLES = {65: 256, 193: 16, 516: 16, 2000: 1}
+
+
 @pytest.mark.parametrize("s,k,itemsize,want", [
-    (65, 100, 4, (64, 32)),  # the nx=64 Jacobian solve
+    (65, 100, 4, (72, 1)),  # the nx=64 Jacobian solve: one tile, one panel
     (65, 1, 4, (0, 1)),  # the Newton solves: streamed
-    (193, 100, 8, (64, 32)),  # 198 KB
-    (516, 200, 4, (32, 32)),  # helmholtz: a 64-row panel forces kt=16
-    (516, 200, 8, (16, 16)),  # one 64-row float64 panel alone is 264 KB
+    (193, 100, 8, (72, 8)),  # the nx=192 Jacobian: 8 tiles of 12-13
+    (516, 200, 4, (48, 8)),  # helmholtz: 8 tiles of 25
+    (516, 200, 8, (16, 13)),  # 10-12 tiles fit only 8-row panels
     (516, 1, 8, (0, 1)),
     (516, 4, 8, (0, 4)),
     (516, 7, 4, (0, 7)),  # the streamed design's widest column tile
@@ -280,14 +321,16 @@ H100_SM_SMEM = 233472  # shared memory of one of its SMs
     (2000, 200, 8, None),  # no panel fits: the wrapper raises
 ])
 def test_solve_tiles_pick_the_widest_tile_then_panel(s, k, itemsize, want):
-    """K2's panel rows and column tile under the H100's shared memory: the
-    widest column tile first, then the widest panel, and the total always
-    within the limit."""
-    got = hk.solve_tiles(s, k, itemsize, H100_SMEM)
+    """K2's design and geometry under the H100's shared memory at the
+    lanes' sample counts: the streamed design's widest column tile below
+    PANELS_MIN_K columns, the panel design's (panel rows, column tiles)
+    from ``panel_geometry`` from it, within the limit."""
+    n = LANE_SAMPLES[s]
+    got = hk.solve_tiles(n, s, k, itemsize, 132, H100_SMEM, H100_SM_SMEM)
     assert got == want
     if got is not None and got[0] > 0:
-        rows, kt = got
-        assert (s * rows + 2 * s * kt) * itemsize <= H100_SMEM
+        geo = hk.panel_geometry(n, s, k, itemsize, 132, H100_SMEM, H100_SM_SMEM)
+        assert (geo.rows, geo.tiles) == got and geo.smem_bytes <= H100_SMEM
     elif got is not None:
         for trans in (False, True):
             assert hk.stream_geometry(1, s, got[1], itemsize, 1, trans, 132,
@@ -297,8 +340,108 @@ def test_solve_tiles_pick_the_widest_tile_then_panel(s, k, itemsize, want):
 def test_solve_tiles_stream_many_columns_in_tiles_of_seven():
     """The streamed design forced at many columns takes column tiles of at
     most STREAM_MAX_COLS."""
-    assert hk.solve_tiles(65, 200, 4, H100_SMEM, panels=False) == (0, 7)
-    assert hk.solve_tiles(516, 200, 8, H100_SMEM, panels=False) == (0, 7)
+    for s, item in ((65, 4), (516, 8)):
+        assert hk.solve_tiles(16, s, 200, item, 132, H100_SMEM, H100_SM_SMEM,
+                              panels=False) == (0, 7)
+
+
+# the panel design's shapes: the lanes' (nx=64 Jacobian chunk, nx=192
+# Jacobian chunk, helmholtz), their coarse block sizes, small and ragged ones
+PANEL_SHAPES = [(256, 65, 100), (16, 193, 100), (16, 516, 200), (32, 193, 100),
+                (1024, 33, 100), (1024, 17, 100), (32, 97, 100), (2, 65, 8),
+                (2, 17, 13), (5, 49, 40), (3, 516, 8), (1, 25, 200)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n,s,k", PANEL_SHAPES)
+def test_panel_geometry_splits_and_fits(n, s, k, itemsize):
+    """The picked geometry: column tiles that cover k in order with widths
+    that differ by at most one (the widest within the padded tile), panels
+    whose rows past s are at most s / 8 where a width allows it, the block
+    within the card's shared memory (and two of them within an SM's where
+    it counts two an SM), whole warps of at most SOLVE_MAX_THREADS threads
+    that cover every output tile and slice; the column split, the threads
+    and the panel as the rule takes them."""
+    geo = hk.panel_geometry(n, s, k, itemsize, 132, H100_SMEM, H100_SM_SMEM)
+    t, rows, rt, ls = geo.tiles, geo.rows, geo.row_tile, geo.lsplit
+    cols = hk.column_split(k, t)
+    assert cols[0][0] == 0 and cols[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(cols, cols[1:]))
+    widths = [hi - lo for lo, hi in cols]
+    assert min(widths) >= 1 and max(widths) - min(widths) <= 1
+    kp = hk.solve_tile_cols(k, t)
+    assert kp % hk.SOLVE_COL_TILE == 0 and max(widths) <= kp < max(widths) + 4
+    assert rows % hk.PANEL_ROW_STEP == 0 and rows % rt == 0
+    assert rows in hk.panel_row_options(s)
+    past = -(-s // rows) * rows - s
+    assert 8 * past <= s or s < 64
+    assert geo.smem_bytes == hk.solve_smem_bytes(s, k, t, rows, ls, itemsize)
+    assert geo.smem_bytes <= H100_SMEM
+    assert geo.share * (geo.smem_bytes + hk.BLOCK_SMEM_RESERVE) <= H100_SM_SMEM
+    work = rows // rt * kp // hk.SOLVE_COL_TILE * ls
+    assert geo.threads % 32 == 0 and work <= geo.threads < work + 32
+    assert geo.threads <= hk.SOLVE_MAX_THREADS and 1 <= ls <= max(1, s // 16)
+
+    # the fewest column tiles from one block an SM at which a panel of
+    # PANEL_MIN_ROWS rows fits; every fewer tile count fits narrower panels
+    # only, or none
+    base = min(k, max(1, 132 // n))
+    assert t >= base and (rows >= hk.PANEL_MIN_ROWS or t == base)
+    for fewer in range(base, t):
+        assert all(g.rows < hk.PANEL_MIN_ROWS for g in hk.panel_fits(
+            s, k, fewer, itemsize, H100_SMEM, H100_SM_SMEM))
+    # among the geometries at t: 8 warps where any has them, then the
+    # widest panel
+    fits = [g for ls in range(1, max(1, s // 16) + 1)
+            for g in hk.panel_fits(s, k, t, itemsize, H100_SMEM, H100_SM_SMEM,
+                                   lsplit=ls)]
+    assert geo in fits
+    if any(g.threads >= hk.SOLVE_GOOD_THREADS for g in fits):
+        assert geo.threads >= hk.SOLVE_GOOD_THREADS
+        waves = -(-n * t // 132)
+        assert rows == max(g.rows for g in fits
+                           if g.threads >= hk.SOLVE_GOOD_THREADS
+                           and min(g.share, waves) == min(geo.share, waves))
+
+
+@pytest.mark.parametrize("s", list(range(1, 80)) + [97, 129, 193, 257, 516, 1031])
+def test_panel_row_options_split_s_evenly(s):
+    """Panel widths are whole multiples of PANEL_ROW_STEP, widest first,
+    one for each number of panels; from s = 64 every one leaves at most s /
+    8 rows past s, below it those that leave the fewest."""
+    opts = hk.panel_row_options(s)
+    assert opts == sorted(set(opts), reverse=True) and opts
+    assert all(r % hk.PANEL_ROW_STEP == 0 and r >= hk.PANEL_ROW_STEP for r in opts)
+    past = [-(-s // r) * r - s for r in opts]
+    if s >= 64:
+        assert all(8 * p <= s for p in past)
+    assert len({-(-s // r) for r in opts}) == len(opts)
+
+
+@pytest.mark.parametrize("s,want", [(65, 72), (193, 40), (516, 40)])
+def test_panel_row_options_hold_the_even_splits(s, want):
+    """One panel of 72 rows at s=65, five of 40 at s=193, thirteen of 40 at
+    s=516 are among the widths."""
+    assert want in hk.panel_row_options(s)
+
+
+@pytest.mark.parametrize("forced", [
+    dict(rows=20), dict(rows=12), dict(tiles=0), dict(tiles=101),
+    dict(row_tile=6), dict(row_tile=2), dict(rows=600),
+])
+def test_panel_geometry_refuses_what_the_kernel_does_not_take(forced):
+    """A forced panel width that is not a multiple of PANEL_ROW_STEP, a
+    column split outside 1 to k, a register tile the kernel was not built
+    for, or a panel too large for shared memory: no geometry."""
+    assert hk.panel_geometry(16, 193, 100, 8, 132, H100_SMEM, H100_SM_SMEM,
+                             **forced) is None
+
+
+def test_panel_geometry_gives_up_where_nothing_fits():
+    """s=2000 in float64: the panel of one register tile's rows and the
+    carry of one column group alone exceed a block's shared memory."""
+    assert hk.panel_geometry(1, 2000, 200, 8, 132, H100_SMEM, H100_SM_SMEM) is None
+    assert hk.solve_smem_bytes(2000, 200, 200, 8, 1, 8) > H100_SMEM
 
 
 @pytest.mark.parametrize("n,s,want", [
