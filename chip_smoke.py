@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # from the repository root
     python3 chip_smoke.py --profile   # also: device-time tables of the main
-                                      # path and the two large lanes
+                                      # path, the training lane and the
+                                      # two large lanes
     python3 chip_smoke.py --parent DIR   # also time the K1 chain, K1's
                                       # Schur step and K2 (k=1 and the
                                       # panels) of another
@@ -11,6 +12,8 @@
                                       # unpacked into DIR inside this one
                                       # (it builds its kernels there), in
                                       # turns with this one's
+    python3 chip_smoke.py --save-h1 FILE.npz   # also: write the n=32 H1
+                                      # comparison's arrays (about 18 MB)
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin``, ``PATH`` or
 ``/usr/local/cuda/bin``); imports nothing of JAX.  Phases, one summary line
@@ -79,6 +82,16 @@ each:
    oversampling 10, through ``ActiveSubspaceProjector``, grid-sequenced
    (depth 2: coarse levels nx=32 and 16 on the restricted velocity, as
    ``bench.py`` builds them), and once more cold-started for comparison;
+9b. training: ``bench.py``'s training lane on the main path's
+    grid-sequenced run (its samples and decoder; ``training_lane``): the
+    output POD from data, DIPNet 8 x 16 (1924 parameters), 512 / 512
+    samples, one warm sweep and 20 inexact Newton-CG sweeps, with the
+    checks that every number is finite, the loss falls and the final
+    validation accuracy is at least 0.75; one float64 sweep on the card
+    against the same sweep on the CPU (parameters within 1e-8); DIPNet
+    and DIPResNet at 32 training samples with l2 and with the normalized
+    H1 loss on the Jacobian sketches J^T Phi, 40 sweeps for each of the
+    weight seeds 0-4, the mean gap logged;
 10. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
     256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16,
     grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started; then the
@@ -110,6 +123,7 @@ exits non-zero without printing the result line.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -181,6 +195,23 @@ TOL_INV = {
     torch.float64: {"diff": 1e-12, "residual": 1e-12},
     torch.float32: {"diff": 1e-5, "residual": 1e-4},
 }
+# bench.py's training lane (run_training_lane): the first 1024 samples of
+# the main path split 512 / 512, DIPNet with input rank 8 and output rank
+# 16, one warm sweep then 20 Newton-CG sweeps
+TRAIN_N, TRAIN_SWEEPS, TRAIN_IN_RANK, TRAIN_OUT_RANK = 1024, 20, 8, 16
+# the JAX lane's validation accuracy on its own samples was 0.79-0.81
+# (BENCH_r03/r04.json); an accuracy, not a speed figure
+TRAIN_MIN_VAL_ACC = 0.75
+# one float64 Newton-CG sweep on the card against the same sweep on the
+# CPU (the first 64 samples): the parameters, relative to the largest.
+# One sweep only: past the loss of orthogonality CG amplifies rounding,
+# so two summation orders part beyond any tolerance after a few sweeps
+TRAIN_F64_N, TRAIN_F64_TOL = 64, 1e-8
+# the few-data comparison of ACCURACY.md (n=32): 32 training samples
+# against the fixed held-out block of samples 512-1023, the output POD
+# from samples 0-511; 40 sweeps and weight seeds 0-4, as
+# benchmarks/accuracy_sweep.py sets them for n <= 256
+H1_N_TRAIN, H1_N_POOL, H1_SWEEPS, H1_SEEDS = 32, 512, 40, (0, 1, 2, 3, 4)
 
 
 def log(msg: str) -> None:
@@ -1325,17 +1356,218 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
 
 def phase_main(obs32, prior32, levels):
     """The float32 main path, once grid-sequenced through the user entry
-    point (the counted path), and once cold-started for comparison."""
-    paths = {}
+    point (the counted path), and once cold-started for comparison.
+    Returns the launches by path and the grid-sequenced run's projector
+    (its samples, Jacobians and decoder feed the training phase)."""
+    paths, kept = {}, None
     for name, lv in (("nx64", levels), ("nx64_cold", None)):
         cold = " cold start" if lv is None else f" grid-sequenced depth {len(lv)}"
-        launches, _ = run_subspace(obs32, lambda: prior32,
-                                   f"main float32 nx={NX}{cold}", N_SAMPLES,
-                                   RANK, warm_levels=lv)
+        launches, proj = run_subspace(obs32, lambda: prior32,
+                                      f"main float32 nx={NX}{cold}", N_SAMPLES,
+                                      RANK, warm_levels=lv)
         for key in ("banded_factorize", "banded_solve"):
             check(launches[key] > 0, f"{key} was not launched on {name}")
         paths[name] = launches
-    return paths
+        if lv is not None:
+            kept = proj
+    return paths, kept
+
+
+def _finite(*values) -> bool:
+    return all(math.isfinite(v) for v in values)
+
+
+def train_lane(proj, device):
+    """bench.py's training lane on the card, at its full size, from the
+    main path's float32 samples and decoder (``training_lane``)."""
+    from hippyflow_tpu_torch.applications.confusion_training import training_lane
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    hk.reset_launch_counts()
+    out = training_lane(proj.samples.ms, proj.samples.qs, proj.V_GN,
+                        sweeps=TRAIN_SWEEPS, n=TRAIN_N, in_rank=TRAIN_IN_RANK,
+                        out_rank=TRAIN_OUT_RANK, device=device)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = (hk.banded_factorize.launches + hk.banded_solve.launches
+                + hk.batched_inverse.launches)
+    lg, params = out["logger"], out["params"]
+    n_params = sum(p.numel() for p in params.values())
+    log(f"training lane float32 nx={NX}: DIPNet {TRAIN_IN_RANK} x "
+        f"{TRAIN_OUT_RANK} ({n_params} parameters), {TRAIN_N // 2} / "
+        f"{TRAIN_N // 2} samples, incg batch 128, Hessian batch 16, rank "
+        f"20: {out['s_per_sweep']:.4f} s/sweep over {TRAIN_SWEEPS} sweeps, "
+        f"first run (1 sweep) {out['first_run_s']:.3f} s, POD "
+        f"{out['pod_s']:.4f} s; loss {lg['loss'][0]:.4e} -> "
+        f"{lg['loss'][-1]:.4e}; val acc per sweep "
+        f"{[round(v, 4) for v in lg['val_acc']]} (max "
+        f"{lg['max_val_acc']:.4f}); train acc {lg['train_acc'][-1]:.4f}; "
+        f"peak {peak_gb:.3f} GB ({peak_gb - held_gb:.3f} GB above the "
+        f"{held_gb:.3f} GB held before); kernel launches {launches}")
+    check(n_params == 1924, f"training lane: {n_params} parameters")
+    check(_finite(out["s_per_sweep"], out["first_run_s"], out["pod_s"],
+                  *lg["loss"], *lg["val_acc"], *lg["train_acc"], *lg["gnorm"])
+          and all(bool(torch.isfinite(p).all()) for p in params.values()),
+          "training lane: a non-finite number")
+    check(lg["loss"][-1] < lg["loss"][0],
+          f"training lane: loss {lg['loss'][0]:.4e} -> {lg['loss'][-1]:.4e}")
+    check(out["val_acc"] >= TRAIN_MIN_VAL_ACC,
+          f"training lane: val acc {out['val_acc']:.4f} < {TRAIN_MIN_VAL_ACC}")
+    return out
+
+
+def train_card_against_cpu(proj, device):
+    """One float64 Newton-CG sweep (the lane's settings) on the card and on
+    the CPU from the same weights, data and probe blocks (``train`` draws
+    them on the CPU)."""
+    from hippyflow_tpu_torch.applications.confusion_training import modify_projectors
+    from hippyflow_tpu_torch.models.pod import PODProjectorFromData
+    from hippyflow_tpu_torch.nn import projected_dense, train
+
+    f64 = torch.float64
+    ms = proj.samples.ms[:TRAIN_F64_N].to(f64).cpu()
+    qs = proj.samples.qs[:TRAIN_F64_N].to(f64).cpu()
+    _, phi, _, shift = PODProjectorFromData(
+        None, M_output=torch.eye(qs.shape[1], dtype=f64)).construct_subspace(
+        qs, u_rank=TRAIN_OUT_RANK, shifted=True, method="hep")
+    P, Phi = modify_projectors({
+        "AS_input": proj.V_GN[:, :TRAIN_IN_RANK].to(f64).cpu().numpy(),
+        "POD": phi.numpy()})
+    fit = dict(epochs=1, batch_size=128, optimizer="incg", hess_batch_size=16,
+               hessian_low_rank=20, validation_split=0.5, seed=0)
+    got = {}
+    for dev in ("cpu", device):
+        model = projected_dense(P, Phi, output_shift=shift, dtype=f64, device=dev,
+                                generator=torch.Generator().manual_seed(1))
+        t0 = time.perf_counter()
+        params, lg = train(model, ms, qs, **fit)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        got[str(dev)] = (torch.cat([p.reshape(-1).cpu() for p in params.values()]),
+                         lg, time.perf_counter() - t0)
+    (w_cpu, lg_cpu, s_cpu), (w_gpu, lg_gpu, s_gpu) = got["cpu"], got[str(device)]
+    err = ((w_gpu - w_cpu).abs().max() / w_cpu.abs().max()).item()
+    log(f"training float64 card against CPU, 1 sweep on {TRAIN_F64_N} samples: "
+        f"max|w_card - w_cpu| / max|w_cpu| {err:.3e} (limit {TRAIN_F64_TOL:g}); "
+        f"loss {lg_gpu['loss'][0]:.10e} / {lg_cpu['loss'][0]:.10e}; val acc "
+        f"{lg_gpu['val_acc'][0]:.10f} / {lg_cpu['val_acc'][0]:.10f}; "
+        f"{s_gpu:.3f} s / {s_cpu:.3f} s")
+    check(err <= TRAIN_F64_TOL, f"training float64 card against CPU: {err:.3e}")
+
+
+def train_h1(proj, device, save=None):
+    """ACCURACY.md's few-data comparison at n=32 as
+    ``benchmarks/accuracy_sweep.py`` runs it: DIPNet and DIPResNet (ranks
+    8, 8), l2 and normalized H1 (weight 1), 40 Newton-CG sweeps for each
+    weight seed (the init's generator and the train's seed), 32 training
+    samples against the held-out samples 512-1023; the orthonormal rank-16
+    POD Phi of samples 0-511 and its shift, the network's output bias at
+    that shift, and Jacobian sketches J^T Phi from the main path's
+    Jacobians (three of them first held against float64 Jacobians solved
+    afresh at their samples).  With ``save`` the arrays go to that .npz file, for the
+    same comparison through the JAX train on the CPU
+    (``tests/test_torch_training.py`` run as a script)."""
+    from hippyflow_tpu_torch.applications.confusion_training import modify_projectors
+    from hippyflow_tpu_torch.models import ObservableJacobian
+    from hippyflow_tpu_torch.models.pod import PODProjectorFromData
+    from hippyflow_tpu_torch.nn import (
+        projected_dense,
+        projected_low_rank_residual_network,
+        train,
+    )
+
+    ms, qs = proj.samples.ms, proj.samples.qs
+    eye = torch.eye(qs.shape[1], dtype=qs.dtype, device=device)
+    _, phi, _, q_shift = PODProjectorFromData(None, M_output=eye).construct_subspace(
+        qs[:H1_N_POOL], u_rank=TRAIN_OUT_RANK, shifted=True, method="hep")
+    n = H1_N_TRAIN
+    jstarphi = torch.einsum("nqm,qp->nmp", proj.Js[:n], phi)
+    # the sketches' Jacobians belong to their samples: three of them against
+    # the float64 Jacobian at the same samples, solved afresh
+    obs64, _ = setup(torch.float64, device, with_prior=False)
+    idx = torch.tensor([0, 1, n - 1], device=device)
+    m64 = ms[idx].double()
+    u64, info = obs64.problem.solve_fwd(m64)
+    check(bool(info.converged.all()), "training H1: float64 solves did not converge")
+    J64 = ObservableJacobian(obs64).materialize(
+        obs64.problem.linearize(u64, m64, needs="adj"))
+    rel = rel_err(proj.Js[idx].double(), J64)
+    log(f"training H1 sketches: the Jacobians of samples {idx.tolist()} against "
+        f"float64 ones at the same samples: max|dJ| / max|J| {rel:.3e} (limit "
+        f"{JAC_TOL_F32})")
+    check(rel <= JAC_TOL_F32, f"training H1: Jacobians against float64 {rel:.3e}")
+    del obs64, u64, J64
+    decoder = proj.V_GN[:, :TRAIN_IN_RANK].cpu().numpy()
+    P, Phi = modify_projectors({"AS_input": decoder, "POD": phi.cpu().numpy()})
+    val = (ms[H1_N_POOL:2 * H1_N_POOL], qs[H1_N_POOL:2 * H1_N_POOL])
+    if save:
+        import numpy as np
+
+        os.makedirs(os.path.dirname(save) or ".", exist_ok=True)
+        np.savez(save, m=ms[:n].cpu().numpy(), q=qs[:n].cpu().numpy(),
+                 JstarPhi=jstarphi.cpu().numpy(), m_val=val[0].cpu().numpy(),
+                 q_val=val[1].cpu().numpy(), decoder=decoder,
+                 phi=phi.cpu().numpy(), q_shift=q_shift.cpu().numpy())
+        log(f"training H1 arrays -> {save}")
+    acc = {}
+    for arch in ("as_dense", "as_resnet"):
+        for loss in ("l2", "h1"):
+            accs, secs = [], []
+            for seed in H1_SEEDS:
+                kw = dict(output_shift=q_shift, dtype=qs.dtype, device=device,
+                          generator=torch.Generator().manual_seed(seed))
+                model = (projected_dense(P, Phi, **kw) if arch == "as_dense" else
+                         projected_low_rank_residual_network(P, Phi, ranks=(8, 8),
+                                                             **kw))
+                kw = {}
+                if loss == "h1":
+                    kw = dict(JstarPhi_data=jstarphi, input_decoder=P,
+                              output_encoder=phi, h1_weight=1.0, h1_normalized=True)
+                t0 = time.perf_counter()
+                _, lg = train(model, ms[:n], qs[:n], validation_data=val,
+                              epochs=H1_SWEEPS, batch_size=n, optimizer="incg",
+                              hess_batch_size=16, hessian_low_rank=20, seed=seed,
+                              **kw)
+                torch.cuda.synchronize()
+                secs.append((time.perf_counter() - t0) / H1_SWEEPS)
+                accs.append(lg["max_val_acc"])
+                check(_finite(*lg["loss"], *lg["val_acc"], secs[-1]),
+                      f"training {arch} {loss} seed {seed}: a non-finite number")
+            acc[arch, loss] = torch.tensor(accs, dtype=torch.float64)
+            log(f"training {arch} {loss} n={n} float32, {H1_SWEEPS} sweeps, seeds "
+                f"{list(H1_SEEDS)}: max val acc {[round(a, 4) for a in accs]} "
+                f"(mean {acc[arch, loss].mean():.4f}, std "
+                f"{acc[arch, loss].std(correction=0):.4f}); "
+                f"{sum(secs) / len(secs):.4f} "
+                f"s/sweep (first sweep included)")
+    for arch, name in (("as_dense", "DIPNet"), ("as_resnet", "DIPResNet")):
+        l2, h1 = acc[arch, "l2"], acc[arch, "h1"]
+        gap = (h1 - l2).mean().item()
+        sd = max(l2.std(correction=0), h1.std(correction=0)).item()
+        log(f"training H1 gap n={n} {name} (mean max val acc over "
+            f"{len(H1_SEEDS)} seeds, h1 - l2; logged, not checked): "
+            f"{gap:+.4f} ({gap / sd:+.1f} times the larger seed std {sd:.4f}, "
+            "np.std as ACCURACY.md takes it)")
+
+
+def phase_training(proj, device, profile=False, save=None):
+    """The surrogate layer on the main path's data: bench.py's training
+    lane, the float64 card-against-CPU sweep, and the H1 runs (``save``:
+    their arrays' file); with
+    ``profile`` the lane once more (a warm sweep and 2 more) under the
+    profiler."""
+    train_lane(proj, device)
+    train_card_against_cpu(proj, device)
+    train_h1(proj, device, save)
+    if profile:
+        from hippyflow_tpu_torch.applications.confusion_training import training_lane
+
+        profile_run(f"training lane float32 nx={NX} (1 warm + 2 sweeps)",
+                    lambda: training_lane(
+                        proj.samples.ms, proj.samples.qs, proj.V_GN, sweeps=2,
+                        n=TRAIN_N, in_rank=TRAIN_IN_RANK,
+                        out_rank=TRAIN_OUT_RANK, device=device))
 
 
 def phase_lane192(device, profile=False):
@@ -1539,7 +1771,11 @@ def run_phases(device, argv, parent=None):
                                  GRIDSEQ_DEPTH[NX], f32, device)
     check([p._block_size for p, _ in levels64] == [NX // 2 + 1, NX // 4 + 1],
           f"nx={NX} levels {[p._block_size for p, _ in levels64]}")
-    paths = phase_main(obs32, prior32, levels64)
+    paths, proj64 = phase_main(obs32, prior32, levels64)
+    save = argv[argv.index("--save-h1") + 1] if "--save-h1" in argv else None
+    phase_training(proj64, device, "--profile" in argv, save)
+    del proj64
+    torch.cuda.empty_cache()
     if "--profile" in argv:
         phase_profile(obs32, prior32)
     del obs32, prior32, levels64

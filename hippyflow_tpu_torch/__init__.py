@@ -7,7 +7,11 @@ here on an NVIDIA H100 at nx=64 (dense prior) and nx=192 (the structured,
 banded prior), through four hand-written CUDA kernels
 (``ops/hopper_kernels.py``): the banded inverse block-Thomas
 factorization and solve, and the batched Gauss-Jordan inverse of the
-prior's cyclic reduction (at pivot widths 13 and 1).  The package imports
+prior's cyclic reduction (at pivot widths 13 and 1).  The surrogate layer
+(``nn``: DIPNet / DIPResNet, l2 and H1 losses, AdamW and inexact
+Newton-CG) trains on the reduced bases and the POD from data
+(``models.pod``).  Entry points run on the card unless the caller passes
+``device="cpu"``.  The package imports
 torch and never jax; ``hippyflow_tpu`` stays the reference it is tested
 against.
 """
@@ -15,5 +19,6 @@ against.
 from . import config
 from .fem import *  # noqa: F401,F403
 from .models import *  # noqa: F401,F403
+from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .utils import KeyChain, ParameterList

@@ -28,8 +28,14 @@ DEFAULT_DTYPE = torch.float32
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA card.  Entry points run on the card unless the caller
+    asks for the CPU: where there is no card this raises rather than fall
+    back to the CPU quietly."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "hippyflow_tpu_torch: no CUDA card is available; pass "
+            'device="cpu" to run on the CPU')
+    return torch.device("cuda", 0)
 
 
 def resolve(dtype=None, device=None):

@@ -15,6 +15,7 @@ import torch
 from . import config
 from .fem.band_order import BandOrder
 from .models.sampling import SampleBatch
+from .nn.networks import flax_name
 from .ops.structured import (
     BlockCyclicFactor,
     InverseThomasFactor,
@@ -86,3 +87,51 @@ def sample_batch(ms, us, qs, n_failures: int = 0, dtype=None, device=None):
         qs=tensor(qs, dtype, device),
         n_failures=int(n_failures),
     )
+
+
+def flax_params(model, params) -> np.ndarray:
+    """Load the JAX package's parameter tree of a network into the port's
+    module of the same architecture, in place; returns the index map from
+    JAX's raveled parameter vector to the port's flat one.
+
+    ``params`` is the flax tree (``{"params": {...}}`` or its inner dict)
+    as nested dicts of numpy arrays.  Kernels (in, out) load transposed
+    into the (out, in) weights.  ``jax.flatten_util.ravel_pytree`` lays
+    the leaves out in sorted path order, each row-major; the port's flat
+    vector (``nn.training``) lays the parameters out in
+    ``named_parameters()`` order.  With ``order`` returned, ``port_flat ==
+    jax_flat[order]``, and a probe block drawn in JAX's order maps onto the
+    port's as ``Omega[order]``."""
+
+    def leaves(tree, path):
+        if isinstance(tree, dict) or hasattr(tree, "items"):
+            for key in sorted(tree):
+                yield from leaves(tree[key], path + (key,))
+        else:
+            yield path, np.asarray(tree)
+
+    if "params" not in params:
+        params = {"params": params}
+    offsets, arrays, offset = {}, {}, 0
+    for path, leaf in leaves(params, ()):
+        name = "/".join(path)
+        offsets[name], arrays[name] = offset, leaf
+        offset += leaf.size
+    named = dict(model.named_parameters())
+    if sorted(flax_name(n) for n in named) != sorted(arrays):
+        raise ValueError(
+            f"parameter trees differ: port {sorted(map(flax_name, named))}, "
+            f"JAX {sorted(arrays)}")
+    order = []
+    with torch.no_grad():
+        for n, p in named.items():
+            key = flax_name(n)
+            leaf = arrays[key]
+            idx = offsets[key] + np.arange(leaf.size).reshape(leaf.shape)
+            if key.endswith("/kernel"):
+                leaf, idx = leaf.T, idx.T
+            if tuple(leaf.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: shape {leaf.shape} against {tuple(p.shape)}")
+            p.copy_(torch.as_tensor(np.array(leaf), dtype=p.dtype))
+            order.append(idx.reshape(-1))
+    return np.concatenate(order)

@@ -1,6 +1,7 @@
 from .active_subspace import ActiveSubspaceParameterList, ActiveSubspaceProjector
 from .jacobian import ObservableJacobian
 from .observable import LinearStateObservable, PointwiseObservation
+from .pod import PODProjectorFromData, weighted_l2_norm_vector
 from .pde_problem import Linearization, NewtonInfo, VariationalPDEProblem
 from .prior import BiLaplacian2D, BiLaplacianPrior, StructuredBiLaplacianPrior
 from .sampling import (

@@ -11,7 +11,7 @@ from .hopper_kernels import (
     build_kernels,
     reset_launch_counts,
 )
-from .linalg import CholeskyFactor, eigh_descending
+from .linalg import CholeskyFactor, eigh_descending, generalized_eigh
 from .randomized import double_pass_g, orthogonalize
 from .structured import (
     BlockBidiagCholesky,

@@ -755,3 +755,54 @@ def test_structured_prior_runs_its_cyclic_reduction_through_k3(cuda):
         got = getattr(gpu, op)(X.to(cuda)).cpu()
         want = getattr(cpu, op)(X)
         assert _rel(got, want) < 1e-12, op
+
+
+def _surrogate(device, dtype, arch):
+    from hippyflow_tpu_torch import nn as tnn
+
+    rng = np.random.default_rng(8)
+    P = np.linalg.qr(rng.standard_normal((40, 6)))[0]
+    Phi = np.linalg.qr(rng.standard_normal((12, 4)))[0]
+    kw = dict(generator=torch.Generator().manual_seed(2), dtype=dtype, device=device)
+    if arch == "dipnet":
+        return tnn.projected_dense(P, Phi, output_shift=np.ones(12), **kw)
+    return tnn.projected_low_rank_residual_network(
+        P, Phi, ranks=(3, 3), residual_activation=arch.split("_")[1], **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("arch", ["dipnet", "dipresnet_softplus", "dipresnet_sigmoid"])
+def test_surrogate_networks_on_card_match_cpu(cuda, dtype, arch):
+    """The same weights (drawn on the CPU from one generator) and inputs
+    give the same outputs on the card and on the CPU."""
+    cpu, gpu = _surrogate("cpu", dtype, arch), _surrogate(cuda, dtype, arch)
+    m = 30.0 * torch.randn(16, 40, dtype=dtype, generator=torch.Generator().manual_seed(1))
+    assert _rel(gpu(m.to(cuda)).detach().cpu(), cpu(m).detach()) < TOL[dtype]
+
+
+def test_incg_step_on_card_matches_cpu(cuda):
+    """One Newton-CG step (refresh, CG, Armijo ladder) in float64 on the
+    card against the CPU from the same weights, data and probe block."""
+    from hippyflow_tpu_torch import nn as tnn
+    from hippyflow_tpu_torch.nn.training import NewtonCG
+
+    gen = torch.Generator().manual_seed(4)
+    m = torch.randn(32, 40, dtype=torch.float64, generator=gen)
+    q = torch.tanh(m[:, :12]) + 0.5
+    Omega = torch.randn(sum(p.numel() for p in _surrogate("cpu", torch.float64,
+                                                          "dipnet").parameters()),
+                        11, dtype=torch.float64, generator=gen)
+    out = []
+    for device in ("cpu", cuda):
+        model = _surrogate(device, torch.float64, "dipnet")
+        apply_fn = tnn.apply_fn_of(model)
+        params = tnn.parameters_of(model)
+        nc = NewtonCG(apply_fn, lambda p, mb, qb, jb: tnn.l2_loss(apply_fn, p, mb, qb),
+                      params, hess_batch=16, cg_iters=6, hessian_low_rank=6,
+                      damping=1e-2)
+        w = nc.ravel(params)
+        md, qd = m.to(device), q.to(device)
+        U, d = nc.refresh(w, md[:16], qd[:16], Omega.to(device))
+        out.append([t.cpu() for t in nc.step(w, md, qd, None, U, d)] + [d.cpu()])
+    for got, want in zip(out[1], out[0]):
+        assert _rel(got, want) < 1e-9

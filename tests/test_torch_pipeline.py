@@ -177,6 +177,8 @@ sys.meta_path.insert(0, Refuse())
 import hippyflow_tpu_torch, hippyflow_tpu_torch.interop
 import hippyflow_tpu_torch.applications.confusion
 import hippyflow_tpu_torch.applications.helmholtz
+import hippyflow_tpu_torch.nn, hippyflow_tpu_torch.models.pod
+import hippyflow_tpu_torch.applications.confusion_training
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 sys.exit(f"loaded {bad}" if bad else 0)
 """
@@ -184,8 +186,8 @@ sys.exit(f"loaded {bad}" if bad else 0)
 
 def test_import_pulls_in_no_jax():
     """In a fresh interpreter that refuses to import jax, the JAX package
-    or its applications, the port and its confusion and helmholtz
-    applications import."""
+    or its applications, the port, its surrogate layer and its confusion,
+    confusion-training and helmholtz applications import."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
