@@ -92,6 +92,20 @@ each:
     and DIPResNet at 32 training samples with l2 and with the normalized
     H1 loss on the Jacobian sketches J^T Phi, 40 sweeps for each of the
     weight seeds 0-4, the mean gap logged;
+9c. setup: the setup driver's lane (``confusion_setup.setup_lane``) in
+    float32 at its defaults on the main path's observable and prior (512
+    samples and data, rank 128, POD rank 100, Jacobian rank 128, the error
+    tests at ranks 8-128 with 50 samples), then ``DataGenerator`` (512
+    samples, the J^T Phi sketches of the POD decoder), into a temporary
+    directory read back through ``confusion_training``; one ``setup`` line
+    (stage seconds, Newton iterations, launches, peak memory, the batched
+    SVD of the lane's Jacobians timed alone) and one of errors, with the
+    checks: spectra finite and descending, max|V^T R V - I| and the mass
+    KLE's max|V^T M V - I| <= 1e-3, the POD and output errors not rising
+    with rank, the KLE and input errors at rank 128 below rank 8's, no
+    discarded output sample, K1 and K2 launched; then the same lane in
+    float64 at nx=16 on the card against the CPU from the same given
+    noise (spectra and projectors within 1e-8);
 10. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
     256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16,
     grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started; then the
@@ -127,6 +141,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -212,6 +227,15 @@ TRAIN_F64_N, TRAIN_F64_TOL = 64, 1e-8
 # from samples 0-511; 40 sweeps and weight seeds 0-4, as
 # benchmarks/accuracy_sweep.py sets them for n <= 256
 H1_N_TRAIN, H1_N_POOL, H1_SWEEPS, H1_SEEDS = 32, 512, 40, (0, 1, 2, 3, 4)
+# the setup driver's defaults (applications/confusion_setup.py): 512
+# samples and data, rank 128 (POD rank min(128, dQ) = 100), oversampling
+# 10, Jacobian rank 128, 50 error-test samples; then 512 samples of
+# DataGenerator with the POD decoder (the JstarPhi sketches)
+SETUP_N, SETUP_RANK, SETUP_ERROR_SAMPLES = 512, 128, 50
+# the float64 setup on the card against the CPU from the same given noise,
+# at nx=16 (rank 16, 32 samples and data, 8 error-test samples): every
+# spectrum above 1e-4 lambda_0 and every basis's projector (relative)
+SETUP_CHECK_NX, SETUP_F64_TOL = 16, 1e-8
 
 
 def log(msg: str) -> None:
@@ -1272,6 +1296,24 @@ def phase_parity(obs64, prior64):
     return err
 
 
+def launch_counts() -> dict:
+    """Every kernel's launches since the counts were last set to 0, K1's
+    and K2's by design and K1's Schur steps."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    return {
+        "banded_factorize": hk.banded_factorize.launches,
+        "banded_solve": hk.banded_solve.launches,
+        "batched_inverse": hk.batched_inverse.launches,
+        "batched_inverse_rank1": hk.batched_inverse.rank1_launches,
+        "schur_step": hk.schur_step_.launches,
+        **{f"banded_factorize_{d}": n
+           for d, n in hk.banded_factorize.launches_by_design.items()},
+        **{f"banded_solve_{d}": n
+           for d, n in hk.banded_solve.launches_by_design.items()},
+    }
+
+
 def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
                  **params_kw):
     """The float32 input active subspace once, through the user entry
@@ -1306,17 +1348,7 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
     d, V, E = proj.construct_input_subspace()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = {
-        "banded_factorize": hk.banded_factorize.launches,
-        "banded_solve": hk.banded_solve.launches,
-        "batched_inverse": hk.batched_inverse.launches,
-        "batched_inverse_rank1": hk.batched_inverse.rank1_launches,
-        "schur_step": hk.schur_step_.launches,
-        **{f"banded_factorize_{d}": n
-           for d, n in hk.banded_factorize.launches_by_design.items()},
-        **{f"banded_solve_{d}": n
-           for d, n in hk.banded_solve.launches_by_design.items()},
-    }
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = proj.stage_seconds
     it = proj.samples.iterations.to(torch.float64)
@@ -1570,6 +1602,166 @@ def phase_training(proj, device, profile=False, save=None):
                         out_rank=TRAIN_OUT_RANK, device=device))
 
 
+def _its(t) -> str:
+    t = t.to(torch.float64)
+    return f"max {int(t.max().item())} mean {t.mean().item():.3f}"
+
+
+def setup_check_f64(device):
+    """The float64 setup lane at nx=16 on the card and on the CPU from the
+    same given noise; returns lane_difference's errors."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.applications.confusion import (
+        confusion_linear_observable,
+        confusion_prior,
+    )
+    from hippyflow_tpu_torch.applications.confusion_setup import (
+        lane_difference,
+        setup_lane,
+    )
+
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        kw = dict(dtype=torch.float64, device=dev)
+        obs, Vh = confusion_linear_observable(
+            nx=SETUP_CHECK_NX, velocity="analytic", **kw)
+        with tempfile.TemporaryDirectory(prefix="setup_f64_") as out:
+            runs.append(setup_lane(
+                obs, confusion_prior(Vh, **kw), out, rank=16, n_samples=32,
+                n_data=32, jacobian_rank=16, error_test_samples=8, seed=SEED,
+                noise_rng=np.random.default_rng(SEED)))
+    return lane_difference(*runs)
+
+
+def phase_setup(obs32, prior32, device):
+    """The setup driver's lane (``setup_lane``: input and output active
+    subspaces, mass KLE, POD, the error tests, training data and the
+    low-rank Jacobian data) in float32 at its defaults, then
+    ``DataGenerator.generate`` with the POD decoder, into a temporary
+    directory, counted; the directory read back through
+    ``confusion_training``; the checks; the batched SVD of the lane's
+    Jacobians timed alone; then the float64 card-against-CPU check at
+    nx=16.  Returns the launches of the counted run."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.applications.confusion_setup import setup_lane
+    from hippyflow_tpu_torch.applications.confusion_training import (
+        get_projectors,
+        load_confusion_data,
+    )
+    from hippyflow_tpu_torch.models import DataGenerator
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    dM, dQ = obs32.dM, obs32.dQ
+    r_out = min(SETUP_RANK, dQ)  # the POD's rank and the Jacobians' rank
+    with tempfile.TemporaryDirectory(prefix="setup_smoke_") as out:
+        torch.cuda.reset_peak_memory_stats()
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = setup_lane(obs32, prior32, out, rank=SETUP_RANK,
+                         oversampling=OVERSAMPLING, n_samples=SETUP_N,
+                         n_data=SETUP_N, jacobian_rank=SETUP_RANK,
+                         error_test=True, error_test_samples=SETUP_ERROR_SAMPLES,
+                         seed=SEED)
+        t1 = time.perf_counter()
+        DataGenerator(obs32, prior32, settings=dict(verbose=False, seed=SEED)
+                      ).generate(SETUP_N, derivatives=(1, 0),
+                                 output_decoder=res["pod_decoder"],
+                                 data_dir=os.path.join(out, "data_generator"))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        m_data, q_data = load_confusion_data(out)
+        proj = get_projectors(out, fixed_input_rank=SETUP_RANK,
+                              fixed_output_rank=r_out)
+        with np.load(os.path.join(out, "data_generator",
+                                  "JstarPhi_data.npz")) as z:
+            jsp_shape = z["JstarPhi_data"].shape
+        with np.load(os.path.join(out, "jacobian_data", "Jsvd_data.npz")) as z:
+            jsvd_shape = z["V_data"].shape
+        # one host copy and npz write of the lane's SVD arrays (the
+        # jacobian_data stage makes two: its chunk file and the bundle)
+        t3 = time.perf_counter()
+        np.savez(os.path.join(out, "svd_write.npz"), **{
+            k: v.cpu().numpy() for k, v in zip("USV", res["jacobian_svd"])})
+        write_s = time.perf_counter() - t3
+    AS, KLE, POD = res["as"], res["kle"], res["pod"]
+    # the batched SVD of the lane's Jacobians alone (its share of the
+    # jacobian_data stage)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    torch.linalg.svd(AS.Js, full_matrices=False)
+    e1.record()
+    e1.synchronize()
+    svd_s = e0.elapsed_time(e1) / 1e3
+    st = res["seconds"]
+    err = res["errors"]
+    V, Vk = res["as_decoder"], res["kle_decoder"]
+    eye = torch.eye(SETUP_RANK, dtype=V.dtype, device=V.device)
+    ortho_as = (V.T @ prior32.R_matmat(V) - eye).abs().max().item()
+    ortho_kle = (Vk.T @ prior32.M_matmat(Vk) - eye).abs().max().item()
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+    io_its = torch.cat(POD.io_iterations)
+    log(f"setup float32 nx={NX} samples={SETUP_N} data={SETUP_N} rank="
+        f"{SETUP_RANK} (POD {POD.d.shape[0]}) jacobian rank {SETUP_RANK}: "
+        f"lane {t1 - t0:.3f} s ({stages}), DataGenerator JstarPhi "
+        f"{t2 - t1:.3f} s; batched SVD of the ({SETUP_N}, {dQ}, {dM}) "
+        f"Jacobians alone {svd_s:.3f} s, one host copy and npz write of its "
+        f"U, sigma, V {write_s:.3f} s; Newton iterations AS "
+        f"{_its(AS.samples.iterations)}, POD {_its(POD.samples.iterations)}, "
+        f"input-output re-solves "
+        f"{_its(io_its)} ({sum(POD.io_failed)} unconverged); resampled "
+        f"failures AS {AS.samples.n_failures} POD {POD.samples.n_failures}; "
+        f"output_discarded {err['as'][('output_discarded', None)]}; launches "
+        f"K1 {launches['banded_factorize']} K2 {launches['banded_solve']} "
+        f"(panels {launches['banded_solve_panels']}, streamed "
+        f"{launches['banded_solve_streamed']}) K3 {launches['batched_inverse']}; "
+        f"peak {peak_gb:.2f} GB")
+    ranks = [r for r, _ in err["input_output"]["rank_pairs"]]
+    as_in = [err["as"][("input", r)][0] for r in ranks]
+    as_out = [err["as"][("output", r)][0] for r in ranks]
+    kle_e, pod_e = list(err["kle"][0]), list(err["pod"][0])
+    log(f"setup errors at ranks {ranks}: AS input {[f'{x:.4e}' for x in as_in]}, "
+        f"AS output {[f'{x:.4e}' for x in as_out]}, KLE "
+        f"{[f'{x:.4e}' for x in kle_e]}, POD {[f'{x:.4e}' for x in pod_e]}, "
+        f"input-output {[f'{x:.4e}' for x in err['input_output']['avg']]}; "
+        f"max|V^T R V - I| {ortho_as:.3e}, KLE max|V^T M V - I| {ortho_kle:.3e}; "
+        f"d_GN[:3] {[round(x, 6) for x in res['d_GN'][:3].tolist()]}")
+    for name in ("d_GN", "d_NG", "d_KLE", "d_POD"):
+        d = res[name]
+        check(bool(torch.isfinite(d).all()), f"setup: non-finite {name}")
+        check(bool((d[1:] <= d[:-1]).all()), f"setup: {name} is not descending")
+    check(ortho_as <= ORTHO_TOL_F32, f"setup: AS max|V^T R V - I| {ortho_as:.3e}")
+    check(ortho_kle <= ORTHO_TOL_F32, f"setup: KLE max|V^T M V - I| {ortho_kle:.3e}")
+    for name, e in (("POD", pod_e), ("AS output", as_out)):
+        check(all(b <= a for a, b in zip(e, e[1:])),
+              f"setup: {name} errors rise with rank {e}")
+    for name, e in (("KLE", kle_e), ("AS input", as_in)):
+        check(e[-1] < e[0], f"setup: {name} error at rank {ranks[-1]} {e[-1]:.4e} "
+              f"not below rank {ranks[0]}'s {e[0]:.4e}")
+    check(err["as"][("output_discarded", None)] == 0, "setup: output_discarded")
+    for key in ("banded_factorize", "banded_solve"):
+        check(launches[key] > 0, f"{key} was not launched on setup")
+    check(m_data.shape == (SETUP_N, dM) and q_data.shape == (SETUP_N, dQ),
+          f"setup: mq_data {m_data.shape}, {q_data.shape}")
+    shapes = {k: v.shape for k, v in proj.items()}
+    check(shapes == {"AS_input": (dM, SETUP_RANK), "KLE": (dM, SETUP_RANK),
+                     "POD": (dQ, r_out)}, f"setup: projectors {shapes}")
+    check(jsp_shape == (SETUP_N, dM, r_out), f"setup: JstarPhi_data {jsp_shape}")
+    check(jsvd_shape == (SETUP_N, dM, r_out), f"setup: Jsvd V_data {jsvd_shape}")
+    del res, AS, KLE, POD
+    torch.cuda.empty_cache()
+    errs = setup_check_f64(device)
+    worst = max(errs.values())
+    log(f"setup float64 nx={SETUP_CHECK_NX} card against CPU: max relative "
+        f"difference {worst:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())})"
+        f" (limit {SETUP_F64_TOL:.0e})")
+    check(worst <= SETUP_F64_TOL, f"setup float64: {worst:.3e} > {SETUP_F64_TOL}")
+    return launches
+
+
 def phase_lane192(device, profile=False):
     """The float32 nx=192 lane, grid-sequenced (the counted path) and
     cold-started: confusion_prior builds the structured prior (cyclic
@@ -1775,6 +1967,8 @@ def run_phases(device, argv, parent=None):
     save = argv[argv.index("--save-h1") + 1] if "--save-h1" in argv else None
     phase_training(proj64, device, "--profile" in argv, save)
     del proj64
+    torch.cuda.empty_cache()
+    paths["setup"] = phase_setup(obs32, prior32, device)
     torch.cuda.empty_cache()
     if "--profile" in argv:
         phase_profile(obs32, prior32)

@@ -10,8 +10,11 @@ factorization and solve, and the batched Gauss-Jordan inverse of the
 prior's cyclic reduction (at pivot widths 13 and 1).  The surrogate layer
 (``nn``: DIPNet / DIPResNet, l2 and H1 losses, AdamW and inexact
 Newton-CG) trains on the reduced bases and the POD from data
-(``models.pod``).  Entry points run on the card unless the caller passes
-``device="cpu"``.  The package imports
+(``models.pod``).  The reduced-basis setup (the output active subspace,
+KLE, the sampled POD, the projection error tests, the low-rank Jacobian
+data and ``DataGenerator``) runs through the same solves, driven by
+``applications.confusion_setup``.  Entry points run on the card unless
+the caller passes ``device="cpu"``.  The package imports
 torch and never jax; ``hippyflow_tpu`` stays the reference it is tested
 against.
 """
@@ -21,4 +24,4 @@ from .fem import *  # noqa: F401,F403
 from .models import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
-from .utils import KeyChain, ParameterList
+from .utils import GivenNoise, KeyChain, ParameterList

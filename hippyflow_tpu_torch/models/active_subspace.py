@@ -1,25 +1,39 @@
-"""Derivative-informed input subspace (port of the materialized,
-prior-preconditioned path of ``hippyflow_tpu/models/active_subspace.py``).
+"""Derivative-informed input and output subspaces (port of the
+materialized, prior-preconditioned path of
+``hippyflow_tpu/models/active_subspace.py``).
 
 The Gauss-Newton operator E[J^T J] is applied from the materialized
 per-sample Jacobians as two large matmuls; the randomized GHEP against the
-prior precision R gives the active subspace.  Samples and Jacobians come
-from the staged pass (``sample_until_solved``, optionally grid-sequenced,
-then ``materialize_jacobians``) or, for a linear symmetric operator without
+prior precision R gives the input active subspace, and the randomized HEP
+of E[J J^T] = (1/N) sum_i J_i J_i^T, from the same Jacobians, the output
+one.  Samples and Jacobians come from the staged pass
+(``sample_until_solved``, optionally grid-sequenced, then
+``materialize_jacobians``) or, for a linear symmetric operator without
 Dirichlet rows, from the fused pass (``sample_and_materialize_symmetric``:
-one factorization per sample).
+one factorization per sample).  ``construct_low_rank_Jacobians`` saves the
+exact SVD of each Jacobian, resuming chunk by chunk, and ``test_errors``
+runs the projection error tests.
+
+Not ported (ROADMAP M11): the matrix-free and serialized operators, the
+unpreconditioned HEP, control distributions and Jacobians, and
+``test_errors_double_loop``.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 import time
 
+import numpy as np
 import torch
 
-from ..ops.randomized import double_pass_g
+from ..ops.operators import prior_preconditioned_projector
+from ..ops.randomized import double_pass, double_pass_g
 from ..utils import KeyChain, ParameterList
 from .sampling import (
     SampleBatch,
+    fresh_solves,
     materialize_jacobians,
     sample_and_materialize_symmetric,
     sample_until_solved,
@@ -31,9 +45,16 @@ def ActiveSubspaceParameterList() -> ParameterList:
     return ParameterList(
         {
             "samples_per_process": [64, "Number of samples used in expectations"],
+            "error_test_samples": [50, "Number of samples for error test"],
             "rank": [128, "Rank of subspace"],
+            "jacobian_rank": [128, "Rank of Jacobians generated"],
             "oversampling": [10, "Oversampling for randomized algorithms"],
             "verbose": [True, "Print progress"],
+            "input_decoder_name": ["_input_decoder", "naming"],
+            "output_decoder_name": ["_output_decoder", "naming"],
+            "output_directory": [None, "output directory for arrays"],
+            "save_and_plot": [False, "save the decoders and spectra"],
+            "store_Omega": [False, "keep the drawn probe blocks"],
             "ms_given": [False, "use externally supplied samples .ms"],
             "chunk_size": [None, "sample-batch chunk size (None = auto)"],
             "jac_chunk_size": [
@@ -57,11 +78,13 @@ def ActiveSubspaceParameterList() -> ParameterList:
 
 
 class ActiveSubspaceProjector:
-    """Input active subspace of m -> q(m) = B u(m) under a Gaussian prior.
+    """Input and output active subspaces of m -> q(m) = B u(m) under a
+    Gaussian prior.
 
-    Set ``.ms`` (with ``ms_given``) and/or ``.Omega_GN`` before
-    ``construct_input_subspace`` to supply the samples and the probe block
-    instead of drawing them."""
+    Set ``.ms`` (with ``ms_given``), ``.Omega_GN`` and/or ``.Omega_NG``
+    before the constructions to supply the samples and the probe blocks
+    instead of drawing them; ``keychain`` draws the rest (replace it with a
+    ``utils.GivenNoise`` to give those too)."""
 
     def __init__(self, observable, prior, parameters: ParameterList | None = None):
         self.observable = observable
@@ -72,9 +95,14 @@ class ActiveSubspaceProjector:
         self.Js = None  # (N, dQ, dM)
         self.ms = None
         self.Omega_GN = None
+        self.Omega_NG = None
         self.d_GN = None
         self.V_GN = None
+        self.d_NG = None
+        self.U_NG = None
         self.stage_seconds = None
+        self._input_subspace_construction_time = None
+        self._output_subspace_construction_time = None
 
     def _ensure_samples(self):
         if self.samples is not None:
@@ -136,14 +164,13 @@ class ActiveSubspaceProjector:
         with encoder = R @ decoder.  Wall seconds of the stages, each ended
         by a device synchronize, are left in ``stage_seconds``: forward,
         jacobian and ghep, or fused (forward + Jacobian in one pass) and
-        ghep."""
+        ghep; their sum in ``_input_subspace_construction_time``."""
         if not prior_preconditioned:
             raise NotImplementedError("only the prior-preconditioned GHEP")
         device = self.prior.mean.device
 
         def lap(t_prev):
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            _synchronize(device)
             t = time.perf_counter()
             return t, t - t_prev
 
@@ -176,6 +203,8 @@ class ActiveSubspaceProjector:
         if Omega is None:
             Omega = self.keychain.normal((self.observable.dM, r + p),
                                          dtype=self.prior.mean.dtype)
+            if self.parameters["store_Omega"]:
+                self.Omega_GN = Omega
         Jf = J.reshape(-1, J.shape[-1])  # (N dQ, dM)
 
         def avg_jtj(X):
@@ -187,4 +216,169 @@ class ActiveSubspaceProjector:
         encoder = self.prior.R_matmat(self.V_GN)
         _, ghep = lap(t)
         self.stage_seconds = {**stages, "ghep": ghep}
+        self._input_subspace_construction_time = sum(self.stage_seconds.values())
+        if self.parameters["verbose"]:
+            print("input subspace construction took "
+                  f"{self._input_subspace_construction_time:.3f}s")
+        self._save("input", self.d_GN, self.V_GN)
         return self.d_GN, self.V_GN, encoder
+
+    def construct_output_subspace(self):
+        """Randomized HEP of E[J J^T] (reference
+        `activeSubspaceProjector.py:625-673`), applied as
+        (1/N) sum_i J_i (J_i^T X) from the Jacobians of the input subspace
+        (materialized here if there are none yet).  Returns (d_NG, decoder,
+        encoder), encoder = decoder."""
+        t0 = time.time()
+        self._ensure_jacobians()
+        J = self.Js
+        dQ = self.observable.dQ
+        r = min(self.parameters["rank"], dQ)
+        Omega = self.Omega_NG
+        if Omega is None:
+            Omega = self.keychain.normal(
+                (dQ, min(r + self.parameters["oversampling"], dQ)),
+                dtype=self.prior.mean.dtype)
+            if self.parameters["store_Omega"]:
+                self.Omega_NG = Omega
+
+        def avg_jjt(X):
+            return (J @ (J.mT @ X)).sum(dim=0) / J.shape[0]
+
+        self.d_NG, self.U_NG = double_pass(avg_jjt, Omega, r, s=1)
+        _synchronize(self.prior.mean.device)
+        self._output_subspace_construction_time = time.time() - t0
+        if self.parameters["verbose"]:
+            print("output subspace construction took "
+                  f"{self._output_subspace_construction_time:.3f}s")
+        self._save("output", self.d_NG, self.U_NG)
+        return self.d_NG, self.U_NG, self.U_NG
+
+    def construct_low_rank_Jacobians(self, output_directory="jacobian_data/",
+                                     check_for_data: bool = True):
+        """The exact SVD of each sample's Jacobian truncated at
+        ``jacobian_rank``, in the reference's Jsvd schema (its randomized
+        accuracyEnhancedSVD per sample, `activeSubspaceProjector.py:816`,
+        is replaced by the exact batched SVD of the materialized J, as in
+        the JAX package).  With ``check_for_data`` finished chunks under
+        ``<output_directory>/chunks/`` are loaded, not computed again.
+        Returns (U (N, dQ, r), sigma (N, r), V (N, dM, r))."""
+        return self._jacobian_data(output_directory, check_for_data)
+
+    def construct_low_rank_control_Jacobians(self, *args, **kwargs):
+        raise NotImplementedError(
+            "control Jacobians are not ported (ROADMAP M11: the control paths)")
+
+    def _jacobian_data(self, output_directory, check_for_data):
+        from .data_generator import _save_bundle, _scan_chunks, _svd_payload
+
+        self._ensure_samples()
+        s = self.samples
+        n = s.ms.shape[0]
+        chunk_size = self.parameters["chunk_size"] or n
+        chunk_dir = (None if output_directory is None
+                     else os.path.join(output_directory, "chunks"))
+        done = {}
+        if chunk_dir is not None:
+            os.makedirs(chunk_dir, exist_ok=True)
+            if check_for_data:
+                done = {(a, b): f for a, b, f in _scan_chunks(chunk_dir)}
+        keys = ("U_data", "sigma_data", "V_data")
+        parts = {k: [] for k in keys}
+        for a in range(0, n, chunk_size):
+            b = min(a + chunk_size, n)
+            if (a, b) in done:
+                with np.load(done[(a, b)]) as z:
+                    for k in keys:
+                        parts[k].append(torch.as_tensor(z[k], device=s.ms.device))
+                continue
+            # reuse the Jacobians of the subspace build where they exist
+            J = (self.Js[a:b] if self.Js is not None else materialize_jacobians(
+                self.observable, s.ms[a:b], s.us[a:b], chunk_size=b - a))
+            rank = min(self.parameters["jacobian_rank"], *J.shape[1:])
+            chunk = dict(zip(keys, _svd_payload(J, rank)))
+            if chunk_dir is not None:
+                np.savez(os.path.join(chunk_dir, f"chunk_{a}_{b}.npz"),
+                         **{k: v.cpu().numpy() for k, v in chunk.items()})
+            for k in keys:
+                parts[k].append(chunk[k])
+        U, sig, V = (torch.cat(parts[k]) for k in keys)
+        if output_directory is not None:
+            _save_bundle(
+                os.path.join(output_directory, "Jsvd_data.npz"),
+                U_data=U.cpu().numpy(), sigma_data=sig.cpu().numpy(),
+                V_data=V.cpu().numpy())
+            np.save(os.path.join(output_directory, "mq_m_data.npy"),
+                    s.ms.cpu().numpy())
+            np.save(os.path.join(output_directory, "mq_q_data.npy"),
+                    s.qs.cpu().numpy())
+            shutil.rmtree(chunk_dir, ignore_errors=True)
+        return U, sig, V
+
+    def test_errors(self, ranks=(8, 16, 32, 64), test_input: bool = True,
+                    test_output: bool = False, n_samples: int | None = None):
+        """Monte-Carlo relative projection errors of the subspaces at the
+        given ranks (reference `activeSubspaceProjector.py:1048-1335`, its
+        naive test).  Input: ||m - V_r V_r^T R m|| / ||m|| over prior
+        samples.  Output: ||q - U_r U_r^T q|| / ||q|| over fresh forward
+        solves; samples whose Newton solve fails are discarded and the
+        average runs over the survivors (the reference's discarded-sample
+        correction), their count under ('output_discarded', None).
+        Returns a dict ('input' | 'output', r) -> (avg, std)."""
+        n = n_samples or self.parameters["error_test_samples"]
+        dtype = self.prior.mean.dtype
+        out = {}
+        if test_input:
+            if self.V_GN is None:
+                raise RuntimeError("construct_input_subspace first")
+            ms = self.prior.sample(
+                self.keychain.normal((n, self.prior.noise_dim), dtype=dtype))
+            norms = torch.linalg.vector_norm(ms, dim=1)
+            for r in ranks:
+                proj = prior_preconditioned_projector(self.V_GN[:, :r],
+                                                      self.prior.R_matmat)
+                errs = torch.linalg.vector_norm(ms - proj(ms.T).T, dim=1) / norms
+                out[("input", r)] = (errs.mean().item(),
+                                     errs.std(correction=0).item())
+        if test_output:
+            if self.U_NG is None:
+                raise RuntimeError("construct_output_subspace first")
+            ms = self.prior.sample(
+                self.keychain.normal((n, self.prior.noise_dim), dtype=dtype))
+            qs, ok, _ = self._fresh_solves(ms)
+            out[("output_discarded", None)] = n - int(ok.sum().item())
+            if not ok.any():
+                raise RuntimeError(
+                    "output error test: every fresh forward solve failed; "
+                    "no samples left after the discard correction")
+            Q = qs[ok]
+            norms = torch.linalg.vector_norm(Q, dim=1)
+            for r in ranks:
+                U = self.U_NG[:, :r]
+                errs = torch.linalg.vector_norm(Q - Q @ U @ U.T, dim=1) / norms
+                out[("output", r)] = (errs.mean().item(),
+                                      errs.std(correction=0).item())
+        return out
+
+    def _fresh_solves(self, ms):
+        """Cold-started forward solves of ms: (qs, converged (N,) bool,
+        Newton iterations (N,))."""
+        return fresh_solves(self.observable, ms, self.parameters["chunk_size"])
+
+    def _save(self, which: str, d, decoder):
+        """AS_<n><input|output_decoder_name>.npy and AS_<n>_d_GN.npy or
+        AS_<n>_d_NG.npy (arrays only)."""
+        outdir = self.parameters["output_directory"]
+        if not self.parameters["save_and_plot"] or outdir is None:
+            return
+        os.makedirs(outdir, exist_ok=True)
+        name = f"AS_{int(self.parameters['samples_per_process'])}"
+        suffix = self.parameters[f"{which}_decoder_name"]
+        np.save(os.path.join(outdir, name + suffix), decoder.cpu().numpy())
+        dname = "_d_GN" if which == "input" else "_d_NG"
+        np.save(os.path.join(outdir, name + dname), d.cpu().numpy())
+
+
+def _synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,317 @@
+"""Training data: (m_i, q_i) pairs and their derivative information (port of
+``hippyflow_tpu/models/data_generator.py``), in the JAX package's artifact
+schemas (``mq_data.npz``, ``Jsvd_data.npz``, ``JstarPhi_data.npz``,
+``JPsi_data.npz``).
+
+Samples are solved in chunks; each chunk's dense Jacobians come from one
+batched linearization and one adjoint solve of dQ right-hand sides (K1 and
+K2 on the card), and the derivative payloads are batched products or the
+exact batched SVD.  Finished chunks persist under ``<data_dir>/chunks/``,
+each drawn from a generator of its own (``chunk_keychain``), so a killed
+run resumes at the first missing chunk and writes the same bits as an
+uninterrupted one.
+
+Not ported (ROADMAP M11): control Jacobians (``derivatives[1]``) and
+control distributions, and ``two_step_generate``.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+import shutil
+import time
+
+import numpy as np
+import torch
+
+from ..utils import KeyChain
+from .sampling import auto_chunk_size, materialize_jacobians, sample_until_solved
+
+
+def data_generator_settings(settings: dict | None = None) -> dict:
+    """The JAX package's settings with their defaults (reference
+    `dataGenerator.py:25-35`)."""
+    settings = dict(settings or {})
+    settings.setdefault("rM", None)
+    settings.setdefault("rZ", None)
+    settings.setdefault("oversample", 10)
+    settings.setdefault("reset_initial_guess", False)
+    # grid sequencing: a noise -> u0 map, a pure function of each lane's
+    # noise, so chunk resume stays bit-exact
+    settings.setdefault("coarse_warm_start", None)
+    settings.setdefault("save_failed_solves", True)
+    settings.setdefault("verbose", True)
+    settings.setdefault("chunk_size", None)
+    settings.setdefault("seed", 0)
+    return settings
+
+
+def _scan_chunks(chunk_dir):
+    """Sorted (start, end, path) of the chunk_<start>_<end>.npz files."""
+    out = []
+    for f in glob.glob(os.path.join(chunk_dir, "chunk_*_*.npz")):
+        m = re.match(r".*chunk_(\d+)_(\d+)\.npz", f)
+        if m:
+            out.append((int(m.group(1)), int(m.group(2)), f))
+    return sorted(out)
+
+
+def contiguous_prefix_end(done) -> int:
+    """Largest e with chunks [0, e) contiguously covered by the sorted
+    (start, end, path) records: a resume restarts at the first gap, so a
+    deleted early chunk is made again."""
+    end = 0
+    for a, b, _ in done:
+        if a <= end < b:
+            end = b
+        elif a > end:
+            break
+    return end
+
+
+def prune_stale_chunks(chunk_dir) -> int:
+    """Delete the chunk files beyond the contiguous [0, e) prefix and return
+    e.  The resume makes everything from the first gap on the current chunk
+    grid (``auto_chunk_size`` depends on the card's memory), so chunks past
+    the gap may overlap it and would duplicate samples when concatenated."""
+    chunks = _scan_chunks(chunk_dir)
+    end = contiguous_prefix_end(chunks)
+    for _, b, f in chunks:
+        if b > end:
+            os.remove(f)
+    return end
+
+
+def load_chunks_validated(chunk_dir, n: int | None = None) -> dict:
+    """Load and concatenate the chunk files, which must tile [0, end)
+    exactly (each starts where the previous one ends) and, with ``n``,
+    reach n; raise on an overlap, a gap or too few samples."""
+    chunks = _scan_chunks(chunk_dir)
+    if not chunks:
+        raise FileNotFoundError(f"no chunk files in {chunk_dir}")
+    end = 0
+    for a, b, f in chunks:
+        if a != end or b <= a:
+            kind = "overlap" if a < end else "gap"
+            raise ValueError(
+                f"chunk files do not tile contiguously ({kind} at sample {end}: "
+                f"{os.path.basename(f)} covers [{a}, {b})); a resume under a "
+                f"different chunk size left stale chunks: delete {chunk_dir} "
+                "and generate again")
+        end = b
+    if n is not None and end < n:
+        raise ValueError(
+            f"chunk files cover only [0, {end}) of the requested {n} samples")
+    arrays: dict[str, list] = {}
+    for _, _, f in chunks:
+        with np.load(f) as z:
+            for k in z.files:
+                arrays.setdefault(k, []).append(z[k])
+    return {k: np.concatenate(v) for k, v in arrays.items()}
+
+
+def chunk_keychain(seed: int, tag: int, chunk_start: int, device=None) -> KeyChain:
+    """The generator of the chunk that starts at sample ``chunk_start``:
+    seeded from (seed, tag, chunk_start) alone, so the chunk draws the same
+    noise whatever ran before it (process restarts, resampling in other
+    chunks, the resume position).  The JAX package folds the same triple
+    into a jax.random key."""
+    state = np.random.SeedSequence((seed, tag, chunk_start)).generate_state(
+        1, np.uint64)[0]
+    return KeyChain(int(state), device)
+
+
+def _svd_payload(J, rank):
+    """The exact SVD of each J (N, dq, dm), truncated at ``rank``:
+    (U (N, dq, r), sigma (N, r), V (N, dm, r)) on J's device."""
+    U, sig, Vt = torch.linalg.svd(J, full_matrices=False)
+    return U[:, :, :rank], sig[:, :rank], Vt.mT[:, :, :rank]
+
+
+class DataGenerator:
+    """Generates (m, q) data and the parameter Jacobian's information."""
+
+    def __init__(self, observable, prior, control_distribution=None,
+                 settings: dict | None = None):
+        if control_distribution is not None:
+            raise NotImplementedError(
+                "control distributions are not ported (ROADMAP M11: the "
+                "control paths)")
+        self.observable = observable
+        self.prior = prior
+        self.settings = data_generator_settings(settings)
+
+    def generate(self, n_samples: int, derivatives=(0, 0), output_decoder=None,
+                 output_encoder=None, input_decoder=None, input_encoder=None,
+                 data_dir: str = "data/test/", compress: bool = True,
+                 clean_up: bool = True, noise=None):
+        """Generate n_samples of (m, q) and, with ``derivatives[0]``, the
+        parameter Jacobian's data (reference `dataGenerator.py:164-195`):
+        J^T MPhi when an output decoder is given (``JstarPhi_data``), J Psi
+        for an input decoder (``JPsi_data``), else the SVD truncated at
+        ``settings['rM']`` (``U_data``, ``sigma_data``, ``V_data``).
+        ``noise`` (n_samples, noise_dim) gives the chunks' first draws."""
+        if derivatives[1]:
+            raise NotImplementedError(
+                "control Jacobian data (derivatives[1]) is not ported "
+                "(ROADMAP M11: the control paths)")
+        os.makedirs(data_dir, exist_ok=True)
+        chunk_dir = os.path.join(data_dir, "chunks")
+        os.makedirs(chunk_dir, exist_ok=True)
+        dtype, device = self.prior.mean.dtype, self.prior.mean.device
+        chunk_size = self.settings["chunk_size"] or auto_chunk_size(
+            self.observable.problem, dtype, device)
+        if output_decoder is not None and output_encoder is None:
+            output_encoder = output_decoder
+        if input_decoder is not None and input_encoder is None:
+            input_encoder = input_decoder
+        as_tensor = lambda X: (None if X is None else torch.as_tensor(
+            X, dtype=dtype, device=device))
+        MPhi = as_tensor(output_encoder) if output_decoder is not None else None
+        Psi = as_tensor(input_decoder)
+
+        start = prune_stale_chunks(chunk_dir)
+        t0 = time.time()
+        i = start
+        while i < n_samples:
+            b = min(chunk_size, n_samples - i)
+            batch = sample_until_solved(
+                self.observable, self.prior,
+                chunk_keychain(self.settings["seed"], 0, i, device), b,
+                chunk_size=b, verbose=self.settings["verbose"],
+                reset_initial_guess=self.settings["reset_initial_guess"],
+                noise=None if noise is None else noise[i:i + b],
+                coarse_warm_start=self.settings["coarse_warm_start"],
+            )
+            payload = {"m_data": batch.ms, "q_data": batch.qs}
+            if derivatives[0]:
+                J = materialize_jacobians(self.observable, batch.ms, batch.us,
+                                          chunk_size=b)
+                payload.update(self._derivative_payload(J, MPhi, Psi,
+                                                        self.settings["rM"]))
+            np.savez(os.path.join(chunk_dir, f"chunk_{i}_{i + b}.npz"),
+                     **{k: v.cpu().numpy() for k, v in payload.items()})
+            if self.settings["save_failed_solves"] and batch.failed_ms is not None:
+                skipped_dir = os.path.join(data_dir, "skipped")
+                os.makedirs(skipped_dir, exist_ok=True)
+                np.save(os.path.join(skipped_dir, f"m_failed_{i}_{i + b}.npy"),
+                        batch.failed_ms)
+            if self.settings["verbose"]:
+                rate = (i + b - start) / (time.time() - t0)
+                print(f"samples [{i}, {i + b}) done ({rate:.2f} samples/s)")
+            i += b
+        if compress:
+            self.compress_dataset(
+                data_dir, derivatives=derivatives, clean_up=clean_up,
+                input_decoder=input_decoder, input_encoder=input_encoder,
+                output_decoder=output_decoder, output_encoder=output_encoder)
+
+    def two_step_generate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "two_step_generate is not ported: it needs the full-state "
+            "observable (StateSpaceIdentityOperator; ROADMAP M11)")
+
+    def compute_jacobians_in_subspace(self, derivatives, output_decoder,
+                                      data_file_name: str, data_dir: str,
+                                      output_encoder=None, compress: bool = True,
+                                      clean_up: bool = True):
+        """The sketches J^T MPhi at stored (m, q) points of a full-state
+        observable, q = u (reference `dataGenerator.py:300-355`), into
+        ``JstarPhi_data.npz``."""
+        if derivatives[1]:
+            raise NotImplementedError(
+                "control Jacobian data (derivatives[1]) is not ported "
+                "(ROADMAP M11: the control paths)")
+        if output_encoder is None:
+            output_encoder = output_decoder
+        dtype, device = self.prior.mean.dtype, self.prior.mean.device
+        MPhi = torch.as_tensor(output_encoder, dtype=dtype, device=device)
+        with np.load(os.path.join(data_dir, data_file_name)) as data:
+            m_data = torch.as_tensor(data["m_data"], dtype=dtype, device=device)
+            u_data = torch.as_tensor(data["q_data"], dtype=dtype, device=device)
+        if u_data.shape[1] != self.observable.problem.state_dim:
+            raise ValueError(
+                f"q_data of width {u_data.shape[1]} is not the state "
+                f"({self.observable.problem.state_dim}): the sketches need "
+                "full-state data, q = u")
+        # a from-scratch loop: clear chunks an interrupted run may have left
+        chunk_dir = os.path.join(data_dir, "chunks_J")
+        shutil.rmtree(chunk_dir, ignore_errors=True)
+        os.makedirs(chunk_dir)
+        chunk_size = self.settings["chunk_size"] or auto_chunk_size(
+            self.observable.problem, dtype, device)
+        N = m_data.shape[0]
+        for s in range(0, N, chunk_size):
+            e = min(s + chunk_size, N)
+            J = materialize_jacobians(self.observable, m_data[s:e], u_data[s:e],
+                                      chunk_size=e - s)
+            np.savez(os.path.join(chunk_dir, f"chunk_{s}_{e}.npz"),
+                     JstarPhi_data=(J.mT @ MPhi).cpu().numpy())
+        if compress:
+            self._compress_jacobian_chunks(data_dir, chunk_dir, output_decoder,
+                                           output_encoder, clean_up)
+
+    @staticmethod
+    def _derivative_payload(J, MPhi, Psi, r):
+        """The Jacobian's part of a chunk's payload, tensors on J's device."""
+        if MPhi is not None:
+            return {"JstarPhi_data": J.mT @ MPhi}  # (N, dM, r_out)
+        if Psi is not None:
+            return {"JPsi_data": J @ Psi}  # (N, dQ, r_in)
+        full = min(J.shape[1], J.shape[2])
+        U, sig, V = _svd_payload(J, min(r or full, full))
+        return {"U_data": U, "sigma_data": sig, "V_data": V}
+
+    def compress_dataset(self, data_dir, derivatives=(0, 0), clean_up: bool = True,
+                         input_decoder=None, input_encoder=None,
+                         output_decoder=None, output_encoder=None):
+        """Concatenate the chunk files into the consolidated bundles
+        (reference `dataGenerator.py:495-667`).  The (m, q) bundle is
+        compressed; the Jacobian bundles are not, as in ``_save_bundle``."""
+        chunk_dir = os.path.join(data_dir, "chunks")
+        cat = load_chunks_validated(chunk_dir)
+        np.savez_compressed(os.path.join(data_dir, "mq_data.npz"),
+                            m_data=cat["m_data"], q_data=cat["q_data"])
+        if derivatives[0]:
+            if "JstarPhi_data" in cat:
+                _save_bundle(
+                    os.path.join(data_dir, "JstarPhi_data.npz"),
+                    JstarPhi_data=cat["JstarPhi_data"],
+                    Phi=_numpy(output_decoder), MPhi=_numpy(output_encoder))
+            if "JPsi_data" in cat:
+                _save_bundle(
+                    os.path.join(data_dir, "JPsi_data.npz"),
+                    JPsi_data=cat["JPsi_data"], Psi=_numpy(input_decoder),
+                    input_encoder=_numpy(input_encoder))
+            if "U_data" in cat:
+                _save_bundle(
+                    os.path.join(data_dir, "Jsvd_data.npz"),
+                    U_data=cat["U_data"], sigma_data=cat["sigma_data"],
+                    V_data=cat["V_data"])
+        if clean_up:
+            shutil.rmtree(chunk_dir, ignore_errors=True)
+
+    def _compress_jacobian_chunks(self, data_dir, chunk_dir, output_decoder,
+                                  output_encoder, clean_up):
+        cat = load_chunks_validated(chunk_dir)
+        _save_bundle(
+            os.path.join(data_dir, "JstarPhi_data.npz"),
+            JstarPhi_data=cat["JstarPhi_data"], Phi=_numpy(output_decoder),
+            MPhi=_numpy(output_encoder))
+        if clean_up:
+            shutil.rmtree(chunk_dir, ignore_errors=True)
+
+
+def _save_bundle(path, **arrays):
+    """An npz bundle of Jacobian data, uncompressed: float Jacobian data
+    barely compresses, and zlib would be the slowest step of writing the
+    (N, dM, r) arrays of a full-size run (the JAX package compresses;
+    ``np.load`` reads either)."""
+    np.savez(path, **arrays)
+
+
+def _numpy(X):
+    """A tensor or array as a numpy array."""
+    return X.cpu().numpy() if isinstance(X, torch.Tensor) else np.asarray(X)

@@ -1,7 +1,9 @@
-"""Materialized observable Jacobians (port of ``hippyflow_tpu/models/jacobian.py``).
+"""Observable Jacobians (port of ``hippyflow_tpu/models/jacobian.py``).
 
-J = -B A^{-1} C, so J^T = -C^T A^{-T} B^T: one adjoint solve with dQ
-right-hand sides per sample (K2 with trans=True on the card), then C^T.
+J = -B A^{-1} C, so J^T = -C^T A^{-T} B^T.  ``mult`` and ``transpmult``
+apply them through incremental solves against the factors of a batch of
+linearizations (K2 on the card); ``materialize`` forms the dense J with one
+adjoint solve of dQ right-hand sides per sample, then C^T.
 """
 
 from __future__ import annotations
@@ -20,6 +22,18 @@ class ObservableJacobian:
     def shape(self):
         return (self.observable.dQ, self.observable.dM)
 
+    def mult(self, lin: Linearization, dm):
+        """J dm for dm (N, dM) or (N, dM, k), one sample per linearization."""
+        obs = self.observable
+        uhat = obs.solveFwdIncremental(lin, obs.applyC(lin, dm))
+        return -obs.applyB(uhat)
+
+    def transpmult(self, lin: Linearization, dq):
+        """J^T dq for dq (N, dQ) or (N, dQ, k)."""
+        obs = self.observable
+        phat = obs.solveAdjIncremental(lin, obs.applyBt(dq))
+        return -obs.applyCt(lin, phat)
+
     def materialize(self, lin: Linearization):
         """Dense J (N, dQ, dM) from one blocked adjoint solve per sample."""
         obs = self.observable
@@ -27,3 +41,17 @@ class ObservableJacobian:
         Bt = obs.B.dense().T.expand(N, -1, -1)  # (N, n, dQ)
         X = obs.solveAdjIncremental(lin, Bt)  # A^{-T} B^T
         return -obs.applyCt(lin, X).mT  # (N, dQ, dM)
+
+
+def jtj_matmat(J: ObservableJacobian, lin: Linearization):
+    """X (dM, k) -> J_i^T J_i X for every sample i of ``lin``: (N, dM, k)
+    (reference JTJ)."""
+    N = lin.u.shape[0]
+    return lambda X: J.transpmult(lin, J.mult(lin, X.expand(N, -1, -1)))
+
+
+def jjt_matmat(J: ObservableJacobian, lin: Linearization):
+    """X (dQ, k) -> J_i J_i^T X for every sample i of ``lin``: (N, dQ, k)
+    (reference JJT)."""
+    N = lin.u.shape[0]
+    return lambda X: J.mult(lin, J.transpmult(lin, X.expand(N, -1, -1)))

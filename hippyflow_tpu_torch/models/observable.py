@@ -25,8 +25,13 @@ class PointwiseObservation:
         return self.B.shape[0]
 
     def apply(self, u):
-        """B u for states (N, n) -> (N, n_obs)."""
-        return u @ self.B.T
+        """B u for states (N, n) -> (N, n_obs), or blocks (N, n, k) ->
+        (N, n_obs, k)."""
+        return u @ self.B.T if u.ndim == 2 else self.B @ u
+
+    def applyt(self, q):
+        """B^T q for (N, n_obs) -> (N, n), or (N, n_obs, k) -> (N, n, k)."""
+        return q @ self.B if q.ndim == 2 else self.B.T @ q
 
     def dense(self):
         return self.B
@@ -50,8 +55,20 @@ class LinearStateObservable:
     def evalu(self, u):
         return self.B.apply(u)
 
+    def applyB(self, u):
+        return self.B.apply(u)
+
+    def applyBt(self, q):
+        return self.B.applyt(q)
+
+    def applyC(self, lin: Linearization, dm):
+        return self.problem.apply_C(lin, dm)
+
     def applyCt(self, lin: Linearization, dp):
         return self.problem.apply_Ct(lin, dp)
+
+    def solveFwdIncremental(self, lin: Linearization, rhs):
+        return self.problem.solve_incremental(lin, rhs, is_adj=False)
 
     def solveAdjIncremental(self, lin: Linearization, rhs):
         return self.problem.solve_incremental(lin, rhs, is_adj=True)

@@ -1,14 +1,23 @@
-"""Proper orthogonal decomposition from a data matrix (port of
-``PODProjectorFromData`` in ``hippyflow_tpu/models/pod.py``).
+"""Proper orthogonal decomposition of observable samples (port of
+``hippyflow_tpu/models/pod.py``):
 
-Dense POD with a mass-weighted inner product in three variants (hep /
-ghep / inverse_ghep) and an optional mean shift, as the reference's
-``PODProjector.py:666-852``.  The sampled POD (``PODProjector``) is not
-ported yet.
+* ``PODProjector``: the randomized HEP of the sampled E[q q^T]
+  (``double_pass``), the projection error tests, and training-data
+  generation that resumes chunk by chunk;
+* ``PODProjectorFromData``: dense POD from a data matrix with a
+  mass-weighted inner product in three variants (hep / ghep /
+  inverse_ghep) and an optional mean shift (reference
+  ``PODProjector.py:666-852``).
+
+``save_mass_and_stiffness_matrices``, ``two_state_solution`` and control
+distributions are not ported.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+import time
 
 import numpy as np
 import torch
@@ -16,6 +25,227 @@ import torch
 from .. import config
 from ..fem import mass_matrix
 from ..ops.linalg import CholeskyFactor, eigh_descending, generalized_eigh
+from ..ops.operators import low_rank_operator, prior_preconditioned_projector
+from ..ops.randomized import double_pass
+from ..utils import KeyChain, ParameterList
+from .sampling import auto_chunk_size, fresh_solves, sample_until_solved
+
+
+def PODParameterList() -> ParameterList:
+    """The JAX package's POD parameter list (reference
+    `PODProjector.py:35-49`)."""
+    return ParameterList(
+        {
+            "sample_per_process": [100, "Number of samples per process"],
+            "rank": [128, "Rank of POD subspace"],
+            "oversampling": [10, "Oversampling for randomized algorithms"],
+            "data_per_process": [250, "Training data points per process"],
+            "verbose": [True, "Print progress"],
+            "output_directory": [None, "output directory"],
+            "plot_label_suffix": ["", "plot label suffix"],
+            "save_and_plot": [False, "save the arrays or not"],
+            "chunk_size": [None, "sample-batch chunk size (None = auto)"],
+            "coarse_warm_start": [
+                None,
+                "grid sequencing: a noise -> u0 map from "
+                "fem.multigrid.coarse_newton_warm_start",
+            ],
+            "seed": [0, "seed of the sample and probe generator"],
+        }
+    )
+
+
+def _rel_errors(Q, P):
+    """Row-wise ||q - p|| / ||q||."""
+    return (torch.linalg.vector_norm(Q - P, dim=1)
+            / torch.linalg.vector_norm(Q, dim=1))
+
+
+class PODProjector:
+    """POD subspace of the observable's output (reference
+    `PODProjector.py:52-654`).  ``keychain`` draws the samples and the
+    probe block (replace it with a ``utils.GivenNoise`` to give them);
+    ``generate_training_data`` draws per chunk, or takes ``noise``."""
+
+    def __init__(self, observable, prior, control_distribution=None,
+                 parameters: ParameterList | None = None):
+        if control_distribution is not None:
+            raise NotImplementedError(
+                "control distributions are not ported (ROADMAP M11: the "
+                "control paths)")
+        self.observable = observable
+        self.prior = prior
+        self.parameters = parameters or PODParameterList()
+        self.keychain = KeyChain(self.parameters["seed"], prior.mean.device)
+        self.d = None
+        self.U_MV = None
+        self.u_at_mean = None
+        self.samples = None
+        self._subspace_construction_time = None
+        self._data_generation_time = None
+
+    def solve_at_mean(self):
+        """The forward solve at the prior mean (n,)."""
+        u, _ = self.observable.problem.solve_fwd(self.prior.mean[None])
+        self.u_at_mean = u[0]
+        return self.u_at_mean
+
+    def _ensure_samples(self, n):
+        if self.samples is not None and self.samples.qs.shape[0] >= n:
+            return
+        self.samples = sample_until_solved(
+            self.observable, self.prior, self.keychain, n,
+            chunk_size=self.parameters["chunk_size"],
+            verbose=self.parameters["verbose"],
+            coarse_warm_start=self.parameters["coarse_warm_start"],
+        )
+
+    def construct_subspace(self):
+        """Randomized HEP of (1/N) sum_i q_i q_i^T (reference
+        `PODProjector.py:331-389`); writes ``POD_projector.npy`` and
+        ``POD_d.npy`` when saving.  Returns (d, decoder, encoder)."""
+        t0 = time.time()
+        n = self.parameters["sample_per_process"]
+        self._ensure_samples(n)
+        Q = self.samples.qs[:n]  # (N, dQ)
+        N, dQ = Q.shape
+        op = low_rank_operator(Q.new_full((N,), 1.0 / N), Q.T)
+        r = min(self.parameters["rank"], dQ)
+        nvec = min(r + self.parameters["oversampling"], dQ)
+        Omega = self.keychain.normal((dQ, nvec), dtype=Q.dtype)
+        self.d, self.U_MV = double_pass(op, Omega, r, s=1)
+        self._subspace_construction_time = time.time() - t0
+        if self.parameters["verbose"]:
+            print("POD subspace construction took "
+                  f"{self._subspace_construction_time:.3f}s")
+        outdir = self.parameters["output_directory"]
+        if self.parameters["save_and_plot"] and outdir:
+            os.makedirs(outdir, exist_ok=True)
+            np.save(os.path.join(outdir, "POD_projector"), self.U_MV.cpu().numpy())
+            np.save(os.path.join(outdir, "POD_d"), self.d.cpu().numpy())
+        return self.d, self.U_MV, self.U_MV
+
+    def generate_training_data(self, output_directory="data/",
+                               n_data: int | None = None, check_for_data=True,
+                               noise=None):
+        """Sample (m_i, q_i) pairs into ``mq_data.npz`` (reference
+        `PODProjector.py:118-222`).  Finished chunks persist under
+        ``<output_directory>/chunks_pod/``; a killed run resumes at the
+        first missing chunk, and each chunk draws from its own generator
+        (``chunk_keychain``, tag 1), so a resumed run writes the same bits
+        as an uninterrupted one.  ``noise`` (n_data, noise_dim) gives the
+        chunks' first draws.  Returns (m_data, q_data) as numpy arrays."""
+        from .data_generator import (
+            chunk_keychain,
+            load_chunks_validated,
+            prune_stale_chunks,
+        )
+
+        t0 = time.time()
+        os.makedirs(output_directory, exist_ok=True)
+        n = n_data or self.parameters["data_per_process"]
+        out_path = os.path.join(output_directory, "mq_data.npz")
+        if check_for_data and os.path.exists(out_path):
+            with np.load(out_path) as existing:
+                if existing["m_data"].shape[0] >= n:
+                    if self.parameters["verbose"]:
+                        print("training data already generated, skipping")
+                    return existing["m_data"], existing["q_data"]
+        chunk_dir = os.path.join(output_directory, "chunks_pod")
+        problem = self.observable.problem
+        dtype, device = self.prior.mean.dtype, self.prior.mean.device
+        chunk_size = self.parameters["chunk_size"] or auto_chunk_size(
+            problem, dtype, device)
+        # resume at the first gap, deleting stale chunks beyond it (they may
+        # come from another chunk grid); a run from scratch clears the
+        # directory outright
+        if check_for_data:
+            os.makedirs(chunk_dir, exist_ok=True)
+            i = prune_stale_chunks(chunk_dir)
+        else:
+            shutil.rmtree(chunk_dir, ignore_errors=True)
+            os.makedirs(chunk_dir)
+            i = 0
+        if i > 0 and self.parameters["verbose"]:
+            print(f"resuming training-data generation at sample {i}")
+        while i < n:
+            b = min(chunk_size, n - i)
+            batch = sample_until_solved(
+                self.observable, self.prior,
+                chunk_keychain(self.parameters["seed"], 1, i, device), b,
+                chunk_size=b, verbose=self.parameters["verbose"],
+                noise=None if noise is None else noise[i:i + b],
+                coarse_warm_start=self.parameters["coarse_warm_start"],
+            )
+            np.savez(os.path.join(chunk_dir, f"chunk_{i}_{i + b}.npz"),
+                     m_data=batch.ms.cpu().numpy(),
+                     q_data=batch.qs.cpu().numpy())
+            i += b
+        cat = {k: v[:n] for k, v in load_chunks_validated(chunk_dir, n).items()}
+        np.savez_compressed(out_path, **cat)
+        shutil.rmtree(chunk_dir, ignore_errors=True)
+        self._data_generation_time = time.time() - t0
+        return cat["m_data"], cat["q_data"]
+
+    def input_output_error_test(self, V, Cinv_matmat=None, rank_pairs=((8, 8),)):
+        """Joint input/output projection error (reference
+        `PODProjector.py:541-654`): project each sample m onto the first
+        rank_in columns of V (prior-preconditioned, V V^T C^{-1}, when
+        ``Cinv_matmat`` is given), solve forward again at the projection
+        (cold Newton, as the JAX package), project its output onto the
+        first rank_out POD vectors, and average ||q(m) - U U^T q(P m)|| /
+        ||q(m)|| over the samples.  Returns (avg list, std list); the
+        re-solves' Newton iterations and their count of unconverged lanes
+        per rank pair are left in ``io_iterations`` and ``io_failed``."""
+        if self.U_MV is None:
+            raise RuntimeError("construct_subspace first")
+        V = torch.as_tensor(V, dtype=self.U_MV.dtype, device=self.U_MV.device)
+        for rank_in, rank_out in rank_pairs:
+            if rank_in > V.shape[1] or rank_out > self.U_MV.shape[1]:
+                raise ValueError(f"rank pair ({rank_in}, {rank_out}) exceeds "
+                                 "the bases")
+        n = self.parameters["sample_per_process"]
+        self._ensure_samples(n)
+        ms, qs = self.samples.ms[:n], self.samples.qs[:n]
+        avg, std = [], []
+        self.io_iterations, self.io_failed = [], []
+        for rank_in, rank_out in rank_pairs:
+            Vr = V[:, :rank_in]
+            if Cinv_matmat is not None:
+                proj = prior_preconditioned_projector(Vr, Cinv_matmat)
+            else:
+                proj = low_rank_operator(Vr.new_ones(rank_in), Vr)
+            q_red, ok, its = fresh_solves(self.observable, proj(ms.T).T,
+                                          self.parameters["chunk_size"])
+            U = self.U_MV[:, :rank_out]
+            errs = _rel_errors(qs, q_red @ U @ U.T)
+            avg.append(errs.mean().item())
+            std.append(errs.std(correction=0).item())
+            self.io_iterations.append(its)
+            self.io_failed.append(int((~ok).sum().item()))
+            if self.parameters["verbose"]:
+                print(f"Rank pair ({rank_in},{rank_out}): avg rel error = "
+                      f"{avg[-1]:.4e}")
+        return avg, std
+
+    def test_output_errors(self, ranks=(8, 16, 32, 64), n_samples: int | None = None):
+        """Monte-Carlo relative projection error of the observable samples
+        onto the POD basis (reference `PODProjector.py:392-478`).  Returns
+        (avg, std) numpy arrays."""
+        if self.U_MV is None:
+            raise RuntimeError("construct_subspace first")
+        n = n_samples or self.parameters["sample_per_process"]
+        self._ensure_samples(n)
+        Q = self.samples.qs[:n]
+        avg, std = [], []
+        for r in ranks:
+            U = self.U_MV[:, :r]
+            errs = _rel_errors(Q, Q @ U @ U.T)
+            avg.append(errs.mean().item())
+            std.append(errs.std(correction=0).item())
+            if self.parameters["verbose"]:
+                print(f"POD avg rel error = {avg[-1]:.4e} at rank {r}")
+        return np.asarray(avg), np.asarray(std)
 
 
 def weighted_l2_norm_vector(x, W):

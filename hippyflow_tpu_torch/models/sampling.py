@@ -2,7 +2,8 @@
 
 Port of ``hippyflow_tpu/models/sampling.py`` (``auto_chunk_size``,
 ``sample_until_solved`` with grid-sequenced warm starts,
-``sample_and_materialize_symmetric``, ``materialize_jacobians``).  PyTorch
+``sample_and_materialize_symmetric``, ``materialize_jacobians``), and
+``fresh_solves``, the error tests' cold re-solves.  PyTorch
 runs eagerly, so the JAX package's program cache and ahead-of-time compile
 machinery have no counterpart here.
 """
@@ -249,6 +250,22 @@ def sample_and_materialize_symmetric(
         iterations=torch.ones(n_samples, dtype=torch.long, device=device),
     )
     return batch, torch.cat(out["J"])
+
+
+def fresh_solves(observable: LinearStateObservable, ms, chunk_size: int | None = None):
+    """Cold-started forward solves of ms (N, dM) in chunks, no resampling
+    (the error tests' re-solves): (qs (N, dQ), converged (N,) bool,
+    Newton iterations (N,))."""
+    problem = observable.problem
+    if chunk_size is None:
+        chunk_size = auto_chunk_size(problem, ms.dtype, ms.device)
+    qs, ok, its = [], [], []
+    for a in range(0, ms.shape[0], chunk_size):
+        u, info = problem.solve_fwd(ms[a:a + chunk_size])
+        qs.append(observable.evalu(u))
+        ok.append(info.converged)
+        its.append(info.iterations)
+    return torch.cat(qs), torch.cat(ok), torch.cat(its)
 
 
 def materialize_jacobians(observable: LinearStateObservable, ms, us,

@@ -12,7 +12,23 @@ from .hopper_kernels import (
     reset_launch_counts,
 )
 from .linalg import CholeskyFactor, eigh_descending, generalized_eigh
-from .randomized import double_pass_g, orthogonalize
+from .operators import (
+    averaged_operator,
+    dense_operator,
+    low_rank_operator,
+    low_rank_rectangular_operator,
+    mean_jtj_from_data_operator,
+    prior_preconditioned_projector,
+    solver_to_operator,
+    transpose_operator,
+)
+from .randomized import (
+    accuracy_enhanced_svd,
+    double_pass,
+    double_pass_g,
+    lanczos_ghep,
+    orthogonalize,
+)
 from .structured import (
     BlockBidiagCholesky,
     BlockCyclicFactor,

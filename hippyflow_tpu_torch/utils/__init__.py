@@ -1,2 +1,2 @@
 from .parameter_list import ParameterList
-from .prandom import KeyChain
+from .prandom import GivenNoise, KeyChain

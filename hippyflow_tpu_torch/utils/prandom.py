@@ -3,7 +3,7 @@
 ``jax.random`` keys cannot be reproduced in PyTorch, so the port draws from
 an explicit ``torch.Generator`` seeded once.  Every API that draws noise
 also accepts given noise, which is how tests feed both packages the same
-numpy draws.
+numpy draws: an object's ``keychain`` may be replaced by a ``GivenNoise``.
 """
 
 from __future__ import annotations
@@ -27,3 +27,18 @@ class KeyChain:
         dtype = dtype or config.DEFAULT_DTYPE
         return torch.randn(shape, generator=self.generator, dtype=dtype,
                            device=self.device)
+
+
+class GivenNoise:
+    """A KeyChain whose draws are given: each ``normal`` takes the next
+    standard normals of a numpy Generator, so the same numbers land on
+    every device."""
+
+    def __init__(self, rng, device=None):
+        _, self.device = config.resolve(None, device)
+        self.rng = rng
+
+    def normal(self, shape, dtype=None):
+        return torch.as_tensor(self.rng.standard_normal(shape),
+                               dtype=dtype or config.DEFAULT_DTYPE,
+                               device=self.device)

@@ -806,3 +806,39 @@ def test_incg_step_on_card_matches_cpu(cuda):
         out.append([t.cpu() for t in nc.step(w, md, qd, None, U, d)] + [d.cpu()])
     for got, want in zip(out[1], out[0]):
         assert _rel(got, want) < 1e-9
+
+
+def _setup_lane_nx16(device, out):
+    """The setup lane in float64 at nx=16 (289 dofs, 100 observations) from
+    given noise: rank 16, 32 samples and data, 8 error-test samples."""
+    from hippyflow_tpu_torch.applications.confusion import (
+        confusion_linear_observable,
+        confusion_prior,
+    )
+    from hippyflow_tpu_torch.applications.confusion_setup import setup_lane
+
+    kw = dict(dtype=torch.float64, device=device)
+    obs, Vh = confusion_linear_observable(nx=16, velocity="analytic", **kw)
+    return setup_lane(obs, confusion_prior(Vh, **kw), str(out), rank=16,
+                      n_samples=32, n_data=32, jacobian_rank=16,
+                      error_test_samples=8, noise_rng=np.random.default_rng(0))
+
+
+def test_setup_lane_on_card_matches_cpu(cuda, tmp_path):
+    """The reduced-basis setup on the card (K1, K2) against the CPU, in
+    float64 from the same given noise: every spectrum above 1e-4 lambda_0
+    and every basis's projector within 1e-8 relative, the same error-test
+    discards, and the same training data to 1e-10."""
+    from hippyflow_tpu_torch.applications.confusion_setup import lane_difference
+
+    hk.reset_launch_counts()
+    gpu = _setup_lane_nx16(cuda, tmp_path / "gpu")
+    assert hk.banded_factorize.launches > 0 and hk.banded_solve.launches > 0
+    cpu = _setup_lane_nx16("cpu", tmp_path / "cpu")
+    for name, err in lane_difference(gpu, cpu).items():
+        assert err <= 1e-8, (name, err)
+    assert gpu["errors"]["as"][("output_discarded", None)] == 0
+    data = [np.load(tmp_path / d / "mq_data.npz") for d in ("gpu", "cpu")]
+    for key in ("m_data", "q_data"):
+        want = data[1][key]
+        assert np.abs(data[0][key] - want).max() <= 1e-10 * np.abs(want).max()

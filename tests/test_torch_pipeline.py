@@ -179,6 +179,9 @@ import hippyflow_tpu_torch.applications.confusion
 import hippyflow_tpu_torch.applications.helmholtz
 import hippyflow_tpu_torch.nn, hippyflow_tpu_torch.models.pod
 import hippyflow_tpu_torch.applications.confusion_training
+import hippyflow_tpu_torch.models.kle, hippyflow_tpu_torch.models.data_generator
+import hippyflow_tpu_torch.ops.operators
+import hippyflow_tpu_torch.applications.confusion_setup
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 sys.exit(f"loaded {bad}" if bad else 0)
 """
@@ -186,7 +189,8 @@ sys.exit(f"loaded {bad}" if bad else 0)
 
 def test_import_pulls_in_no_jax():
     """In a fresh interpreter that refuses to import jax, the JAX package
-    or its applications, the port, its surrogate layer and its confusion,
+    or its applications, the port, its surrogate layer, its KLE, data
+    generator and operator modules, and its confusion, confusion-setup,
     confusion-training and helmholtz applications import."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
