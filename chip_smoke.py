@@ -106,6 +106,29 @@ each:
     discarded output sample, K1 and K2 launched; then the same lane in
     float64 at nx=16 on the card against the CPU from the same given
     noise (spectra and projectors within 1e-8);
+9d. control: the nonlinear Poisson control problem of the reference's
+    unit tests (``hippyflow_tpu_torch.testing``) at nx=ny=64 (4225 dofs,
+    s=nb=65), 10 observations, 25 controls, float32, from one given
+    noise: (1) ``auto`` (K1/K2): a POD decoder (rank 10), then
+    ``DataGenerator.generate(512, derivatives=(1, 1))`` with it and
+    ``construct_low_rank_control_Jacobians`` at rank 10; (2)-(4) the same
+    (m, z) on ``block_cyclic`` (K3 at every cyclic-reduction level, the
+    path ``control_cr``, its launches a multiple of levels + root),
+    ``block_tridiag`` and ``dense`` (64 samples), q, J^T Phi and Jz^T Phi
+    within 1e-3 of ``auto``; (5) ``iterative`` in float64 (16 samples)
+    within 1e-6 of the direct float64 solve, with the worst
+    ``solve_info`` residual; (6) the grid renumbered without a
+    structured shape on ``dense`` and ``iterative`` (forward solves, q
+    against the structured runs'); (7) ``auto`` on nx=8, ny=300 (s=9,
+    nb=301), where it takes cyclic reduction for the adjoint factor and
+    ``thomas_inv`` forward, J and Jz against an explicit ``thomas_inv``
+    run; (8) K3 against its plain version, ``torch.linalg.inv`` and the
+    bound at every cyclic-reduction shape of (2) and (7), and K1 and K2
+    against theirs at every shape that (1) and (7) gave them (on the
+    solved bands, seeded right-hand sides, K2's residual), both dtypes,
+    float32 times beside the bound;
+    (9) steps 1 and 2 in float64 at nx=16 on the card against the CPU
+    (limit 1e-8).  Each step's launches are one path of the JSON line;
 10. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
     256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16,
     grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started; then the
@@ -136,6 +159,7 @@ exits non-zero without printing the result line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1762,6 +1786,537 @@ def phase_setup(obs32, prior32, device):
     return launches
 
 
+# the control phase of chip_smoke.py: the nonlinear Poisson control problem
+# of the reference's unit tests (hippyflow_tpu_torch.testing) at nx=ny=64
+# (4225 dofs, s=nb=65), 10 pointwise observations, float32, seed 0
+CONTROL_N, CONTROL_DENSE_N, CONTROL_ITERATIVE_N = 512, 64, 16
+CONTROL_RANK = 10  # the POD decoder's rank (dQ = 10) and the Jz SVD's
+# every other solver against auto on the same (m, z), relative to the
+# largest entry: q and the sketches J^T Phi, Jz^T Phi.  float32 Newton stops
+# at a relative residual of 1.2e-5 and the solves round at ~1e-7 times the
+# operator's condition (~4e3 at nx=64), so two correct solvers may part by
+# ~1e-4; a wrong factor parts by O(1)
+CONTROL_TOL_F32 = 1e-3
+# the float64 iterative solver (BiCGStab, tol 1e-10) against the direct
+# solve: the Jacobians' linear solves stop at 1e-10 relative residual, so
+# their error is below cond * 1e-10 ~ 1e-6; Newton's at 1e-9 of its first
+# residual, within the same bound for q
+CONTROL_TOL_ITERATIVE = 1e-6
+# the long thin band on which auto takes cyclic reduction for the adjoint
+# factor (s=9 < 128, nb=301 > 256), and its samples
+THIN_NX, THIN_NY, THIN_N = 8, 300, 256
+# float64 card against CPU at nx=16, steps 1 and 2
+CONTROL_CHECK_NX, CONTROL_F64_TOL = 16, 1e-8
+
+
+def control_problem(nx, dtype, device, ny=None, mesh=None, **pde_kwargs):
+    """(observable, prior, control distribution) of the nonlinear Poisson
+    control problem."""
+    from hippyflow_tpu_torch.testing import (
+        poisson_control_settings,
+        poisson_pointwise_observable,
+        setup_poisson_control_problem,
+    )
+
+    st = poisson_control_settings()
+    st["nx"], st["ny"], st["LINEAR"] = nx, ny or nx, False
+    pde, prior, dist, Vh = setup_poisson_control_problem(
+        st, mesh=mesh, dtype=dtype, device=device, **pde_kwargs)
+    return poisson_pointwise_observable(pde, Vh), prior, dist
+
+
+def control_noise(n, noise_dim, dist, dtype, device, seed=SEED):
+    """The given (noise (n, noise_dim), controls (n, dZ)) of the phase."""
+    from hippyflow_tpu_torch.utils import KeyChain
+
+    kc = KeyChain(seed, device)
+    return kc.normal((n, noise_dim), dtype), dist.sample_n(kc, n, dtype)
+
+
+def control_run(obs, prior, dist, out, noise, controls, Phi, derivatives=(1, 1)):
+    """DataGenerator.generate on given noise and controls, counted: the
+    launches, the generator (its stage seconds and Newton counts) and the
+    arrays it wrote."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.models import DataGenerator
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen = DataGenerator(obs, prior, control_distribution=dist,
+                        settings=dict(verbose=False, seed=SEED))
+    gen.generate(noise.shape[0], derivatives=derivatives, output_decoder=Phi,
+                 data_dir=out, noise=noise, controls=controls)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    arrays = {}
+    for name in ("mzq_data", "JstarPhi_data", "JzstarPhi_data"):
+        path = os.path.join(out, name + ".npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                arrays.update({k: z[k] for k in z.files if k not in ("Phi", "MPhi")})
+    return launches, gen, arrays, seconds
+
+
+def _control_line(label, gen, seconds, launches, extra=""):
+    st = ", ".join(f"{k} {v:.3f}" for k, v in gen.stage_seconds.items())
+    n_fail = gen.samples["n_failures"]
+    log(f"control {label}: {seconds:.3f} s ({st}); Newton "
+        f"{_its(gen.samples['iterations'])}; unconverged (resampled) {n_fail}, "
+        f"discarded {n_fail}; launches K1 {launches['banded_factorize']} K2 "
+        f"{launches['banded_solve']} K3 {launches['batched_inverse']}{extra}")
+
+
+def _arrays_rel(got, want, keys=("q_data", "JstarPhi_data", "JzstarPhi_data")):
+    import numpy as np
+
+    out = {}
+    for k in keys:
+        if k in got and k in want:
+            w = np.asarray(want[k], dtype=np.float64)
+            out[k] = float(np.abs(got[k] - w).max() / np.abs(w).max())
+    return out
+
+
+def _cr_levels(nb):
+    n, levels = nb, 0
+    while n > 1:
+        n, levels = (n + 1) // 2, levels + 1
+    return levels
+
+
+def capture_k3_inputs(band, **kw):
+    """The inputs of every K3 call that factorize_block_cyclic_banded(band,
+    **kw) makes (one per level and the root), cloned."""
+    from hippyflow_tpu_torch.ops import structured
+
+    seen, real = [], structured.batched_inverse
+
+    def record(X, *args, **kwargs):
+        seen.append(X.clone())
+        return real(X, *args, **kwargs)
+
+    structured.batched_inverse = record
+    try:
+        structured.factorize_block_cyclic_banded(band, **kw)
+    finally:
+        structured.batched_inverse = real
+    return seen
+
+
+def k3_cr_records(bands, label):
+    """K3 against its plain version, torch.linalg.inv and the bound at
+    every cyclic-reduction shape of ``bands`` (N, nb, s, 3s) float64, in
+    float32 and float64.  Returns the records for the kernels' JSON line."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    records = {}
+    for dtype in (torch.float32, torch.float64):
+        for level, X in enumerate(capture_k3_inputs(bands.to(dtype),
+                                                    with_transpose=False)):
+            N, s, _ = X.shape
+            Y = hk.batched_inverse(X)
+            Y_p = hk.batched_inverse_plain(X)
+            torch.cuda.synchronize()
+            diff = rel_err(Y, Y_p)
+            eye = torch.eye(s, dtype=torch.float64, device=X.device)
+            res = (X.double() @ Y.double() - eye).abs().max().item()
+            res_inv = (X.double() @ torch.linalg.inv(X).double()
+                       - eye).abs().max().item()
+            check(diff <= TOL_INV[dtype]["diff"],
+                  f"K3 {label} level {level} {dtype}: kernel vs plain {diff:.3e}")
+            ms, plain_ms = paired_ms(lambda: hk.batched_inverse(X),
+                                     lambda: hk.batched_inverse_plain(X), 3)
+            inv_ms = cuda_ms(lambda: torch.linalg.inv(X), 3)
+            b_ms, b_by = k3_bound(N, s, dtype)
+            tag = (f"{label}{level}_n{N}_s{s}"
+                   + ("" if dtype == torch.float32 else "_f64"))
+            records.update({f"max_abs_err_{tag}": (Y - Y_p).abs().max().item(),
+                            f"ms_{tag}": ms, f"plain_ms_{tag}": plain_ms,
+                            f"inv_ms_{tag}": inv_ms, **bound_keys(tag, b_ms, b_by)})
+            log(f"K3 {label} level {level} {str(dtype)[6:]} N={N} s={s}: rel "
+                f"diff {diff:.3e}, max|X X^-1 - I| {res:.3e} (torch.linalg.inv "
+                f"{res_inv:.3e}); K3 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.linalg.inv {inv_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+            del X, Y, Y_p
+    return records
+
+
+@contextlib.contextmanager
+def band_kernel_shapes():
+    """Within the block, the shape of every K1 and K2 call that the PDE
+    problem's band factors make (through ``ops.structured``): a set of
+    ("K1", N, nb, s) and ("K2", N, nb, s, k, trans)."""
+    from hippyflow_tpu_torch.ops import structured
+
+    seen, fac, sol = set(), structured.banded_factorize, structured.banded_solve
+
+    def factorize(band, *args, **kwargs):
+        seen.add(("K1",) + tuple(band.shape[:3]))
+        return fac(band, *args, **kwargs)
+
+    def solve(M, Dinv, B, bb, trans, *args, **kwargs):
+        seen.add(("K2",) + tuple(bb.shape) + (bool(trans),))
+        return sol(M, Dinv, B, bb, trans, *args, **kwargs)
+
+    structured.banded_factorize, structured.banded_solve = factorize, solve
+    try:
+        yield seen
+    finally:
+        structured.banded_factorize, structured.banded_solve = fac, sol
+
+
+def k12_shape_records(band64, shapes, label):
+    """K1 and K2 against their plain versions at every shape of ``shapes``
+    (from ``band_kernel_shapes``), on the first N samples of the float64
+    bands ``band64`` and seeded right-hand sides, in both dtypes, with the
+    residual of K2's solves; float32 times in turns with the plain
+    versions, beside the bound.  Returns (K1's, K2's) records for the
+    kernels' JSON line."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+    from hippyflow_tpu_torch.ops.structured import (
+        block_tridiag_matmat,
+        block_tridiag_matmat_trans,
+    )
+
+    N0, nb0, s0, _ = band64.shape
+    gen = torch.Generator(device=band64.device).manual_seed(SEED)
+    records = {"K1": {}, "K2": {}}
+    for key in sorted(shapes):
+        N, nb, s = key[1:4]
+        check((nb, s) == (nb0, s0) and N <= N0, f"{label}: no band for {key}")
+        sub64 = band64[:N]
+        if key[0] == "K2":
+            k, trans = key[4:]
+            rhs64 = torch.randn(N, nb, s, k, generator=gen, dtype=torch.float64,
+                                device=band64.device)
+            tag = f"{label}_k{k}_{'trans' if trans else 'fwd'}_n{N}_s{s}"
+        else:
+            tag = f"{label}_n{N}_s{s}"
+        rec, line = records[key[0]], f"{key[0]} {label} N={N} nb={nb} s={s}"
+        if key[0] == "K2":
+            line += f" k={k} trans={trans}"
+        for dtype in (torch.float32, torch.float64):
+            band = sub64.to(dtype)
+            M, Dinv = hk.banded_factorize(band)
+            sfx = "" if dtype == torch.float32 else "_f64"
+            if key[0] == "K1":
+                M_p, D_p = hk.banded_factorize_plain(band)
+                torch.cuda.synchronize()
+                rel = max(rel_err(M, M_p), rel_err(Dinv, D_p))
+                err = max((M - M_p).abs().max().item(),
+                          (Dinv - D_p).abs().max().item())
+                res = None
+                run = lambda: hk.banded_factorize(band)
+                plain = lambda: hk.banded_factorize_plain(band)
+                del M_p, D_p
+            else:
+                B, bb = band[..., 2 * s :].contiguous(), rhs64.to(dtype)
+                x = hk.banded_solve(M, Dinv, B, bb, trans)
+                x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
+                torch.cuda.synchronize()
+                rel, err = rel_err(x, x_p), (x - x_p).abs().max().item()
+                apply = block_tridiag_matmat_trans if trans else block_tridiag_matmat
+                b_flat = rhs64.reshape(N, nb * s, k)
+                res = (torch.linalg.vector_norm(
+                    apply(sub64, x.double().reshape(N, nb * s, k)) - b_flat)
+                    / torch.linalg.vector_norm(b_flat)).item()
+                run = lambda: hk.banded_solve(M, Dinv, B, bb, trans)
+                plain = lambda: hk.banded_solve_plain(M, Dinv, B, bb, trans)
+                del x, x_p
+            tol = TOL[dtype]
+            check(rel <= tol["diff"],
+                  f"{key[0]} {label} {key[1:]} {dtype}: vs plain {rel:.3e}")
+            if res is not None:
+                check(res <= tol["residual"],
+                      f"K2 {label} {key[1:]} {dtype}: residual {res:.3e}")
+            rec[f"max_abs_err_{tag}{sfx}"] = err
+            line += f"; {str(dtype)[6:]} rel diff {rel:.3e}" + (
+                "" if res is None else f" residual {res:.3e}")
+            if dtype == torch.float32:
+                ms, plain_ms = paired_ms(run, plain, 3)
+                b_ms, b_by = (k1_bound(N, nb, s, dtype) if key[0] == "K1"
+                              else k2_bound(N, nb, s, k, dtype))
+                rec.update({f"ms_{tag}": ms, f"plain_ms_{tag}": plain_ms,
+                            **bound_keys(tag, b_ms, b_by)})
+                line += (f", {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+                         f"{b_ms:.5f} ({b_by}))")
+            del band, M, Dinv, run, plain
+        log(line)
+    return records["K1"], records["K2"]
+
+
+def control_check_f64(device):
+    """Steps 1 and 2 in float64 at nx=16 on the card and on the CPU from
+    the same given noise and controls: the largest relative difference of
+    q, J^T Phi and Jz^T Phi."""
+    import numpy as np
+
+    runs = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        for solver in ("auto", "block_cyclic"):
+            obs, prior, dist = control_problem(CONTROL_CHECK_NX, torch.float64,
+                                               dev, solver=solver)
+            noise, controls = control_noise(32, prior.noise_dim, dist,
+                                            torch.float64, torch.device("cpu"))
+            Phi = np.linalg.qr(np.random.default_rng(SEED).standard_normal(
+                (obs.dQ, obs.dQ)))[0]
+            with tempfile.TemporaryDirectory(prefix="control_f64_") as out:
+                runs[(where, solver)] = control_run(
+                    obs, prior, dist, out, noise.to(dev), controls.to(dev),
+                    Phi)[2]
+    return {solver: max(_arrays_rel(runs[("card", solver)],
+                                    runs[("cpu", solver)]).values())
+            for solver in ("auto", "block_cyclic")}
+
+
+def phase_control(device):
+    """The control paths on the Poisson control problem at nx=64: the
+    steps of each solver choice, each counted as its own path, then K3 at
+    the cyclic-reduction shapes and the float64 card-against-CPU check.
+    Returns (launches by path, the records of K1, K2 and K3 by kernel)."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.fem import Mesh2D, rectangle_mesh
+    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
+    from hippyflow_tpu_torch.models import (
+        ActiveSubspaceParameterList,
+        ActiveSubspaceProjector,
+        PODParameterList,
+        PODProjector,
+        fresh_solves,
+        materialize_jacobians,
+        sample_until_solved,
+    )
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    f32, f64 = torch.float32, torch.float64
+    paths, t_phase = {}, time.perf_counter()
+    obs, prior, dist = control_problem(NX, f32, device)
+    noise, controls = control_noise(CONTROL_N, prior.noise_dim, dist, f32, device)
+    tmp = tempfile.TemporaryDirectory(prefix="control_smoke_")
+    d = lambda name: os.path.join(tmp.name, name)
+
+    # 1. auto: a POD decoder, DataGenerator, the control Jacobians' SVD;
+    # the shapes of its K1 and K2 calls are held in step 8
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with band_kernel_shapes() as shapes_auto:
+        pp = PODParameterList()
+        pp["sample_per_process"], pp["rank"], pp["verbose"] = (
+            64, CONTROL_RANK, False)
+        pod = PODProjector(obs, prior, control_distribution=dist, parameters=pp)
+        _, Phi, _ = pod.construct_subspace()
+        Phi = Phi.cpu().numpy()
+        t_pod = time.perf_counter() - t0
+        launches_pod = launch_counts()
+        launches, gen, ref, seconds = control_run(obs, prior, dist, d("auto"),
+                                                  noise, controls, Phi)
+        ap = ActiveSubspaceParameterList()
+        ap["samples_per_process"], ap["jacobian_rank"] = CONTROL_N, CONTROL_RANK
+        ap["verbose"], ap["seed"] = False, SEED
+        t1 = time.perf_counter()
+        asp = ActiveSubspaceProjector(obs, prior, parameters=ap,
+                                      control_distribution=dist)
+        Uz, sz, Vz = asp.construct_low_rank_control_Jacobians(d("jacobian_data"))
+        torch.cuda.synchronize()
+        t_svd = time.perf_counter() - t1
+    # control_run set the counts to 0, so these hold its launches and the
+    # projector's
+    launches_as = launch_counts()
+    paths["control"] = {k: launches_pod[k] + launches_as[k] for k in launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _control_line(f"auto float32 nx={NX} samples={CONTROL_N}", gen, seconds,
+                  launches, f"; POD decoder {t_pod:.3f} s; "
+                  f"construct_low_rank_control_Jacobians rank {CONTROL_RANK} "
+                  f"{t_svd:.3f} s (Newton {_its(asp.samples.iterations)}, "
+                  f"resampled {asp.samples.n_failures}); peak {peak:.2f} GB")
+    q_ref = ref["q_data"]
+    check(q_ref.shape == (CONTROL_N, obs.dQ) and ref["z_data"].shape == (
+        CONTROL_N, 25), f"control: mzq shapes {q_ref.shape}")
+    check(ref["JstarPhi_data"].shape == (CONTROL_N, obs.dM, CONTROL_RANK)
+          and ref["JzstarPhi_data"].shape == (CONTROL_N, 25, CONTROL_RANK),
+          "control: sketch shapes")
+    check(all(np.isfinite(v).all() for v in ref.values()), "control: non-finite")
+    check(Uz.shape == (CONTROL_N, obs.dQ, CONTROL_RANK)
+          and bool(torch.isfinite(sz).all()) and bool((sz[:, 1:] <= sz[:, :-1]).all()),
+          "control: Jz SVD")
+    with np.load(d("jacobian_data/Jzsvd_data.npz")) as z:
+        check(sorted(z.files) == ["Uz_data", "Vz_data", "sigmaz_data"],
+              f"control: Jzsvd files {z.files}")
+    for key in ("banded_factorize", "banded_solve"):
+        check(paths["control"][key] > 0, f"{key} was not launched on control")
+    check(int(gen.samples["iterations"].max()) >= 2, "control: Newton did not run")
+
+    # 2-4. the direct solver choices on the same (m, z)
+    n_levels = _cr_levels(NX + 1)
+    for solver, n in (("block_cyclic", CONTROL_N), ("block_tridiag", CONTROL_N),
+                      ("dense", CONTROL_DENSE_N)):
+        o, p, dist_s = control_problem(NX, f32, device, solver=solver)
+        torch.cuda.reset_peak_memory_stats()
+        launches, g, arr, seconds = control_run(o, p, dist_s, d(solver),
+                                                noise[:n], controls[:n], Phi)
+        name = {"block_cyclic": "control_cr", "block_tridiag": "control_tridiag",
+                "dense": "control_dense"}[solver]
+        paths[name] = launches
+        rel = _arrays_rel(arr, {k: v[:n] for k, v in ref.items()})
+        worst = max(rel.values())
+        k3 = launches["batched_inverse"]
+        _control_line(f"{solver} float32 nx={NX} samples={n}", g, seconds,
+                      launches, f"; against auto: "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+                      + f" (limit {CONTROL_TOL_F32:.0e}); peak "
+                      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        check(worst <= CONTROL_TOL_F32, f"control {solver}: {worst:.3e} from auto")
+        if solver == "block_cyclic":
+            # each factorization makes one K3 call per level and one at the
+            # root, for A (Newton) or A^T (the two Jacobians) alone
+            check(k3 > 0 and k3 % (n_levels + 1) == 0,
+                  f"control_cr: {k3} K3 launches, not a multiple of "
+                  f"{n_levels + 1}")
+            log(f"control_cr K3 launches {k3} = {k3 // (n_levels + 1)} "
+                f"factorizations x ({n_levels} levels + root)")
+        else:
+            check(k3 == 0, f"{name}: K3 launched")
+        del o, p
+
+    # 5. iterative, float64, against the direct float64 solve
+    n = CONTROL_ITERATIVE_N
+    runs = {}
+    for solver in ("auto", "iterative"):
+        o, p, dist_s = control_problem(NX, f64, device, solver=solver)
+        launches, g, arr, seconds = control_run(
+            o, p, dist_s, d(f"{solver}64"), noise[:n].double(),
+            controls[:n].double(), Phi)
+        runs[solver] = (o, arr)
+        if solver == "iterative":
+            paths["control_iterative"] = launches
+            rel = _arrays_rel(arr, runs["auto"][1])
+            m = torch.as_tensor(arr["m_data"], device=device)
+            z = torch.as_tensor(arr["z_data"], device=device)
+            u, _ = o.problem.solve_fwd(m, z)
+            lin = o.problem.linearize(u, m, z)
+            Bt = o.B.dense().T.expand(n, -1, -1)
+            _, info = o.problem.solve_incremental(lin, Bt, is_adj=True,
+                                                  return_info=True)
+            worst_res = info.max().item()
+            _control_line(f"iterative float64 nx={NX} samples={n}", g, seconds,
+                          launches, "; against the direct float64 solve: "
+                          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+                          + f" (limit {CONTROL_TOL_ITERATIVE:.0e}); worst "
+                          f"solve_info residual {worst_res:.3e}")
+            check(max(rel.values()) <= CONTROL_TOL_ITERATIVE,
+                  f"control iterative: {max(rel.values()):.3e} from direct")
+            check(worst_res <= 1e-10, f"control iterative: solve_info {worst_res:.3e}")
+
+    # 6. the nx=64 mesh renumbered, no structured shape: dense and iterative
+    base = rectangle_mesh(NX, NX)
+    perm = np.random.default_rng(SEED).permutation(base.num_vertices)
+    mesh = Mesh2D(base.vertices[perm], np.argsort(perm)[base.cells].astype(np.int32),
+                  base.boundary_mask[perm])
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    line = []
+    for solver, dtype, n, want in (("dense", f32, CONTROL_DENSE_N, ref),
+                                   ("iterative", f64, 4, runs["iterative"][1])):
+        o, _, _ = control_problem(NX, dtype, device, mesh=mesh, solver=solver)
+        m = torch.as_tensor(want["m_data"][:n], dtype=dtype, device=device)
+        z = torch.as_tensor(want["z_data"][:n], dtype=dtype, device=device)
+        q, ok, its = fresh_solves(o, m[:, perm], zs=z)
+        check(bool(ok.all()), f"control unstructured {solver}: unconverged")
+        w = want["q_data"][:n]
+        rel = float(np.abs(q.cpu().numpy() - w).max() / np.abs(w).max())
+        tol = CONTROL_TOL_F32 if dtype == f32 else CONTROL_TOL_ITERATIVE
+        check(rel <= tol, f"control unstructured {solver}: q {rel:.3e}")
+        line.append(f"{solver} {str(dtype)[6:]} samples={n} q {rel:.3e} (limit "
+                    f"{tol:.0e}), Newton {_its(its)}")
+        del o
+    torch.cuda.synchronize()
+    paths["control_unstructured"] = launch_counts()
+    log(f"control unstructured nx={NX} (permuted, structured_shape=None): "
+        f"{time.perf_counter() - t0:.3f} s; " + "; ".join(line))
+
+    # 7. auto on the long thin band: thomas_inv forward, cyclic reduction
+    # for the adjoint factor, against an explicit thomas_inv run
+    o, p, dist_t = control_problem(THIN_NX, f32, device, ny=THIN_NY)
+    check((o.problem.adj_solver, o.problem.fwd_solver)
+          == ("block_cyclic", "thomas_inv"),
+          f"thin: auto picked {o.problem.adj_solver}")
+    o_t, _, _ = control_problem(THIN_NX, f32, device, ny=THIN_NY,
+                                solver="thomas_inv")
+    from hippyflow_tpu_torch.utils import KeyChain
+
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with band_kernel_shapes() as shapes_thin:
+        batch = sample_until_solved(o, p, KeyChain(SEED, device), THIN_N,
+                                    control_distribution=dist_t)
+        J = materialize_jacobians(o, batch.ms, batch.us, batch.zs)
+        Jz = materialize_jacobians(o, batch.ms, batch.us, batch.zs, control=True)
+        torch.cuda.synchronize()
+    paths["control_thin"] = launch_counts()
+    t_thin = time.perf_counter() - t0
+    J_t = materialize_jacobians(o_t, batch.ms, batch.us, batch.zs)
+    Jz_t = materialize_jacobians(o_t, batch.ms, batch.us, batch.zs, control=True)
+    rel_j, rel_jz = rel_err(J, J_t), rel_err(Jz, Jz_t)
+    k3 = paths["control_thin"]["batched_inverse"]
+    nl = _cr_levels(THIN_NY + 1)
+    log(f"control thin float32 nx={THIN_NX} ny={THIN_NY} (s={THIN_NX + 1}, "
+        f"nb={THIN_NY + 1}) samples={THIN_N}: {t_thin:.3f} s; Newton "
+        f"{_its(batch.iterations)}; J against thomas_inv {rel_j:.3e}, Jz "
+        f"{rel_jz:.3e} (limit {CONTROL_TOL_F32:.0e}); launches K1 "
+        f"{paths['control_thin']['banded_factorize']} K2 "
+        f"{paths['control_thin']['banded_solve']} K3 {k3} (2 adjoint "
+        f"factorizations x ({nl} levels + root))")
+    check(max(rel_j, rel_jz) <= CONTROL_TOL_F32, "control thin: J from thomas_inv")
+    check(k3 == 2 * (nl + 1), f"control thin: K3 launches {k3}")
+    o64, _, _ = control_problem(THIN_NX, f64, device, ny=THIN_NY)
+    thin_band = bc_symmetrize_banded_masked(
+        o64.problem.bound.assemble_A_banded(batch.us.double(), batch.ms.double(),
+                                            batch.zs.double()),
+        o64.problem._mask)
+    del o, o_t, o64, J, Jz, J_t, Jz_t, batch
+    torch.cuda.empty_cache()
+
+    # 8. K3 against its plain version at every cyclic-reduction shape, and
+    # K1 and K2 at every shape that steps 1 and 7 gave them
+    m = torch.as_tensor(ref["m_data"], device=device, dtype=f64)
+    z = torch.as_tensor(ref["z_data"], device=device, dtype=f64)
+    o64, _, _ = control_problem(NX, f64, device, solver="block_cyclic")
+    u, _ = o64.problem.solve_fwd(m, z)
+    band = bc_symmetrize_banded_masked(o64.problem.bound.assemble_A_banded(u, m, z),
+                                       o64.problem._mask)
+    del o64, u
+    torch.cuda.empty_cache()
+    records = {"batched_inverse": k3_cr_records(band, "control_cr")}
+    records["banded_factorize"], records["banded_solve"] = k12_shape_records(
+        band, shapes_auto, "control")
+    del band
+    torch.cuda.empty_cache()
+    records["batched_inverse"].update(k3_cr_records(thin_band, "control_thin"))
+    for name, shapes in (("control", shapes_auto), ("control_thin", shapes_thin)):
+        check({key[0] for key in shapes} == {"K1", "K2"},
+              f"{name}: K1 and K2 shapes {sorted(shapes)}")
+    k1_thin, k2_thin = k12_shape_records(thin_band, shapes_thin, "control_thin")
+    records["banded_factorize"].update(k1_thin)
+    records["banded_solve"].update(k2_thin)
+    del thin_band
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # 9. float64 card against CPU at nx=16
+    errs = control_check_f64(device)
+    worst = max(errs.values())
+    log(f"control float64 nx={CONTROL_CHECK_NX} card against CPU: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (limit {CONTROL_F64_TOL:.0e}); phase {time.perf_counter() - t_phase:.1f} s")
+    check(worst <= CONTROL_F64_TOL, f"control float64: {worst:.3e}")
+    return paths, records
+
+
 def phase_lane192(device, profile=False):
     """The float32 nx=192 lane, grid-sequenced (the counted path) and
     cold-started: confusion_prior builds the structured prior (cyclic
@@ -1970,6 +2525,9 @@ def run_phases(device, argv, parent=None):
     torch.cuda.empty_cache()
     paths["setup"] = phase_setup(obs32, prior32, device)
     torch.cuda.empty_cache()
+    control_paths, control_records = phase_control(device)
+    paths.update(control_paths)
+    torch.cuda.empty_cache()
     if "--profile" in argv:
         phase_profile(obs32, prior32)
     del obs32, prior32, levels64
@@ -2010,6 +2568,8 @@ def run_phases(device, argv, parent=None):
                      (f"s{s_helm}", s516[f32]["k3_clusters"]),
                      (f"s{s_helm}_f64", s516[f64]["k3_clusters"])):
         k3.update({f"{k}_{tag}": v for k, v in rec.items()})
+    for name, rec in control_records.items():
+        report[name].update(rec)
     for dtype, sfx in ((f32, f"s{s_helm}"), (f64, f"s{s_helm}_f64")):
         r = s516[dtype]
         report["banded_factorize"].update({

@@ -13,8 +13,13 @@ Newton-CG) trains on the reduced bases and the POD from data
 (``models.pod``).  The reduced-basis setup (the output active subspace,
 KLE, the sampled POD, the projection error tests, the low-rank Jacobian
 data and ``DataGenerator``) runs through the same solves, driven by
-``applications.confusion_setup``.  Entry points run on the card unless
-the caller passes ``device="cpu"``.  The package imports
+``applications.confusion_setup``.  ``VariationalPDEProblem`` takes the
+JAX package's solver choices (inverse and pivoted block-Thomas, batched
+cyclic reduction through K3, dense, BiCGStab) on structured and
+unstructured meshes, and the control paths (``z``, dq/dz) run through
+sampling, POD, ``DataGenerator`` and the active subspace; ``testing``
+holds the reference's Poisson control problem.  Entry points run on the
+card unless the caller passes ``device="cpu"``.  The package imports
 torch and never jax; ``hippyflow_tpu`` stays the reference it is tested
 against.
 """

@@ -7,8 +7,10 @@ from .assembly import (
     DirichletBC,
     GalerkinForm,
     banded_from_elements,
+    bc_symmetrize,
     bc_symmetrize_banded_from_mask,
     bc_symmetrize_banded_masked,
+    boundary_mass_matrix,
     boundary_mass_matrix_banded,
     mask_residual,
     mass_matrix,

@@ -1,4 +1,4 @@
-"""Galerkin assembly on structured P1 meshes, batched over samples.
+"""Galerkin assembly of P1 forms, batched over samples.
 
 Port of ``hippyflow_tpu/fem/assembly.py``.  A weak form is given by
 pointwise flux/source callables,
@@ -7,18 +7,23 @@ pointwise flux/source callables,
                         + S(x, u, grad u, m, z, c) v dx,
 
 which here act on whole tensors: every argument carries leading axes
-(samples, cells, quadrature points) and the callables broadcast over them.
-Element residuals are computed for all samples and cells at once; the
-element Jacobians dr_e/du_e and dr_e/dm_e are forward-mode derivatives of
-the element residual (``torch.func.jvp``, one tangent per local dof), so
-they agree with the residual by construction, as ``jax.jacfwd`` does in the
-JAX package.
+(samples, cells, quadrature points) and the callables broadcast over them;
+the control z is given as it is, (N, dz), for the callable to contract
+against its own fields at the points.  Element residuals are computed for
+all samples and cells at once; the element Jacobians dr_e/du_e, dr_e/dm_e
+and dr_e/dz are forward-mode derivatives of the element residual
+(``torch.func.jvp``, one tangent per local dof or control), so they agree
+with the residual by construction, as ``jax.jacfwd`` does in the JAX
+package.
 
-Global assembly uses the structured plan of the JAX package: on a
-``rectangle_mesh`` every element-matrix entry lands on one of seven fixed
-matrix diagonals, so residual, band and C^T assembly are shifted slice-adds
-of (ny, nx) element grids, with no scatter.  The band's diagonals are
-written into the (nb, s, 3s) block-tridiagonal storage directly.
+Global assembly on a ``rectangle_mesh`` uses the structured plan of the
+JAX package: every element-matrix entry lands on one of seven fixed
+matrix diagonals, so residual, band and C^T assembly are shifted
+slice-adds of (ny, nx) element grids, with no scatter, and the band's
+diagonals are written into the (nb, s, 3s) block-tridiagonal storage
+directly.  On any other mesh the element contributions are summed by
+``index_add_`` (the JAX package's segment sums), and dense matrices are
+scattered the same way.
 """
 
 from __future__ import annotations
@@ -43,14 +48,16 @@ class GalerkinForm:
     source(x, u, grad_u, m, z, c) -> (...)      [optional]
 
     evaluated on tensors broadcast over leading (sample, cell, quadrature
-    point) axes: ``x`` (..., 2) positions, ``u`` state values, ``grad_u``
-    (..., 2) state gradients, ``m`` parameter values, ``z`` the control
-    (always None here) and ``c`` a dict of coefficient values at the points
-    (``c[name]`` (...) or (..., k); ``c['grad_' + name]`` (..., 2) or
-    (..., k, 2)).
+    point) axes: ``x`` (cells, points, 2) positions, ``u`` state values,
+    ``grad_u`` (..., 2) state gradients, ``m`` parameter values, ``z`` the
+    control (N, dz) of each sample or None, and ``c`` a dict of
+    coefficient values at the points (``c[name]`` (...) or (..., k);
+    ``c['grad_' + name]`` (..., 2) or (..., k, 2)).
 
     coefficients: name -> (n,) or (n, k) dof values on the P1 space.
     cell_coefficients: name -> (nc,) per-cell constants.
+    symmetric: dr/du is symmetric positive definite, so the ``dense``
+    solver factorizes it by Cholesky (else pivoted LU).
     """
 
     flux: Callable | None = None
@@ -58,6 +65,7 @@ class GalerkinForm:
     quad_degree: int = 2
     coefficients: Mapping[str, np.ndarray] = field(default_factory=dict)
     cell_coefficients: Mapping[str, np.ndarray] = field(default_factory=dict)
+    symmetric: bool = False
 
 
 def structured_plan(V: FunctionSpace):
@@ -101,11 +109,20 @@ def structured_plan(V: FunctionSpace):
 class BoundGalerkinForm:
     """A GalerkinForm bound to (state space, parameter space) on one device.
 
-    Entry points, all batched over a leading sample axis:
-      residual(u, m)           (N, n)  -> (N, n)
-      assemble_A_banded(u, m)  -> dr/du in (N, nb, s, 3s) band storage
-      apply_Ct(u, m, dp)       -> (dr/dm)^T dp, dp (N, n) or (N, n, k)
-    """
+    Entry points, all batched over a leading sample axis (u (N, n), m
+    (N, n_m), z (N, dz) or None):
+      residual(u, m, z)             -> (N, n)
+      assemble_A_banded(u, m, z)    -> dr/du in (N, nb, s, 3s) band storage
+      assemble_A / assemble_C       -> dense dr/du (N, n, n), dr/dm (N, n, n_m)
+      assemble_Cz(u, m, z)          -> dense dr/dz (N, n, dz)
+      assemble_A_diag(u, m, z)      -> the diagonal of dr/du (N, n)
+      apply_C, apply_Ct, apply_Cz, apply_Czt: (dr/dm) dm, (dr/dm)^T dp,
+          (dr/dz) dz, (dr/dz)^T dp, each on (N, ., k) blocks or vectors.
+
+    On a ``rectangle_mesh`` residual, band, C and C^T take the structured
+    scatter-free plan; on any other mesh (``structured_plan`` is None) the
+    element contributions are summed by ``index_add_``, the JAX package's
+    segment sums, and there is no band."""
 
     def __init__(self, Vu: FunctionSpace, Vm: FunctionSpace,
                  form: GalerkinForm, dtype=None, device=None):
@@ -113,12 +130,9 @@ class BoundGalerkinForm:
             raise ValueError("state/parameter spaces must share a mesh")
         if Vu.degree != 1 or Vm.degree != 1:
             raise NotImplementedError("only P1 state and parameter spaces")
-        plan = structured_plan(Vu)
-        if plan is None:
-            raise NotImplementedError("only structured rectangle meshes")
         self.dtype, self.device = config.resolve(dtype, device)
         self.Vu, self.Vm, self.form = Vu, Vm, form
-        self.plan = plan
+        self.plan = structured_plan(Vu)
         self.n = Vu.dim
         self.n_m = Vm.dim
         mesh = Vu.mesh
@@ -126,6 +140,7 @@ class BoundGalerkinForm:
         self.cells = torch.as_tensor(
             np.asarray(Vu.cell_dofs), dtype=torch.long, device=self.device
         )
+        self._cells_flat = self.cells.reshape(-1)
         phi, gphi, xq, wdet = Vu.quad_data(form.quad_degree)
         nq = phi.shape[0]
         self._phi = t(phi)  # (nq, 3)
@@ -145,43 +160,64 @@ class BoundGalerkinForm:
         self._coef = coef  # each (nc, nq, ...)
 
     # -- element kernel ----------------------------------------------------
-    def _r_elem(self, u_e, m_e):
-        """Element residuals (N, nc, 3) from element dof values (N, nc, 3)."""
+    def _r_elem(self, u_e, m_e, z=None):
+        """Element residuals (N, nc, 3) from element dof values (N, nc, 3)
+        and the control z (N, dz) or None, given to the form as it is."""
         uq = u_e @ self._phi.T  # (N, nc, nq)
         mq = m_e @ self._phi.T
         gu = torch.einsum("nci,cid->ncd", u_e, self._grads)[:, :, None, :]
         out = 0.0
         if self.form.flux is not None:
-            F = self.form.flux(self._xq, uq, gu, mq, None, self._coef)
+            F = self.form.flux(self._xq, uq, gu, mq, z, self._coef)
             F = F * self._wdet[..., None]
             out = out + torch.einsum("cid,ncqd->nci", self._grads, F)
         if self.form.source is not None:
-            S = self.form.source(self._xq, uq, gu, mq, None, self._coef)
+            S = self.form.source(self._xq, uq, gu, mq, z, self._coef)
             out = out + (S * self._wdet) @ self._phi
         return out
 
     def _elements(self, x):
         return x[:, self.cells]  # (N, nc, 3)
 
-    def _elem_jacobian(self, u, m, wrt: str):
-        """(N, nc, 3, 3) element blocks d r_e[a] / d x_e[b], x = u or m."""
+    def _elem_jacobian(self, u, m, z, wrt: str):
+        """Element blocks d r_e[a] / d x[b] with x = u_e, m_e (N, nc, 3, 3)
+        or z (N, nc, 3, dz): forward-mode derivatives, one tangent each."""
         u_e, m_e = self._elements(u), self._elements(m)
-        if wrt == "u":
-            f, x = (lambda xx: self._r_elem(xx, m_e)), u_e
-        else:
-            f, x = (lambda xx: self._r_elem(u_e, xx)), m_e
+        f, x = {
+            "u": (lambda xx: self._r_elem(xx, m_e, z), u_e),
+            "m": (lambda xx: self._r_elem(u_e, xx, z), m_e),
+            "z": (lambda xx: self._r_elem(u_e, m_e, xx), z),
+        }[wrt]
         cols = []
-        for b in range(3):
+        for b in range(x.shape[-1]):
             tangent = torch.zeros_like(x)
             tangent[..., b] = 1.0
             cols.append(torch.func.jvp(f, (x,), (tangent,))[1])
         return torch.stack(cols, dim=-1)
 
-    # -- structured scatter-free assembly ------------------------------------
-    def residual(self, u, m):
-        """Global residual r(u, m): (N, n)."""
+    def _scatter(self, vals_e, n):
+        """Sum element values (N, nc, 3, ...) into (N, n, ...) by dof."""
+        N = vals_e.shape[0]
+        out = vals_e.new_zeros((N, n) + vals_e.shape[3:])
+        return out.index_add_(1, self._cells_flat,
+                              vals_e.reshape((N, -1) + vals_e.shape[3:]))
+
+    def _dense(self, vals_e, n_cols):
+        """Dense (N, n, n_cols) from element matrices (N, nc, 3, 3) on the
+        state (rows) and parameter (columns) cells, one index_add_."""
+        N = vals_e.shape[0]
+        flat = (self.cells[:, :, None] * n_cols + self.cells[:, None, :])
+        out = vals_e.new_zeros((N, self.n * n_cols))
+        out.index_add_(1, flat.reshape(-1), vals_e.reshape(N, -1))
+        return out.reshape(N, self.n, n_cols)
+
+    # -- residual and matrices ----------------------------------------------
+    def residual(self, u, m, z=None):
+        """Global residual r(u, m, z): (N, n)."""
+        E = self._r_elem(self._elements(u), self._elements(m), z)
+        if self.plan is None:
+            return self._scatter(E, self.n)
         nx, ny, s, _, offs = self.plan
-        E = self._r_elem(self._elements(u), self._elements(m))
         E = E.reshape(-1, ny, nx, 2, 3)
         r = torch.zeros((E.shape[0], ny + 1, s), dtype=E.dtype, device=E.device)
         for t in range(2):
@@ -190,12 +226,32 @@ class BoundGalerkinForm:
                 r[:, dy : dy + ny, dx : dx + nx] += E[..., t, a]
         return r.reshape(-1, self.n)
 
-    def assemble_A_banded(self, u, m):
+    def assemble_A(self, u, m, z=None):
+        """Dense dr/du (N, n, n)."""
+        return self._dense(self._elem_jacobian(u, m, z, "u"), self.n)
+
+    def assemble_C(self, u, m, z=None):
+        """Dense dr/dm (N, n, n_m)."""
+        return self._dense(self._elem_jacobian(u, m, z, "m"), self.n_m)
+
+    def assemble_Cz(self, u, m, z):
+        """Dense dr/dz (N, n, dz)."""
+        return self._scatter(self._elem_jacobian(u, m, z, "z"), self.n)
+
+    def assemble_A_diag(self, u, m, z=None):
+        """The diagonal of dr/du (N, n), one element pass: the Jacobi
+        preconditioner of the iterative solver."""
+        A_e = self._elem_jacobian(u, m, z, "u")
+        return self._scatter(torch.diagonal(A_e, dim1=-2, dim2=-1), self.n)
+
+    def assemble_A_banded(self, u, m, z=None):
         """dr/du in block-tridiagonal band storage (N, nb, s, 3s):
         band[:, j, i, o*s + i2] = A[j*s + i, (j + o - 1)*s + i2]."""
+        if self.plan is None:
+            raise ValueError("band storage needs a structured rectangle mesh")
         nx, ny, s, dplan, _ = self.plan
         nb = ny + 1
-        E = self._elem_jacobian(u, m, "u").reshape(-1, ny, nx, 2, 3, 3)
+        E = self._elem_jacobian(u, m, z, "u").reshape(-1, ny, nx, 2, 3, 3)
         N = E.shape[0]
         band = torch.zeros((N, nb, s, 3 * s), dtype=E.dtype, device=E.device)
         ii = np.arange(s)
@@ -213,14 +269,20 @@ class BoundGalerkinForm:
             )
         return band
 
-    def apply_C(self, u, m, dm):
-        """(dr/dm) dm for dm (N, n) or (N, n, k): the element blocks
-        dr_e/dm_e contracted with the element values of dm, slice-added."""
-        nx, ny, s, _, offs = self.plan
+    # -- products with C = dr/dm and Cz = dr/dz --------------------------------
+    def apply_C(self, u, m, dm, z=None):
+        """(dr/dm) dm for dm (N, n, k) or (N, n): the element blocks
+        dr_e/dm_e contracted with the element values of dm, summed."""
         squeeze = dm.ndim == 2
         if squeeze:
             dm = dm[..., None]
-        C = self._elem_jacobian(u, m, "m").reshape(-1, ny, nx, 2, 3, 3)
+        C = self._elem_jacobian(u, m, z, "m")
+        if self.plan is None:
+            out = self._scatter(torch.einsum("ncab,ncbk->ncak", C,
+                                             dm[:, self.cells]), self.n)
+            return out[..., 0] if squeeze else out
+        nx, ny, s, _, offs = self.plan
+        C = C.reshape(-1, ny, nx, 2, 3, 3)
         P = dm.reshape(dm.shape[0], ny + 1, s, dm.shape[-1])
         out = torch.zeros_like(P)
         for t in range(2):
@@ -236,14 +298,19 @@ class BoundGalerkinForm:
         out = out.reshape(dm.shape[0], self.n, dm.shape[-1])
         return out[..., 0] if squeeze else out
 
-    def apply_Ct(self, u, m, dp):
+    def apply_Ct(self, u, m, dp, z=None):
         """(dr/dm)^T dp for dp (N, n) or (N, n, k), from the element blocks
-        dr_e/dm_e assembled once: gather, contract, slice-add."""
-        nx, ny, s, _, offs = self.plan
+        dr_e/dm_e assembled once: gather, contract, sum."""
         squeeze = dp.ndim == 2
         if squeeze:
             dp = dp[..., None]
-        C = self._elem_jacobian(u, m, "m").reshape(-1, ny, nx, 2, 3, 3)
+        C = self._elem_jacobian(u, m, z, "m")
+        if self.plan is None:
+            out = self._scatter(torch.einsum("ncab,ncak->ncbk", C,
+                                             dp[:, self.cells]), self.n_m)
+            return out[..., 0] if squeeze else out
+        nx, ny, s, _, offs = self.plan
+        C = C.reshape(-1, ny, nx, 2, 3, 3)
         P = dp.reshape(dp.shape[0], ny + 1, s, dp.shape[-1])
         out = torch.zeros_like(P)
         for t in range(2):
@@ -257,6 +324,24 @@ class BoundGalerkinForm:
                 dy, dx = int(offs[t, b, 0]), int(offs[t, b, 1])
                 out[:, dy : dy + ny, dx : dx + nx] += acc
         out = out.reshape(dp.shape[0], self.n_m, dp.shape[-1])
+        return out[..., 0] if squeeze else out
+
+    def apply_Cz(self, u, m, z, dz):
+        """(dr/dz) dz for dz (N, dz) or (N, dz, k)."""
+        squeeze = dz.ndim == 2
+        if squeeze:
+            dz = dz[..., None]
+        Cz = self._elem_jacobian(u, m, z, "z")  # (N, nc, 3, dz)
+        out = self._scatter(torch.einsum("ncaz,nzk->ncak", Cz, dz), self.n)
+        return out[..., 0] if squeeze else out
+
+    def apply_Czt(self, u, m, z, dp):
+        """(dr/dz)^T dp for dp (N, n) or (N, n, k): (N, dz) or (N, dz, k)."""
+        squeeze = dp.ndim == 2
+        if squeeze:
+            dp = dp[..., None]
+        Cz = self._elem_jacobian(u, m, z, "z")
+        out = torch.einsum("ncaz,ncak->nzk", Cz, dp[:, self.cells])
         return out[..., 0] if squeeze else out
 
 
@@ -310,13 +395,33 @@ def _gather_assemble(A_e_flat, tables, out_size: int):
 # ---------------------------------------------------------------------------
 
 
-def _scatter_dense(V: FunctionSpace, vals_e: np.ndarray, dtype, device):
-    cells = np.asarray(V.mesh.cells)
-    rows = np.broadcast_to(cells[:, :, None], vals_e.shape).reshape(-1)
-    cols = np.broadcast_to(cells[:, None, :], vals_e.shape).reshape(-1)
+def _scatter_dense(V: FunctionSpace, vals_e: np.ndarray, dtype, device,
+                   connectivity=None):
+    conn = np.asarray(V.mesh.cells if connectivity is None else connectivity)
+    rows = np.broadcast_to(conn[:, :, None], vals_e.shape).reshape(-1)
+    cols = np.broadcast_to(conn[:, None, :], vals_e.shape).reshape(-1)
     A = np.zeros((V.dim, V.dim))
     np.add.at(A, (rows, cols), vals_e.reshape(-1))
     return torch.as_tensor(A, dtype=dtype, device=device)
+
+
+def _boundary_mass_elements(V: FunctionSpace):
+    """(boundary edges (ne, 2), their 2 x 2 P1 mass matrices)."""
+    edges = boundary_edges(V.mesh)
+    x = V.mesh.vertices[edges]
+    lens = np.sqrt(((x[:, 1] - x[:, 0]) ** 2).sum(-1))
+    local = np.array([[2.0, 1.0], [1.0, 2.0]]) / 6.0
+    return edges, lens[:, None, None] * local[None]
+
+
+def boundary_mass_matrix(V: FunctionSpace, dtype=None,
+                         device=None) -> torch.Tensor:
+    """Dense boundary mass matrix int_dOmega u v ds (n, n), P1."""
+    dtype, device = config.resolve(dtype, device)
+    if V.degree != 1:
+        raise NotImplementedError("P1 only")
+    edges, Me = _boundary_mass_elements(V)
+    return _scatter_dense(V, Me, dtype, device, connectivity=edges)
 
 
 def mass_matrix(V: FunctionSpace, dtype=None, device=None) -> torch.Tensor:
@@ -397,12 +502,9 @@ def boundary_mass_matrix_banded(V: FunctionSpace, dtype=None,
                                 device=None) -> torch.Tensor:
     """(nb, s, 3s) band of the boundary mass matrix int_dOmega u v ds."""
     dtype, device = config.resolve(dtype, device)
-    edges = boundary_edges(V.mesh)
-    x = V.mesh.vertices[edges]
-    lens = np.sqrt(((x[:, 1] - x[:, 0]) ** 2).sum(-1))
-    local = np.array([[2.0, 1.0], [1.0, 2.0]]) / 6.0
-    Me = (lens[:, None, None] * local[None]).astype(_numpy_dtype(dtype))
-    band = banded_from_elements(V, Me, connectivity=edges)
+    edges, Me = _boundary_mass_elements(V)
+    band = banded_from_elements(V, Me.astype(_numpy_dtype(dtype)),
+                                connectivity=edges)
     return torch.as_tensor(band, device=device)
 
 
@@ -435,6 +537,15 @@ def mask_residual(r, u, bc: DirichletBC):
     mask = torch.as_tensor(bc.mask, device=r.device)
     g = torch.as_tensor(bc.value, dtype=r.dtype, device=r.device)
     return torch.where(mask, u - g, r)
+
+
+def bc_symmetrize(A, bc: DirichletBC):
+    """Symmetric elimination on dense (..., n, n): zero the constrained
+    rows and columns and put ones on their diagonal."""
+    mask = torch.as_tensor(bc.mask, device=A.device)
+    keep = (~mask).to(A.dtype)
+    A = A * keep[:, None] * keep[None, :]
+    return A + torch.diag(mask.to(A.dtype))
 
 
 def bc_symmetrize_banded_from_mask(band, bc: DirichletBC):

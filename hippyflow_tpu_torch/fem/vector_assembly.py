@@ -38,14 +38,16 @@ from .space import FunctionSpace
 @dataclass(frozen=True)
 class VectorGalerkinForm:
     """Weak form of an ``ncomp``-component state (see the module doc).
-    The callables receive ``z`` = None and ``c`` = {}: the JAX package's
-    coefficient fields and its ``symmetric`` flag (Cholesky eligibility)
-    serve no ported lane and are not ported."""
+    The callables receive the control ``z`` (N, dz) or None and ``c`` =
+    {}: the JAX package's coefficient fields serve no ported lane and are
+    not ported.  ``symmetric``: dr/du is SPD (Cholesky in the ``dense``
+    solver)."""
 
     ncomp: int
     flux: Callable | None = None
     source: Callable | None = None
     quad_degree: int = 2
+    symmetric: bool = False
 
 
 class VectorBoundGalerkinForm:
@@ -93,7 +95,7 @@ class VectorBoundGalerkinForm:
         self._ordered_gather = None
 
     # -- element kernel ----------------------------------------------------
-    def _r_elem(self, u_e, m_e):
+    def _r_elem(self, u_e, m_e, z=None):
         """Element residuals (N, nc, nd, ncomp) from element values u_e
         (N, nc, nd, ncomp) and m_e (N, nc, 3)."""
         uq = torch.einsum("qi,ncik->ncqk", self._phi, u_e)
@@ -101,11 +103,11 @@ class VectorBoundGalerkinForm:
         mq = torch.einsum("qi,nci->ncq", self._phi_m, m_e)
         out = 0.0
         if self.form.flux is not None:
-            F = self.form.flux(self._xq, uq, gu, mq, None, {})
+            F = self.form.flux(self._xq, uq, gu, mq, z, {})
             F = F * self._wdet[:, :, None, None]
             out = out + torch.einsum("cqid,ncqkd->ncik", self._grads, F)
         if self.form.source is not None:
-            S = self.form.source(self._xq, uq, gu, mq, None, {})
+            S = self.form.source(self._xq, uq, gu, mq, z, {})
             out = out + torch.einsum("qi,ncqk->ncik", self._phi,
                                      S * self._wdet[:, :, None])
         return out
@@ -115,15 +117,15 @@ class VectorBoundGalerkinForm:
         u_e = u.reshape(N, self.ncomp, self.n)[:, :, self.cells]
         return u_e.permute(0, 2, 3, 1), m[:, self.cells_m]
 
-    def _elem_jacobian(self, u, m, wrt: str):
+    def _elem_jacobian(self, u, m, z, wrt: str):
         """Element blocks (N, nc, nd*ncomp, L): d r_e[(a, k)] / d x_e[l]
         with x = u (L = nd*ncomp, local order (dof, component)) or m
         (L = 3)."""
         u_e, m_e = self._elements(u, m)
         if wrt == "u":
-            f, x = (lambda xx: self._r_elem(xx, m_e)), u_e
+            f, x = (lambda xx: self._r_elem(xx, m_e, z)), u_e
         else:
-            f, x = (lambda xx: self._r_elem(u_e, xx)), m_e
+            f, x = (lambda xx: self._r_elem(u_e, xx, z)), m_e
         flat = x.reshape(x.shape[0], x.shape[1], -1)
         cols = []
         for j in range(flat.shape[-1]):
@@ -134,16 +136,16 @@ class VectorBoundGalerkinForm:
         return J.reshape(J.shape[0], J.shape[1], self.nd * self.ncomp, -1)
 
     # -- entry points --------------------------------------------------------
-    def residual(self, u, m):
-        """Global residual r(u, m): (N, n_total)."""
-        r_e = self._r_elem(*self._elements(u, m))
+    def residual(self, u, m, z=None):
+        """Global residual r(u, m, z): (N, n_total)."""
+        r_e = self._r_elem(*self._elements(u, m), z)
         out = torch.zeros((u.shape[0], self.n_total), dtype=r_e.dtype,
                           device=r_e.device)
         return out.index_add_(1, self._segs, r_e.reshape(u.shape[0], -1))
 
-    def assemble_A(self, u, m):
-        """Dense dr/du (N, n_total, n_total), for tests."""
-        A_e = self._elem_jacobian(u, m, "u")
+    def assemble_A(self, u, m, z=None):
+        """Dense dr/du (N, n_total, n_total)."""
+        A_e = self._elem_jacobian(u, m, z, "u")
         rows = self._segs.reshape(-1, self.nd * self.ncomp)
         flat = (rows[:, :, None] * self.n_total + rows[:, None, :]).reshape(-1)
         N = u.shape[0]
@@ -151,6 +153,14 @@ class VectorBoundGalerkinForm:
                         device=A_e.device)
         A.index_add_(1, flat, A_e.reshape(N, -1))
         return A.reshape(N, self.n_total, self.n_total)
+
+    def assemble_A_diag(self, u, m, z=None):
+        """The diagonal of dr/du (N, n_total), one element pass."""
+        A_e = self._elem_jacobian(u, m, z, "u")
+        out = A_e.new_zeros((u.shape[0], self.n_total))
+        return out.index_add_(1, self._segs,
+                              torch.diagonal(A_e, dim1=-2, dim2=-1).reshape(
+                                  u.shape[0], -1))
 
     def prepare_banded_ordered(self, border) -> None:
         """Build the gather tables of the permuted band for a ``BandOrder``
@@ -161,22 +171,22 @@ class VectorBoundGalerkinForm:
                 idx, border.nb * border.s * 3 * border.s, self.device
             )
 
-    def assemble_A_banded_ordered(self, u, m, border):
+    def assemble_A_banded_ordered(self, u, m, border, z=None):
         """dr/du gathered into permuted band storage (N, nb, s, 3s) in the
         row-ordered, component-interleaved numbering of ``border``."""
         self.prepare_banded_ordered(border)
-        A_e = self._elem_jacobian(u, m, "u")
+        A_e = self._elem_jacobian(u, m, z, "u")
         N = u.shape[0]
         flat = _gather_assemble(A_e.reshape(N, -1), self._ordered_gather,
                                 border.nb * border.s * 3 * border.s)
         return flat.reshape(N, border.nb, border.s, 3 * border.s)
 
-    def apply_C(self, u, m, dm):
+    def apply_C(self, u, m, dm, z=None):
         """(dr/dm) dm for dm (N, n_m) or (N, n_m, k)."""
         squeeze = dm.ndim == 2
         if squeeze:
             dm = dm[..., None]
-        C = self._elem_jacobian(u, m, "m")  # (N, nc, a, 3)
+        C = self._elem_jacobian(u, m, z, "m")  # (N, nc, a, 3)
         N, k = dm.shape[0], dm.shape[-1]
         r_e = torch.einsum("ncab,ncbk->ncak", C, dm[:, self.cells_m])
         out = torch.zeros((N, self.n_total, k), dtype=r_e.dtype,
@@ -184,12 +194,12 @@ class VectorBoundGalerkinForm:
         out.index_add_(1, self._segs, r_e.reshape(N, -1, k))
         return out[..., 0] if squeeze else out
 
-    def apply_Ct(self, u, m, dp):
+    def apply_Ct(self, u, m, dp, z=None):
         """(dr/dm)^T dp for dp (N, n_total) or (N, n_total, k)."""
         squeeze = dp.ndim == 2
         if squeeze:
             dp = dp[..., None]
-        C = self._elem_jacobian(u, m, "m")  # (N, nc, a, 3)
+        C = self._elem_jacobian(u, m, z, "m")  # (N, nc, a, 3)
         N, k = dp.shape[0], dp.shape[-1]
         dp_e = dp[:, self._segs].reshape(N, C.shape[1], C.shape[2], k)
         contrib = torch.einsum("ncab,ncak->ncbk", C, dp_e)

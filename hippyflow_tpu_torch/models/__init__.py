@@ -7,7 +7,12 @@ from .data_generator import (
     load_chunks_validated,
     prune_stale_chunks,
 )
-from .jacobian import ObservableJacobian, jjt_matmat, jtj_matmat
+from .jacobian import (
+    ObservableControlJacobian,
+    ObservableJacobian,
+    jjt_matmat,
+    jtj_matmat,
+)
 from .kle import (
     KLEParameterList,
     KLEProjector,
@@ -21,12 +26,24 @@ from .pod import (
     PODProjectorFromData,
     weighted_l2_norm_vector,
 )
-from .pde_problem import Linearization, NewtonInfo, VariationalPDEProblem
+from .pde_problem import (
+    ADJOINT,
+    CONTROL,
+    PARAMETER,
+    STATE,
+    IterativeFactor,
+    Linearization,
+    NewtonInfo,
+    VariationalPDEProblem,
+    bicgstab,
+)
 from .prior import BiLaplacian2D, BiLaplacianPrior, StructuredBiLaplacianPrior
 from .sampling import (
     SampleBatch,
     auto_chunk_size,
+    UniformDistribution,
     fresh_solves,
+    linearize_batch,
     materialize_jacobians,
     sample_and_materialize_symmetric,
     sample_until_solved,

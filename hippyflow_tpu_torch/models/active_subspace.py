@@ -14,9 +14,10 @@ one factorization per sample).  ``construct_low_rank_Jacobians`` saves the
 exact SVD of each Jacobian, resuming chunk by chunk, and ``test_errors``
 runs the projection error tests.
 
-Not ported (ROADMAP M11): the matrix-free and serialized operators, the
-unpreconditioned HEP, control distributions and Jacobians, and
-``test_errors_double_loop``.
+With a control distribution the samples carry controls z, and
+``construct_low_rank_control_Jacobians`` saves the SVD of each dq/dz.
+Not ported (ROADMAP M11 item 5): the matrix-free and serialized
+operators, the unpreconditioned HEP and ``test_errors_double_loop``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ def ActiveSubspaceParameterList() -> ParameterList:
             "error_test_samples": [50, "Number of samples for error test"],
             "rank": [128, "Rank of subspace"],
             "jacobian_rank": [128, "Rank of Jacobians generated"],
+            "control_jacobian_rank": [None, "Rank of control Jacobians generated"],
             "oversampling": [10, "Oversampling for randomized algorithms"],
             "verbose": [True, "Print progress"],
             "input_decoder_name": ["_input_decoder", "naming"],
@@ -81,19 +83,23 @@ class ActiveSubspaceProjector:
     """Input and output active subspaces of m -> q(m) = B u(m) under a
     Gaussian prior.
 
-    Set ``.ms`` (with ``ms_given``), ``.Omega_GN`` and/or ``.Omega_NG``
-    before the constructions to supply the samples and the probe blocks
-    instead of drawing them; ``keychain`` draws the rest (replace it with a
+    Set ``.ms`` (and ``.zs`` with a control distribution; with
+    ``ms_given``), ``.Omega_GN`` and/or ``.Omega_NG`` before the
+    constructions to supply the samples and the probe blocks instead of
+    drawing them; ``keychain`` draws the rest (replace it with a
     ``utils.GivenNoise`` to give those too)."""
 
-    def __init__(self, observable, prior, parameters: ParameterList | None = None):
+    def __init__(self, observable, prior, parameters: ParameterList | None = None,
+                 control_distribution=None):
         self.observable = observable
         self.prior = prior
+        self.control_distribution = control_distribution
         self.parameters = parameters or ActiveSubspaceParameterList()
         self.keychain = KeyChain(self.parameters["seed"], prior.mean.device)
         self.samples: SampleBatch | None = None
         self.Js = None  # (N, dQ, dM)
         self.ms = None
+        self.zs = None
         self.Omega_GN = None
         self.Omega_NG = None
         self.d_GN = None
@@ -111,10 +117,10 @@ class ActiveSubspaceProjector:
         if self.parameters["ms_given"]:
             if self.ms is None:
                 raise ValueError("set .ms before an ms_given construction")
-            us, info = problem.solve_fwd(self.ms)
+            us, info = problem.solve_fwd(self.ms, z=self.zs)
             self.samples = SampleBatch(
                 ms=self.ms, us=us, qs=self.observable.evalu(us), n_failures=0,
-                iterations=info.iterations,
+                iterations=info.iterations, zs=self.zs,
             )
             return
         t0 = time.time()
@@ -127,6 +133,7 @@ class ActiveSubspaceProjector:
             verbose=self.parameters["verbose"],
             reset_initial_guess=self.parameters["reset_initial_guess"],
             coarse_warm_start=self.parameters["coarse_warm_start"],
+            control_distribution=self.control_distribution,
         )
         if self.parameters["verbose"]:
             print(
@@ -137,10 +144,11 @@ class ActiveSubspaceProjector:
     def _fused_symmetric_eligible(self) -> bool:
         """True when sampling takes the fused forward + Jacobian pass: a
         linear operator with A^T = A, no Dirichlet rows (bc masking breaks
-        the symmetry), drawn samples and no grid sequencing."""
+        the symmetry), drawn samples, no controls and no grid sequencing."""
         problem = self.observable.problem
         return (
-            problem.is_fwd_linear
+            self.control_distribution is None
+            and problem.is_fwd_linear
             and problem.operator_symmetric
             and not problem._has_bc
             and not self.parameters["ms_given"]
@@ -152,7 +160,7 @@ class ActiveSubspaceProjector:
         if self.Js is None:
             s = self.samples
             self.Js = materialize_jacobians(
-                self.observable, s.ms, s.us,
+                self.observable, s.ms, s.us, s.zs,
                 chunk_size=(
                     self.parameters["jac_chunk_size"]
                     or self.parameters["chunk_size"]
@@ -265,25 +273,36 @@ class ActiveSubspaceProjector:
         Returns (U (N, dQ, r), sigma (N, r), V (N, dM, r))."""
         return self._jacobian_data(output_directory, check_for_data)
 
-    def construct_low_rank_control_Jacobians(self, *args, **kwargs):
-        raise NotImplementedError(
-            "control Jacobians are not ported (ROADMAP M11: the control paths)")
+    def construct_low_rank_control_Jacobians(self, output_directory="jacobian_data/",
+                                             check_for_data: bool = True):
+        """The same for the control Jacobians dq/dz, truncated at
+        ``control_jacobian_rank`` (else ``jacobian_rank``), in the
+        ``Jzsvd_data.npz`` schema (``Uz_data``, ``sigmaz_data``,
+        ``Vz_data``), chunks under ``<output_directory>/chunksz/``."""
+        if self.control_distribution is None:
+            raise ValueError("control Jacobians need a control distribution")
+        return self._jacobian_data(output_directory, check_for_data,
+                                   control=True)
 
-    def _jacobian_data(self, output_directory, check_for_data):
+    def _jacobian_data(self, output_directory, check_for_data,
+                       control: bool = False):
         from .data_generator import _save_bundle, _scan_chunks, _svd_payload
 
         self._ensure_samples()
         s = self.samples
         n = s.ms.shape[0]
+        prefix = "z" if control else ""
+        rank_param = ((self.parameters["control_jacobian_rank"] if control
+                       else None) or self.parameters["jacobian_rank"])
         chunk_size = self.parameters["chunk_size"] or n
         chunk_dir = (None if output_directory is None
-                     else os.path.join(output_directory, "chunks"))
+                     else os.path.join(output_directory, f"chunks{prefix}"))
         done = {}
         if chunk_dir is not None:
             os.makedirs(chunk_dir, exist_ok=True)
             if check_for_data:
                 done = {(a, b): f for a, b, f in _scan_chunks(chunk_dir)}
-        keys = ("U_data", "sigma_data", "V_data")
+        keys = tuple(f"{k}{prefix}_data" for k in ("U", "sigma", "V"))
         parts = {k: [] for k in keys}
         for a in range(0, n, chunk_size):
             b = min(a + chunk_size, n)
@@ -293,9 +312,14 @@ class ActiveSubspaceProjector:
                         parts[k].append(torch.as_tensor(z[k], device=s.ms.device))
                 continue
             # reuse the Jacobians of the subspace build where they exist
-            J = (self.Js[a:b] if self.Js is not None else materialize_jacobians(
-                self.observable, s.ms[a:b], s.us[a:b], chunk_size=b - a))
-            rank = min(self.parameters["jacobian_rank"], *J.shape[1:])
+            if not control and self.Js is not None:
+                J = self.Js[a:b]
+            else:
+                J = materialize_jacobians(
+                    self.observable, s.ms[a:b], s.us[a:b],
+                    None if s.zs is None else s.zs[a:b], chunk_size=b - a,
+                    control=control)
+            rank = min(rank_param, *J.shape[1:])
             chunk = dict(zip(keys, _svd_payload(J, rank)))
             if chunk_dir is not None:
                 np.savez(os.path.join(chunk_dir, f"chunk_{a}_{b}.npz"),
@@ -305,9 +329,8 @@ class ActiveSubspaceProjector:
         U, sig, V = (torch.cat(parts[k]) for k in keys)
         if output_directory is not None:
             _save_bundle(
-                os.path.join(output_directory, "Jsvd_data.npz"),
-                U_data=U.cpu().numpy(), sigma_data=sig.cpu().numpy(),
-                V_data=V.cpu().numpy())
+                os.path.join(output_directory, f"J{prefix}svd_data.npz"),
+                **{k: v.cpu().numpy() for k, v in zip(keys, (U, sig, V))})
             np.save(os.path.join(output_directory, "mq_m_data.npy"),
                     s.ms.cpu().numpy())
             np.save(os.path.join(output_directory, "mq_q_data.npy"),
@@ -345,7 +368,9 @@ class ActiveSubspaceProjector:
                 raise RuntimeError("construct_output_subspace first")
             ms = self.prior.sample(
                 self.keychain.normal((n, self.prior.noise_dim), dtype=dtype))
-            qs, ok, _ = self._fresh_solves(ms)
+            zs = (None if self.control_distribution is None else
+                  self.control_distribution.sample_n(self.keychain, n, dtype))
+            qs, ok, _ = self._fresh_solves(ms, zs)
             out[("output_discarded", None)] = n - int(ok.sum().item())
             if not ok.any():
                 raise RuntimeError(
@@ -360,10 +385,11 @@ class ActiveSubspaceProjector:
                                       errs.std(correction=0).item())
         return out
 
-    def _fresh_solves(self, ms):
-        """Cold-started forward solves of ms: (qs, converged (N,) bool,
-        Newton iterations (N,))."""
-        return fresh_solves(self.observable, ms, self.parameters["chunk_size"])
+    def _fresh_solves(self, ms, zs=None):
+        """Cold-started forward solves of ms (and zs): (qs, converged (N,)
+        bool, Newton iterations (N,))."""
+        return fresh_solves(self.observable, ms, self.parameters["chunk_size"],
+                            zs)
 
     def _save(self, which: str, d, decoder):
         """AS_<n><input|output_decoder_name>.npy and AS_<n>_d_GN.npy or

@@ -1,7 +1,8 @@
-"""Training data: (m_i, q_i) pairs and their derivative information (port of
-``hippyflow_tpu/models/data_generator.py``), in the JAX package's artifact
-schemas (``mq_data.npz``, ``Jsvd_data.npz``, ``JstarPhi_data.npz``,
-``JPsi_data.npz``).
+"""Training data: (m_i, q_i[, z_i]) and their derivative information (port
+of ``hippyflow_tpu/models/data_generator.py``), in the JAX package's
+artifact schemas (``mq_data.npz`` or, with controls, ``mzq_data.npz``;
+``Jsvd_data.npz``, ``JstarPhi_data.npz``, ``JPsi_data.npz``, and for the
+control Jacobian ``Jzsvd_data.npz`` and ``JzstarPhi_data.npz``).
 
 Samples are solved in chunks; each chunk's dense Jacobians come from one
 batched linearization and one adjoint solve of dQ right-hand sides (K1 and
@@ -11,8 +12,8 @@ each drawn from a generator of its own (``chunk_keychain``), so a killed
 run resumes at the first missing chunk and writes the same bits as an
 uninterrupted one.
 
-Not ported (ROADMAP M11): control Jacobians (``derivatives[1]``) and
-control distributions, and ``two_step_generate``.
+Not ported (ROADMAP M11 item 6): ``two_step_generate``, which needs the
+full-state observable.
 """
 
 from __future__ import annotations
@@ -123,6 +124,11 @@ def chunk_keychain(seed: int, tag: int, chunk_start: int, device=None) -> KeyCha
     return KeyChain(int(state), device)
 
 
+def _synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _svd_payload(J, rank):
     """The exact SVD of each J (N, dq, dm), truncated at ``rank``:
     (U (N, dq, r), sigma (N, r), V (N, dm, r)) on J's device."""
@@ -131,32 +137,38 @@ def _svd_payload(J, rank):
 
 
 class DataGenerator:
-    """Generates (m, q) data and the parameter Jacobian's information."""
+    """Generates (m, q[, z]) data and the Jacobians' information.
+
+    After ``generate``, ``stage_seconds`` holds the wall seconds of its
+    stages (``forward``, ``jacobian``, ``jacobian_z``, ``write``, each
+    ended by a device synchronize) and ``samples`` the Newton iterations
+    of the kept samples and the resampled (unconverged) lanes."""
 
     def __init__(self, observable, prior, control_distribution=None,
                  settings: dict | None = None):
-        if control_distribution is not None:
-            raise NotImplementedError(
-                "control distributions are not ported (ROADMAP M11: the "
-                "control paths)")
         self.observable = observable
         self.prior = prior
+        self.control_distribution = control_distribution
         self.settings = data_generator_settings(settings)
+        self.stage_seconds = None
+        self.samples = None
 
     def generate(self, n_samples: int, derivatives=(0, 0), output_decoder=None,
                  output_encoder=None, input_decoder=None, input_encoder=None,
                  data_dir: str = "data/test/", compress: bool = True,
-                 clean_up: bool = True, noise=None):
-        """Generate n_samples of (m, q) and, with ``derivatives[0]``, the
-        parameter Jacobian's data (reference `dataGenerator.py:164-195`):
-        J^T MPhi when an output decoder is given (``JstarPhi_data``), J Psi
-        for an input decoder (``JPsi_data``), else the SVD truncated at
+                 clean_up: bool = True, noise=None, controls=None):
+        """Generate n_samples of (m, q[, z]) and the Jacobians' data
+        (reference `dataGenerator.py:164-195`).  ``derivatives[0]``: of
+        dq/dm, J^T MPhi when an output decoder is given (``JstarPhi_data``),
+        J Psi for an input decoder (``JPsi_data``), else the SVD truncated at
         ``settings['rM']`` (``U_data``, ``sigma_data``, ``V_data``).
-        ``noise`` (n_samples, noise_dim) gives the chunks' first draws."""
-        if derivatives[1]:
-            raise NotImplementedError(
-                "control Jacobian data (derivatives[1]) is not ported "
-                "(ROADMAP M11: the control paths)")
+        ``derivatives[1]``: of dq/dz (a control distribution is needed),
+        Jz^T MPhi (``JzstarPhi_data``) or the SVD at ``settings['rZ']``
+        (``Uz_data``, ...).  ``noise`` (n_samples, noise_dim) and
+        ``controls`` (n_samples, dZ) give the chunks' first draws."""
+        has_z = self.control_distribution is not None
+        if derivatives[1] and not has_z:
+            raise ValueError("the control Jacobian needs a control distribution")
         os.makedirs(data_dir, exist_ok=True)
         chunk_dir = os.path.join(data_dir, "chunks")
         os.makedirs(chunk_dir, exist_ok=True)
@@ -173,6 +185,18 @@ class DataGenerator:
         Psi = as_tensor(input_decoder)
 
         start = prune_stale_chunks(chunk_dir)
+        seconds = dict.fromkeys(("forward", "jacobian", "jacobian_z", "write"),
+                                0.0)
+        clock = [time.perf_counter()]
+
+        def lap(key):
+            """Add the seconds since the last lap to stage ``key``."""
+            _synchronize(device)
+            now = time.perf_counter()
+            seconds[key] += now - clock[0]
+            clock[0] = now
+
+        its, n_failures = [], 0
         t0 = time.time()
         i = start
         while i < n_samples:
@@ -184,13 +208,25 @@ class DataGenerator:
                 reset_initial_guess=self.settings["reset_initial_guess"],
                 noise=None if noise is None else noise[i:i + b],
                 coarse_warm_start=self.settings["coarse_warm_start"],
+                control_distribution=self.control_distribution,
+                controls=None if controls is None else controls[i:i + b],
             )
+            its.append(batch.iterations)
+            n_failures += batch.n_failures
+            lap("forward")
             payload = {"m_data": batch.ms, "q_data": batch.qs}
-            if derivatives[0]:
+            if has_z:
+                payload["z_data"] = batch.zs
+            for control, key in ((False, "jacobian"), (True, "jacobian_z")):
+                if not derivatives[int(control)]:
+                    continue
                 J = materialize_jacobians(self.observable, batch.ms, batch.us,
-                                          chunk_size=b)
-                payload.update(self._derivative_payload(J, MPhi, Psi,
-                                                        self.settings["rM"]))
+                                          batch.zs, chunk_size=b,
+                                          control=control)
+                payload.update(self._derivative_payload(
+                    J, MPhi, Psi, self.settings["rZ" if control else "rM"],
+                    prefix="z" if control else ""))
+                lap(key)
             np.savez(os.path.join(chunk_dir, f"chunk_{i}_{i + b}.npz"),
                      **{k: v.cpu().numpy() for k, v in payload.items()})
             if self.settings["save_failed_solves"] and batch.failed_ms is not None:
@@ -198,6 +234,7 @@ class DataGenerator:
                 os.makedirs(skipped_dir, exist_ok=True)
                 np.save(os.path.join(skipped_dir, f"m_failed_{i}_{i + b}.npy"),
                         batch.failed_ms)
+            lap("write")
             if self.settings["verbose"]:
                 rate = (i + b - start) / (time.time() - t0)
                 print(f"samples [{i}, {i + b}) done ({rate:.2f} samples/s)")
@@ -205,25 +242,27 @@ class DataGenerator:
         if compress:
             self.compress_dataset(
                 data_dir, derivatives=derivatives, clean_up=clean_up,
-                input_decoder=input_decoder, input_encoder=input_encoder,
-                output_decoder=output_decoder, output_encoder=output_encoder)
+                has_z_data=has_z, input_decoder=input_decoder,
+                input_encoder=input_encoder, output_decoder=output_decoder,
+                output_encoder=output_encoder)
+            lap("write")
+        self.stage_seconds = seconds
+        self.samples = {"iterations": torch.cat(its) if its else None,
+                        "n_failures": n_failures}
 
     def two_step_generate(self, *args, **kwargs):
         raise NotImplementedError(
             "two_step_generate is not ported: it needs the full-state "
-            "observable (StateSpaceIdentityOperator; ROADMAP M11)")
+            "observable (StateSpaceIdentityOperator; ROADMAP M11 item 6)")
 
     def compute_jacobians_in_subspace(self, derivatives, output_decoder,
                                       data_file_name: str, data_dir: str,
                                       output_encoder=None, compress: bool = True,
                                       clean_up: bool = True):
-        """The sketches J^T MPhi at stored (m, q) points of a full-state
+        """The sketches J^T MPhi (``derivatives[0]``) and Jz^T MPhi
+        (``derivatives[1]``) at stored (m, q[, z]) points of a full-state
         observable, q = u (reference `dataGenerator.py:300-355`), into
-        ``JstarPhi_data.npz``."""
-        if derivatives[1]:
-            raise NotImplementedError(
-                "control Jacobian data (derivatives[1]) is not ported "
-                "(ROADMAP M11: the control paths)")
+        ``JstarPhi_data.npz`` and ``JzstarPhi_data.npz``."""
         if output_encoder is None:
             output_encoder = output_decoder
         dtype, device = self.prior.mean.dtype, self.prior.mean.device
@@ -231,6 +270,8 @@ class DataGenerator:
         with np.load(os.path.join(data_dir, data_file_name)) as data:
             m_data = torch.as_tensor(data["m_data"], dtype=dtype, device=device)
             u_data = torch.as_tensor(data["q_data"], dtype=dtype, device=device)
+            z_data = (torch.as_tensor(data["z_data"], dtype=dtype, device=device)
+                      if "z_data" in data.files else None)
         if u_data.shape[1] != self.observable.problem.state_dim:
             raise ValueError(
                 f"q_data of width {u_data.shape[1]} is not the state "
@@ -245,61 +286,77 @@ class DataGenerator:
         N = m_data.shape[0]
         for s in range(0, N, chunk_size):
             e = min(s + chunk_size, N)
-            J = materialize_jacobians(self.observable, m_data[s:e], u_data[s:e],
-                                      chunk_size=e - s)
-            np.savez(os.path.join(chunk_dir, f"chunk_{s}_{e}.npz"),
-                     JstarPhi_data=(J.mT @ MPhi).cpu().numpy())
+            zc = None if z_data is None else z_data[s:e]
+            payload = {}
+            for control, key in ((False, "JstarPhi_data"),
+                                 (True, "JzstarPhi_data")):
+                if derivatives[int(control)]:
+                    J = materialize_jacobians(self.observable, m_data[s:e],
+                                              u_data[s:e], zc, chunk_size=e - s,
+                                              control=control)
+                    payload[key] = (J.mT @ MPhi).cpu().numpy()
+            np.savez(os.path.join(chunk_dir, f"chunk_{s}_{e}.npz"), **payload)
         if compress:
-            self._compress_jacobian_chunks(data_dir, chunk_dir, output_decoder,
-                                           output_encoder, clean_up)
+            self._compress_jacobian_chunks(data_dir, chunk_dir, derivatives,
+                                           output_decoder, output_encoder,
+                                           clean_up)
 
     @staticmethod
-    def _derivative_payload(J, MPhi, Psi, r):
-        """The Jacobian's part of a chunk's payload, tensors on J's device."""
+    def _derivative_payload(J, MPhi, Psi, r, prefix: str = ""):
+        """The Jacobian's part of a chunk's payload, tensors on J's device;
+        ``prefix`` 'z' names the control Jacobian's (no J Psi for it)."""
         if MPhi is not None:
-            return {"JstarPhi_data": J.mT @ MPhi}  # (N, dM, r_out)
-        if Psi is not None:
+            return {f"J{prefix}starPhi_data": J.mT @ MPhi}  # (N, dM, r_out)
+        if Psi is not None and not prefix:
             return {"JPsi_data": J @ Psi}  # (N, dQ, r_in)
         full = min(J.shape[1], J.shape[2])
         U, sig, V = _svd_payload(J, min(r or full, full))
-        return {"U_data": U, "sigma_data": sig, "V_data": V}
+        return {f"U{prefix}_data": U, f"sigma{prefix}_data": sig,
+                f"V{prefix}_data": V}
 
     def compress_dataset(self, data_dir, derivatives=(0, 0), clean_up: bool = True,
-                         input_decoder=None, input_encoder=None,
-                         output_decoder=None, output_encoder=None):
+                         has_z_data: bool = False, input_decoder=None,
+                         input_encoder=None, output_decoder=None,
+                         output_encoder=None):
         """Concatenate the chunk files into the consolidated bundles
-        (reference `dataGenerator.py:495-667`).  The (m, q) bundle is
-        compressed; the Jacobian bundles are not, as in ``_save_bundle``."""
+        (reference `dataGenerator.py:495-667`): ``mq_data.npz`` or, with
+        controls, ``mzq_data.npz``.  The data bundle is compressed; the
+        Jacobian bundles are not, as in ``_save_bundle``."""
         chunk_dir = os.path.join(data_dir, "chunks")
         cat = load_chunks_validated(chunk_dir)
-        np.savez_compressed(os.path.join(data_dir, "mq_data.npz"),
-                            m_data=cat["m_data"], q_data=cat["q_data"])
-        if derivatives[0]:
-            if "JstarPhi_data" in cat:
+        name = "mzq_data.npz" if has_z_data else "mq_data.npz"
+        np.savez_compressed(os.path.join(data_dir, name), **{
+            k: cat[k] for k in ("m_data", "q_data", "z_data") if k in cat})
+        for prefix, wanted in (("", derivatives[0]), ("z", derivatives[1])):
+            if not wanted:
+                continue
+            if f"J{prefix}starPhi_data" in cat:
                 _save_bundle(
-                    os.path.join(data_dir, "JstarPhi_data.npz"),
-                    JstarPhi_data=cat["JstarPhi_data"],
+                    os.path.join(data_dir, f"J{prefix}starPhi_data.npz"),
+                    **{f"J{prefix}starPhi_data": cat[f"J{prefix}starPhi_data"]},
                     Phi=_numpy(output_decoder), MPhi=_numpy(output_encoder))
-            if "JPsi_data" in cat:
+            if not prefix and "JPsi_data" in cat:
                 _save_bundle(
                     os.path.join(data_dir, "JPsi_data.npz"),
                     JPsi_data=cat["JPsi_data"], Psi=_numpy(input_decoder),
                     input_encoder=_numpy(input_encoder))
-            if "U_data" in cat:
+            if f"U{prefix}_data" in cat:
                 _save_bundle(
-                    os.path.join(data_dir, "Jsvd_data.npz"),
-                    U_data=cat["U_data"], sigma_data=cat["sigma_data"],
-                    V_data=cat["V_data"])
+                    os.path.join(data_dir, f"J{prefix}svd_data.npz"),
+                    **{f"{k}{prefix}_data": cat[f"{k}{prefix}_data"]
+                       for k in ("U", "sigma", "V")})
         if clean_up:
             shutil.rmtree(chunk_dir, ignore_errors=True)
 
-    def _compress_jacobian_chunks(self, data_dir, chunk_dir, output_decoder,
-                                  output_encoder, clean_up):
+    def _compress_jacobian_chunks(self, data_dir, chunk_dir, derivatives,
+                                  output_decoder, output_encoder, clean_up):
         cat = load_chunks_validated(chunk_dir)
-        _save_bundle(
-            os.path.join(data_dir, "JstarPhi_data.npz"),
-            JstarPhi_data=cat["JstarPhi_data"], Phi=_numpy(output_decoder),
-            MPhi=_numpy(output_encoder))
+        for prefix, wanted in (("", derivatives[0]), ("z", derivatives[1])):
+            if wanted:
+                _save_bundle(
+                    os.path.join(data_dir, f"J{prefix}starPhi_data.npz"),
+                    **{f"J{prefix}starPhi_data": cat[f"J{prefix}starPhi_data"]},
+                    Phi=_numpy(output_decoder), MPhi=_numpy(output_encoder))
         if clean_up:
             shutil.rmtree(chunk_dir, ignore_errors=True)
 

@@ -1,9 +1,10 @@
 """Observable Jacobians (port of ``hippyflow_tpu/models/jacobian.py``).
 
-J = -B A^{-1} C, so J^T = -C^T A^{-T} B^T.  ``mult`` and ``transpmult``
-apply them through incremental solves against the factors of a batch of
-linearizations (K2 on the card); ``materialize`` forms the dense J with one
-adjoint solve of dQ right-hand sides per sample, then C^T.
+J = -B A^{-1} C, so J^T = -C^T A^{-T} B^T, and the control Jacobian
+Jz = -B A^{-1} Cz.  ``mult`` and ``transpmult`` apply them through
+incremental solves against the factors of a batch of linearizations (K2
+on the card); ``materialize`` forms the dense J (Jz) with one adjoint solve
+of dQ right-hand sides per sample, then C^T (Cz^T).
 """
 
 from __future__ import annotations
@@ -22,17 +23,23 @@ class ObservableJacobian:
     def shape(self):
         return (self.observable.dQ, self.observable.dM)
 
+    def _C(self, lin, dx):
+        return self.observable.applyC(lin, dx)
+
+    def _Ct(self, lin, dp):
+        return self.observable.applyCt(lin, dp)
+
     def mult(self, lin: Linearization, dm):
         """J dm for dm (N, dM) or (N, dM, k), one sample per linearization."""
         obs = self.observable
-        uhat = obs.solveFwdIncremental(lin, obs.applyC(lin, dm))
+        uhat = obs.solveFwdIncremental(lin, self._C(lin, dm))
         return -obs.applyB(uhat)
 
     def transpmult(self, lin: Linearization, dq):
         """J^T dq for dq (N, dQ) or (N, dQ, k)."""
         obs = self.observable
         phat = obs.solveAdjIncremental(lin, obs.applyBt(dq))
-        return -obs.applyCt(lin, phat)
+        return -self._Ct(lin, phat)
 
     def materialize(self, lin: Linearization):
         """Dense J (N, dQ, dM) from one blocked adjoint solve per sample."""
@@ -40,7 +47,28 @@ class ObservableJacobian:
         N = lin.u.shape[0]
         Bt = obs.B.dense().T.expand(N, -1, -1)  # (N, n, dQ)
         X = obs.solveAdjIncremental(lin, Bt)  # A^{-T} B^T
-        return -obs.applyCt(lin, X).mT  # (N, dQ, dM)
+        return -self._Ct(lin, X).mT  # (N, dQ, dM)
+
+
+class ObservableControlJacobian(ObservableJacobian):
+    """Jz(m, z) = d(B u)/dz at a batch of linearization points: the same
+    products with Cz = dr/dz in place of C (reference
+    ``controlJacobian.py:22-95``)."""
+
+    def __init__(self, observable: LinearStateObservable):
+        if not observable.is_control_problem:
+            raise ValueError("the observable's problem has no control")
+        super().__init__(observable)
+
+    @property
+    def shape(self):
+        return (self.observable.dQ, self.observable.problem.control_dim)
+
+    def _C(self, lin, dz):
+        return self.observable.applyCz(lin, dz)
+
+    def _Ct(self, lin, dp):
+        return self.observable.applyCzt(lin, dp)
 
 
 def jtj_matmat(J: ObservableJacobian, lin: Linearization):

@@ -38,11 +38,12 @@ class PointwiseObservation:
 
 
 class LinearStateObservable:
-    """q(m) = B u(m), batched over samples."""
+    """q(m[, z]) = B u(m[, z]), batched over samples."""
 
     def __init__(self, problem: VariationalPDEProblem, B: PointwiseObservation):
         self.problem = problem
         self.B = B
+        self.is_control_problem = problem.has_control
 
     @property
     def dQ(self) -> int:
@@ -52,8 +53,23 @@ class LinearStateObservable:
     def dM(self) -> int:
         return self.problem.Vm.dim
 
+    def eval(self, m, z=None, u0=None):
+        """Solve forward and observe: q (N, dQ)."""
+        u, _ = self.problem.solve_fwd(m, z=z, u0=u0)
+        return self.B.apply(u)
+
     def evalu(self, u):
         return self.B.apply(u)
+
+    def solve_fwd(self, m, z=None, u0=None):
+        return self.problem.solve_fwd(m, z=z, u0=u0)
+
+    def linearize(self, m, z=None, u=None, u0=None):
+        """Solve forward (where u is not given) and factorize the
+        linearized state operator at (u, m, z)."""
+        if u is None:
+            u, _ = self.problem.solve_fwd(m, z=z, u0=u0)
+        return self.problem.linearize(u, m, z)
 
     def applyB(self, u):
         return self.B.apply(u)
@@ -66,6 +82,12 @@ class LinearStateObservable:
 
     def applyCt(self, lin: Linearization, dp):
         return self.problem.apply_Ct(lin, dp)
+
+    def applyCz(self, lin: Linearization, dz):
+        return self.problem.apply_Cz(lin, dz)
+
+    def applyCzt(self, lin: Linearization, dp):
+        return self.problem.apply_Czt(lin, dp)
 
     def solveFwdIncremental(self, lin: Linearization, rhs):
         return self.problem.solve_incremental(lin, rhs, is_adj=False)

@@ -9,8 +9,9 @@
   inverse_ghep) and an optional mean shift (reference
   ``PODProjector.py:666-852``).
 
-``save_mass_and_stiffness_matrices``, ``two_state_solution`` and control
-distributions are not ported.
+With a control distribution the samples carry controls z (``z_data``
+beside ``m_data`` and ``q_data``).  ``save_mass_and_stiffness_matrices``
+and ``two_state_solution`` are not ported (ROADMAP M11 item 6).
 """
 
 from __future__ import annotations
@@ -69,11 +70,8 @@ class PODProjector:
 
     def __init__(self, observable, prior, control_distribution=None,
                  parameters: ParameterList | None = None):
-        if control_distribution is not None:
-            raise NotImplementedError(
-                "control distributions are not ported (ROADMAP M11: the "
-                "control paths)")
         self.observable = observable
+        self.control_distribution = control_distribution
         self.prior = prior
         self.parameters = parameters or PODParameterList()
         self.keychain = KeyChain(self.parameters["seed"], prior.mean.device)
@@ -85,8 +83,13 @@ class PODProjector:
         self._data_generation_time = None
 
     def solve_at_mean(self):
-        """The forward solve at the prior mean (n,)."""
-        u, _ = self.observable.problem.solve_fwd(self.prior.mean[None])
+        """The forward solve at the prior mean (n,), and at the control
+        distribution's mean where there is one."""
+        z = None
+        if self.control_distribution is not None:
+            mean = self.prior.mean
+            z = self.control_distribution.mean(mean.dtype, mean.device)[None]
+        u, _ = self.observable.problem.solve_fwd(self.prior.mean[None], z=z)
         self.u_at_mean = u[0]
         return self.u_at_mean
 
@@ -98,6 +101,7 @@ class PODProjector:
             chunk_size=self.parameters["chunk_size"],
             verbose=self.parameters["verbose"],
             coarse_warm_start=self.parameters["coarse_warm_start"],
+            control_distribution=self.control_distribution,
         )
 
     def construct_subspace(self):
@@ -127,14 +131,15 @@ class PODProjector:
 
     def generate_training_data(self, output_directory="data/",
                                n_data: int | None = None, check_for_data=True,
-                               noise=None):
-        """Sample (m_i, q_i) pairs into ``mq_data.npz`` (reference
+                               noise=None, controls=None):
+        """Sample (m_i, q_i[, z_i]) into ``mq_data.npz`` (reference
         `PODProjector.py:118-222`).  Finished chunks persist under
         ``<output_directory>/chunks_pod/``; a killed run resumes at the
         first missing chunk, and each chunk draws from its own generator
         (``chunk_keychain``, tag 1), so a resumed run writes the same bits
-        as an uninterrupted one.  ``noise`` (n_data, noise_dim) gives the
-        chunks' first draws.  Returns (m_data, q_data) as numpy arrays."""
+        as an uninterrupted one.  ``noise`` (n_data, noise_dim) and
+        ``controls`` (n_data, dZ) give the chunks' first draws.  Returns
+        (m_data, q_data) as numpy arrays."""
         from .data_generator import (
             chunk_keychain,
             load_chunks_validated,
@@ -176,10 +181,14 @@ class PODProjector:
                 chunk_size=b, verbose=self.parameters["verbose"],
                 noise=None if noise is None else noise[i:i + b],
                 coarse_warm_start=self.parameters["coarse_warm_start"],
+                control_distribution=self.control_distribution,
+                controls=None if controls is None else controls[i:i + b],
             )
+            payload = {"m_data": batch.ms, "q_data": batch.qs}
+            if batch.zs is not None:
+                payload["z_data"] = batch.zs
             np.savez(os.path.join(chunk_dir, f"chunk_{i}_{i + b}.npz"),
-                     m_data=batch.ms.cpu().numpy(),
-                     q_data=batch.qs.cpu().numpy())
+                     **{k: v.cpu().numpy() for k, v in payload.items()})
             i += b
         cat = {k: v[:n] for k, v in load_chunks_validated(chunk_dir, n).items()}
         np.savez_compressed(out_path, **cat)
@@ -197,6 +206,9 @@ class PODProjector:
         ||q(m)|| over the samples.  Returns (avg list, std list); the
         re-solves' Newton iterations and their count of unconverged lanes
         per rank pair are left in ``io_iterations`` and ``io_failed``."""
+        if self.control_distribution is not None:
+            raise ValueError("the input-output error test is not worked out "
+                             "for control problems (as in the JAX package)")
         if self.U_MV is None:
             raise RuntimeError("construct_subspace first")
         V = torch.as_tensor(V, dtype=self.U_MV.dtype, device=self.U_MV.device)

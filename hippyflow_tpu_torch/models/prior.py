@@ -5,7 +5,8 @@ Precision R = K M^{-1} K with K = gamma * stiffness(Theta) + delta * M
 m = mean + K^{-1} L_M xi with M = L_M L_M^T.
 
 * ``BiLaplacianPrior`` (dense): K-solves by block-Thomas with pivoted LU
-  blocks, M-solves by the dense Cholesky factor.
+  blocks on structured meshes and by a dense Cholesky factor of K on
+  unstructured ones, M-solves by the dense Cholesky factor.
 * ``StructuredBiLaplacianPrior``: the same distribution in (nb, s, 3s) band
   storage for large structured meshes (no n x n array): M and K matvecs
   are banded, M and K solves run through block cyclic reduction (K3 on
@@ -24,6 +25,7 @@ import torch
 from .. import config
 from ..fem import (
     FunctionSpace,
+    boundary_mass_matrix,
     boundary_mass_matrix_banded,
     mass_matrix,
     mass_matrix_banded,
@@ -96,6 +98,12 @@ class _BiLaplacianOperators:
         return self.mean + m
 
 
+def robin_coefficient(gamma: float, delta: float) -> float:
+    """hippylib's Robin correction beta = sqrt(gamma delta) / 1.42 of the
+    boundary mass term, which reduces the boundary variance inflation."""
+    return math.sqrt(gamma * delta) / 1.42
+
+
 class BiLaplacianPrior(_BiLaplacianOperators):
     """Matern-like Gaussian prior with BiLaplacian precision, dense."""
 
@@ -110,9 +118,8 @@ class BiLaplacianPrior(_BiLaplacianOperators):
         mean=None,
         dtype=None,
         device=None,
+        robin_bc: bool = False,
     ):
-        if Vh.mesh.structured_shape is None:
-            raise NotImplementedError("only structured meshes")
         dtype, device = config.resolve(dtype, device)
         self.Vh = Vh
         self.gamma, self.delta = float(gamma), float(delta)
@@ -122,9 +129,14 @@ class BiLaplacianPrior(_BiLaplacianOperators):
             Vh, aniso_tensor_2d(theta0, theta1, alpha), dtype=dtype, device=device
         )
         self.K = self.gamma * A + self.delta * self.M
-        self._K_fac = factorize_block_tridiag_dense(
-            self.K, Vh.mesh.structured_shape[0] + 1
-        )
+        if robin_bc:
+            self.K = self.K + robin_coefficient(self.gamma, self.delta) * (
+                boundary_mass_matrix(Vh, dtype=dtype, device=device))
+        if Vh.mesh.structured_shape is not None:
+            self._K_fac = factorize_block_tridiag_dense(
+                self.K, Vh.mesh.structured_shape[0] + 1)
+        else:
+            self._K_fac = CholeskyFactor(L=torch.linalg.cholesky(self.K))
         if mean is None:
             mean = torch.zeros(Vh.dim, dtype=dtype, device=device)
         self.mean = torch.as_tensor(mean, dtype=dtype, device=device)
@@ -176,8 +188,8 @@ class StructuredBiLaplacianPrior(_BiLaplacianOperators):
         )
         K_band = self.gamma * A_band + self.delta * self.M_band
         if robin_bc:
-            beta = math.sqrt(self.gamma * self.delta) / 1.42
-            K_band = K_band + beta * boundary_mass_matrix_banded(Vh, **kw)
+            K_band = K_band + robin_coefficient(self.gamma, self.delta) * (
+                boundary_mass_matrix_banded(Vh, **kw))
         self.K_band = K_band
         self._M_chol = block_cholesky_tridiag(self.M_band)
         self._K_fac = factorize_block_cyclic_banded(K_band, with_transpose=False)

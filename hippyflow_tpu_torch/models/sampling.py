@@ -1,9 +1,11 @@
 """Batched sampling of (m, u, q, J) with resampling of failed lanes.
 
 Port of ``hippyflow_tpu/models/sampling.py`` (``auto_chunk_size``,
-``sample_until_solved`` with grid-sequenced warm starts,
-``sample_and_materialize_symmetric``, ``materialize_jacobians``), and
-``fresh_solves``, the error tests' cold re-solves.  PyTorch
+``sample_until_solved`` with grid-sequenced warm starts and control
+distributions, ``sample_and_materialize_symmetric``,
+``materialize_jacobians`` of dq/dm or dq/dz, ``linearize_batch``,
+``UniformDistribution``), and ``fresh_solves``, the error tests' cold
+re-solves.  PyTorch
 runs eagerly, so the JAX package's program cache and ahead-of-time compile
 machinery have no counterpart here.
 """
@@ -15,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .jacobian import ObservableJacobian
+from .jacobian import ObservableControlJacobian, ObservableJacobian
 from .observable import LinearStateObservable
 
 
@@ -30,14 +32,30 @@ def _device_memory_budget_gb(device) -> float:
 
 
 def auto_chunk_size(problem, dtype, device) -> int:
-    """Largest power-of-two sample batch (at most 4096) whose banded
-    factorizations fit the memory budget: ~16 n s bytes per sample for the
-    band, the factor blocks and solve temporaries."""
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    per_sample = 16.0 * problem.state_dim * problem._block_size * itemsize
+    """Largest power-of-two sample batch (at most 4096) whose factorizations
+    fit the memory budget, at ``problem.bytes_per_sample(dtype)`` each."""
+    per_sample = problem.bytes_per_sample(dtype)
     budget = _device_memory_budget_gb(device) * 1e9
-    n = max(1, min(4096, int(budget / per_sample)))
-    return 1 << (n.bit_length() - 1)
+    count = max(1, min(4096, int(budget / per_sample)))
+    return 1 << (count.bit_length() - 1)
+
+
+class UniformDistribution:
+    """Controls uniform on [a, b)^dim (the reference fixture's control
+    distribution, ``setupPoissonControlProblem.py:352-383``)."""
+
+    def __init__(self, dim: int, a: float, b: float):
+        self.dim = dim
+        self.a, self.b = float(a), float(b)
+
+    def sample_n(self, keychain, n: int, dtype=None):
+        """n draws (n, dim) from a ``KeyChain`` or ``GivenNoise`` stream."""
+        return keychain.uniform((n, self.dim), self.a, self.b, dtype=dtype)
+
+    def mean(self, dtype=None, device=None):
+        """The distribution's mean (dim,)."""
+        return torch.full((self.dim,), 0.5 * (self.a + self.b), dtype=dtype,
+                          device=device)
 
 
 @dataclass
@@ -52,6 +70,8 @@ class SampleBatch:
     failed_ms: np.ndarray | None = None
     # Newton iterations of every kept sample, (n,)
     iterations: torch.Tensor | None = None
+    # controls (n, dZ) with a control distribution
+    zs: torch.Tensor | None = None
 
 
 def sample_until_solved(
@@ -65,14 +85,19 @@ def sample_until_solved(
     reset_initial_guess: bool = False,
     noise=None,
     coarse_warm_start=None,
+    control_distribution=None,
+    controls=None,
 ) -> SampleBatch:
     """Draw n_samples prior samples with converged forward solves.
 
     ``noise`` (n_samples, noise_dim), when given, replaces the first draws;
-    resampling always draws from ``keychain``.  As in the JAX package, every
-    chunk is solved first; then failed lanes are resampled with fresh noise
-    at the chunk's own batch size, keeping the first nbad lanes, up to
-    ``max_tries`` sweeps; a hard failure raises.
+    resampling always draws from ``keychain``.  With a
+    ``control_distribution`` each chunk draws its controls after its noise
+    (``controls`` (n_samples, dZ) replaces the first draws), as the JAX
+    package does, and resampled lanes draw new controls too.  As in the JAX
+    package, every chunk is solved first; then failed lanes are resampled
+    with fresh noise at the chunk's own batch size, keeping the first nbad
+    lanes, up to ``max_tries`` sweeps; a hard failure raises.
 
     Initial guesses of a nonlinear problem: with ``coarse_warm_start`` (a
     map noise -> u0 from ``fem.multigrid.coarse_newton_warm_start``) each
@@ -90,12 +115,18 @@ def sample_until_solved(
     use_cws = coarse_warm_start is not None and nonlinear
     carry = not reset_initial_guess and nonlinear and not use_cws
     draw = lambda b: keychain.normal((b, prior.noise_dim), dtype=dtype)
+    with_control = control_distribution is not None
 
-    def solve(noise_c, u0):
+    def draw_z(b):
+        if not with_control:
+            return None
+        return control_distribution.sample_n(keychain, b, dtype=dtype)
+
+    def solve(noise_c, z, u0):
         if use_cws:
             u0 = coarse_warm_start(noise_c)
         m = prior.sample(noise_c)
-        u, info = problem.solve_fwd(m, u0=u0)
+        u, info = problem.solve_fwd(m, z=z, u0=u0)
         return m, u, observable.evalu(u), info
 
     chunks = []
@@ -103,23 +134,24 @@ def sample_until_solved(
     for a in range(0, n_samples, chunk_size):
         b = min(chunk_size, n_samples - a)
         noise_c = noise[a : a + b] if noise is not None else draw(b)
+        z = controls[a : a + b] if controls is not None else draw_z(b)
         u0 = None
         if carry and u_prev is not None and u_prev.shape[0] >= b:
             u0 = u_prev[:b]
-        m, u, q, info = solve(noise_c, u0)
+        m, u, q, info = solve(noise_c, z, u0)
         if carry:
             good = info.converged[:, None] & torch.isfinite(u).all(
                 dim=1, keepdim=True
             )
             u_prev = torch.where(good, u, 0.0)
-        chunks.append((m, u, q, info))
+        chunks.append((m, u, q, z, info))
         if verbose:
             print(f"  solved {a + b}/{n_samples}", flush=True)
 
-    out = {k: [] for k in ("m", "u", "q", "it")}
+    out = {k: [] for k in ("m", "u", "q", "z", "it")}
     failed_ms = []
     n_failures = 0
-    for m, u, q, info in chunks:
+    for m, u, q, z, info in chunks:
         b = m.shape[0]
         ok, it = info.converged.cpu().numpy(), info.iterations.clone()
         for _ in range(max_tries):
@@ -131,9 +163,13 @@ def sample_until_solved(
             failed_ms.append(m[bad].cpu().numpy())
             if verbose:
                 print(f"resampling {nbad} failed forward solves")
-            m2, u2, q2, info2 = solve(draw(b), None)
+            noise2 = draw(b)
+            z2 = draw_z(b)
+            m2, u2, q2, info2 = solve(noise2, z2, None)
             bad_t = torch.as_tensor(bad, device=device)
             m[bad_t], u[bad_t], q[bad_t] = m2[:nbad], u2[:nbad], q2[:nbad]
+            if with_control:  # out of place: z may be the caller's controls
+                z = z.index_copy(0, bad_t, z2[:nbad])
             it[bad_t] = info2.iterations[:nbad]
             ok[bad] = info2.converged[:nbad].cpu().numpy()
         if not ok.all():
@@ -141,7 +177,7 @@ def sample_until_solved(
                 f"{(~ok).sum()} forward solves failed after {max_tries} "
                 "resampling sweeps"
             )
-        for k, v in zip(("m", "u", "q", "it"), (m, u, q, it)):
+        for k, v in zip(("m", "u", "q", "z", "it"), (m, u, q, z, it)):
             out[k].append(v)
     return SampleBatch(
         ms=torch.cat(out["m"]),
@@ -150,6 +186,7 @@ def sample_until_solved(
         n_failures=n_failures,
         failed_ms=np.concatenate(failed_ms) if failed_ms else None,
         iterations=torch.cat(out["it"]),
+        zs=torch.cat(out["z"]) if with_control else None,
     )
 
 
@@ -252,37 +289,47 @@ def sample_and_materialize_symmetric(
     return batch, torch.cat(out["J"])
 
 
-def fresh_solves(observable: LinearStateObservable, ms, chunk_size: int | None = None):
-    """Cold-started forward solves of ms (N, dM) in chunks, no resampling
-    (the error tests' re-solves): (qs (N, dQ), converged (N,) bool,
-    Newton iterations (N,))."""
+def fresh_solves(observable: LinearStateObservable, ms, chunk_size: int | None = None,
+                 zs=None):
+    """Cold-started forward solves of ms (N, dM) (and controls zs (N, dZ))
+    in chunks, no resampling (the error tests' re-solves): (qs (N, dQ),
+    converged (N,) bool, Newton iterations (N,))."""
     problem = observable.problem
     if chunk_size is None:
         chunk_size = auto_chunk_size(problem, ms.dtype, ms.device)
     qs, ok, its = [], [], []
     for a in range(0, ms.shape[0], chunk_size):
-        u, info = problem.solve_fwd(ms[a:a + chunk_size])
+        z = None if zs is None else zs[a:a + chunk_size]
+        u, info = problem.solve_fwd(ms[a:a + chunk_size], z=z)
         qs.append(observable.evalu(u))
         ok.append(info.converged)
         its.append(info.iterations)
     return torch.cat(qs), torch.cat(ok), torch.cat(its)
 
 
-def materialize_jacobians(observable: LinearStateObservable, ms, us,
-                          chunk_size: int | None = None):
-    """Dense Jacobians J_i = dq/dm at each sample: (n, dQ, dM).
+def materialize_jacobians(observable: LinearStateObservable, ms, us, zs=None,
+                          chunk_size: int | None = None, control: bool = False):
+    """Dense Jacobians J_i = dq/dm (N, dQ, dM) at each sample, or with
+    ``control`` Jz_i = dq/dz (N, dQ, dZ) (controls zs (N, dZ)).
 
-    Per chunk: one batched linearization (K1) and one adjoint solve of dQ
-    right-hand sides (K2), written into a preallocated result, so the
-    factors of only one chunk are alive at a time."""
+    Per chunk: one batched adjoint-only linearization (K1 on the card, or
+    the solver's own factor) and one adjoint solve of dQ right-hand sides
+    (K2), written into a preallocated result, so the factors of only one
+    chunk are alive at a time."""
     problem = observable.problem
-    J = ObservableJacobian(observable)
+    J = (ObservableControlJacobian if control else ObservableJacobian)(observable)
     n = ms.shape[0]
     if chunk_size is None:
         chunk_size = auto_chunk_size(problem, ms.dtype, ms.device)
     J_all = torch.empty((n,) + J.shape, dtype=ms.dtype, device=ms.device)
     for a in range(0, n, chunk_size):
         e = min(a + chunk_size, n)
-        lin = problem.linearize(us[a:e], ms[a:e], needs="adj")
+        lin = problem.linearize(us[a:e], ms[a:e],
+                                None if zs is None else zs[a:e], needs="adj")
         J_all[a:e] = J.materialize(lin)
     return J_all
+
+
+def linearize_batch(observable: LinearStateObservable, ms, us, zs=None):
+    """The batched Linearization of every sample (factors kept)."""
+    return observable.problem.linearize(us, ms, zs)

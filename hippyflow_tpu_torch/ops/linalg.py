@@ -1,4 +1,5 @@
-"""Dense factorizations (port of ``hippyflow_tpu/ops/linalg.py``)."""
+"""Dense factorizations (port of ``hippyflow_tpu/ops/linalg.py``): library
+factorizations, as in the JAX package, which calls no Pallas kernel here."""
 
 from __future__ import annotations
 
@@ -7,18 +8,50 @@ from typing import NamedTuple
 import torch
 
 
+def _solve_cols(solve, b, L):
+    """Apply a factor's matrix solve to b (..., n) or (..., n, k)."""
+    vec = b.ndim == L.ndim - 1
+    x = solve(b[..., None] if vec else b)
+    return x[..., 0] if vec else x
+
+
 class CholeskyFactor(NamedTuple):
-    """Lower Cholesky factor of an SPD matrix."""
+    """Lower Cholesky factor of an SPD matrix (n, n), or of a batch
+    (N, n, n)."""
 
     L: torch.Tensor
 
-    def solve(self, b):
-        """A^{-1} b for b (n, k)."""
-        return torch.cholesky_solve(b, self.L)
+    def solve(self, b, trans: bool = False):
+        """A^{-1} b for b (n,) or (n, k), or (N, n) or (N, n, k) with a
+        batch; A^T = A, so ``trans`` changes nothing."""
+        return _solve_cols(lambda x: torch.cholesky_solve(x, self.L), b, self.L)
 
     def matvec_L(self, x):
         """L @ x (square-root action of A)."""
         return self.L @ x
+
+
+class LUFactor(NamedTuple):
+    """Pivoted LU factor of a general square matrix (n, n), or of a batch."""
+
+    lu: torch.Tensor
+    piv: torch.Tensor
+
+    def solve(self, b, trans: bool = False):
+        """A^{-1} b (or A^{-T} b) for b shaped as in ``CholeskyFactor``."""
+        return _solve_cols(
+            lambda x: torch.linalg.lu_solve(self.lu, self.piv, x, adjoint=trans),
+            b, self.lu)
+
+
+def factorize(A, symmetric: bool):
+    """Factorize a dense matrix (n, n) or batch (N, n, n): Cholesky when
+    SPD, pivoted LU otherwise.  A failed factorization leaves non-finite
+    factors, as in the JAX package, and raises nothing."""
+    if symmetric:
+        return CholeskyFactor(L=torch.linalg.cholesky_ex(A)[0])
+    lu, piv, _ = torch.linalg.lu_factor_ex(A)
+    return LUFactor(lu=lu, piv=piv)
 
 
 def eigh_descending(T):

@@ -14,8 +14,8 @@ from .. import config
 
 
 class KeyChain:
-    """A mutable stream of normal draws from one seeded generator on the
-    device the draws are made on."""
+    """A mutable stream of normal and uniform draws from one seeded
+    generator on the device the draws are made on."""
 
     def __init__(self, seed: int = 0, device=None):
         _, self.device = config.resolve(None, device)
@@ -28,11 +28,18 @@ class KeyChain:
         return torch.randn(shape, generator=self.generator, dtype=dtype,
                            device=self.device)
 
+    def uniform(self, shape, lo: float = 0.0, hi: float = 1.0, dtype=None):
+        """Uniform draws on [lo, hi) of the given shape."""
+        dtype = dtype or config.DEFAULT_DTYPE
+        x = torch.rand(shape, generator=self.generator, dtype=dtype,
+                       device=self.device)
+        return lo + (hi - lo) * x
+
 
 class GivenNoise:
-    """A KeyChain whose draws are given: each ``normal`` takes the next
-    standard normals of a numpy Generator, so the same numbers land on
-    every device."""
+    """A KeyChain whose draws are given: each ``normal`` (``uniform``)
+    takes the next standard normals (uniforms) of a numpy Generator, so the
+    same numbers land on every device."""
 
     def __init__(self, rng, device=None):
         _, self.device = config.resolve(None, device)
@@ -40,5 +47,10 @@ class GivenNoise:
 
     def normal(self, shape, dtype=None):
         return torch.as_tensor(self.rng.standard_normal(shape),
+                               dtype=dtype or config.DEFAULT_DTYPE,
+                               device=self.device)
+
+    def uniform(self, shape, lo: float = 0.0, hi: float = 1.0, dtype=None):
+        return torch.as_tensor(self.rng.uniform(lo, hi, shape),
                                dtype=dtype or config.DEFAULT_DTYPE,
                                device=self.device)

@@ -842,3 +842,76 @@ def test_setup_lane_on_card_matches_cpu(cuda, tmp_path):
     for key in ("m_data", "q_data"):
         want = data[1][key]
         assert np.abs(data[0][key] - want).max() <= 1e-10 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s,nb", [(9, 301), (21, 22), (65, 65)])
+def test_batched_cyclic_reduction_through_k3(cuda, s, nb, dtype):
+    """The batched cyclic reduction of the block_cyclic solver on the
+    card: one K3 launch per level and one at the root for all samples of
+    each direction, and its solves (forward, transposed, adjoint-only)
+    against the same factorization on the CPU (K3's plain version)."""
+    from hippyflow_tpu_torch.ops.structured import factorize_block_cyclic_banded
+
+    band = _band(s, 3, torch.float64, "cpu", seed=s, nb=nb)
+    levels = int(np.ceil(np.log2(nb)))
+    hk.reset_launch_counts()
+    gpu = factorize_block_cyclic_banded(band.to(cuda, dtype))
+    adj = factorize_block_cyclic_banded(band.to(cuda, dtype), with_forward=False)
+    torch.cuda.synchronize()
+    assert hk.batched_inverse.launches == 3 * (levels + 1)
+    cpu = factorize_block_cyclic_banded(band.to(dtype))
+    rhs = torch.randn(3, nb * s, 4, dtype=dtype)
+    for trans in (False, True):
+        want = cpu.solve(rhs, trans=trans)
+        assert _rel(gpu.solve(rhs.to(cuda), trans=trans).cpu(), want) < TOL[dtype]
+    assert _rel(adj.solve(rhs.to(cuda), trans=True).cpu(),
+                cpu.solve(rhs, trans=True)) < TOL[dtype]
+
+
+def _control_lane_nx16(device, solver, out):
+    """DataGenerator on the nonlinear Poisson control problem at nx=16 in
+    float64 from given noise and controls, derivatives (1, 1) with a fixed
+    output decoder: the arrays it writes."""
+    from hippyflow_tpu_torch.models import DataGenerator
+    from hippyflow_tpu_torch.testing import (
+        poisson_control_settings,
+        poisson_pointwise_observable,
+        setup_poisson_control_problem,
+    )
+
+    st = poisson_control_settings()
+    st["nx"] = st["ny"] = 16
+    st["LINEAR"] = False
+    pde, prior, dist, Vh = setup_poisson_control_problem(
+        st, dtype=torch.float64, device=device, solver=solver)
+    obs = poisson_pointwise_observable(pde, Vh)
+    rng = np.random.default_rng(0)
+    noise = torch.as_tensor(rng.standard_normal((8, prior.noise_dim)),
+                            device=device)
+    controls = torch.as_tensor(rng.uniform(-1, 1, (8, 25)), device=device)
+    Phi = np.linalg.qr(rng.standard_normal((obs.dQ, obs.dQ)))[0]
+    DataGenerator(obs, prior, control_distribution=dist,
+                  settings=dict(verbose=False)).generate(
+        8, derivatives=(1, 1), output_decoder=Phi, data_dir=str(out),
+        noise=noise, controls=controls)
+    arrays = {}
+    for name in ("mzq_data", "JstarPhi_data", "JzstarPhi_data"):
+        with np.load(out / f"{name}.npz") as z:
+            arrays.update({k: z[k] for k in z.files})
+    return arrays
+
+
+@pytest.mark.parametrize("solver", ["auto", "block_cyclic"])
+def test_control_lane_on_card_matches_cpu(cuda, tmp_path, solver):
+    """The control lane (forward solves, dq/dm and dq/dz sketches) on the
+    card against the CPU in float64: every array within 1e-8 relative."""
+    hk.reset_launch_counts()
+    gpu = _control_lane_nx16(cuda, solver, tmp_path / "gpu")
+    if solver == "auto":
+        assert hk.banded_factorize.launches > 0 and hk.banded_solve.launches > 0
+    else:
+        assert hk.batched_inverse.launches > 0
+    cpu = _control_lane_nx16("cpu", solver, tmp_path / "cpu")
+    for key, want in cpu.items():
+        assert np.abs(gpu[key] - want).max() <= 1e-8 * np.abs(want).max(), key

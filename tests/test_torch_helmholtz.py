@@ -318,13 +318,34 @@ def test_component_observation_matches_jax(component):
 
 def test_auto_rule_refuses_the_cyclic_reduction_regime():
     """Blocks below 128 on a band longer than 256 rows are where the JAX
-    package's 'auto' rule takes the cyclic-reduction adjoint factor, which
-    is not ported: the problem is refused, not solved another way."""
+    package's 'auto' rule takes the cyclic-reduction adjoint factor.  The
+    port refused such a problem until cyclic reduction was ported for the
+    PDE operator; now it takes the same factors as the JAX rule: cyclic
+    reduction for the adjoint factor (only A^T with needs='adj'), the
+    inverse block-Thomas forward, and solves them."""
+    from hippyflow_tpu_torch.ops.structured import (
+        BlockCyclicFactor,
+        InverseThomasFactor,
+    )
+
     V = FunctionSpace(rectangle_mesh(16, 300, 0.0, 0.0, 1.0, 1.0))
-    bc = DirichletBC(mask=np.zeros(V.dim, dtype=bool), value=np.zeros(V.dim))
-    form = GalerkinForm(flux=lambda x, u, gu, m, z, c: gu)
-    with pytest.raises(NotImplementedError, match="cyclic-reduction"):
-        VariationalPDEProblem(V, V, form, bc, **F64)
+    mask = V.boundary_dofs(lambda x: x[:, 1] < 1e-12)
+    bc = DirichletBC(mask=mask, value=np.zeros(V.dim))
+    form = GalerkinForm(flux=lambda x, u, gu, m, z, c: gu,
+                        source=lambda x, u, gu, m, z, c: m * u)
+    p = VariationalPDEProblem(V, V, form, bc, **F64)
+    assert (p._structured_solver, p._structured_solver_fwd) == (
+        "block_cyclic", "thomas_inv")
+    m = torch.ones((2, V.dim), **F64)
+    u = torch.zeros((2, V.dim), **F64)
+    adj, fwd = p.linearize(u, m, needs="adj"), p.linearize(u, m, needs="fwd")
+    assert isinstance(adj.factor, BlockCyclicFactor) and adj.factor.levels is None
+    assert isinstance(fwd.factor, InverseThomasFactor)
+    rhs = torch.as_tensor(np.random.default_rng(0).standard_normal((2, V.dim)),
+                          **F64)
+    x = p.solve_incremental(adj, rhs, is_adj=True)
+    y = p.solve_incremental(fwd, rhs)
+    np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=1e-10)
 
 
 def _subspace(tobs, tpr, symmetric, n=6, rank=5, oversampling=4, seed=2):

@@ -182,6 +182,9 @@ import hippyflow_tpu_torch.applications.confusion_training
 import hippyflow_tpu_torch.models.kle, hippyflow_tpu_torch.models.data_generator
 import hippyflow_tpu_torch.ops.operators
 import hippyflow_tpu_torch.applications.confusion_setup
+import hippyflow_tpu_torch.testing, hippyflow_tpu_torch.utils.mesh_utils
+import hippyflow_tpu_torch.models.pde_problem, hippyflow_tpu_torch.models.jacobian
+import hippyflow_tpu_torch.models.sampling, hippyflow_tpu_torch.ops.linalg
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 sys.exit(f"loaded {bad}" if bad else 0)
 """
@@ -190,8 +193,10 @@ sys.exit(f"loaded {bad}" if bad else 0)
 def test_import_pulls_in_no_jax():
     """In a fresh interpreter that refuses to import jax, the JAX package
     or its applications, the port, its surrogate layer, its KLE, data
-    generator and operator modules, and its confusion, confusion-setup,
-    confusion-training and helmholtz applications import."""
+    generator and operator modules, its solvers and control paths, its
+    Poisson control fixture (``testing``) and mesh I/O, and its confusion,
+    confusion-setup, confusion-training and helmholtz applications
+    import."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,

@@ -52,6 +52,7 @@ from hippyflow_tpu_torch.models import (
     ActiveSubspaceProjector as TProjector,
     BiLaplacianPrior,
     StructuredBiLaplacianPrior,
+    VariationalPDEProblem,
     auto_chunk_size,
 )
 from hippyflow_tpu_torch.ops import hopper_kernels as hk
@@ -378,6 +379,7 @@ def test_factorize_rows_plain_matches_chain(s):
 
 class _Problem:
     state_dim, _block_size = 37249, 193  # confusion at nx=192
+    bytes_per_sample = VariationalPDEProblem.bytes_per_sample
 
 
 def test_auto_chunk_size_at_nx192():
@@ -386,8 +388,8 @@ def test_auto_chunk_size_at_nx192():
     would take 43, rounded down to 32."""
     per_sample = 16 * 37249 * 193 * 4
     assert 4.5e8 < per_sample < 4.7e8
-    assert auto_chunk_size(_Problem, torch.float32, "cpu") == 4
-    assert auto_chunk_size(_Problem, torch.float64, "cpu") == 2
+    assert auto_chunk_size(_Problem(), torch.float32, "cpu") == 4
+    assert auto_chunk_size(_Problem(), torch.float64, "cpu") == 2
     assert 1 << (int(20e9 / per_sample).bit_length() - 1) == 32
 
 
@@ -400,13 +402,13 @@ def test_chunk_sizes_are_honoured():
     seen = {"fwd": [], "lin": []}
     solve_fwd, linearize = pde.solve_fwd, pde.linearize
 
-    def spy_fwd(m, u0=None):
+    def spy_fwd(m, z=None, u0=None):
         seen["fwd"].append(m.shape[0])
-        return solve_fwd(m, u0=u0)
+        return solve_fwd(m, z=z, u0=u0)
 
-    def spy_lin(u, m, needs="both"):
+    def spy_lin(u, m, z=None, needs="both"):
         seen["lin"].append(u.shape[0])
-        return linearize(u, m, needs=needs)
+        return linearize(u, m, z, needs=needs)
 
     pde.solve_fwd, pde.linearize = spy_fwd, spy_lin
     p = TParams()
