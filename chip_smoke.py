@@ -129,6 +129,31 @@ each:
     float32 times beside the bound;
     (9) steps 1 and 2 in float64 at nx=16 on the card against the CPU
     (limit 1e-8).  Each step's launches are one path of the JSON line;
+9e. models: the rest of the modeling layer, float32, at the main path's
+    width (confusion and the Poisson control problem at nx=64), each item
+    one path: (1) ``ModelWrapper`` on confusion (data at rel_noise 0.01;
+    on 64 samples the costs, the gradients, the GN Hessian on 16
+    directions with its symmetry, the rank-20 Jacobian against the dense
+    one; the float64 gradient against a central difference, 4 samples);
+    (2) ``MultiPDEProblem`` of 4 Poisson problems with fixed controls as
+    sources, 10 observations, 64 samples (each problem alone, the control
+    problem at that control, q the sum, a Jacobian dot test); (3) the
+    full-state input subspace (``StateSpaceIdentityOperator``, 64 samples,
+    rank 40) batched matrix-free, serialized in chunks of 16 and as the
+    unpreconditioned HEP, with ``materialize`` refused, the spectra of the
+    first two within 1e-4 and the serialized peak memory below the
+    batched; (4) ``test_errors_double_loop`` on confusion at ranks 8, 32,
+    100 with 32 x 4 samples, not rising with rank, in float64 (float32
+    Newton's stopping residual puts a floor under the error that ranks 32
+    and 100 both reach); (5)
+    ``two_step_generate(256, pod_rank=32, derivatives=(1, 1))`` in chunks
+    of 16, in float64 (float32 misses its ||Psi^* Psi - I|| < 1e-5 check;
+    K2 at k=4225); (6) the boundary KLE, the Laplacian prior and its KLE,
+    ``two_state_solution`` and the CSR matrices, constrained Newton at
+    nx=32 in float64 on the card and on the CPU (same iterations and
+    reason, 1e-10); then K1 and K2 at every shape of (1)-(5) against their
+    plain versions in both dtypes (``k12_shape_records``) and (1)-(5) in
+    float64 at nx=16 on the card against the CPU (limit 1e-8);
 10. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
     256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16,
     grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started; then the
@@ -2317,6 +2342,641 @@ def phase_control(device):
     return paths, records
 
 
+# the models phase of chip_smoke.py: the modeling layer's last modules (the
+# inverse-problem wrapper, multi-source problems, the full-state observable
+# in its three strategies, the double-loop error test, two-step data
+# generation, the boundary KLE, the Laplacian prior, the POD extras and
+# constrained Newton), float32, seed 0, at the main path's width: confusion
+# at nx=64 (the cached velocity, 100 observations, the dense prior) and the
+# control lane's Poisson problem at nx=ny=64 (4225 dofs, s=nb=65)
+MODELS_FULL = dict(
+    nx=NX, n=64, directions=16, low_rank=20, sources=4, n_obs=10,
+    fs_rank=40, fs_oversampling=10, fs_chunk=16,
+    dl_samples=256, dl_rank=100, dl_ranks=(8, 32, 100), dl_outer=32,
+    dl_inner=4, ts_n=256, ts_pod_rank=32, ts_chunk=16)
+# items 1-5 again in float64 at nx=16 (the analytic velocity), on the card
+# and on the CPU from the same draws: every array within MODELS_F64_TOL
+MODELS_CHECK = dict(
+    nx=16, n=8, directions=4, low_rank=5, sources=4, n_obs=10,
+    fs_rank=10, fs_oversampling=5, fs_chunk=3,
+    dl_samples=16, dl_rank=20, dl_ranks=(2, 8, 20), dl_outer=8,
+    dl_inner=2, ts_n=16, ts_pod_rank=8, ts_chunk=4)
+MODELS_F64_TOL = 1e-8
+# float32 limits, each relative to the largest entry: the Gauss-Newton
+# Hessian's symmetry <x, H y> = <H x, y> (J and J^T through separate
+# solves, rounding at ~1e-7 times the operator's condition), the batched
+# against the serialized spectrum (the same products summed in another
+# order), the multi-source dot test, each problem alone, and
+# ||J - U S V^T||_2 against sigma_{r+1}
+MODELS_TOL_F32 = 1e-4
+# float64 limits of the same checks (the card-against-CPU lane); the
+# gradient's central difference (eps 1e-6, Newton to 1e-9 relative) in
+# float64 at nx=64 on 4 samples
+MODELS_TOL_F64 = 1e-9
+MODELS_FD_SAMPLES, MODELS_FD_TOL = 4, 1e-6
+# item 6: the boundary KLE at rank 100 on the nx=64 dense prior, the
+# Laplacian prior's samples and mass KLE, and constrained Newton in float64
+# on a P1 energy at nx=32 (1089 dofs), card against CPU
+MODELS_KLE_RANK, MODELS_NEWTON_NX, MODELS_NEWTON_TOL = 100, 32, 1e-10
+
+
+def _models_tol(dtype):
+    return MODELS_TOL_F32 if dtype == torch.float32 else MODELS_TOL_F64
+
+
+class _Item:
+    """One item of the models phase, counted: wall seconds (ended by a
+    device synchronize), every kernel's launches and the peak memory above
+    what was allocated before it (GB; None on the CPU)."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.base = torch.cuda.memory_allocated()
+        hk.reset_launch_counts()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        self.launches = launch_counts()
+        self.peak = ((torch.cuda.max_memory_allocated() - self.base) / 1e9
+                     if cuda else None)
+        return False
+
+    def line(self):
+        l = self.launches
+        peak = "" if self.peak is None else f", peak {self.peak:.3f} GB"
+        return (f"{self.seconds:.3f} s, launches K1 {l['banded_factorize']} K2 "
+                f"{l['banded_solve']} (panels {l['banded_solve_panels']}, "
+                f"streamed {l['banded_solve_streamed']}) K3 "
+                f"{l['batched_inverse']}{peak}")
+
+
+@contextlib.contextmanager
+def _no_materialize():
+    """Within the block ObservableJacobian.materialize raises: the
+    matrix-free strategies never form a Jacobian."""
+    from hippyflow_tpu_torch.models import ObservableJacobian
+
+    real = ObservableJacobian.materialize
+
+    def refuse(self, lin):
+        raise AssertionError("materialize called on a matrix-free path")
+
+    ObservableJacobian.materialize = refuse
+    try:
+        yield
+    finally:
+        ObservableJacobian.materialize = real
+
+
+def _given(seed, device):
+    import numpy as np
+
+    from hippyflow_tpu_torch.utils import GivenNoise
+
+    return GivenNoise(np.random.default_rng(seed), device)
+
+
+def _models_confusion(dtype, device, nx):
+    from hippyflow_tpu_torch.applications.confusion import (
+        confusion_linear_observable,
+        confusion_prior,
+        load_ns_velocity,
+    )
+
+    vel = load_ns_velocity(nx) if nx in (NX, NX192) else "analytic"
+    obs, Vh = confusion_linear_observable(nx=nx, velocity=vel, dtype=dtype,
+                                          device=device)
+    return obs, confusion_prior(Vh, dtype=dtype, device=device)
+
+
+def _models_poisson(dtype, device, nx):
+    """The control lane's nonlinear Poisson problem: (pde, prior, control
+    distribution, space, settings)."""
+    from hippyflow_tpu_torch.testing import (
+        poisson_control_settings,
+        setup_poisson_control_problem,
+    )
+
+    st = poisson_control_settings()
+    st["nx"], st["ny"], st["LINEAR"] = nx, nx, False
+    pde, prior, dist, Vh = setup_poisson_control_problem(st, dtype=dtype,
+                                                         device=device)
+    return pde, prior, dist, Vh, st
+
+
+def models_wrapper(dtype, device, z, arrays, checks):
+    """Item 1: ModelWrapper on confusion: data at a drawn mtrue
+    (rel_noise 0.01), on z['n'] prior samples the costs, the variational
+    gradients and the mass- and R-preconditioned gradients, the GN
+    Hessian on z['directions'] directions a sample with its symmetry, and
+    the rank-z['low_rank'] Jacobian against the dense one."""
+    from hippyflow_tpu_torch.models import ModelWrapper
+
+    obs, prior = _models_confusion(dtype, device, z["nx"])
+    w = ModelWrapper(obs, prior)
+    w.keychain = _given(SEED, device)
+    mis = w.setUpInverseProblem(rel_noise=0.01)
+    m = w.samplePrior(z["n"])
+    arrays["wrapper_d"] = mis.d
+    arrays["wrapper_cost"] = w.evalCost(m)
+    arrays["wrapper_grad_misfit"] = w.evalVariationalGradient(m)
+    arrays["wrapper_grad"] = w.evalVariationalGradient(m, misfit_only=False)
+    arrays["wrapper_grad_mass"] = w.evalGradient(m, misfit_only=False)
+    arrays["wrapper_grad_R"] = w.evalGradient(m, misfit_only=False,
+                                              invert_regularization=True)
+    lin = obs.linearize(m)
+    X = w.keychain.normal((z["n"], w.dM, z["directions"]), dtype=dtype)
+    HX = w.evalGNHessian(X, lin=lin)
+    G = X.mT @ HX  # (n, k, k): symmetric where H is
+    asym = ((G - G.mT).abs().amax(dim=(1, 2)) / G.abs().amax(dim=(1, 2))).max().item()
+    r = z["low_rank"]
+    U, s, V = w.evalLowRankJacobian(r, lin=lin)
+    Jd = w.evalJacobian(lin=lin)
+    s_all = torch.linalg.svdvals(Jd)
+    err = torch.linalg.matrix_norm(Jd - (U * s[:, None, :]) @ V.mT, ord=2)
+    low_rank = ((err - s_all[:, r]).abs() / s_all[:, 0]).max().item()
+    arrays["wrapper_HX"], arrays["wrapper_sigma"] = HX, s
+    arrays["wrapper_low_rank"] = (U * s[:, None, :]) @ V.mT
+    tol = _models_tol(dtype)
+    for key in ("wrapper_cost", "wrapper_grad", "wrapper_grad_mass",
+                "wrapper_grad_R", "wrapper_HX", "wrapper_sigma"):
+        checks.append((bool(torch.isfinite(arrays[key]).all()), f"{key} finite"))
+    checks.append((asym <= tol, f"wrapper: <x, H y> - <H x, y> {asym:.3e}"))
+    checks.append((low_rank <= tol, f"wrapper: ||J - U S V^T|| - sigma_r+1 {low_rank:.3e}"))
+    checks.append((bool((arrays["wrapper_cost"] > 0).all()), "wrapper: cost > 0"))
+    return (f"noise variance {mis.noise_variance:.4e}, cost mean "
+            f"{arrays['wrapper_cost'].mean().item():.4e}, GN symmetry {asym:.3e}, "
+            f"rank-{r} J error against sigma_{r + 1} {low_rank:.3e}")
+
+
+def models_multi(dtype, device, z, arrays, checks):
+    """Item 2: MultiPDEProblem of z['sources'] Poisson problems sharing m,
+    each with a fixed control as its source, z['n_obs'] pointwise
+    observations: the states against each problem alone and against the
+    control problem at that control, q the sum, a Jacobian dot test."""
+
+    from hippyflow_tpu_torch.fem import GalerkinForm
+    from hippyflow_tpu_torch.models import (
+        MultiPDEProblem,
+        MultiStateLinearObservable,
+        ObservableJacobian,
+        VariationalPDEProblem,
+    )
+    from hippyflow_tpu_torch.testing import make_poisson_varf, poisson_pointwise_observable
+
+    pde, prior, dist, Vh, st = _models_poisson(dtype, device, z["nx"])
+    kc = _given(SEED + 1, device)
+    controls = dist.sample_n(kc, z["sources"], dtype)
+    base = make_poisson_varf(st)
+
+    def fixed(zk):
+        def source(x, u, gu, m, _z, c):
+            return base.source(x, u, gu, m, zk.expand(m.shape[0], -1), c)
+
+        form = GalerkinForm(flux=base.flux, source=source, quad_degree=4,
+                            symmetric=True)
+        return VariationalPDEProblem(Vh, Vh, form, pde.bc, is_fwd_linear=False,
+                                     dtype=dtype, device=device)
+
+    problems = [fixed(zk) for zk in controls]
+    B = poisson_pointwise_observable(pde, Vh, z["n_obs"]).B
+    mobs = MultiStateLinearObservable(MultiPDEProblem(problems), B)
+    m = prior.sample(kc.normal((z["n"], prior.noise_dim), dtype=dtype))
+    u, info = mobs.solve_fwd(m)
+    q = mobs.evalu(u)
+    tol = _models_tol(dtype)
+    alone = max(rel_err(u[k], p.solve_fwd(m)[0]) for k, p in enumerate(problems))
+    control = max(rel_err(u[k], pde.solve_fwd(m, z=zk.expand(z["n"], -1))[0])
+                  for k, zk in enumerate(controls))
+    summed = rel_err(q, sum(B.apply(u[k]) for k in range(len(problems))))
+    J = ObservableJacobian(mobs)
+    lins = mobs.linearize(m, u=u)
+    dm = kc.normal((z["n"], mobs.dM), dtype=dtype)
+    dq = kc.normal((z["n"], mobs.dQ), dtype=dtype)
+    Jdm, Jtdq = J.mult(lins, dm), J.transpmult(lins, dq)
+    lhs, rhs = (dq * Jdm).sum(dim=1), (Jtdq * dm).sum(dim=1)
+    dot = ((lhs - rhs).abs() / (dq.norm(dim=1) * Jdm.norm(dim=1))).max().item()
+    arrays.update(multi_u=u, multi_q=q, multi_Jdm=Jdm, multi_Jtdq=Jtdq)
+    checks += [(bool(info.converged.all()), "multi: unconverged"),
+               (u.shape == (len(problems), z["n"], Vh.dim), f"multi: u {tuple(u.shape)}"),
+               (alone <= tol, f"multi: against each problem alone {alone:.3e}"),
+               (control <= tol, f"multi: against the control problem {control:.3e}"),
+               (summed <= tol, f"multi: q against the sum {summed:.3e}"),
+               (dot <= tol, f"multi: dot test {dot:.3e}")]
+    return (f"k={len(problems)}, Newton {_its(info.iterations)}; against each "
+            f"problem alone {alone:.3e}, the control problem {control:.3e}, q the "
+            f"sum {summed:.3e}, dot test {dot:.3e}")
+
+
+def models_full_state(dtype, device, z, arrays, checks, items):
+    """Item 3: the input subspace of the full-state Poisson observable
+    (B = I, B^T = M) on one batch of solved samples and one probe, three
+    ways: batched matrix-free, serialized (chunks of z['fs_chunk']) and the
+    unpreconditioned HEP; each counted into ``items`` with Jacobian
+    materialization refused.  Returns the line's text."""
+    from hippyflow_tpu_torch.models import (
+        ActiveSubspaceParameterList,
+        ActiveSubspaceProjector,
+        SampleBatch,
+    )
+    from hippyflow_tpu_torch.testing import poisson_full_state_observable
+
+    pde, prior, dist, Vh, _ = _models_poisson(dtype, device, z["nx"])
+    fobs = poisson_full_state_observable(pde, Vh)
+    kc = _given(SEED + 2, device)
+    ms = prior.sample(kc.normal((z["n"], prior.noise_dim), dtype=dtype))
+    zs = dist.sample_n(kc, z["n"], dtype)
+    us, info = pde.solve_fwd(ms, z=zs)
+    batch = SampleBatch(ms=ms, us=us, qs=fobs.evalu(us), n_failures=0,
+                        iterations=info.iterations, zs=zs)
+    r, p = z["fs_rank"], z["fs_oversampling"]
+    Omega = kc.normal((Vh.dim, r + p), dtype=dtype)
+    runs, parts = {}, []
+    for way, serialized, pp in (("batched", False, True),
+                                ("serialized", True, True),
+                                ("hep", False, False)):
+        params = ActiveSubspaceParameterList()
+        params["rank"], params["oversampling"] = r, p
+        params["samples_per_process"], params["verbose"] = z["n"], False
+        params["serialized_sampling"], params["chunk_size"] = serialized, z["fs_chunk"]
+        proj = ActiveSubspaceProjector(fobs, prior, parameters=params,
+                                       control_distribution=dist)
+        proj.samples, proj.Omega_GN = batch, Omega
+        with _Item(device) as it, _no_materialize():
+            d, V, E = proj.construct_input_subspace(prior_preconditioned=pp)
+        runs[way] = (d, V, E, proj, it)
+        items[f"models_fs_{way}"] = it
+        W = prior.R_matmat(V) if pp else V
+        ortho = (V.T @ W - torch.eye(r, dtype=dtype, device=device)).abs().max().item()
+        checks += [(bool(torch.isfinite(d).all()) and bool((d[1:] <= d[:-1]).all()),
+                    f"full state {way}: spectrum"),
+                   (ortho <= (ORTHO_TOL_F32 if dtype == torch.float32 else 1e-8),
+                    f"full state {way}: orthonormality {ortho:.3e}"),
+                   (proj.Js is None, f"full state {way}: Jacobians formed")]
+        arrays[f"fs_d_{way}"] = d
+        if z["nx"] <= 16:  # the leading projector, for the card-against-CPU check
+            arrays[f"fs_P_{way}"] = V[:, :4] @ E[:, :4].T
+        st = ", ".join(f"{k} {v:.3f}" for k, v in proj.stage_seconds.items())
+        parts.append(f"{way}: {it.line()} ({st}); max|V^T W V - I| {ortho:.2e}")
+    d_b, d_s = runs["batched"][0], runs["serialized"][0]
+    rel = ((d_b - d_s).abs() / d_b[0].abs()).max().item()
+    checks.append((rel <= _models_tol(dtype),
+                   f"full state: batched against serialized {rel:.3e}"))
+    if device.type == "cuda":
+        pb, ps = runs["batched"][4].peak, runs["serialized"][4].peak
+        checks.append((ps < pb, f"full state: serialized peak {ps:.3f} GB not "
+                       f"below batched {pb:.3f} GB"))
+    return (f"rank {r}, oversampling {p}, Newton {_its(info.iterations)}; "
+            f"batched against serialized {rel:.3e}; " + "; ".join(parts)
+            + f"; lambda_0 {d_b[0].item():.4e} (HEP {runs['hep'][0][0].item():.4e})")
+
+
+def models_double_loop(dtype, device, z, arrays, checks):
+    """Item 4: the input subspace of confusion (z['dl_samples'] samples,
+    rank z['dl_rank']), then test_errors_double_loop at z['dl_ranks'] with
+    z['dl_outer'] outer x z['dl_inner'] inner samples."""
+    from hippyflow_tpu_torch.models import (
+        ActiveSubspaceParameterList,
+        ActiveSubspaceProjector,
+    )
+
+    obs, prior = _models_confusion(dtype, device, z["nx"])
+    params = ActiveSubspaceParameterList()
+    params["samples_per_process"], params["rank"] = z["dl_samples"], z["dl_rank"]
+    params["oversampling"], params["verbose"] = OVERSAMPLING, False
+    proj = ActiveSubspaceProjector(obs, prior, parameters=params)
+    proj.keychain = _given(SEED + 3, device)
+    proj.construct_input_subspace()
+    dl = proj.test_errors_double_loop(ranks=z["dl_ranks"], n_samples=z["dl_outer"],
+                                      double_loop_samples=z["dl_inner"])
+    errs = [dl[("double_loop", r)][0] for r in z["dl_ranks"]]
+    arrays["dl_errors"] = torch.tensor([dl[("double_loop", r)] for r in z["dl_ranks"]],
+                                       dtype=torch.float64)
+    discarded = [dl[("double_loop_discarded", r)] for r in z["dl_ranks"]]
+    checks += [(all(a >= b for a, b in zip(errs, errs[1:])),
+                f"double loop: errors rise with rank {errs}"),
+               (all(map(math.isfinite, errs)), "double loop: non-finite")]
+    return ("errors " + ", ".join(f"r={r} {e:.4e}" for r, e in zip(z["dl_ranks"], errs))
+            + f"; discarded (outer, inner) {discarded}")
+
+
+def models_two_step(dtype, device, z, arrays, checks, out):
+    """Item 5: DataGenerator.two_step_generate(z['ts_n'], pod_rank
+    z['ts_pod_rank'], derivatives=(1, 1)) of the full-state Poisson
+    observable in chunks of z['ts_chunk'], into ``out``."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.models import DataGenerator
+    from hippyflow_tpu_torch.testing import poisson_full_state_observable
+
+    pde, prior, dist, Vh, _ = _models_poisson(dtype, device, z["nx"])
+    fobs = poisson_full_state_observable(pde, Vh)
+    kc = _given(SEED + 4, device)
+    n, r = z["ts_n"], z["ts_pod_rank"]
+    noise = kc.normal((n, prior.noise_dim), dtype=dtype)
+    controls = dist.sample_n(kc, n, dtype)
+    gen = DataGenerator(fobs, prior, control_distribution=dist,
+                        settings=dict(chunk_size=z["ts_chunk"], verbose=False,
+                                      seed=SEED))
+    # the POD's verify lines go to a sink
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        gen.two_step_generate(n, derivatives=(1, 1), pod_rank=r, data_dir=out,
+                              noise=noise, controls=controls)
+    files = {}
+    for name in ("POD/POD_decoder.npy", "POD/POD_encoder.npy", "POD/d_POD.npy",
+                 "POD/POD_shift.npy"):
+        files[name] = np.load(os.path.join(out, name))
+    for name in ("mzq_data", "JstarPhi_data", "JzstarPhi_data"):
+        with np.load(os.path.join(out, name + ".npz")) as data:
+            files.update({f"{name}/{k}": data[k] for k in data.files})
+    phi, Mphi = files["POD/POD_decoder.npy"], files["POD/POD_encoder.npy"]
+    orth = float(np.linalg.norm(Mphi[:, : r - 1].T @ phi[:, : r - 1] - np.eye(r - 1)))
+    dQ = Vh.dim
+    checks += [(phi.shape == (dQ, r), f"two-step: POD decoder {phi.shape}"),
+               (files["JstarPhi_data/JstarPhi_data"].shape == (n, dQ, r),
+                "two-step: JstarPhi shape"),
+               (files["JzstarPhi_data/JzstarPhi_data"].shape == (n, dist.dim, r),
+                "two-step: JzstarPhi shape"),
+               (all(np.isfinite(v).all() for v in files.values()), "two-step: non-finite"),
+               (orth < 1e-5, f"two-step: ||Psi^* Psi - I|| {orth:.3e}")]
+    arrays.update({f"ts_{k}": torch.as_tensor(v) for k, v in files.items()})
+    st = ", ".join(f"{k} {v:.3f}" for k, v in gen.stage_seconds.items())
+    return (f"{n} samples, POD rank {r}, chunks of {z['ts_chunk']}: "
+            f"||Psi^* Psi - I|| {orth:.3e} (limit 1e-5); generate ({st}); Newton "
+            f"{_its(gen.samples['iterations'])}")
+
+
+def models_lane(dtype, device, z, out):
+    """Items 1-5 of the models phase at the sizes ``z``: (arrays by name,
+    {path: _Item}, {item: its text}), with every check failing the run."""
+    arrays, checks, items, texts = {}, [], {}, {}
+
+    def counted(name, fn, item_dtype, **kw):
+        with _Item(device) as it:
+            texts[name] = fn(item_dtype, device, z, arrays, checks, **kw)
+        items[name] = it
+
+    counted("models_wrapper", models_wrapper, dtype)
+    counted("models_multi", models_multi, dtype)
+    texts["models_full_state"] = models_full_state(dtype, device, z, arrays,
+                                                   checks, items)
+    # float64 always: float32 Newton stops at a relative residual of
+    # 1.2e-5, which puts a floor of ~7e-4 under the error that ranks 32 and
+    # 100 both reach at nx=64
+    counted("models_double_loop", models_double_loop, torch.float64)
+    # float64 always: in float32 the POD basis misses the check
+    # ||Psi^* Psi - I|| < 1e-5 (2.2e-5 at nx=16 on the CPU)
+    counted("models_two_step", models_two_step, torch.float64,
+            out=os.path.join(out, "two_step"))
+    for ok, what in checks:
+        check(ok, f"models {str(dtype)[6:]} nx={z['nx']}: {what}")
+    return arrays, items, texts
+
+
+def _models_compare(a, b):
+    """The largest relative difference over the arrays of two lanes; the
+    POD basis and the sketches are aligned column by column first (eigh
+    picks each column's sign)."""
+    import numpy as np
+
+    num = lambda x: x.detach().cpu().double().numpy() if isinstance(
+        x, torch.Tensor) else np.asarray(x, dtype=np.float64)
+    sign = np.sign((num(a["ts_POD/POD_decoder.npy"])
+                    * num(b["ts_POD/POD_decoder.npy"])).sum(axis=0))
+    signed = ("ts_POD/POD_decoder.npy", "ts_POD/POD_encoder.npy",
+              "ts_JstarPhi_data/JstarPhi_data", "ts_JstarPhi_data/Phi",
+              "ts_JstarPhi_data/MPhi", "ts_JzstarPhi_data/JzstarPhi_data",
+              "ts_JzstarPhi_data/Phi", "ts_JzstarPhi_data/MPhi")
+    worst = {}
+    for key in a:
+        x, y = num(a[key]), num(b[key])
+        if key in signed:
+            x = x * sign
+        worst[key] = float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-300))
+    return worst
+
+
+def _models_newton(device):
+    """Constrained Newton in float64 on 1/2 u^T K u + 1/4 w . u^4 - (M f) . u
+    at nx=MODELS_NEWTON_NX (w the lumped mass, u = 0 on the boundary):
+    (u, iterations, reason, seconds)."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.fem import (
+        DirichletBC,
+        FunctionSpace,
+        mass_matrix,
+        stiffness_matrix,
+        unit_square_mesh,
+    )
+    from hippyflow_tpu_torch.models import ConstrainedNSolver
+
+    kw = dict(dtype=torch.float64, device=device)
+    V = FunctionSpace(unit_square_mesh(MODELS_NEWTON_NX))
+    K, M = stiffness_matrix(V, **kw), mass_matrix(V, **kw)
+    x = V.dof_coords
+    f = torch.as_tensor(40.0 * np.sin(np.pi * x[:, 0]) * np.sin(np.pi * x[:, 1]), **kw)
+    w, Mf = M.sum(dim=1), M @ f
+    bc = DirichletBC.from_predicate(V, None, 0.0)
+    solver = ConstrainedNSolver()
+    t0 = time.perf_counter()
+    u, reason = solver.solve(lambda u: 0.5 * u @ (K @ u) + 0.25 * w @ u**4 - Mf @ u,
+                             lambda u: 0.0 * u.sum(), torch.zeros(V.dim, **kw),
+                             torch.zeros(V.dim, **kw), bc=bc)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return u.cpu(), solver.it, reason, time.perf_counter() - t0
+
+
+def models_extras(device, out):
+    """Item 6: the boundary KLE (rank MODELS_KLE_RANK) on the nx=64 dense
+    prior, the Laplacian prior's samples and mass KLE, the POD extras'
+    files, constrained Newton on the card against the CPU."""
+    import scipy.sparse as sp
+
+    from hippyflow_tpu_torch.models import (
+        BoundaryRestrictedKLEProjector,
+        KLEParameterList,
+        KLEProjector,
+        LaplacianPrior,
+        PODParameterList,
+        PODProjector,
+    )
+
+    f32 = torch.float32
+    obs, prior = _models_confusion(f32, device, NX)
+    parts = []
+    kp = KLEParameterList()
+    kp["rank"], kp["verbose"], kp["oversampling"] = MODELS_KLE_RANK, False, OVERSAMPLING
+    t0 = time.perf_counter()
+    bk = BoundaryRestrictedKLEProjector(prior, parameters=kp)
+    bk.keychain = _given(SEED + 5, device)
+    d, V, E = bk.construct_input_subspace()
+    ortho = (V.T @ (bk.B @ V) - torch.eye(V.shape[1], device=device)).abs().max().item()
+    enc = rel_err(E, bk.M_b @ V)
+    check(bool(torch.isfinite(d).all()) and bool((d[1:] <= d[:-1]).all()),
+          "models boundary KLE: spectrum")
+    check(ortho <= ORTHO_TOL_F32, f"models boundary KLE: max|V^T B V - I| {ortho:.3e}")
+    check(enc <= 1e-6, f"models boundary KLE: encoder {enc:.3e}")
+    parts.append(f"boundary KLE rank {MODELS_KLE_RANK} {time.perf_counter() - t0:.3f} s, "
+                 f"lambda_0 {d[0].item():.4e}, max|V^T B V - I| {ortho:.2e}")
+
+    t0 = time.perf_counter()
+    lap = {dt: LaplacianPrior(obs.problem.Vu, 0.1, 1.0, dtype=dt, device=device)
+           for dt in (f32, torch.float64)}
+    xi = _given(SEED + 6, device).normal((64, lap[f32].noise_dim), dtype=torch.float64)
+    samples = {dt: p.sample(xi.to(dt)) for dt, p in lap.items()}
+    rel_s = rel_err(samples[f32].double(), samples[torch.float64])
+    lk = KLEProjector(lap[f32], parameters=kp)
+    lk.keychain = _given(SEED + 7, device)
+    dl, Vl, El = lk.construct_input_subspace("mass")
+    ortho_l = (Vl.T @ El - torch.eye(Vl.shape[1], device=device)).abs().max().item()
+    check(rel_s <= MODELS_TOL_F32, f"models Laplacian prior: float32 samples {rel_s:.3e}")
+    check(bool((dl[1:] <= dl[:-1]).all()) and ortho_l <= ORTHO_TOL_F32,
+          f"models Laplacian KLE: max|V^T M V - I| {ortho_l:.3e}")
+    parts.append(f"Laplacian prior 64 samples (float32 against float64 {rel_s:.2e}) and "
+                 f"mass KLE rank {MODELS_KLE_RANK} {time.perf_counter() - t0:.3f} s, "
+                 f"max|V^T M V - I| {ortho_l:.2e}")
+
+    with _Item(device) as it:
+        pp = PODParameterList()
+        pp["verbose"], pp["output_directory"] = False, os.path.join(out, "pod")
+        pod = PODProjector(obs, prior, parameters=pp)
+        pod.keychain = _given(SEED + 8, device)
+        (m0, u0), (m1, u1) = pod.two_state_solution()
+        pod.save_mass_and_stiffness_matrices()
+    names = sorted(os.listdir(os.path.join(out, "pod", "two_states")))
+    check(len(names) == 8, f"models two_state_solution files {names}")
+    Mc = sp.load_npz(os.path.join(out, "pod", "mass_csr.npz"))
+    check(Mc.shape == (obs.dM, obs.dM) and abs(Mc.sum() - 1.0) < 1e-12,
+          f"models mass_csr: shape {Mc.shape}, sum {Mc.sum()}")
+    check(all(bool(torch.isfinite(x).all()) for x in (u0, u1, m1)),
+          "models two_state_solution: non-finite")
+    parts.append(f"two_state_solution + CSR matrices {it.line()}")
+
+    (uc, itc, rc, sc), (uh, ith, rh, sh) = (_models_newton(device),
+                                            _models_newton(torch.device("cpu")))
+    diff = (uc - uh).abs().max().item() / max(uh.abs().max().item(), 1.0)
+    check((itc, rc) == (ith, rh) and rc in (1, 3),  # the two converged reasons
+          f"models Newton: card it {itc} reason {rc}, CPU it {ith} reason {rh}")
+    check(diff <= MODELS_NEWTON_TOL, f"models Newton: card against CPU {diff:.3e}")
+    parts.append(f"constrained Newton float64 nx={MODELS_NEWTON_NX}: {itc} iterations, "
+                 f"reason {rc} on both, card {sc:.3f} s, CPU {sh:.3f} s, u against "
+                 f"CPU {diff:.2e} (limit {MODELS_NEWTON_TOL:.0e})")
+    return "; ".join(parts), it
+
+
+def models_fd_check(device):
+    """The wrapper's full gradient in float64 at nx=64 against a central
+    difference of its cost (eps 1e-6) on MODELS_FD_SAMPLES samples."""
+    from hippyflow_tpu_torch.models import ModelWrapper
+
+    obs, prior = _models_confusion(torch.float64, device, NX)
+    w = ModelWrapper(obs, prior)
+    w.keychain = _given(SEED, device)
+    w.setUpInverseProblem(rel_noise=0.01)
+    m = w.samplePrior(MODELS_FD_SAMPLES)
+    g = w.evalVariationalGradient(m, misfit_only=False)
+    dm = w.keychain.normal(m.shape, dtype=torch.float64)
+    eps = 1e-6
+    fd = (w.evalCost(m + eps * dm) - w.evalCost(m - eps * dm)) / (2 * eps)
+    an = (g * dm).sum(dim=1)
+    return ((fd - an).abs() / an.abs()).max().item()
+
+
+def models_check_f64(device):
+    """Items 1-5 in float64 at nx=16 on the card and on the CPU from the
+    same draws: the largest relative difference of each array."""
+    lanes = []
+    for dev in (device, torch.device("cpu")):
+        with tempfile.TemporaryDirectory(prefix="models_f64_") as out:
+            lanes.append(models_lane(torch.float64, dev, MODELS_CHECK, out)[0])
+    return _models_compare(*lanes)
+
+
+def phase_models(device):
+    """The models phase: items 1-5 in float32 at the main path's width,
+    each counted as its own path (the full-state item as three, one per
+    strategy), then item 6, the float64 central difference, K1 and K2 at
+    every shape the items gave them against their plain versions, and
+    the float64 nx=16 card-against-CPU check.  Returns (launches by path,
+    the records of K1 and K2)."""
+
+    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
+
+    f32, f64 = torch.float32, torch.float64
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="models_smoke_")
+    with band_kernel_shapes() as shapes:
+        arrays, items, texts = models_lane(f32, device, MODELS_FULL, tmp.name)
+    z = MODELS_FULL
+    labels = {
+        "models_wrapper": f"wrapper float32 nx={NX} confusion, {z['n']} samples",
+        "models_multi": f"multi-source float32 nx={NX} Poisson, {z['n']} samples",
+        "models_full_state": f"full state float32 nx={NX} Poisson, {z['n']} samples",
+        "models_double_loop": f"double loop float64 nx={NX} confusion, "
+                              f"{z['dl_outer']} x {z['dl_inner']} samples",
+        "models_two_step": f"two-step float64 nx={NX} Poisson full state",
+    }
+    for name, label in labels.items():
+        head = "" if name == "models_full_state" else items[name].line() + "; "
+        log(f"models {label}: {head}{texts[name]}")
+    fd = models_fd_check(device)
+    log(f"models wrapper float64 nx={NX} central difference of the full gradient, "
+        f"{MODELS_FD_SAMPLES} samples: {fd:.3e} (limit {MODELS_FD_TOL:.0e})")
+    check(fd <= MODELS_FD_TOL, f"models wrapper: central difference {fd:.3e}")
+    text, it_extras = models_extras(device, tmp.name)
+    log(f"models extras: {text}")
+    paths = {name: it.launches for name, it in items.items()}
+    paths["models_extras"] = it_extras.launches
+    for name in ("models_wrapper", "models_multi", "models_fs_batched",
+                 "models_fs_serialized", "models_double_loop", "models_two_step"):
+        for key in ("banded_factorize", "banded_solve"):
+            check(paths[name][key] > 0, f"{key} was not launched on {name}")
+    ks = sorted(key[4] for key in shapes if key[0] == "K2")
+    log(f"models K1/K2 shapes: {len([s for s in shapes if s[0] == 'K1'])} K1, "
+        f"{len(ks)} K2 (k = {sorted(set(ks))})")
+
+    # K1 and K2 at every shape of the items, on the two-step samples' bands
+    m = torch.as_tensor(arrays["ts_mzq_data/m_data"].numpy(), dtype=f64, device=device)
+    zz = torch.as_tensor(arrays["ts_mzq_data/z_data"].numpy(), dtype=f64, device=device)
+    del arrays
+    pde64 = _models_poisson(f64, device, NX)[0]
+    u, _ = pde64.solve_fwd(m, z=zz)
+    band = bc_symmetrize_banded_masked(pde64.bound.assemble_A_banded(u, m, zz),
+                                       pde64._mask)
+    del pde64, u
+    torch.cuda.empty_cache()
+    records = {}
+    records["banded_factorize"], records["banded_solve"] = k12_shape_records(
+        band, shapes, "models")
+    del band
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    errs = models_check_f64(device)
+    worst_key = max(errs, key=errs.get)
+    log(f"models float64 nx={MODELS_CHECK['nx']} card against CPU: {len(errs)} arrays, "
+        f"worst {worst_key} {errs[worst_key]:.3e} (limit {MODELS_F64_TOL:.0e}); "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    check(errs[worst_key] <= MODELS_F64_TOL,
+          f"models float64: {worst_key} {errs[worst_key]:.3e}")
+    return paths, records
+
+
 def phase_lane192(device, profile=False):
     """The float32 nx=192 lane, grid-sequenced (the counted path) and
     cold-started: confusion_prior builds the structured prior (cyclic
@@ -2528,6 +3188,9 @@ def run_phases(device, argv, parent=None):
     control_paths, control_records = phase_control(device)
     paths.update(control_paths)
     torch.cuda.empty_cache()
+    models_paths, models_records = phase_models(device)
+    paths.update(models_paths)
+    torch.cuda.empty_cache()
     if "--profile" in argv:
         phase_profile(obs32, prior32)
     del obs32, prior32, levels64
@@ -2568,7 +3231,7 @@ def run_phases(device, argv, parent=None):
                      (f"s{s_helm}", s516[f32]["k3_clusters"]),
                      (f"s{s_helm}_f64", s516[f64]["k3_clusters"])):
         k3.update({f"{k}_{tag}": v for k, v in rec.items()})
-    for name, rec in control_records.items():
+    for name, rec in (*control_records.items(), *models_records.items()):
         report[name].update(rec)
     for dtype, sfx in ((f32, f"s{s_helm}"), (f64, f"s{s_helm}_f64")):
         r = s516[dtype]

@@ -1,4 +1,5 @@
 from .active_subspace import ActiveSubspaceParameterList, ActiveSubspaceProjector
+from .cminimization import ConstrainedNSolver, newtonSolver_ParameterList
 from .data_generator import (
     DataGenerator,
     chunk_keychain,
@@ -14,12 +15,20 @@ from .jacobian import (
     jtj_matmat,
 )
 from .kle import (
+    BoundaryRestrictedKLEProjector,
     KLEParameterList,
     KLEProjector,
     KLESubspaceConstructor,
     MassPreconditionedCovarianceOperator,
 )
-from .observable import LinearStateObservable, PointwiseObservation
+from .model_wrapper import ModelWrapper, PointwiseMisfit, modelWrapperSettings
+from .multi_pde import BlockVector, MultiPDEProblem, MultiStateLinearObservable
+from .observable import (
+    DomainRestrictedOperator,
+    LinearStateObservable,
+    PointwiseObservation,
+    StateSpaceIdentityOperator,
+)
 from .pod import (
     PODParameterList,
     PODProjector,
@@ -37,7 +46,14 @@ from .pde_problem import (
     VariationalPDEProblem,
     bicgstab,
 )
-from .prior import BiLaplacian2D, BiLaplacianPrior, StructuredBiLaplacianPrior
+from .prior import (
+    BiLaplacian2D,
+    BiLaplacianPrior,
+    Laplacian2D,
+    LaplacianPrior,
+    StructuredBiLaplacianPrior,
+    aniso_tensor_2d,
+)
 from .sampling import (
     SampleBatch,
     auto_chunk_size,

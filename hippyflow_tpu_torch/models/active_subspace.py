@@ -1,23 +1,37 @@
-"""Derivative-informed input and output subspaces (port of the
-materialized, prior-preconditioned path of
+"""Derivative-informed input and output subspaces (port of
 ``hippyflow_tpu/models/active_subspace.py``).
 
-The Gauss-Newton operator E[J^T J] is applied from the materialized
-per-sample Jacobians as two large matmuls; the randomized GHEP against the
-prior precision R gives the input active subspace, and the randomized HEP
-of E[J J^T] = (1/N) sum_i J_i J_i^T, from the same Jacobians, the output
-one.  Samples and Jacobians come from the staged pass
-(``sample_until_solved``, optionally grid-sequenced, then
-``materialize_jacobians``) or, for a linear symmetric operator without
-Dirichlet rows, from the fused pass (``sample_and_materialize_symmetric``:
-one factorization per sample).  ``construct_low_rank_Jacobians`` saves the
-exact SVD of each Jacobian, resuming chunk by chunk, and ``test_errors``
-runs the projection error tests.
+The input subspace is the randomized GHEP of E[J^T J] against the prior
+precision R (``prior_preconditioned``, encoder = R @ decoder) or its HEP
+(encoder = decoder); the output subspace is the randomized HEP of
+E[J J^T].  The expectations are applied in one of three ways
+(``_avg_gn_operator``):
 
-With a control distribution the samples carry controls z, and
-``construct_low_rank_control_Jacobians`` saves the SVD of each dq/dz.
-Not ported (ROADMAP M11 item 5): the matrix-free and serialized
-operators, the unpreconditioned HEP and ``test_errors_double_loop``.
+* materialized: the per-sample Jacobians J_i (N, dQ, dM), formed once, and
+  two large matmuls per application.  Samples and Jacobians come from the
+  staged pass (``sample_until_solved``, optionally grid-sequenced, then
+  ``materialize_jacobians``) or, for a linear symmetric operator without
+  Dirichlet rows, from the fused pass (``sample_and_materialize_symmetric``:
+  one factorization per sample).  This needs a B whose dense form and
+  transpose agree (``materializable``);
+* batched matrix-free, for a B that is not materializable (the full-state
+  observable, whose transpose is the mass matrix): the linearizations of
+  all samples are kept (``linearize_batch``, K1 once) and each application
+  is the mean of J_i^T (J_i X) (or J_i (J_i^T X)) through incremental
+  solves (K2 twice);
+* serialized (``serialized_sampling``): each application loops over
+  chunks of ``chunk_size`` samples (16 by default), linearizes the chunk
+  afresh (K1), applies J and J^T (K2) and adds the chunk's sum into one
+  (n, k) block, so that one chunk of factors is alive at a time.  The
+  JAX package scans over chunks padded with copies of the first sample at
+  weight 0; here the last chunk is short.  The sums are the same.
+
+``construct_low_rank_Jacobians`` saves the exact SVD of each Jacobian,
+resuming chunk by chunk; ``test_errors`` runs the projection error tests
+and ``test_errors_double_loop`` the double-loop Monte-Carlo error of the
+input subspace.  With a control distribution the samples carry controls
+z, and ``construct_low_rank_control_Jacobians`` saves the SVD of each
+dq/dz.
 """
 
 from __future__ import annotations
@@ -29,12 +43,14 @@ import time
 import numpy as np
 import torch
 
-from ..ops.operators import prior_preconditioned_projector
+from ..ops.operators import low_rank_operator, prior_preconditioned_projector
 from ..ops.randomized import double_pass, double_pass_g
 from ..utils import KeyChain, ParameterList
+from .jacobian import ObservableJacobian, jjt_matmat, jtj_matmat
 from .sampling import (
     SampleBatch,
     fresh_solves,
+    linearize_batch,
     materialize_jacobians,
     sample_and_materialize_symmetric,
     sample_until_solved,
@@ -42,11 +58,17 @@ from .sampling import (
 
 
 def ActiveSubspaceParameterList() -> ParameterList:
-    """The slice of the JAX package's parameter list that the port runs."""
+    """The JAX package's parameter list, but for the knobs of its XLA
+    programs and host transfers."""
     return ParameterList(
         {
             "samples_per_process": [64, "Number of samples used in expectations"],
             "error_test_samples": [50, "Number of samples for error test"],
+            "double_loop_samples": [
+                20,
+                "Inner (conditional-resample) samples per outer sample in "
+                "the double-loop MC error test",
+            ],
             "rank": [128, "Rank of subspace"],
             "jacobian_rank": [128, "Rank of Jacobians generated"],
             "control_jacobian_rank": [None, "Rank of control Jacobians generated"],
@@ -54,6 +76,12 @@ def ActiveSubspaceParameterList() -> ParameterList:
             "verbose": [True, "Print progress"],
             "input_decoder_name": ["_input_decoder", "naming"],
             "output_decoder_name": ["_output_decoder", "naming"],
+            "serialized_sampling": [
+                False,
+                "apply J and J^T chunk by chunk, linearizing each chunk "
+                "inside every operator application (one chunk of factors "
+                "alive at a time)",
+            ],
             "output_directory": [None, "output directory for arrays"],
             "save_and_plot": [False, "save the decoders and spectra"],
             "store_Omega": [False, "keep the drawn probe blocks"],
@@ -97,7 +125,9 @@ class ActiveSubspaceProjector:
         self.parameters = parameters or ActiveSubspaceParameterList()
         self.keychain = KeyChain(self.parameters["seed"], prior.mean.device)
         self.samples: SampleBatch | None = None
-        self.Js = None  # (N, dQ, dM)
+        self.Js = None  # (N, dQ, dM), the materialized strategy
+        self.lins = None  # the batched matrix-free strategy's linearizations
+        self.prior_preconditioned = None
         self.ms = None
         self.zs = None
         self.Omega_GN = None
@@ -141,70 +171,110 @@ class ActiveSubspaceProjector:
                 f"({self.samples.n_failures} resampled failures)"
             )
 
+    def _materializable(self) -> bool:
+        return getattr(self.observable.B, "materializable", True)
+
     def _fused_symmetric_eligible(self) -> bool:
         """True when sampling takes the fused forward + Jacobian pass: a
         linear operator with A^T = A, no Dirichlet rows (bc masking breaks
-        the symmetry), drawn samples, no controls and no grid sequencing."""
+        the symmetry), a materializable B, the materialized strategy, drawn
+        samples, no controls and no grid sequencing."""
         problem = self.observable.problem
         return (
             self.control_distribution is None
             and problem.is_fwd_linear
             and problem.operator_symmetric
             and not problem._has_bc
+            and self._materializable()
+            and not self.parameters["serialized_sampling"]
             and not self.parameters["ms_given"]
             and self.parameters["coarse_warm_start"] is None
         )
 
-    def _ensure_jacobians(self):
-        self._ensure_samples()
-        if self.Js is None:
-            s = self.samples
-            self.Js = materialize_jacobians(
-                self.observable, s.ms, s.us, s.zs,
-                chunk_size=(
-                    self.parameters["jac_chunk_size"]
-                    or self.parameters["chunk_size"]
-                ),
-            )
+    def _jac_chunk(self):
+        return self.parameters["jac_chunk_size"] or self.parameters["chunk_size"]
 
-    def construct_input_subspace(self, prior_preconditioned: bool = True):
-        """GHEP of E[J^T J] against R.  Returns (d_GN, decoder, encoder)
-        with encoder = R @ decoder.  Wall seconds of the stages, each ended
-        by a device synchronize, are left in ``stage_seconds``: forward,
-        jacobian and ghep, or fused (forward + Jacobian in one pass) and
-        ghep; their sum in ``_input_subspace_construction_time``."""
-        if not prior_preconditioned:
-            raise NotImplementedError("only the prior-preconditioned GHEP")
-        device = self.prior.mean.device
-
-        def lap(t_prev):
-            _synchronize(device)
-            t = time.perf_counter()
-            return t, t - t_prev
-
-        t = time.perf_counter()
+    def _prepare(self, lap):
+        """Samples, and what the operator needs before its first
+        application (the Jacobians, or the kept linearizations); returns
+        the stages' seconds, each taken by ``lap``."""
         if (self.samples is None and self.Js is None
                 and self._fused_symmetric_eligible()):
             self.samples, self.Js = sample_and_materialize_symmetric(
-                self.observable,
-                self.prior,
-                self.keychain,
+                self.observable, self.prior, self.keychain,
                 self.parameters["samples_per_process"],
-                chunk_size=(
-                    self.parameters["jac_chunk_size"]
-                    or self.parameters["chunk_size"]
-                ),
+                chunk_size=self._jac_chunk(),
                 verbose=self.parameters["verbose"],
             )
-            t, fused = lap(t)
-            stages = {"fused": fused}
+            return {"fused": lap()}
+        self._ensure_samples()
+        stages = {"forward": lap()}
+        s = self.samples
+        if self.parameters["serialized_sampling"]:
+            return stages
+        if self._materializable():
+            if self.Js is None:
+                self.Js = materialize_jacobians(self.observable, s.ms, s.us, s.zs,
+                                                chunk_size=self._jac_chunk())
+            stages["jacobian"] = lap()
         else:
-            self._ensure_samples()
-            t, forward = lap(t)
-            self._ensure_jacobians()
-            t, jacobian = lap(t)
-            stages = {"forward": forward, "jacobian": jacobian}
-        J = self.Js
+            if self.lins is None:
+                self.lins = linearize_batch(self.observable, s.ms, s.us, s.zs)
+            stages["linearize"] = lap()
+        return stages
+
+    def _avg_gn_operator(self, operation: str):
+        """The block operator X (n, k) -> E[J^T J] X (operation 'JTJ', n =
+        dM) or E[J J^T] X ('JJT', n = dQ) in the strategy the module's
+        docstring describes; ``_prepare`` has run."""
+        s = self.samples
+        n = s.ms.shape[0]
+        J = ObservableJacobian(self.observable)
+        per_sample = jtj_matmat if operation == "JTJ" else jjt_matmat
+        if self.parameters["serialized_sampling"]:
+            problem = self.observable.problem
+            chunk = max(1, min(self.parameters["chunk_size"] or 16, n))
+
+            def serialized(X):
+                acc = torch.zeros_like(X)
+                for a in range(0, n, chunk):
+                    e = min(a + chunk, n)
+                    lin = problem.linearize(
+                        s.us[a:e], s.ms[a:e], None if s.zs is None else s.zs[a:e])
+                    acc += per_sample(J, lin)(X).sum(dim=0)
+                    del lin  # free this chunk's factors before the next's
+                return acc / n
+
+            return serialized
+        if self._materializable():
+            Js = self.Js
+            if operation == "JTJ":
+                Jf = Js.reshape(-1, Js.shape[-1])  # (N dQ, dM)
+                return lambda X: (Jf.T @ (Jf @ X)) / n
+            return lambda X: (Js @ (Js.mT @ X)).sum(dim=0) / n
+        apply = per_sample(J, self.lins)
+        return lambda X: apply(X).mean(dim=0)
+
+    def construct_input_subspace(self, prior_preconditioned: bool = True):
+        """The GHEP of E[J^T J] against R (``prior_preconditioned``) or its
+        HEP.  Returns (d_GN, decoder, encoder) with encoder = R @ decoder,
+        or the decoder itself.  Wall seconds of the stages, each ended by a
+        device synchronize, are left in ``stage_seconds``: forward, then
+        jacobian (materialized) or linearize (batched matrix-free), or
+        fused (forward + Jacobian in one pass); then ghep (which holds
+        every linearization of the serialized strategy); their sum in
+        ``_input_subspace_construction_time``."""
+        device = self.prior.mean.device
+        clock = [time.perf_counter()]
+
+        def lap():
+            _synchronize(device)
+            t = time.perf_counter()
+            clock[0], dt = t, t - clock[0]
+            return dt
+
+        stages = self._prepare(lap)
+        avg_jtj = self._avg_gn_operator("JTJ")
         r = self.parameters["rank"]
         p = self.parameters["oversampling"]
         Omega = self.Omega_GN
@@ -213,17 +283,15 @@ class ActiveSubspaceProjector:
                                          dtype=self.prior.mean.dtype)
             if self.parameters["store_Omega"]:
                 self.Omega_GN = Omega
-        Jf = J.reshape(-1, J.shape[-1])  # (N dQ, dM)
-
-        def avg_jtj(X):
-            return (Jf.T @ (Jf @ X)) / J.shape[0]
-
-        self.d_GN, self.V_GN = double_pass_g(
-            avg_jtj, self.prior.R_matmat, self.prior.Rsolver_matmat, Omega, r
-        )
-        encoder = self.prior.R_matmat(self.V_GN)
-        _, ghep = lap(t)
-        self.stage_seconds = {**stages, "ghep": ghep}
+        if prior_preconditioned:
+            self.d_GN, self.V_GN = double_pass_g(
+                avg_jtj, self.prior.R_matmat, self.prior.Rsolver_matmat, Omega, r)
+            encoder = self.prior.R_matmat(self.V_GN)
+        else:
+            self.d_GN, self.V_GN = double_pass(avg_jtj, Omega, r, s=1)
+            encoder = self.V_GN
+        self.prior_preconditioned = prior_preconditioned
+        self.stage_seconds = {**stages, "ghep": lap()}
         self._input_subspace_construction_time = sum(self.stage_seconds.values())
         if self.parameters["verbose"]:
             print("input subspace construction took "
@@ -233,13 +301,12 @@ class ActiveSubspaceProjector:
 
     def construct_output_subspace(self):
         """Randomized HEP of E[J J^T] (reference
-        `activeSubspaceProjector.py:625-673`), applied as
-        (1/N) sum_i J_i (J_i^T X) from the Jacobians of the input subspace
-        (materialized here if there are none yet).  Returns (d_NG, decoder,
-        encoder), encoder = decoder."""
+        `activeSubspaceProjector.py:625-673`), in the input subspace's
+        strategy (its Jacobians or linearizations are reused, or made
+        here).  Returns (d_NG, decoder, encoder), encoder = decoder."""
         t0 = time.time()
-        self._ensure_jacobians()
-        J = self.Js
+        self._prepare(lambda: 0.0)
+        avg_jjt = self._avg_gn_operator("JJT")
         dQ = self.observable.dQ
         r = min(self.parameters["rank"], dQ)
         Omega = self.Omega_NG
@@ -249,10 +316,6 @@ class ActiveSubspaceProjector:
                 dtype=self.prior.mean.dtype)
             if self.parameters["store_Omega"]:
                 self.Omega_NG = Omega
-
-        def avg_jjt(X):
-            return (J @ (J.mT @ X)).sum(dim=0) / J.shape[0]
-
         self.d_NG, self.U_NG = double_pass(avg_jjt, Omega, r, s=1)
         _synchronize(self.prior.mean.device)
         self._output_subspace_construction_time = time.time() - t0
@@ -342,8 +405,9 @@ class ActiveSubspaceProjector:
                     test_output: bool = False, n_samples: int | None = None):
         """Monte-Carlo relative projection errors of the subspaces at the
         given ranks (reference `activeSubspaceProjector.py:1048-1335`, its
-        naive test).  Input: ||m - V_r V_r^T R m|| / ||m|| over prior
-        samples.  Output: ||q - U_r U_r^T q|| / ||q|| over fresh forward
+        naive test).  Input: ||m - P_r m|| / ||m|| over prior samples, with
+        P_r = V_r V_r^T R after the prior-preconditioned GHEP and V_r V_r^T
+        after the HEP.  Output: ||q - U_r U_r^T q|| / ||q|| over fresh forward
         solves; samples whose Newton solve fails are discarded and the
         average runs over the survivors (the reference's discarded-sample
         correction), their count under ('output_discarded', None).
@@ -358,8 +422,7 @@ class ActiveSubspaceProjector:
                 self.keychain.normal((n, self.prior.noise_dim), dtype=dtype))
             norms = torch.linalg.vector_norm(ms, dim=1)
             for r in ranks:
-                proj = prior_preconditioned_projector(self.V_GN[:, :r],
-                                                      self.prior.R_matmat)
+                proj = self._input_projector(r)
                 errs = torch.linalg.vector_norm(ms - proj(ms.T).T, dim=1) / norms
                 out[("input", r)] = (errs.mean().item(),
                                      errs.std(correction=0).item())
@@ -383,6 +446,73 @@ class ActiveSubspaceProjector:
                 errs = torch.linalg.vector_norm(Q - Q @ U @ U.T, dim=1) / norms
                 out[("output", r)] = (errs.mean().item(),
                                       errs.std(correction=0).item())
+        return out
+
+    def _input_projector(self, r):
+        """The rank-r projector onto the input subspace: V V^T R after the
+        prior-preconditioned GHEP, V V^T after the HEP."""
+        V = self.V_GN[:, :r]
+        if self.prior_preconditioned:
+            return prior_preconditioned_projector(V, self.prior.R_matmat)
+        return low_rank_operator(V.new_ones(r), V)
+
+    def test_errors_double_loop(self, ranks=(8, 16, 32), n_samples: int | None = None,
+                                double_loop_samples: int | None = None):
+        """Double-loop Monte-Carlo error of the input subspace (reference
+        `activeSubspaceProjector.py:1147-1245`): for each rank r, with P_r
+        the rank-r input projector,
+
+            err_i = ||q(m_i) - E_y[q(P_r m_i + (I - P_r) y)]|| / ||q(m_i)||,
+
+        y drawn from the prior, the inner mean over ``double_loop_samples``
+        draws per outer sample.  The outer samples' fresh solves run
+        first and their failures are discarded; then, per rank, the
+        n_valid x double_loop_samples conditional resamples run as one
+        batch of solves, and each inner mean is taken over its survivors
+        (an outer sample with none is discarded).  Returns ("double_loop",
+        r) -> (avg, std) and ("double_loop_discarded", r) -> (outer
+        discarded, inner discarded); the averages are also left in
+        ``_double_loop_errors``.  On one process the collective average of
+        the JAX package is the identity."""
+        if self.V_GN is None:
+            raise RuntimeError("construct_input_subspace first")
+        n = n_samples or self.parameters["error_test_samples"]
+        nj = double_loop_samples or self.parameters["double_loop_samples"]
+        prior, dtype = self.prior, self.prior.mean.dtype
+        ms = prior.sample(self.keychain.normal((n, prior.noise_dim), dtype=dtype))
+        zs = (None if self.control_distribution is None else
+              self.control_distribution.sample_n(self.keychain, n, dtype))
+        qs, ok, _ = self._fresh_solves(ms, zs)
+        if not ok.any():
+            raise RuntimeError("double-loop test: every outer solve failed")
+        ms_v, qs_v = ms[ok], qs[ok]
+        zs_v = None if zs is None else zs[ok]
+        nv = ms_v.shape[0]
+        den = torch.linalg.vector_norm(qs_v, dim=1)
+        out, results = {}, []
+        for r in ranks:
+            proj = self._input_projector(r)
+            m_r = proj(ms_v.T).T
+            y = prior.sample(self.keychain.normal((nv * nj, prior.noise_dim),
+                                                  dtype=dtype))
+            m_inner = m_r.repeat_interleave(nj, dim=0) + (y - proj(y.T).T)
+            z_inner = None if zs_v is None else zs_v.repeat_interleave(nj, dim=0)
+            q_in, ok_in, _ = self._fresh_solves(m_inner, z_inner)
+            q_in, ok_in = q_in.reshape(nv, nj, -1), ok_in.reshape(nv, nj)
+            n_ok = ok_in.sum(dim=1)
+            cond_mean = (torch.where(ok_in[..., None], q_in, 0.0).sum(dim=1)
+                         / n_ok.clamp(min=1)[:, None])
+            valid = n_ok > 0
+            errs = (torch.linalg.vector_norm(qs_v - cond_mean, dim=1) / den)[valid]
+            avg = errs.mean().item()
+            out[("double_loop", r)] = (avg, errs.std(correction=0).item())
+            out[("double_loop_discarded", r)] = (
+                int(n - nv + (~valid).sum().item()), int(nj * nv - n_ok.sum().item()))
+            results.append(avg)
+            if self.parameters["verbose"]:
+                print("Double loop MC global average relative error input = "
+                      f"{avg:.6f} for rank {r}")
+        self._double_loop_errors = results
         return out
 
     def _fresh_solves(self, ms, zs=None):

@@ -12,8 +12,9 @@ each drawn from a generator of its own (``chunk_keychain``), so a killed
 run resumes at the first missing chunk and writes the same bits as an
 uninterrupted one.
 
-Not ported (ROADMAP M11 item 6): ``two_step_generate``, which needs the
-full-state observable.
+``two_step_generate`` (the reference's "Texas two-step", for a full-state
+observable): forward samples of the state, the POD of that data, then the
+Jacobians' sketches J^T MPhi in the POD subspace.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import numpy as np
 import torch
 
 from ..utils import KeyChain
+from .observable import StateSpaceIdentityOperator
+from .pod import PODProjectorFromData
 from .sampling import auto_chunk_size, materialize_jacobians, sample_until_solved
 
 
@@ -250,10 +253,57 @@ class DataGenerator:
         self.samples = {"iterations": torch.cat(its) if its else None,
                         "n_failures": n_failures}
 
-    def two_step_generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "two_step_generate is not ported: it needs the full-state "
-            "observable (StateSpaceIdentityOperator; ROADMAP M11 item 6)")
+    def two_step_generate(self, n_samples: int, n_samples_pod: int | None = None,
+                          derivatives=(0, 0), pod_rank: int | None = None,
+                          data_dir: str = "data/test/", compress: bool = True,
+                          clean_up: bool = True, pod_method: str = "hep",
+                          pod_shifted: bool = True, noise=None, controls=None):
+        """The "Texas two-step" (reference `dataGenerator.py:251-297`) of a
+        full-state observable: (1) ``generate`` n_samples forward samples of
+        the state (``noise`` and ``controls`` give its draws), (2) the POD
+        of the first ``n_samples_pod`` states (``PODProjectorFromData``,
+        ``pod_method``, shifted by their mean with ``pod_shifted``), checked
+        to ||Psi^* Psi - I|| < 1e-5 and saved under ``POD/``, (3)
+        ``compute_jacobians_in_subspace`` with that basis, which
+        materializes each full-state J (B.dense() = I, dQ = n right-hand
+        sides a sample) as the JAX package does."""
+        if not isinstance(self.observable.B, StateSpaceIdentityOperator):
+            raise TypeError("two_step_generate needs a full-state observable "
+                            "(StateSpaceIdentityOperator)")
+        n_samples_pod = n_samples_pod or n_samples
+        if pod_rank is None or pod_rank > n_samples_pod:
+            raise ValueError(f"pod_rank {pod_rank} must be set and at most "
+                             f"{n_samples_pod}")
+        self.generate(n_samples, derivatives=(0, 0), data_dir=data_dir,
+                      compress=True, clean_up=False, noise=noise,
+                      controls=controls)
+        fname = ("mzq_data.npz" if self.control_distribution is not None
+                 else "mq_data.npz")
+        with np.load(os.path.join(data_dir, fname)) as data:
+            u_data = data["q_data"][:n_samples_pod]
+        mean = self.prior.mean
+        pod = PODProjectorFromData(self.observable.problem.Vu, dtype=mean.dtype,
+                                   device=mean.device)
+        d_POD, phi, Mphi, u_shift = pod.construct_subspace(
+            u_data, pod_rank, shifted=pod_shifted, method=pod_method,
+            verify=True)
+        r = pod_rank - 1 if pod_shifted else pod_rank
+        PsistarPsi = Mphi[:, :r].T @ phi[:, :r]
+        orth_error = torch.linalg.norm(
+            PsistarPsi - torch.eye(r, dtype=phi.dtype, device=phi.device)).item()
+        if self.settings["verbose"]:
+            print("||Psi^*Psi - I|| =", orth_error)
+        if not orth_error < 1e-5:
+            raise AssertionError(f"||Psi^*Psi - I|| = {orth_error:.3e} >= 1e-5")
+        pod_dir = os.path.join(data_dir, "POD")
+        os.makedirs(pod_dir, exist_ok=True)
+        for name, X in (("POD_decoder", phi), ("POD_encoder", Mphi),
+                        ("d_POD", d_POD), ("POD_shift", u_shift)):
+            np.save(os.path.join(pod_dir, name + ".npy"), X.cpu().numpy())
+        self.compute_jacobians_in_subspace(
+            derivatives=derivatives, output_decoder=phi.cpu().numpy(),
+            output_encoder=Mphi.cpu().numpy(), data_file_name=fname,
+            data_dir=data_dir, compress=compress, clean_up=clean_up)
 
     def compute_jacobians_in_subspace(self, derivatives, output_decoder,
                                       data_file_name: str, data_dir: str,

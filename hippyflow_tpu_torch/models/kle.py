@@ -9,7 +9,9 @@
                encoder = R @ decoder;
 * 'identity' — randomized HEP of C = R^{-1} (``double_pass``).
 
-``BoundaryRestrictedKLEProjector`` is not ported.
+``BoundaryRestrictedKLEProjector``: the KLE of boundary data, the GHEP of
+M_b C M_b against the boundary mass with its interior filled by the
+identity.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops.linalg import generalized_eigh
+from ..fem import boundary_mass_matrix
+from ..ops.linalg import CholeskyFactor, generalized_eigh
 from ..ops.operators import low_rank_operator, prior_preconditioned_projector
 from ..ops.randomized import double_pass, double_pass_g, lanczos_ghep, orthogonalize
 from ..utils import KeyChain, ParameterList
@@ -187,3 +190,45 @@ class KLESubspaceConstructor:
                                   m_iters=2 * rank + 20)
         decoder = V / lam[None, :]
         return 1.0 / lam**2, decoder, prior.R_matmat(decoder)
+
+
+class BoundaryRestrictedKLEProjector:
+    """Prior-based KLE for boundary data (reference `KLEProjector.py:
+    337-434`): the randomized GHEP of the boundary-mass-preconditioned
+    covariance M_b C M_b against B = M_b + I_interior (the zero interior
+    diagonal filled by the identity, so that B is invertible), through
+    ``double_pass_g`` with B's Cholesky solve.  The decoder is
+    B-orthonormal; encoder = M_b @ decoder.  ``keychain`` draws the probe
+    block (replace it with a ``utils.GivenNoise`` to give it)."""
+
+    def __init__(self, prior, parameters: ParameterList | None = None):
+        self.prior = prior
+        self.parameters = parameters or KLEParameterList()
+        self.keychain = KeyChain(self.parameters["seed"], prior.mean.device)
+        self.Vh = prior.Vh
+        self.M_b = self.make_boundary_restricted_mass_matrix(fill_nullspace=False)
+        self.B = self.make_boundary_restricted_mass_matrix(fill_nullspace=True)
+        self._B_chol = CholeskyFactor(L=torch.linalg.cholesky(self.B))
+        self.KLE_operator = MassPreconditionedCovarianceOperator(
+            prior.Rsolver_matmat, lambda X: self.M_b @ X)
+
+    def make_boundary_restricted_mass_matrix(self, fill_nullspace: bool = False):
+        """The boundary mass matrix int_dOmega u v ds; with
+        ``fill_nullspace`` its zero (interior) diagonal entries become 1
+        (reference `KLEProjector.py:364-398`)."""
+        mean = self.prior.mean
+        Mb = boundary_mass_matrix(self.Vh, dtype=mean.dtype, device=mean.device)
+        if fill_nullspace:
+            interior = torch.isclose(torch.diagonal(Mb), Mb.new_zeros(()))
+            Mb = Mb + torch.diag(interior.to(Mb.dtype))
+        return Mb
+
+    def construct_input_subspace(self):
+        """Returns (d, decoder, encoder); the decoder B-orthonormal."""
+        r = self.parameters["rank"]
+        Omega = self.keychain.normal(
+            (self.prior.dim, r + self.parameters["oversampling"]),
+            dtype=self.prior.mean.dtype)
+        d, decoder = double_pass_g(self.KLE_operator, lambda X: self.B @ X,
+                                   self._B_chol.solve, Omega, r, s=1)
+        return d, decoder, self.M_b @ decoder

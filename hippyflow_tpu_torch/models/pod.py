@@ -11,7 +11,9 @@
 
 With a control distribution the samples carry controls z (``z_data``
 beside ``m_data`` and ``q_data``).  ``save_mass_and_stiffness_matrices``
-and ``two_state_solution`` are not ported (ROADMAP M11 item 6).
+writes the state space's mass and stiffness matrices as scipy CSR files,
+and ``two_state_solution`` the solves at the prior mean and at one prior
+sample, as ``.npy`` and legacy-VTK files.
 """
 
 from __future__ import annotations
@@ -24,11 +26,12 @@ import numpy as np
 import torch
 
 from .. import config
-from ..fem import mass_matrix
+from ..fem import mass_matrix, stiffness_matrix
 from ..ops.linalg import CholeskyFactor, eigh_descending, generalized_eigh
 from ..ops.operators import low_rank_operator, prior_preconditioned_projector
 from ..ops.randomized import double_pass
 from ..utils import KeyChain, ParameterList
+from ..utils.mesh_utils import export_vtk
 from .sampling import auto_chunk_size, fresh_solves, sample_until_solved
 
 
@@ -195,6 +198,57 @@ class PODProjector:
         shutil.rmtree(chunk_dir, ignore_errors=True)
         self._data_generation_time = time.time() - t0
         return cat["m_data"], cat["q_data"]
+
+    def _output_directory(self, output_directory):
+        outdir = output_directory or self.parameters["output_directory"]
+        if outdir is None:
+            raise ValueError("set output_directory")
+        os.makedirs(outdir, exist_ok=True)
+        return outdir
+
+    def save_mass_and_stiffness_matrices(self, output_directory=None):
+        """``mass_csr.npz`` and ``stiffness_csr.npz``: the state space's
+        mass and stiffness matrices as scipy CSR matrices (reference
+        `PODProjector.py:298-327`), assembled in float64 on the CPU."""
+        import scipy.sparse as sp
+
+        outdir = self._output_directory(output_directory)
+        Vu = self.observable.problem.Vu
+        kw = dict(dtype=torch.float64, device="cpu")
+        for name, A in (("mass_csr", mass_matrix(Vu, **kw)),
+                        ("stiffness_csr", stiffness_matrix(Vu, **kw))):
+            sp.save_npz(os.path.join(outdir, name), sp.csr_matrix(A.numpy()))
+
+    def two_state_solution(self, output_directory=None):
+        """Solve at the prior mean and at one prior sample and save both
+        pairs under ``two_states/`` as ``m_mean``, ``u_at_mean``,
+        ``m_sample`` and ``u_at_sample`` (.npy, and .vtk on the parameter
+        and state meshes; the reference writes dolfin .pvd files,
+        `PODProjector.py:481-537`).  With a control distribution both
+        solves take its mean.  Returns ((m_mean, u_at_mean), (m_sample,
+        u_at_sample))."""
+        save_dir = os.path.join(self._output_directory(output_directory),
+                                "two_states")
+        os.makedirs(save_dir, exist_ok=True)
+        problem = self.observable.problem
+        m_mean = self.prior.mean
+        z = None
+        if self.control_distribution is not None:
+            z = self.control_distribution.mean(m_mean.dtype, m_mean.device)[None]
+        u_at_mean = problem.solve_fwd(m_mean[None], z=z)[0][0]
+        noise = self.keychain.normal((1, self.prior.noise_dim), dtype=m_mean.dtype)
+        m_sample = self.prior.sample(noise)[0]
+        u_at_sample = problem.solve_fwd(m_sample[None], z=z)[0][0]
+        arrays = {"m_mean": m_mean, "u_at_mean": u_at_mean,
+                  "m_sample": m_sample, "u_at_sample": u_at_sample}
+        for name, x in arrays.items():
+            if self.parameters["verbose"]:
+                print(f"||{name}|| = {torch.linalg.vector_norm(x).item():.6e}")
+            x = x.cpu().numpy()
+            np.save(os.path.join(save_dir, name), x)
+            field, space = ("m", problem.Vm) if name.startswith("m") else ("u", problem.Vu)
+            export_vtk(os.path.join(save_dir, name), space.mesh, {field: x})
+        return (m_mean, u_at_mean), (m_sample, u_at_sample)
 
     def input_output_error_test(self, V, Cinv_matmat=None, rank_pairs=((8, 8),)):
         """Joint input/output projection error (reference

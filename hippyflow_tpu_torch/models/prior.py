@@ -13,6 +13,10 @@ m = mean + K^{-1} L_M xi with M = L_M L_M^T.
   the card), and L_M is the block Cholesky factor of M's band, which is
   the dense Cholesky factor.  ``confusion_prior`` takes it above 20000
   dofs (the nx=192 lane).
+
+``LaplacianPrior`` (dense) has the precision R = gamma A + delta M itself,
+isotropic, with a dense Cholesky factor R = L_R L_R^T; its samples are
+m = mean + L_R^{-T} xi.
 """
 
 from __future__ import annotations
@@ -214,6 +218,66 @@ def _band_matmat(band, X):
     return block_tridiag_matmat(band[None], X[None])[0]
 
 
+class LaplacianPrior:
+    """Gaussian prior with Laplacian precision R = gamma A + delta M,
+    dense.  As in the JAX package (and the reference, which drops
+    ``anis_diff`` when it calls hp.LaplacianPrior), the stiffness is
+    isotropic.  ``K`` and ``A`` alias R: the KLE's prior mode takes the
+    GHEP of (K, M)."""
+
+    def __init__(self, Vh: FunctionSpace, gamma: float, delta: float,
+                 mean=None, dtype=None, device=None):
+        dtype, device = config.resolve(dtype, device)
+        self.Vh = Vh
+        self.gamma, self.delta = float(gamma), float(delta)
+        self.M = mass_matrix(Vh, dtype=dtype, device=device)
+        self._M_chol = CholeskyFactor(L=torch.linalg.cholesky(self.M))
+        A = stiffness_matrix(Vh, None, dtype=dtype, device=device)
+        self.R = self.gamma * A + self.delta * self.M
+        self.K = self.A = self.R
+        self._R_chol = CholeskyFactor(L=torch.linalg.cholesky(self.R))
+        if mean is None:
+            mean = torch.zeros(Vh.dim, dtype=dtype, device=device)
+        self.mean = torch.as_tensor(mean, dtype=dtype, device=device)
+
+    @property
+    def dim(self) -> int:
+        return self.Vh.dim
+
+    @property
+    def noise_dim(self) -> int:
+        return self.Vh.dim
+
+    def M_matmat(self, X):
+        return self.M @ X
+
+    def Msolver_matmat(self, X):
+        return self._M_chol.solve(X)
+
+    def sqrtM_matmat(self, X):
+        return self._M_chol.matvec_L(X)
+
+    def R_matmat(self, X):
+        return self.R @ X
+
+    def Rsolver_matmat(self, X):
+        return self._R_chol.solve(X)
+
+    Ksolver_matmat = Rsolver_matmat
+    C_matmat = Rsolver_matmat
+
+    def sample(self, noise):
+        """White noise (N, n) or (n,) -> mean + L_R^{-T} xi, so that the
+        covariance is R^{-1}."""
+        noise = torch.as_tensor(noise, dtype=self.mean.dtype,
+                                device=self.mean.device)
+        batched = noise.ndim == 2
+        xi = noise.T if batched else noise[:, None]
+        m = torch.linalg.solve_triangular(self._R_chol.L.T, xi, upper=True)
+        m = m.T if batched else m[:, 0]
+        return self.mean + m
+
+
 def BiLaplacian2D(Vh, gamma: float = 0.1, delta: float = 0.1,
                   theta0: float = 2.0, theta1: float = 0.5,
                   alpha: float = math.pi / 4.0, mean=None, dtype=None,
@@ -221,3 +285,14 @@ def BiLaplacian2D(Vh, gamma: float = 0.1, delta: float = 0.1,
     """Reference-parity factory (hippyflow's ``maternPrior.BiLaplacian2D``)."""
     return BiLaplacianPrior(Vh, gamma, delta, theta0, theta1, alpha,
                             mean=mean, dtype=dtype, device=device)
+
+
+def Laplacian2D(Vh, gamma: float = 0.1, delta: float = 0.1,
+                theta0: float = 2.0, theta1: float = 0.5,
+                alpha: float = math.pi / 4.0, mean=None, dtype=None,
+                device=None):
+    """Reference-parity factory (hippyflow's ``maternPrior.Laplacian2D``):
+    the anisotropy arguments are taken and dropped, as there."""
+    del theta0, theta1, alpha
+    return LaplacianPrior(Vh, gamma, delta, mean=mean, dtype=dtype,
+                          device=device)

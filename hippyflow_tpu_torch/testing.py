@@ -6,8 +6,8 @@
 
 with 25 Gaussian-mollifier wells on a grid, Dirichlet data u = x_1 on the
 top/bottom boundaries, a Robin-corrected anisotropic BiLaplacian prior,
-and a uniform control distribution.  ``poisson_full_state_observable``
-waits for ``StateSpaceIdentityOperator`` (ROADMAP M11 item 6).
+and a uniform control distribution; pointwise and full-state
+observables of it.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from .models import (
     BiLaplacianPrior,
     LinearStateObservable,
     PointwiseObservation,
+    StateSpaceIdentityOperator,
     UniformDistribution,
     VariationalPDEProblem,
 )
@@ -127,4 +128,12 @@ def poisson_pointwise_observable(pde, Vh, n_obs: int = 10, seed: int = 0):
     rng = np.random.RandomState(seed)
     targets = rng.uniform(0.1, 0.9, (n_obs, 2))
     B = PointwiseObservation(Vh, targets, dtype=pde.dtype, device=pde.device)
+    return LinearStateObservable(pde, B)
+
+
+def poisson_full_state_observable(pde, Vh, use_mass_matrix: bool = True):
+    """The full-state observable q = u, its transpose the mass matrix with
+    ``use_mass_matrix``."""
+    B = StateSpaceIdentityOperator(Vh, use_mass_matrix=use_mass_matrix,
+                                   dtype=pde.dtype, device=pde.device)
     return LinearStateObservable(pde, B)

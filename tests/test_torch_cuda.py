@@ -915,3 +915,80 @@ def test_control_lane_on_card_matches_cpu(cuda, tmp_path, solver):
     cpu = _control_lane_nx16("cpu", solver, tmp_path / "cpu")
     for key, want in cpu.items():
         assert np.abs(gpu[key] - want).max() <= 1e-8 * np.abs(want).max(), key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_panels_at_the_full_state_column_count(cuda, dtype):
+    """K2 transposed with k = 4225 columns (the full-state Jacobian of
+    ``two_step_generate`` at nx=64: one column per state dof) at N=16,
+    s=nb=65, through the panel design, against the plain version, with
+    the residual of A^T x = b."""
+    s, n, k = 65, 16, 65 * 65
+    band = _band(s, n, dtype, cuda)
+    M, Dinv = hk.banded_factorize(band)
+    B = band[..., 2 * s :].contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    bb = torch.randn((n, s, s, k), dtype=dtype, device=cuda, generator=gen)
+    hk.reset_launch_counts()
+    x = hk.banded_solve(M, Dinv, B, bb, True)
+    torch.cuda.synchronize()
+    assert hk.banded_solve.launches_by_design["panels"] == 1
+    x_p = hk.banded_solve_plain(M, Dinv, B, bb, True)
+    assert _rel(x, x_p) < TOL[dtype]
+    b = bb.reshape(n, s * s, k).double()
+    r = block_tridiag_matmat_trans(band.double(), x.reshape(n, s * s, k).double()) - b
+    assert (torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b)).item() < {
+        torch.float32: 1e-4, torch.float64: 1e-12}[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_serialized_operator_on_card_matches_plain(cuda, dtype, monkeypatch):
+    """The full-state input subspace of the Poisson control problem at
+    nx=16 (8 given samples, chunks of 3), serialized: through K1/K2, and
+    with K1/K2's plain versions in their place on the same card; then the
+    batched matrix-free strategy through K1/K2.  The spectra agree."""
+    from hippyflow_tpu_torch import testing as tt
+    from hippyflow_tpu_torch.models import (
+        ActiveSubspaceParameterList,
+        ActiveSubspaceProjector,
+    )
+    from hippyflow_tpu_torch.ops import structured
+
+    st = tt.poisson_control_settings()
+    st["nx"] = st["ny"] = 16
+    pde, prior, dist, Vh = tt.setup_poisson_control_problem(
+        st, dtype=dtype, device=cuda)
+    obs = tt.poisson_full_state_observable(pde, Vh)
+    rng = np.random.default_rng(3)
+    ms = prior.sample(torch.as_tensor(rng.standard_normal((8, Vh.dim)),
+                                      dtype=dtype, device=cuda))
+    zs = torch.as_tensor(rng.uniform(-1, 1, (8, 25)), dtype=dtype, device=cuda)
+    Omega = torch.as_tensor(rng.standard_normal((Vh.dim, 10)), dtype=dtype,
+                            device=cuda)
+
+    def spectrum(serialized):
+        p = ActiveSubspaceParameterList()
+        p["rank"], p["oversampling"], p["samples_per_process"] = 6, 4, 8
+        p["serialized_sampling"], p["chunk_size"] = serialized, 3
+        p["ms_given"], p["verbose"] = True, False
+        proj = ActiveSubspaceProjector(obs, prior, parameters=p,
+                                       control_distribution=dist)
+        proj.ms, proj.zs, proj.Omega_GN = ms, zs, Omega
+        hk.reset_launch_counts()
+        d = proj.construct_input_subspace()[0]
+        torch.cuda.synchronize()
+        return d, hk.banded_factorize.launches, hk.banded_solve.launches
+
+    d, k1, k2 = spectrum(True)
+    # forward solve + 3 chunks x 2 applications; each chunk's J and J^T
+    assert k1 == 1 + 6 and k2 == 1 + 12
+    with monkeypatch.context() as mp:
+        mp.setattr(structured, "banded_factorize", hk.banded_factorize_plain)
+        mp.setattr(structured, "banded_solve",
+                   lambda M, Dinv, B, bb, trans, *a, **kw:
+                   hk.banded_solve_plain(M, Dinv, B, bb, trans))
+        d_plain, k1_plain, k2_plain = spectrum(True)
+    assert k1_plain == k2_plain == 0
+    d_batched = spectrum(False)[0]
+    tol = {torch.float32: 1e-4, torch.float64: 1e-10}[dtype]
+    assert _rel(d, d_plain) < tol and _rel(d, d_batched) < tol

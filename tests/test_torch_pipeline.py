@@ -185,6 +185,8 @@ import hippyflow_tpu_torch.applications.confusion_setup
 import hippyflow_tpu_torch.testing, hippyflow_tpu_torch.utils.mesh_utils
 import hippyflow_tpu_torch.models.pde_problem, hippyflow_tpu_torch.models.jacobian
 import hippyflow_tpu_torch.models.sampling, hippyflow_tpu_torch.ops.linalg
+import hippyflow_tpu_torch.models.model_wrapper, hippyflow_tpu_torch.models.multi_pde
+import hippyflow_tpu_torch.models.cminimization, hippyflow_tpu_torch.utils.mv_utilities
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 sys.exit(f"loaded {bad}" if bad else 0)
 """
@@ -194,7 +196,9 @@ def test_import_pulls_in_no_jax():
     """In a fresh interpreter that refuses to import jax, the JAX package
     or its applications, the port, its surrogate layer, its KLE, data
     generator and operator modules, its solvers and control paths, its
-    Poisson control fixture (``testing``) and mesh I/O, and its confusion,
+    inverse-problem wrapper, multi-source problems and constrained Newton,
+    its Poisson control fixture (``testing``), mesh I/O and multivector
+    shims, and its confusion,
     confusion-setup, confusion-training and helmholtz applications
     import."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -203,3 +207,16 @@ def test_import_pulls_in_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_every_public_model_name_has_a_counterpart():
+    """Each public name of ``hippyflow_tpu.models`` (classes, functions and
+    submodules) exists in ``hippyflow_tpu_torch.models``."""
+    import hippyflow_tpu.models as jax_models
+    import hippyflow_tpu_torch.models as port_models
+
+    names = [n for n in vars(jax_models) if not n.startswith("_")
+             and n not in ("annotations",)]
+    assert len(names) > 50
+    missing = [n for n in names if not hasattr(port_models, n)]
+    assert not missing, missing

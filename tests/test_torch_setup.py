@@ -417,18 +417,19 @@ def test_chunk_bookkeeping_matches_jax(tmp_path):
 
 
 def test_unported_cases_raise(tmp_path):
-    """What is still not ported raises, naming its ROADMAP item; the
-    control paths (ported since) refuse only what the JAX package refuses:
-    a control Jacobian without a control distribution, and the POD
-    input-output error test of a control problem."""
+    """What is still not ported raises, naming its ROADMAP item; what was
+    ported since refuses only what the JAX package refuses: a control
+    Jacobian without a control distribution, the POD input-output error
+    test of a control problem, and the two-step generation of an
+    observable that is not the full state."""
     from hippyflow_tpu_torch.models import UniformDistribution
 
     _, _, tobs, tpr = _problems()
     gen = TDataGenerator(tobs, tpr, settings=dict(verbose=False))
     with pytest.raises(ValueError, match="control distribution"):
         gen.generate(2, derivatives=(0, 1), data_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="M11"):
-        gen.two_step_generate(2)
+    with pytest.raises(TypeError, match="full-state"):
+        gen.two_step_generate(2, pod_rank=1)
     pod = TPOD(tobs, tpr, control_distribution=UniformDistribution(3, -1, 1))
     with pytest.raises(ValueError, match="control"):
         pod.input_output_error_test(np.eye(tobs.dM)[:, :2])
