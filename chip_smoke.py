@@ -154,6 +154,32 @@ each:
     reason, 1e-10); then K1 and K2 at every shape of (1)-(5) against their
     plain versions in both dtypes (``k12_shape_records``) and (1)-(5) in
     float64 at nx=16 on the card against the CPU (limit 1e-8);
+9f. drivers: the application drivers as a user runs them, each step one
+    path: (1) ``ns_nx64``: ``steady_navier_stokes`` at nx=64 in float64
+    (12675 dofs, s=195, nb=65: K1's rows on an indefinite nonsymmetric
+    saddle-point band, unpivoted), the Newton iterations per Reynolds
+    number, within 1e-6 of the JAX package's field
+    (``.bench/ns_velocity_nx64.npy``), K1's rows, the Schur step, K3 and
+    K2 launched; (2) ``confusion_setup_nx32_ns``: ``confusion_setup.main``
+    at nx=32 with ``--velocity ns`` in float32 (no field is cached there,
+    so the driver solves Navier-Stokes at s=99), its files; on the bands of
+    both solves, K1 and K2 at every shape against their plain versions
+    (K2's residual within 10x of the pivoted plain pair's), ``K1 designs``
+    and ``K1 Schur`` lines, and K3's max|T T^-1 - I| on the Schur
+    complements within 10x of ``torch.linalg.inv``'s, with a ``K3
+    clusters`` line; (3) ``helmholtz_setup``: the driver at its defaults
+    with ``--error_test`` (nx=64, 600 Hz, 32 samples, 512 data, rank 128,
+    float64), stage seconds, launches, peak memory above its start, the
+    JAX driver's layout, orthonormality <= 1e-3, errors not rising with
+    rank, nothing discarded, and whether plots were written (none without
+    matplotlib); (4) ``helmholtz_setup_laplacian``: the same with
+    ``--laplacian_prior --n_data 64``; (5) ``helmholtz_training``:
+    ``as_resnet`` on (3)'s output, 20 AdamW epochs and 3 Newton-CG
+    epochs, s/epoch and val acc, the loss falling, all finite; (6)
+    ``helmholtz_multirun``: 2 data sizes x 1 seed x 5 epochs, then the
+    same call, which trains nothing; then float64 card against CPU:
+    Navier-Stokes at nx=16 (limit 1e-10) and the helmholtz setup lane at
+    nx=10 from one given noise (limit 1e-8);
 10. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
     256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16,
     grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started; then the
@@ -185,6 +211,7 @@ exits non-zero without printing the result line.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1993,13 +2020,16 @@ def band_kernel_shapes():
         structured.banded_factorize, structured.banded_solve = fac, sol
 
 
-def k12_shape_records(band64, shapes, label):
+def k12_shape_records(band64, shapes, label, indefinite=False):
     """K1 and K2 against their plain versions at every shape of ``shapes``
     (from ``band_kernel_shapes``), on the first N samples of the float64
     bands ``band64`` and seeded right-hand sides, in both dtypes, with the
     residual of K2's solves; float32 times in turns with the plain
-    versions, beside the bound.  Returns (K1's, K2's) records for the
-    kernels' JSON line."""
+    versions, beside the bound.  ``indefinite`` bands (no pivoting in the
+    kernels) also solve through the pivoted plain pair, and the kernels'
+    residual may exceed TOL's where it stays within PIVOT_FACTOR of the
+    pair's, as on the helmholtz bands.  Returns (K1's, K2's) records for
+    the kernels' JSON line."""
     from hippyflow_tpu_torch.ops import hopper_kernels as hk
     from hippyflow_tpu_torch.ops.structured import (
         block_tridiag_matmat,
@@ -2045,9 +2075,16 @@ def k12_shape_records(band64, shapes, label):
                 rel, err = rel_err(x, x_p), (x - x_p).abs().max().item()
                 apply = block_tridiag_matmat_trans if trans else block_tridiag_matmat
                 b_flat = rhs64.reshape(N, nb * s, k)
-                res = (torch.linalg.vector_norm(
-                    apply(sub64, x.double().reshape(N, nb * s, k)) - b_flat)
-                    / torch.linalg.vector_norm(b_flat)).item()
+
+                def residual(sol):
+                    return (torch.linalg.vector_norm(
+                        apply(sub64, sol.double().reshape(N, nb * s, k)) - b_flat)
+                        / torch.linalg.vector_norm(b_flat)).item()
+
+                res = residual(x)
+                if indefinite:
+                    res_p = residual(hk.banded_solve_plain(
+                        *hk.banded_factorize_plain(band), B, bb, trans))
                 run = lambda: hk.banded_solve(M, Dinv, B, bb, trans)
                 plain = lambda: hk.banded_solve_plain(M, Dinv, B, bb, trans)
                 del x, x_p
@@ -2055,11 +2092,16 @@ def k12_shape_records(band64, shapes, label):
             check(rel <= tol["diff"],
                   f"{key[0]} {label} {key[1:]} {dtype}: vs plain {rel:.3e}")
             if res is not None:
-                check(res <= tol["residual"],
+                limit = tol["residual"]
+                if indefinite:
+                    limit = max(limit, PIVOT_FACTOR * res_p)
+                check(res <= limit,
                       f"K2 {label} {key[1:]} {dtype}: residual {res:.3e}")
             rec[f"max_abs_err_{tag}{sfx}"] = err
             line += f"; {str(dtype)[6:]} rel diff {rel:.3e}" + (
-                "" if res is None else f" residual {res:.3e}")
+                "" if res is None else f" residual {res:.3e}") + (
+                f" (pivoted plain pair {res_p:.3e})"
+                if res is not None and indefinite else "")
             if dtype == torch.float32:
                 ms, plain_ms = paired_ms(run, plain, 3)
                 b_ms, b_by = (k1_bound(N, nb, s, dtype) if key[0] == "K1"
@@ -2977,6 +3019,434 @@ def phase_models(device):
     return paths, records
 
 
+# the drivers phase: the application drivers as a user runs them.
+# Navier-Stokes at nx=64 (s=195) in float64, held against the JAX package's
+# own field (.bench/ns_velocity_nx64.npy), relative to max|v|
+NS_NX, NS_CACHE_TOL = 64, 1e-6
+# the confusion setup driver where no field is cached: it solves
+# Navier-Stokes at nx=32 (s=99)
+NS_SETUP_NX = 32
+# the float64 card-against-CPU checks: Navier-Stokes at nx=16, and the
+# helmholtz setup lane at nx=10 (rank 16, 32 samples and data, 8
+# error-test samples) from one given noise
+NS_F64_NX, NS_F64_TOL = 16, 1e-10
+HELM_CHECK_NX, HELM_F64_TOL = 10, 1e-8
+# cuts of the helmholtz drivers (PERF.md section 4): the Laplacian-prior
+# setup writes 64 training data (the driver's default is 512); training
+# runs 20 AdamW epochs (200) and 3 Newton-CG epochs; the sweep 2 data
+# sizes x 1 seed x 5 epochs (5 sizes x 3 seeds x 150)
+LAPLACIAN_N_DATA = 64
+DRIVER_EPOCHS, DRIVER_INCG_EPOCHS = 20, 3
+SWEEP_SIZES, SWEEP_EPOCHS = "32,64", 5
+# the setup driver's files (the JAX driver's layout); the spectra's plots
+# come on top where matplotlib is installed
+SETUP_FILES = ("AS_{n}_input_decoder.npy", "AS_{n}_d_GN.npy",
+               "AS_{n}_output_decoder.npy", "AS_{n}_d_NG.npy", "KLE_decoder.npy",
+               "KLE_d.npy", "POD_projector.npy", "POD_d.npy", "error_data.pkl",
+               "metadata.pkl", "mq_data.npz", "jacobian_data")
+SETUP_METADATA = {f"{k}_time" for k in ("as_input", "as_output", "kle", "pod",
+                                        "error_test", "data", "jacobian_data")}
+# a float64 projection error at or below this is rounding (the POD of 32
+# samples reproduces them exactly from rank 32 on): "not rising with rank"
+# compares errors above it
+ROUNDING_F64 = 1e3 * torch.finfo(torch.float64).eps
+
+
+def _have_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def check_setup_dir(out, n_samples, label):
+    """The setup driver's layout in ``out``: every file of the JAX
+    driver, nothing else but the spectra's PDFs, and those only where
+    matplotlib is installed.  Returns (metadata, error data, a note on the
+    plots)."""
+    import pickle
+
+    files = set(os.listdir(out))
+    want = {f.format(n=n_samples) for f in SETUP_FILES}
+    pdfs = {f for f in files if f.endswith(".pdf")}
+    check(want <= files and files - want <= pdfs,
+          f"{label}: files {sorted(files)}")
+    check("Jsvd_data.npz" in os.listdir(os.path.join(out, "jacobian_data")),
+          f"{label}: no jacobian_data/Jsvd_data.npz")
+    if _have_matplotlib():
+        check(len(pdfs) == 4, f"{label}: plots {sorted(pdfs)}")
+        note = f"{len(pdfs)} spectrum plots"
+    else:
+        check(not pdfs, f"{label}: plots {sorted(pdfs)} without matplotlib")
+        note = "matplotlib is not installed: no PDF written"
+    with open(os.path.join(out, "metadata.pkl"), "rb") as f:
+        meta = pickle.load(f)
+    with open(os.path.join(out, "error_data.pkl"), "rb") as f:
+        err = pickle.load(f)
+    check(set(meta) == SETUP_METADATA, f"{label}: metadata keys {sorted(meta)}")
+    return meta, err, note
+
+
+def ns_state(V, velocity, pressure):
+    return torch.cat([velocity[:, 0], velocity[:, 1], pressure])[None]
+
+
+def ns_band(V, u, device):
+    """The bc-symmetrized Navier-Stokes Jacobian at Re=100 at the state
+    u (1, 3n), float64, in band order (1, nb, s, 3s)."""
+    from hippyflow_tpu_torch.applications.navier_stokes import _ns_bc, _ns_form
+    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
+    from hippyflow_tpu_torch.models import VariationalPDEProblem
+
+    pde = VariationalPDEProblem(V, V, _ns_form(V, 100.0), _ns_bc(V),
+                                dtype=torch.float64, device=device)
+    m = torch.zeros((1, V.dim), dtype=torch.float64, device=device)
+    band = bc_symmetrize_banded_masked(
+        pde.bound.assemble_A_banded_ordered(u, m, pde._band_order), pde._band_mask)
+    return band.contiguous()
+
+
+def ns_k3_residual(band64, label):
+    """K3 and the pivoted inverse on the Navier-Stokes Schur complements
+    T_j = D_j - M_j B_{j-1} (from the float64 plain factorization), as K1's
+    rows invert them: max|T T^-1 - I| of each, K3's within PIVOT_FACTOR of
+    the pivoted one's.  Returns (K3's, torch.linalg.inv's, T)."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    N, nb, s, _ = band64.shape
+    M64, _ = hk.banded_factorize_plain(band64)
+    T = band64[..., s : 2 * s].clone()
+    T[:, 1:] -= M64[:, 1:] @ band64[:, :-1, :, 2 * s :]
+    T = T.reshape(N * nb, s, s)
+    eye = torch.eye(s, dtype=torch.float64, device=band64.device)
+    res_k3 = (T @ hk.batched_inverse(T) - eye).abs().amax().item()
+    res_inv = (T @ torch.linalg.inv(T) - eye).abs().amax().item()
+    log(f"K3 {label} float64 Schur complements ({N * nb}, {s}, {s}): "
+        f"max|T T^-1 - I| K3 {res_k3:.3e}, torch.linalg.inv {res_inv:.3e} "
+        f"({res_k3 / res_inv:.2f}x, limit {PIVOT_FACTOR:.0f}x)")
+    check(res_k3 <= PIVOT_FACTOR * res_inv,
+          f"K3 {label}: max|T T^-1 - I| {res_k3:.3e} against the pivoted "
+          f"{res_inv:.3e}")
+    return res_k3, res_inv, T
+
+
+def ns_kernel_records(band64, shapes, label):
+    """On one Navier-Stokes band: K1 and K2 at every shape the solve gave
+    them against their plain versions (``k12_shape_records``), K1's row
+    design (``k1_designs``) and its Schur step alone (``k1_schur``), K3's
+    identity residual on the Schur complements and K3 timed on one block
+    row's (``time_k3_clusters``), in float64 and float32.  Returns the
+    records for the kernels' JSON line by kernel."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    N, nb, s, _ = band64.shape
+    k1, k2 = k12_shape_records(band64, shapes, label, indefinite=True)
+    k1[f"designs_{label}"] = k1_designs(band64, f"{label} bands", reps=3)
+    schur = {f"{label}_n{N}_s{s}": k1_schur(band64, f"{label} bands", reps=5)}
+    res_k3, res_inv, T = ns_k3_residual(band64, label)
+    T1 = T.reshape(N, nb, s, s)[:, nb // 2].contiguous()
+    tag = f"{label}_n{N}_s{s}_f64"
+    k3 = {f"{key}_{tag}": v
+          for key, v in time_k3_clusters(T1, f"{label} Schur complements").items()}
+    ms, plain_ms = paired_ms(lambda: hk.batched_inverse(T1),
+                             lambda: hk.batched_inverse_plain(T1))
+    log(f"K3 {label} float64 one block row {tuple(T1.shape)}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    k3.update({f"plain_ms_{tag}": plain_ms, f"residual_{label}_s{s}_f64": res_k3,
+               f"inv_residual_{label}_s{s}_f64": res_inv})
+    return {"banded_factorize": k1, "banded_solve": k2, "batched_inverse": k3,
+            "schur": schur}
+
+
+def drivers_ns(device):
+    """Path ns_nx64: steady Navier-Stokes at nx=64 in float64, counted,
+    against the JAX package's cached field; then its kernel records."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.applications.confusion import load_ns_velocity
+    from hippyflow_tpu_torch.applications.navier_stokes import steady_navier_stokes
+    from hippyflow_tpu_torch.fem import FunctionSpace, unit_square_mesh
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    V = FunctionSpace(unit_square_mesh(NS_NX))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with band_kernel_shapes() as shapes:
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        v, p, info = steady_navier_stokes(V, dtype=torch.float64, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ref = torch.as_tensor(load_ns_velocity(NS_NX), device=device)
+    err = ((v - ref).abs().max() / ref.abs().max()).item()
+    log(f"drivers ns_nx64 float64 nx={NS_NX} ({3 * V.dim} dofs, s={3 * (NS_NX + 1)}): "
+        f"{secs:.3f} s; Newton iterations by Reynolds number "
+        f"{[(re, it) for re, it, _ in info.history]}; max|v - JAX field| / max|v| "
+        f"{err:.3e} (limit {NS_CACHE_TOL:.0e}); launches K1 "
+        f"{launches['banded_factorize']} (rows {launches['banded_factorize_rows']}, "
+        f"Schur steps {launches['schur_step']}) K2 {launches['banded_solve']} "
+        f"(streamed {launches['banded_solve_streamed']}, panels "
+        f"{launches['banded_solve_panels']}) K3 {launches['batched_inverse']}; "
+        f"peak {peak:.3f} GB above the start")
+    check(err <= NS_CACHE_TOL, f"ns_nx64: against the JAX field {err:.3e}")
+    for key in ("banded_factorize_rows", "schur_step", "batched_inverse",
+                "banded_solve"):
+        check(launches[key] > 0, f"{key} was not launched on ns_nx64")
+    band = ns_band(V, ns_state(V, v, p), device)
+    del v, p, ref
+    records = ns_kernel_records(band, shapes, "ns64")
+    del band
+    torch.cuda.empty_cache()
+    return launches, records
+
+
+def drivers_confusion_setup(device):
+    """Path confusion_setup_nx32_ns: the confusion setup driver at nx=32
+    with the Navier-Stokes velocity, float32, on the card (no field is
+    cached at nx=32, so the driver solves it, at s=99); then the kernel
+    records of that solve's band."""
+    from hippyflow_tpu_torch.applications import confusion_setup
+    from hippyflow_tpu_torch.applications.navier_stokes import steady_navier_stokes
+    from hippyflow_tpu_torch.fem import FunctionSpace, unit_square_mesh
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    with tempfile.TemporaryDirectory(prefix="drivers_conf_") as out:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        confusion_setup.main(["--nx", str(NS_SETUP_NX), "--velocity", "ns",
+                              "--error_test", "--output", out, "--device",
+                              str(device)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        meta, err, note = check_setup_dir(out, 512, "confusion_setup_nx32_ns")
+    check(set(err) == {"as", "kle", "pod", "input_output"},
+          f"confusion_setup_nx32_ns: error data {sorted(err)}")
+    for key in ("banded_factorize_chain", "banded_factorize_rows", "schur_step",
+                "batched_inverse", "banded_solve"):
+        check(launches[key] > 0,
+              f"{key} was not launched on confusion_setup_nx32_ns")
+    log(f"drivers confusion_setup_nx32_ns float32 nx={NS_SETUP_NX} --velocity ns: "
+        f"{secs:.3f} s ({', '.join(f'{k} {v:.3f}' for k, v in meta.items())}); "
+        f"launches K1 {launches['banded_factorize']} (chain "
+        f"{launches['banded_factorize_chain']}, rows "
+        f"{launches['banded_factorize_rows']}) Schur steps {launches['schur_step']} "
+        f"K2 {launches['banded_solve']} K3 {launches['batched_inverse']}; peak "
+        f"{peak:.3f} GB above the start; {note}")
+    V = FunctionSpace(unit_square_mesh(NS_SETUP_NX))
+    with band_kernel_shapes() as shapes:
+        v, p, _ = steady_navier_stokes(V, dtype=torch.float64, device=device)
+    band = ns_band(V, ns_state(V, v, p), device)
+    records = ns_kernel_records(band, shapes, "ns32")
+    del band
+    torch.cuda.empty_cache()
+    return launches, records
+
+
+def drivers_helmholtz_setup(device, out, extra, label):
+    """Path ``label``: the helmholtz setup driver at its defaults with
+    --error_test (and ``extra`` flags), float64, on the card, into
+    ``out``; the layout, orthonormality, error and launch checks."""
+    from hippyflow_tpu_torch.applications import helmholtz_setup
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = helmholtz_setup.main(["--error_test", "--output", out, "--device",
+                                str(device), *extra])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    meta, err, note = check_setup_dir(out, HELM_SAMPLES, label)
+    check(set(err) == {"as", "kle", "pod"}, f"{label}: error data {sorted(err)}")
+    AS, KLE, POD = res["as"], res["kle"], res["pod"]
+    V, Vk = res["as_decoder"], res["kle_decoder"]
+    eye = torch.eye(V.shape[1], dtype=V.dtype, device=V.device)
+    ortho_as = (V.T @ AS.prior.R_matmat(V) - eye).abs().max().item()
+    ortho_kle = (Vk.T @ AS.prior.M_matmat(Vk) - eye).abs().max().item()
+    ranks = sorted(r for kind, r in err["as"] if kind == "input")
+    as_in = [err["as"][("input", r)][0] for r in ranks]
+    as_out = [err["as"][("output", r)][0] for r in ranks]
+    kle_e, pod_e = list(err["kle"][0]), list(err["pod"][0])
+    discarded = err["as"][("output_discarded", None)]
+    log(f"drivers {label} float64 nx={HELM_NX} {HELM_FREQ:.0f} Hz "
+        f"(s={AS.observable.problem._block_size}, nb="
+        f"{AS.observable.problem._band_order.nb}) {' '.join(extra)}: {secs:.3f} s "
+        f"({', '.join(f'{k} {v:.3f}' for k, v in meta.items())}); launches K1 "
+        f"{launches['banded_factorize']} (rows {launches['banded_factorize_rows']}) "
+        f"Schur steps {launches['schur_step']} K2 {launches['banded_solve']} "
+        f"(panels {launches['banded_solve_panels']}, streamed "
+        f"{launches['banded_solve_streamed']}) K3 {launches['batched_inverse']}; "
+        f"peak {peak:.3f} GB above the start; {note}")
+    log(f"drivers {label} errors at ranks {ranks}: AS input "
+        f"{[f'{x:.4e}' for x in as_in]}, AS output {[f'{x:.4e}' for x in as_out]}, "
+        f"KLE {[f'{x:.4e}' for x in kle_e]}, POD {[f'{x:.4e}' for x in pod_e]}; "
+        f"max|V^T R V - I| {ortho_as:.3e}, KLE max|V^T M V - I| {ortho_kle:.3e}; "
+        f"resampled failures AS {AS.samples.n_failures} POD "
+        f"{POD.samples.n_failures}; output_discarded {discarded}")
+    for name in ("d_GN", "d_NG", "d_KLE", "d_POD"):
+        d = res[name]
+        check(bool(torch.isfinite(d).all()), f"{label}: non-finite {name}")
+    check(ortho_as <= ORTHO_TOL_F32, f"{label}: AS max|V^T R V - I| {ortho_as:.3e}")
+    check(ortho_kle <= ORTHO_TOL_F32,
+          f"{label}: KLE max|V^T M V - I| {ortho_kle:.3e}")
+    for name, e in (("POD", pod_e), ("AS output", as_out)):
+        check(all(b <= max(a, ROUNDING_F64) for a, b in zip(e, e[1:])),
+              f"{label}: {name} errors rise with rank {e}")
+    for name, e in (("KLE", kle_e), ("AS input", as_in)):
+        check(e[-1] < e[0], f"{label}: {name} error at rank {ranks[-1]} "
+              f"{e[-1]:.4e} not below rank {ranks[0]}'s {e[0]:.4e}")
+    check(discarded == 0 and AS.samples.n_failures == 0
+          and POD.samples.n_failures == 0, f"{label}: a sample was discarded")
+    for key in ("banded_factorize_rows", "schur_step", "batched_inverse",
+                "banded_solve"):
+        check(launches[key] > 0, f"{key} was not launched on {label}")
+    return launches
+
+
+def drivers_training(device, data_dir):
+    """Path helmholtz_training: the helmholtz training driver's as_resnet
+    on the setup driver's output, AdamW then Newton-CG."""
+    from hippyflow_tpu_torch.applications import helmholtz_training
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    hk.reset_launch_counts()
+    parts = []
+    for optimizer, epochs in (("adamw", DRIVER_EPOCHS), ("incg", DRIVER_INCG_EPOCHS)):
+        t0 = time.perf_counter()
+        lg = helmholtz_training.main(["--data_dir", data_dir, "--epochs",
+                                      str(epochs), "--optimizer", optimizer,
+                                      "--device", str(device)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(_finite(*lg["loss"], *lg["train_acc"], *lg["val_acc"]),
+              f"helmholtz_training {optimizer}: non-finite logger")
+        check(lg["loss"][-1] < lg["loss"][0],
+              f"helmholtz_training {optimizer}: loss {lg['loss'][0]:.4e} -> "
+              f"{lg['loss'][-1]:.4e}")
+        per = lg["epoch_time"][1:] or lg["epoch_time"]
+        parts.append(f"{optimizer} {epochs} epochs {secs:.3f} s "
+                     f"({sum(per) / len(per):.4f} s/epoch after the first), loss "
+                     f"{lg['loss'][0]:.4e} -> {lg['loss'][-1]:.4e}, val acc "
+                     f"{[round(x, 4) for x in lg['val_acc']]}")
+    log("drivers helmholtz_training float32 as_resnet (sigmoid): " + "; ".join(parts))
+    return launch_counts()
+
+
+def drivers_multirun(device, data_dir):
+    """Path helmholtz_multirun: the sweep at 2 data sizes x 1 seed x 5
+    epochs, then the same call again, which must train nothing and leave
+    the master logger's keys as they were."""
+    import pickle
+
+    from hippyflow_tpu_torch.applications import helmholtz_multirun
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    argv = ["--data_dir", data_dir, "--data_sizes", SWEEP_SIZES, "--n_seeds", "1",
+            "--epochs", str(SWEEP_EPOCHS), "--device", str(device)]
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    master, trained = helmholtz_multirun.main(argv)
+    t1 = time.perf_counter()
+    again, trained2 = helmholtz_multirun.main(argv)
+    t2 = time.perf_counter()
+    n_arch = 3 * len(SWEEP_SIZES.split(","))
+    check(len(trained) == n_arch and sorted(master) == sorted(trained),
+          f"helmholtz_multirun: trained {trained}")
+    with open(os.path.join(data_dir, "master_logger.pkl"), "rb") as f:
+        kept = pickle.load(f)
+    check(trained2 == [] and sorted(again) == sorted(kept) == sorted(master),
+          f"helmholtz_multirun: the second call trained {trained2}")
+    check(all(_finite(*r["val_acc"]) for r in master.values()),
+          "helmholtz_multirun: non-finite accuracy")
+    log(f"drivers helmholtz_multirun: {len(trained)} runs in {t1 - t0:.3f} s, "
+        f"the second call {len(trained2)} runs in {t2 - t1:.3f} s; final val acc "
+        + ", ".join(f"{k} {v['val_acc'][-1]:.4f}" for k, v in sorted(master.items())))
+    return launch_counts()
+
+
+def drivers_check_f64(device):
+    """Float64 card against CPU: steady Navier-Stokes at nx=16, and the
+    helmholtz setup lane at nx=10 from one given noise (as
+    ``setup_check_f64`` draws it).  Returns (NS error, the lanes' errors)."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.applications.confusion_setup import (
+        lane_difference,
+        setup_lane,
+    )
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        helmholtz_linear_observable,
+        helmholtz_prior,
+    )
+    from hippyflow_tpu_torch.applications.navier_stokes import steady_navier_stokes
+    from hippyflow_tpu_torch.fem import FunctionSpace, unit_square_mesh
+
+    V = FunctionSpace(unit_square_mesh(NS_F64_NX))
+
+    def ns(dev):
+        v, p, _ = steady_navier_stokes(V, dtype=torch.float64, device=dev)
+        return torch.cat([v, p[:, None]], dim=1).cpu()
+
+    ns_err = rel_err(ns(device), ns(torch.device("cpu")))
+    lanes = []
+    for dev in (device, torch.device("cpu")):
+        kw = dict(dtype=torch.float64, device=dev)
+        obs, Vh = helmholtz_linear_observable(nx=HELM_CHECK_NX,
+                                              frequency=HELM_FREQ, **kw)
+        with tempfile.TemporaryDirectory(prefix="helm_f64_") as out:
+            lanes.append(setup_lane(
+                obs, helmholtz_prior(Vh, **kw), out, rank=16, n_samples=32,
+                n_data=32, jacobian_rank=16, error_test_samples=8, seed=SEED,
+                noise_rng=np.random.default_rng(SEED), input_output_test=False))
+    return ns_err, lane_difference(*lanes)
+
+
+def phase_drivers(device):
+    """The drivers phase: each step one path (see the module doc).
+    Returns (launches by path, the kernel records)."""
+    t_phase = time.perf_counter()
+    paths = {}
+    paths["ns_nx64"], rec64 = drivers_ns(device)
+    paths["confusion_setup_nx32_ns"], rec32 = drivers_confusion_setup(device)
+    with tempfile.TemporaryDirectory(prefix="drivers_helm_") as tmp:
+        out = os.path.join(tmp, "helmholtz_output")
+        paths["helmholtz_setup"] = drivers_helmholtz_setup(device, out, [],
+                                                           "helmholtz_setup")
+        torch.cuda.empty_cache()
+        paths["helmholtz_setup_laplacian"] = drivers_helmholtz_setup(
+            device, os.path.join(tmp, "laplacian"),
+            ["--laplacian_prior", "--n_data", str(LAPLACIAN_N_DATA)],
+            "helmholtz_setup_laplacian")
+        torch.cuda.empty_cache()
+        paths["helmholtz_training"] = drivers_training(device, out)
+        paths["helmholtz_multirun"] = drivers_multirun(device, out)
+    ns_err, lane_errs = drivers_check_f64(device)
+    worst = max(lane_errs.values())
+    log(f"drivers float64 card against CPU: steady Navier-Stokes nx={NS_F64_NX} "
+        f"{ns_err:.3e} (limit {NS_F64_TOL:.0e}); helmholtz setup nx={HELM_CHECK_NX} "
+        f"max relative difference {worst:.3e} ("
+        f"{', '.join(f'{k} {v:.1e}' for k, v in lane_errs.items())}) (limit "
+        f"{HELM_F64_TOL:.0e}); phase {time.perf_counter() - t_phase:.1f} s")
+    check(ns_err <= NS_F64_TOL, f"drivers Navier-Stokes float64: {ns_err:.3e}")
+    check(worst <= HELM_F64_TOL, f"drivers helmholtz float64: {worst:.3e}")
+    records = {}
+    for rec in (rec64, rec32):
+        for name, r in rec.items():
+            records.setdefault(name, {}).update(r)
+    # the drivers' projectors hold device arrays in reference cycles: free
+    # them now, so that no later lane's peak memory counts them
+    gc.collect()
+    return paths, records
+
+
 def phase_lane192(device, profile=False):
     """The float32 nx=192 lane, grid-sequenced (the counted path) and
     cold-started: confusion_prior builds the structured prior (cyclic
@@ -3191,6 +3661,9 @@ def run_phases(device, argv, parent=None):
     models_paths, models_records = phase_models(device)
     paths.update(models_paths)
     torch.cuda.empty_cache()
+    drivers_paths, drivers_records = phase_drivers(device)
+    paths.update(drivers_paths)
+    torch.cuda.empty_cache()
     if "--profile" in argv:
         phase_profile(obs32, prior32)
     del obs32, prior32, levels64
@@ -3231,7 +3704,9 @@ def run_phases(device, argv, parent=None):
                      (f"s{s_helm}", s516[f32]["k3_clusters"]),
                      (f"s{s_helm}_f64", s516[f64]["k3_clusters"])):
         k3.update({f"{k}_{tag}": v for k, v in rec.items()})
-    for name, rec in (*control_records.items(), *models_records.items()):
+    schur.update(drivers_records.pop("schur"))
+    for name, rec in (*control_records.items(), *models_records.items(),
+                      *drivers_records.items()):
         report[name].update(rec)
     for dtype, sfx in ((f32, f"s{s_helm}"), (f64, f"s{s_helm}_f64")):
         r = s516[dtype]

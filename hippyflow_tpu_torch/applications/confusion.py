@@ -13,15 +13,18 @@ with homogeneous Dirichlet BCs, 100 pointwise observations on a grid in
 (``StructuredBiLaplacianPrior``) above, as in the JAX package.
 
 Two lanes of ``bench.py`` run here: nx=64 (4225 dofs, blocks s=65) and
-nx=192 (37249 dofs, s=193, the structured prior).  Newton cold-starts
-every lane: the grid-sequenced warm starts of the JAX package
-(``fem/multigrid.py``) are not ported.
+nx=192 (37249 dofs, s=193, the structured prior).
 
-The velocity is either 'analytic' (the stream-function vortex of the JAX
-package) or an (n, 2) array of P1 dof values, e.g. the steady
-Navier-Stokes field that ``load_ns_velocity`` reads from
-``.bench/ns_velocity_nx<nx>.npy``.  The Navier-Stokes solver itself is not
-ported.
+The velocity (``confusion_velocity``) is one of
+
+* 'navier_stokes' (the default, as in the JAX package): the steady
+  Navier-Stokes field at Re=100 (``navier_stokes.steady_navier_stokes``),
+  solved in float64 on the problem's device at a one-time setup cost;
+* 'analytic': the divergence-free stream-function vortex
+  v = (-sin(pi x) cos(pi y), cos(pi x) sin(pi y));
+* an (n, 2) array of P1 dof values, e.g. the JAX package's own
+  Navier-Stokes field that ``load_ns_velocity`` reads from
+  ``.bench/ns_velocity_nx<nx>.npy`` (nx=64 and 192).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import config
 from ..fem import (
     DirichletBC,
     FunctionSpace,
@@ -54,18 +58,25 @@ def load_ns_velocity(nx: int) -> np.ndarray:
     return np.load(_BENCH_DIR / f"ns_velocity_nx{nx}.npy")
 
 
-def confusion_velocity(V: FunctionSpace, kind="analytic") -> np.ndarray:
-    """(n, 2) P1 dof values: kind='analytic' or an (n, 2) array."""
+def confusion_velocity(V: FunctionSpace, kind="navier_stokes",
+                       device=None) -> np.ndarray:
+    """(n, 2) P1 dof values of the cavity-circulation velocity field:
+    kind='navier_stokes' (solved in float64 on ``device``), 'analytic' or
+    an (n, 2) array, used as it is (see the module doc)."""
     if not isinstance(kind, str):
         vel = np.asarray(kind)
         if vel.shape != (V.dim, 2):
             raise ValueError(f"velocity array shape {vel.shape}")
         return vel
+    if kind == "navier_stokes":
+        from .navier_stokes import steady_navier_stokes
+
+        v, _, _ = steady_navier_stokes(V, Re=100.0, dtype=torch.float64,
+                                       device=device)
+        return v.cpu().numpy()
     if kind != "analytic":
-        raise NotImplementedError(
-            f"velocity={kind!r}: pass 'analytic' or an array "
-            "(load_ns_velocity reads the cached Navier-Stokes field)"
-        )
+        raise ValueError(f"velocity={kind!r}: 'navier_stokes', 'analytic' or "
+                         "an (n, 2) array")
     x = V.dof_coords
     vx = -np.sin(np.pi * x[:, 0]) * np.cos(np.pi * x[:, 1])
     vy = np.cos(np.pi * x[:, 0]) * np.sin(np.pi * x[:, 1])
@@ -80,8 +91,10 @@ def confusion_source(V: FunctionSpace) -> np.ndarray:
 
 
 def confusion_form(V: FunctionSpace, c: float = 1.0, k: float = 0.01,
-                   velocity="analytic") -> GalerkinForm:
-    vel = confusion_velocity(V, kind=velocity)
+                   velocity="navier_stokes", device=None) -> GalerkinForm:
+    """The confusion form; ``device`` is where a Navier-Stokes velocity
+    is solved."""
+    vel = confusion_velocity(V, kind=velocity, device=device)
     f = confusion_source(V)
     h = V.mesh.cell_diameters()
 
@@ -110,20 +123,21 @@ def confusion_linear_observable(
     c: float = 1.0,
     k: float = 0.01,
     newton_max_iter: int = 25,
-    velocity="analytic",
+    velocity="navier_stokes",
     n_line_search: int = 4,
     dtype=None,
     device=None,
     **pde_kwargs,
 ):
     """Build the confusion observable.  Returns (observable, Vh)."""
+    dtype, device = config.resolve(dtype, device)
     mesh = unit_square_mesh(nx)
     Vh = FunctionSpace(mesh)
     bc = DirichletBC.from_predicate(Vh, None, 0.0)
     pde = VariationalPDEProblem(
         Vh,
         Vh,
-        confusion_form(Vh, c=c, k=k, velocity=velocity),
+        confusion_form(Vh, c=c, k=k, velocity=velocity, device=device),
         bc,
         newton_max_iter=newton_max_iter,
         n_line_search=n_line_search,

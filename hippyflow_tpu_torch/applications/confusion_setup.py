@@ -14,10 +14,11 @@ save it all in the reference's layout:
     python -m hippyflow_tpu_torch.applications.confusion_setup \\
         [--nx 64] [--output confusion_output/] [--error_test] [--device cpu]
 
-The velocity is the cached steady Navier-Stokes field
-(``load_ns_velocity``, nx=64 and 192) or, with ``--velocity analytic``,
-the analytic vortex; the Navier-Stokes solver is not ported (ROADMAP
-M12).  ``confusion_training`` reads the directory this writes.
+The velocity is the steady Navier-Stokes field: the JAX package's cached
+field at nx=64 and 192 (``load_ns_velocity``), else solved here
+(``navier_stokes.steady_navier_stokes``); with ``--velocity analytic`` it
+is the analytic vortex.  ``confusion_training`` reads the directory this
+writes.
 """
 
 from __future__ import annotations
@@ -57,8 +58,11 @@ def error_test_ranks(rank: int):
 
 def setup_lane(observable, prior, output, *, rank=128, oversampling=10,
                n_samples=512, n_data=512, jacobian_rank=128, error_test=True,
-               error_test_samples=50, seed=0, verbose=False, noise_rng=None):
-    """The setup workflow on (observable, prior), writing into ``output``.
+               error_test_samples=50, seed=0, verbose=False, noise_rng=None,
+               input_output_test=True):
+    """The setup workflow on (observable, prior), writing into ``output``
+    (the helmholtz setup driver's too: it runs the error tests without the
+    POD input-output test, ``input_output_test=False``).
 
     ``noise_rng`` (a numpy Generator), when given, supplies every draw of
     the lane as given noise (``utils.GivenNoise`` and the training data's
@@ -122,16 +126,19 @@ def setup_lane(observable, prior, output, *, rank=128, oversampling=10,
         # the reference driver's rank pairs (`confusion_problem_setup.py:
         # 157-189`): the rank ladder with itself, capped by dQ
         rank_pairs = [(r, min(r, observable.dQ)) for r in ranks]
-        io_avg, io_std = POD.input_output_error_test(
-            out["as_decoder"], Cinv_matmat=prior.R_matmat, rank_pairs=rank_pairs)
+        if input_output_test:  # first: given noise is drawn in this order
+            io_avg, io_std = POD.input_output_error_test(
+                out["as_decoder"], Cinv_matmat=prior.R_matmat,
+                rank_pairs=rank_pairs)
         out["errors"] = {
             "as": AS.test_errors(ranks=ranks, test_input=True, test_output=True),
             "kle": KLE.test_errors(ranks=ranks),
             "pod": POD.test_output_errors(
                 ranks=[r for r in ranks if r <= observable.dQ]),
-            "input_output": {"rank_pairs": rank_pairs, "avg": io_avg,
-                             "std": io_std},
         }
+        if input_output_test:
+            out["errors"]["input_output"] = {"rank_pairs": rank_pairs,
+                                             "avg": io_avg, "std": io_std}
         with open(os.path.join(output, "error_data.pkl"), "wb") as f:
             pickle.dump(out["errors"], f)
         lap("error_test")
@@ -173,14 +180,15 @@ def lane_difference(a, b, head: float = 1e-4, gap: float = 1e-6):
 
 
 def _velocity(kind: str, nx: int):
+    """The ``velocity`` argument of ``confusion_linear_observable`` for
+    ``--velocity``: the JAX package's cached Navier-Stokes field where
+    ``.bench/`` holds one at nx (64, 192), else 'navier_stokes' (solved on
+    the problem's device), or 'analytic'."""
     if kind == "analytic":
         return "analytic"
-    if not (_BENCH_DIR / f"ns_velocity_nx{nx}.npy").exists():
-        raise NotImplementedError(
-            f"no cached Navier-Stokes velocity at nx={nx} (nx=64 and 192 are "
-            "cached); the Navier-Stokes solver is not ported (ROADMAP M12): "
-            "pass --velocity analytic")
-    return load_ns_velocity(nx)
+    if (_BENCH_DIR / f"ns_velocity_nx{nx}.npy").exists():
+        return load_ns_velocity(nx)
+    return "navier_stokes"
 
 
 def main(argv=None):
@@ -197,7 +205,8 @@ def main(argv=None):
     parser.add_argument("--error_test", action="store_true")
     parser.add_argument("--jacobian_rank", type=int, default=128)
     parser.add_argument("--velocity", choices=["ns", "analytic"], default="ns",
-                        help="ns: the cached Navier-Stokes field (nx=64, 192)")
+                        help="ns: steady Navier-Stokes (cached at nx=64, 192, else "
+                        "solved)")
     parser.add_argument("--dtype", choices=["float32", "float64"],
                         default="float32")
     parser.add_argument("--device", type=str, default=None,

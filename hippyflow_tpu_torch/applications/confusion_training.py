@@ -88,10 +88,11 @@ def modify_projectors(projectors: dict, input_basis="AS_input"):
 
 
 def build_model(architecture, projectors, q_data, dM, dQ, input_rank, *,
-                dtype, device, generator=None):
+                dtype, device, generator=None, residual_activation="softplus"):
     """The network of ``main()``'s ``--architecture`` (as_dense, kle_dense,
     as_resnet, generic_dense, linear, low_rank_linear); returns (model,
-    input projector or None)."""
+    input projector or None).  ``residual_activation``: the DIPResNet's
+    (the helmholtz drivers take 'sigmoid')."""
     kw = dict(generator=generator, dtype=dtype, device=device)
     if architecture in ("as_dense", "kle_dense", "as_resnet"):
         basis = "AS_input" if architecture.startswith("as") else "KLE"
@@ -101,7 +102,8 @@ def build_model(architecture, projectors, q_data, dM, dQ, input_rank, *,
         q_mean = q_data.mean(axis=0)
         if architecture == "as_resnet":
             model = projected_low_rank_residual_network(
-                P, Phi, ranks=[8, 8], output_shift=q_mean, **kw)
+                P, Phi, ranks=[8, 8], residual_activation=residual_activation,
+                output_shift=q_mean, **kw)
         else:
             model = projected_dense(P, Phi, output_shift=q_mean, **kw)
         return model, P
@@ -180,12 +182,14 @@ def training_lane(m_data, q_data, input_decoder, *, sweeps=20, n=1024,
     }
 
 
-def main(argv=None):
+def training_parser(data_dir: str, architecture: str):
+    """The training drivers' flags, with their data directory and
+    architecture defaults."""
     parser = argparse.ArgumentParser()
-    parser.add_argument("--data_dir", type=str, default="confusion_output/")
-    parser.add_argument("--architecture", type=str, default="as_dense",
-                        choices=["as_dense", "kle_dense", "as_resnet", "generic_dense",
-                                 "linear", "low_rank_linear"])
+    parser.add_argument("--data_dir", type=str, default=data_dir)
+    parser.add_argument("--architecture", type=str, default=architecture,
+                        choices=["as_dense", "kle_dense", "as_resnet",
+                                 "generic_dense", "linear", "low_rank_linear"])
     parser.add_argument("--fixed_input_rank", type=int, default=8)
     parser.add_argument("--fixed_output_rank", type=int, default=16)
     parser.add_argument("--epochs", type=int, default=200)
@@ -206,9 +210,16 @@ def main(argv=None):
     parser.add_argument("--logger_out", type=str, default=None)
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the first CUDA card)")
-    args = parser.parse_args(argv)
+    return parser
 
-    m_data, q_data = load_confusion_data(args.data_dir)
+
+def train_driver(args, m_data, q_data, residual_activation="softplus",
+                 h1_needs_projector=False):
+    """The training drivers' body on loaded data: the projectors, the
+    network of ``--architecture``, the optional H1 loss on
+    ``JstarPhi_data.npz`` (with ``h1_needs_projector`` only for the
+    projected networks, as the helmholtz driver has it), training and the
+    report.  Returns the logger."""
     if args.n_data:
         m_data, q_data = m_data[: args.n_data], q_data[: args.n_data]
     print(f"data: m {m_data.shape}, q {q_data.shape}")
@@ -222,11 +233,13 @@ def main(argv=None):
     model, P = build_model(
         args.architecture, projectors, q_data, m_data.shape[1],
         q_data.shape[1], args.fixed_input_rank, dtype=dtype, device=device,
-        generator=torch.Generator().manual_seed(args.seed + 1))
+        generator=torch.Generator().manual_seed(args.seed + 1),
+        residual_activation=residual_activation)
 
     h1_kwargs = {}
     jsp_path = os.path.join(args.data_dir, "JstarPhi_data.npz")
-    if args.h1_weight > 0 and os.path.exists(jsp_path):
+    if (args.h1_weight > 0 and os.path.exists(jsp_path)
+            and (P is not None or not h1_needs_projector)):
         jsp = np.load(jsp_path)
         n = m_data.shape[0]
         h1_kwargs = dict(
@@ -260,6 +273,11 @@ def main(argv=None):
         with open(args.logger_out, "wb") as f:
             pickle.dump(logger, f)
     return logger
+
+
+def main(argv=None):
+    args = training_parser("confusion_output/", "as_dense").parse_args(argv)
+    return train_driver(args, *load_confusion_data(args.data_dir))
 
 
 if __name__ == "__main__":

@@ -21,8 +21,7 @@ nb=52 block rows of s=516 (26574 dofs, 258 pad rows at the tail).
 
 The prior is the dense BiLaplacian with gamma=1, delta=5 on the P1
 parameter space (``helmholtz_problem_setup.py:42-55`` of the reference
-setup scripts); the JAX package's ``LaplacianPrior`` (``use_bilaplacian=False``)
-is not ported.
+setup scripts), or with ``use_bilaplacian=False`` the Laplacian prior.
 """
 
 from __future__ import annotations
@@ -40,7 +39,12 @@ from ..fem import (
     rectangle_mesh,
 )
 from ..fem.vector_assembly import VectorGalerkinForm
-from ..models import BiLaplacian2D, LinearStateObservable, VariationalPDEProblem
+from ..models import (
+    BiLaplacian2D,
+    LaplacianPrior,
+    LinearStateObservable,
+    VariationalPDEProblem,
+)
 
 SPEED_OF_SOUND = 343.4  # m/s
 AIR_DENSITY = 1.204  # kg/m^3
@@ -181,9 +185,12 @@ def helmholtz_linear_observable(
     return LinearStateObservable(pde, B), Vh
 
 
-def helmholtz_prior(Vh, gamma: float = 1.0, delta: float = 5.0, dtype=None,
-                    device=None):
-    """The dense BiLaplacian prior with the reference setup's defaults
-    (gamma=1, delta=5)."""
-    return BiLaplacian2D(Vh, gamma=gamma, delta=delta, dtype=dtype,
-                         device=device)
+def helmholtz_prior(Vh, gamma: float = 1.0, delta: float = 5.0,
+                    use_bilaplacian: bool = True, dtype=None, device=None):
+    """The prior with the reference setup's defaults (gamma=1, delta=5):
+    the dense BiLaplacian, or with ``use_bilaplacian=False`` the Laplacian
+    prior (``LaplacianPrior``)."""
+    if use_bilaplacian:
+        return BiLaplacian2D(Vh, gamma=gamma, delta=delta, dtype=dtype,
+                             device=device)
+    return LaplacianPrior(Vh, gamma, delta, dtype=dtype, device=device)

@@ -23,8 +23,8 @@ each nonzero band slot sums its element contributions, with no scatter.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable
+from dataclasses import dataclass, field
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
@@ -38,16 +38,19 @@ from .space import FunctionSpace
 @dataclass(frozen=True)
 class VectorGalerkinForm:
     """Weak form of an ``ncomp``-component state (see the module doc).
-    The callables receive the control ``z`` (N, dz) or None and ``c`` =
-    {}: the JAX package's coefficient fields serve no ported lane and are
-    not ported.  ``symmetric``: dr/du is SPD (Cholesky in the ``dense``
-    solver)."""
+    The callables receive the control ``z`` (N, dz) or None and ``c``, the
+    ``cell_coefficients``: name -> (nc,) per-cell constants, each handed
+    over as (nc, nq) and so broadcast over the sample axis (e.g. the cell
+    diameters of a stabilization term).  The JAX package's P1 dof-valued
+    ``coefficients`` serve no ported form and are not ported.
+    ``symmetric``: dr/du is SPD (Cholesky in the ``dense`` solver)."""
 
     ncomp: int
     flux: Callable | None = None
     source: Callable | None = None
     quad_degree: int = 2
     symmetric: bool = False
+    cell_coefficients: Mapping[str, np.ndarray] = field(default_factory=dict)
 
 
 class VectorBoundGalerkinForm:
@@ -92,6 +95,8 @@ class VectorBoundGalerkinForm:
             np.broadcast_to(gphi, (gphi.shape[0], nq) + gphi.shape[2:]).copy())
         self._xq = t(xq)  # (nc, nq, 2)
         self._wdet = t(wdet)  # (nc, nq)
+        self._coef = {name: t(np.repeat(np.asarray(vals)[:, None], nq, axis=1))
+                      for name, vals in form.cell_coefficients.items()}
         self._ordered_gather = None
 
     # -- element kernel ----------------------------------------------------
@@ -103,11 +108,11 @@ class VectorBoundGalerkinForm:
         mq = torch.einsum("qi,nci->ncq", self._phi_m, m_e)
         out = 0.0
         if self.form.flux is not None:
-            F = self.form.flux(self._xq, uq, gu, mq, z, {})
+            F = self.form.flux(self._xq, uq, gu, mq, z, self._coef)
             F = F * self._wdet[:, :, None, None]
             out = out + torch.einsum("cqid,ncqkd->ncik", self._grads, F)
         if self.form.source is not None:
-            S = self.form.source(self._xq, uq, gu, mq, z, {})
+            S = self.form.source(self._xq, uq, gu, mq, z, self._coef)
             out = out + torch.einsum("qi,ncqk->ncik", self._phi,
                                      S * self._wdet[:, :, None])
         return out

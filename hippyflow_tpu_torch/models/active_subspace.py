@@ -46,6 +46,7 @@ import torch
 from ..ops.operators import low_rank_operator, prior_preconditioned_projector
 from ..ops.randomized import double_pass, double_pass_g
 from ..utils import KeyChain, ParameterList
+from ..utils.plotting import spectrum_plot
 from .jacobian import ObservableJacobian, jjt_matmat, jtj_matmat
 from .sampling import (
     SampleBatch,
@@ -522,8 +523,10 @@ class ActiveSubspaceProjector:
                             zs)
 
     def _save(self, which: str, d, decoder):
-        """AS_<n><input|output_decoder_name>.npy and AS_<n>_d_GN.npy or
-        AS_<n>_d_NG.npy (arrays only)."""
+        """AS_<n><input|output_decoder_name>.npy, AS_<n>_d_GN.npy or
+        AS_<n>_d_NG.npy, and the spectrum's plot
+        AS_<n>_<which>_eigenvalues_<rank>.pdf (where matplotlib is
+        installed)."""
         outdir = self.parameters["output_directory"]
         if not self.parameters["save_and_plot"] or outdir is None:
             return
@@ -532,7 +535,12 @@ class ActiveSubspaceProjector:
         suffix = self.parameters[f"{which}_decoder_name"]
         np.save(os.path.join(outdir, name + suffix), decoder.cpu().numpy())
         dname = "_d_GN" if which == "input" else "_d_NG"
-        np.save(os.path.join(outdir, name + dname), d.cpu().numpy())
+        d = d.cpu().numpy()
+        np.save(os.path.join(outdir, name + dname), d)
+        spectrum_plot(d, axis_label=["i", r"$\lambda_i$", "spectrum"],
+                      out_name=os.path.join(
+                          outdir, f"{name}_{which}_eigenvalues_"
+                          f"{self.parameters['rank']}.pdf"))
 
 
 def _synchronize(device):

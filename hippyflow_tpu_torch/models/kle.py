@@ -27,6 +27,7 @@ from ..ops.linalg import CholeskyFactor, generalized_eigh
 from ..ops.operators import low_rank_operator, prior_preconditioned_projector
 from ..ops.randomized import double_pass, double_pass_g, lanczos_ghep, orthogonalize
 from ..utils import KeyChain, ParameterList
+from ..utils.plotting import spectrum_plot
 
 
 class MassPreconditionedCovarianceOperator:
@@ -156,14 +157,22 @@ class KLEProjector:
         return np.asarray(avg), np.asarray(std)
 
     def _save(self):
-        """``<input_decoder_name>.npy`` and ``KLE_d.npy`` (arrays only)."""
+        """``<input_decoder_name>.npy``, ``KLE_d.npy`` and the spectrum's
+        plot ``KLE_eigenvalues_<rank>.pdf`` (where matplotlib is
+        installed)."""
         outdir = self.parameters["output_directory"]
         if not self.parameters["save_and_plot"] or outdir is None:
             return
         os.makedirs(outdir, exist_ok=True)
         np.save(os.path.join(outdir, self.parameters["input_decoder_name"]),
                 self.V_KLE.cpu().numpy())
-        np.save(os.path.join(outdir, "KLE_d"), self.d_KLE.cpu().numpy())
+        d = self.d_KLE.cpu().numpy()
+        np.save(os.path.join(outdir, "KLE_d"), d)
+        spectrum_plot(d, axis_label=[
+            "i", r"$\lambda_i$",
+            "Eigenvalues of $C$" + self.parameters["plot_label_suffix"]],
+            out_name=os.path.join(
+                outdir, f"KLE_eigenvalues_{self.parameters['rank']}.pdf"))
 
 
 class KLESubspaceConstructor:

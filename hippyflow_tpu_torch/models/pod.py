@@ -32,6 +32,7 @@ from ..ops.operators import low_rank_operator, prior_preconditioned_projector
 from ..ops.randomized import double_pass
 from ..utils import KeyChain, ParameterList
 from ..utils.mesh_utils import export_vtk
+from ..utils.plotting import spectrum_plot
 from .sampling import auto_chunk_size, fresh_solves, sample_until_solved
 
 
@@ -109,8 +110,8 @@ class PODProjector:
 
     def construct_subspace(self):
         """Randomized HEP of (1/N) sum_i q_i q_i^T (reference
-        `PODProjector.py:331-389`); writes ``POD_projector.npy`` and
-        ``POD_d.npy`` when saving.  Returns (d, decoder, encoder)."""
+        `PODProjector.py:331-389`); writes ``POD_projector.npy``,
+        ``POD_d.npy`` and the spectrum's plot when saving.  Returns (d, decoder, encoder)."""
         t0 = time.time()
         n = self.parameters["sample_per_process"]
         self._ensure_samples(n)
@@ -129,7 +130,14 @@ class PODProjector:
         if self.parameters["save_and_plot"] and outdir:
             os.makedirs(outdir, exist_ok=True)
             np.save(os.path.join(outdir, "POD_projector"), self.U_MV.cpu().numpy())
-            np.save(os.path.join(outdir, "POD_d"), self.d.cpu().numpy())
+            d = self.d.cpu().numpy()
+            np.save(os.path.join(outdir, "POD_d"), d)
+            spectrum_plot(d, axis_label=[
+                "i", r"$\lambda_i$",
+                r"Eigenvalues of $\mathbb{E}_{\nu}[qq^T]$"
+                + self.parameters["plot_label_suffix"]],
+                out_name=os.path.join(
+                    outdir, f"POD_eigenvalues_{self.parameters['rank']}.pdf"))
         return self.d, self.U_MV, self.U_MV
 
     def generate_training_data(self, output_directory="data/",

@@ -992,3 +992,53 @@ def test_serialized_operator_on_card_matches_plain(cuda, dtype, monkeypatch):
     d_batched = spectrum(False)[0]
     tol = {torch.float32: 1e-4, torch.float64: 1e-10}[dtype]
     assert _rel(d, d_plain) < tol and _rel(d, d_batched) < tol
+
+
+def test_navier_stokes_on_card_matches_cpu(cuda):
+    """Steady Navier-Stokes at nx=16 (s=51, an indefinite saddle-point
+    band through K1's chain, K3-free, and K2) on the card against the CPU,
+    float64: the same Newton steps at every Reynolds number, velocity and
+    pressure within 1e-10."""
+    from hippyflow_tpu_torch.applications.navier_stokes import steady_navier_stokes
+
+    V = FunctionSpace(unit_square_mesh(16))
+    hk.reset_launch_counts()
+    v, p, info = steady_navier_stokes(V, dtype=torch.float64, device=cuda)
+    assert hk.banded_factorize.launches > 0 and hk.banded_solve.launches > 0
+    v_c, p_c, info_c = steady_navier_stokes(V, dtype=torch.float64, device="cpu")
+    assert info.history == info_c.history
+    assert _rel(v.cpu(), v_c) <= 1e-10 and _rel(p.cpu(), p_c) <= 1e-10
+
+
+def test_k3_on_navier_stokes_schur_complements(cuda):
+    """K3 without pivoting on the Schur complements T_j = D_j - M_j B_{j-1}
+    of the Navier-Stokes Jacobian at nx=64 (s=195, Re=100, at the
+    converged state): max|T T^-1 - I| within 10x of torch.linalg.inv's,
+    and K1's rows against the pivoted plain factorization."""
+    from hippyflow_tpu_torch.applications.navier_stokes import (
+        _ns_bc,
+        _ns_form,
+        steady_navier_stokes,
+    )
+    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
+    from hippyflow_tpu_torch.models import VariationalPDEProblem
+
+    V = FunctionSpace(unit_square_mesh(64))
+    f64 = dict(dtype=torch.float64, device=cuda)
+    v, p, _ = steady_navier_stokes(V, **f64)
+    pde = VariationalPDEProblem(V, V, _ns_form(V, 100.0), _ns_bc(V), **f64)
+    u = torch.cat([v[:, 0], v[:, 1], p])[None]
+    band = bc_symmetrize_banded_masked(pde.bound.assemble_A_banded_ordered(
+        u, torch.zeros((1, V.dim), **f64), pde._band_order), pde._band_mask)
+    N, nb, s, _ = band.shape
+    assert s == 195
+    M_p, D_p = hk.banded_factorize_plain(band)
+    T = band[..., s : 2 * s].clone()
+    T[:, 1:] -= M_p[:, 1:] @ band[:, :-1, :, 2 * s :]
+    T = T.reshape(N * nb, s, s)
+    eye = torch.eye(s, **f64)
+    res_k3 = (T @ hk.batched_inverse(T) - eye).abs().max().item()
+    res_inv = (T @ torch.linalg.inv(T) - eye).abs().max().item()
+    assert res_k3 <= 10.0 * res_inv, (res_k3, res_inv)
+    M, Dinv = hk.banded_factorize(band)
+    assert _rel(M, M_p) <= TOL[torch.float64] and _rel(Dinv, D_p) <= TOL[torch.float64]

@@ -18,6 +18,7 @@ import sys
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from applications.confusion import (
@@ -164,7 +165,7 @@ def test_parity_reference_nx64():
 
 _NO_JAX = """
 import sys
-FORBIDDEN = ("jax", "jaxlib", "hippyflow_tpu", "applications")
+FORBIDDEN = ("jax", "jaxlib", "hippyflow_tpu", "applications", "matplotlib")
 for name in [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]:
     del sys.modules[name]
 
@@ -187,6 +188,12 @@ import hippyflow_tpu_torch.models.pde_problem, hippyflow_tpu_torch.models.jacobi
 import hippyflow_tpu_torch.models.sampling, hippyflow_tpu_torch.ops.linalg
 import hippyflow_tpu_torch.models.model_wrapper, hippyflow_tpu_torch.models.multi_pde
 import hippyflow_tpu_torch.models.cminimization, hippyflow_tpu_torch.utils.mv_utilities
+import hippyflow_tpu_torch.applications.navier_stokes
+import hippyflow_tpu_torch.applications.helmholtz_setup
+import hippyflow_tpu_torch.applications.helmholtz_training
+import hippyflow_tpu_torch.applications.confusion_multirun
+import hippyflow_tpu_torch.applications.helmholtz_multirun
+import hippyflow_tpu_torch.utils.plotting
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 sys.exit(f"loaded {bad}" if bad else 0)
 """
@@ -198,9 +205,10 @@ def test_import_pulls_in_no_jax():
     generator and operator modules, its solvers and control paths, its
     inverse-problem wrapper, multi-source problems and constrained Newton,
     its Poisson control fixture (``testing``), mesh I/O and multivector
-    shims, and its confusion,
-    confusion-setup, confusion-training and helmholtz applications
-    import."""
+    shims, its plots, and its confusion, confusion-setup,
+    confusion-training, helmholtz, Navier-Stokes, helmholtz-setup,
+    helmholtz-training and both multirun applications import, and
+    matplotlib is not imported with them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
@@ -219,4 +227,28 @@ def test_every_public_model_name_has_a_counterpart():
              and n not in ("annotations",)]
     assert len(names) > 50
     missing = [n for n in names if not hasattr(port_models, n)]
+    assert not missing, missing
+
+
+APPLICATIONS = ("confusion", "helmholtz", "navier_stokes", "helmholtz_setup",
+                "helmholtz_training", "confusion_multirun", "helmholtz_multirun")
+
+
+@pytest.mark.parametrize("module", [f"applications.{m}" for m in APPLICATIONS]
+                         + ["hippyflow_tpu.utils.plotting"])
+def test_every_public_application_function_has_a_counterpart(module):
+    """Each public function and class that a JAX application module (or
+    the JAX plotting module) defines exists in the port's module of the
+    same name."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(module)
+    port = importlib.import_module(
+        "hippyflow_tpu_torch." + module.replace("hippyflow_tpu.", ""))
+    names = [n for n, o in vars(mod).items() if not n.startswith("_")
+             and (inspect.isfunction(o) or inspect.isclass(o))
+             and o.__module__ == mod.__name__]
+    assert names
+    missing = [n for n in names if not callable(getattr(port, n, None))]
     assert not missing, missing

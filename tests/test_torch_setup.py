@@ -418,7 +418,8 @@ def test_chunk_bookkeeping_matches_jax(tmp_path):
 
 def test_unported_cases_raise(tmp_path):
     """What is still not ported raises, naming its ROADMAP item; what was
-    ported since refuses only what the JAX package refuses: a control
+    ported since refuses only what the JAX package refuses (the setup
+    driver's Navier-Stokes velocity no longer refuses any nx): a control
     Jacobian without a control distribution, the POD input-output error
     test of a control problem, and the two-step generation of an
     observable that is not the full state."""
@@ -433,8 +434,11 @@ def test_unported_cases_raise(tmp_path):
     pod = TPOD(tobs, tpr, control_distribution=UniformDistribution(3, -1, 1))
     with pytest.raises(ValueError, match="control"):
         pod.input_output_error_test(np.eye(tobs.dM)[:, :2])
-    with pytest.raises(NotImplementedError, match="M12"):
-        confusion_setup._velocity("ns", 12)
+    # the Navier-Stokes velocity is ported: the driver reads the JAX
+    # package's cached field where there is one and solves elsewhere
+    assert confusion_setup._velocity("ns", 12) == "navier_stokes"
+    assert confusion_setup._velocity("ns", 64).shape == (65 * 65, 2)
+    assert confusion_setup._velocity("analytic", 64) == "analytic"
 
 
 # -- bit-exact resume within the port ----------------------------------------------
