@@ -82,6 +82,12 @@ each:
    oversampling 10, through ``ActiveSubspaceProjector``, grid-sequenced
    (depth 2: coarse levels nx=32 and 16 on the restricted velocity, as
    ``bench.py`` builds them), and once more cold-started for comparison;
+    then ``bench.py``'s forward-utilization probe: ``mfu_report``
+    (``utils/profiling.py``) over ``solve_fwd`` of 256 prior samples, and
+    ``forward_tflops`` / ``forward_mfu`` and ``forward_hbm_gbs_model`` /
+    ``forward_hbm_util_model`` from the analytic inverse-Thomas models
+    (``thomas_inv_flops`` / ``thomas_inv_bytes``, one factorization and
+    one k=1 solve per sample and Newton iteration), both shares in (0, 1];
 9b. training: ``bench.py``'s training lane on the main path's
     grid-sequenced run (its samples and decoder; ``training_lane``): the
     output POD from data, DIPNet 8 x 16 (1924 parameters), 512 / 512
@@ -180,6 +186,24 @@ each:
     same call, which trains nothing; then float64 card against CPU:
     Navier-Stokes at nx=16 (limit 1e-10) and the helmholtz setup lane at
     nx=10 from one given noise (limit 1e-8);
+9g. p2: a scalar P2 state, the JAX package's P2 fixture (flux exp(m) grad
+    u, source u^3 - 1, u = 0 on the boundary) at nx=64 (16641 dofs, s=258,
+    nb=65; P1 parameter, the main path's dense prior and 100
+    observations), each step one path: (1) ``p2``: the float32 input
+    active subspace, 256 samples, rank 128, chunks 32 / 16 (stage seconds
+    from the projector's ``PhaseTimer``, each stage an ``annotate``
+    range), K1's rows, the Schur step, K3 and K2 both designs launched,
+    the float32 Jacobian against float64 for 2 samples (limit 1e-4), the
+    run under ``utils.profiling.trace`` (the device busy share and the
+    Chrome trace's size); (2) ``p2_f64``: the Poisson problem with
+    u = x^2 on the boundary at nx=64 (x^2 to 1e-9), the L2 error's rate at
+    nx=16, 32, 64 (above 2.7), and the float64 subspace at nx=16 on the
+    card against the CPU from one given noise (1e-8); then K1 and K2 at
+    N=16 and 32 (K2 streamed k=1 and panels k=100 transposed) against
+    their plain versions in both dtypes, K1's rows (``K1 designs``), its
+    Schur step beside the library pair (``K1 Schur``) and K3 on one block
+    row's Schur complements (32, 258) against plain, ``torch.linalg.inv``
+    and the bound (``K3 clusters``);
 10. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
     256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16,
     grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started; then the
@@ -223,6 +247,16 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+# the kernels' bounds on one H100 SXM (operations at 67 TFLOP/s in float32
+# and float64, bytes at 3.35 TB/s)
+from hippyflow_tpu_torch.utils.profiling import (  # noqa: E402
+    bound_keys,
+    k1_bound,
+    k2_bound,
+    k3_bound,
+    schur_bound,
+)
 
 NX = 64
 N_BAND = 256  # samples of the kernel phase
@@ -248,11 +282,6 @@ PIVOT_FACTOR = 10.0
 # the float32 helmholtz Jacobian against the same samples in float64,
 # relative to max|J|
 JAC_TOL_F32 = 1e-4
-# Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): float32 outside
-# the tensor cores (a float32 mma would be TF32), float64 through the FP64
-# tensor cores (IEEE double; 34e12 outside them), and HBM3 bytes per second
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
-HBM_BYTES_PER_S = 3.35e12
 # the later block row at which K1's Schur step is checked and timed alone
 SCHUR_ROW = 5
 # thread blocks per matrix at which K3 is timed beside 1 and the picked one
@@ -354,47 +383,6 @@ def paired_ms(kernel, plain, reps: int = 5):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def bound(flops: float, nbytes: float, dtype):
-    """(ms, 'operations' or 'bytes'): the least time the card could take
-    for ``flops`` operations in dtype and ``nbytes`` moved, the larger of
-    the two at the peak rates."""
-    ops = 1e3 * flops / PEAK_FLOPS[dtype]
-    mem = 1e3 * nbytes / HBM_BYTES_PER_S
-    return (ops, "operations") if ops >= mem else (mem, "bytes")
-
-
-def bound_keys(tag: str, ms: float, by: str) -> dict:
-    """The JSON keys of a bound at the shape ``tag`` names."""
-    return {f"bound_ms_{tag}": ms, f"bound_by_{tag}": by}
-
-
-def _item(dtype) -> int:
-    return torch.finfo(dtype).bits // 8
-
-
-def k1_bound(N, nb, s, dtype):
-    """K1: per sample one s x s inverse (2 s^3) at row 0 and two products
-    and an inverse (6 s^3) at each later row; the band read once, M and
-    Dinv written once."""
-    return bound(N * (6 * (nb - 1) + 2) * s**3, 5 * N * nb * s * s * _item(dtype),
-                 dtype)
-
-
-def k2_bound(N, nb, s, k, dtype):
-    """K2: the 3 nb - 2 blocks of M, Dinv and B a sweep uses, each read
-    once and applied to k columns (2 s^2 k); the rhs read and the solution
-    written once."""
-    blocks = N * (3 * nb - 2)
-    return bound(2 * blocks * s * s * k,
-                 (blocks * s * s + 2 * N * nb * s * k) * _item(dtype), dtype)
-
-
-def k3_bound(N, s, dtype):
-    """K3/K4: s^3 multiply-adds per matrix (in-place Gauss-Jordan), each
-    matrix read and written once."""
-    return bound(2 * N * s**3, 2 * N * s * s * _item(dtype), dtype)
 
 
 def time_k3_clusters(X, label, row=None, reps=5):
@@ -669,7 +657,6 @@ def k1_schur(band64, label, parent=None, dtypes=(torch.float32, torch.float64),
         device_ms,
         kernel_ms,
         library_pair,
-        schur_bound,
     )
 
     N, _, s, _ = band64.shape
@@ -1479,6 +1466,50 @@ def phase_main(obs32, prior32, levels):
         if lv is not None:
             kept = proj
     return paths, kept
+
+
+def forward_utilization(obs32, prior32):
+    """bench.py's forward-solve utilization probe on the nx=64 main path:
+    ``mfu_report`` over ``solve_fwd`` of B = min(256, N_SAMPLES) prior
+    samples, and the analytic inverse-Thomas models (one factorization and
+    one k=1 solve per sample and Newton iteration, at the most iterations
+    of any sample) over its seconds, against the card's peaks.  Both shares
+    must lie in (0, 1]."""
+    from hippyflow_tpu_torch.ops import thomas_inv_bytes, thomas_inv_flops
+    from hippyflow_tpu_torch.utils.profiling import (
+        device_peak_hbm_gbs,
+        device_peak_tflops,
+        mfu_report,
+    )
+
+    problem = obs32.problem
+    device, dtype = prior32.mean.device, prior32.mean.dtype
+    B = min(256, N_SAMPLES)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ms = prior32.sample(torch.randn(B, prior32.noise_dim, generator=gen,
+                                    dtype=dtype, device=device))
+    rep = mfu_report(lambda m: problem.solve_fwd(m)[0], ms, name="newton_forward")
+    _, info = problem.solve_fwd(ms)
+    iters = float(info.iterations.max().item())
+    check(problem.fwd_solver == "thomas_inv",
+          f"forward utilization: the forward solver is {problem.fwd_solver}")
+    s = problem._block_size
+    nb = problem.state_dim // s
+    tf = thomas_inv_flops(nb, s, 1) * B * iters / rep["seconds"] / 1e12
+    gbs = (thomas_inv_bytes(nb, s, 1, torch.finfo(dtype).bits // 8) * B * iters
+           / rep["seconds"] / 1e9)
+    out = {
+        "forward_tflops": tf, "forward_mfu": tf / device_peak_tflops(device),
+        "forward_hbm_gbs_model": gbs,
+        "forward_hbm_util_model": gbs / device_peak_hbm_gbs(device),
+        "newton_iters_max": iters, "samples": B, "seconds": rep["seconds"],
+        "aten_tflops": rep["tflops"], "aten_gbs": rep["gbs"],
+        "aten_bytes_ratio": rep["xla_bytes_ratio"],
+    }
+    log(f"forward utilization float32 nx={NX}: {json.dumps(out)}")
+    for key in ("forward_mfu", "forward_hbm_util_model"):
+        check(0.0 < out[key] <= 1.0, f"forward utilization {key} {out[key]}")
+    return out
 
 
 def _finite(*values) -> bool:
@@ -3090,19 +3121,25 @@ def ns_state(V, velocity, pressure):
     return torch.cat([velocity[:, 0], velocity[:, 1], pressure])[None]
 
 
+def ordered_band(pde, u, m):
+    """The bc-symmetrized band of ``pde`` (a P2 or vector state) at (u, m),
+    in band order (N, nb, s, 3s)."""
+    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
+
+    band = pde.bound.assemble_A_banded_ordered(u, m, pde._band_order)
+    return bc_symmetrize_banded_masked(band, pde._band_mask).contiguous()
+
+
 def ns_band(V, u, device):
     """The bc-symmetrized Navier-Stokes Jacobian at Re=100 at the state
     u (1, 3n), float64, in band order (1, nb, s, 3s)."""
     from hippyflow_tpu_torch.applications.navier_stokes import _ns_bc, _ns_form
-    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
     from hippyflow_tpu_torch.models import VariationalPDEProblem
 
     pde = VariationalPDEProblem(V, V, _ns_form(V, 100.0), _ns_bc(V),
                                 dtype=torch.float64, device=device)
-    m = torch.zeros((1, V.dim), dtype=torch.float64, device=device)
-    band = bc_symmetrize_banded_masked(
-        pde.bound.assemble_A_banded_ordered(u, m, pde._band_order), pde._band_mask)
-    return band.contiguous()
+    return ordered_band(pde, u, torch.zeros((1, V.dim), dtype=torch.float64,
+                                            device=device))
 
 
 def ns_k3_residual(band64, label):
@@ -3447,6 +3484,278 @@ def phase_drivers(device):
     return paths, records
 
 
+# the p2 phase: the JAX package's scalar P2 fixture (tests/test_band_order.py,
+# tests/test_p2.py: flux exp(m) grad u, source u^3 - 1, quadrature degree
+# 4, u = 0 on the boundary) at the main path's mesh (P2 state, 16641 dofs,
+# s=258, nb=65; P1 parameter, 4225 dofs), the main path's dense prior and
+# observations, and the nx=192 lane's settings
+P2_NX, P2_S = NX, 2 * (2 * NX + 1)
+P2_SAMPLES, P2_RANK, P2_CHUNK, P2_JAC_CHUNK = 256, 128, 32, 16
+# float64: the Poisson problem with u = x^2 on the boundary reproduces x^2,
+# and the L2 error of the sin sin problem falls at a rate above 2.7 (P2's
+# is 3) over these meshes
+P2_EXACT_TOL, P2_RATE_MIN, P2_RATE_NX = 1e-9, 2.7, (16, 32, 64)
+# the float64 subspace at nx=16 on the card against the CPU from the same
+# given noise (rank 16, 32 samples): every eigenvalue above 1e-4 lambda_0
+P2_CHECK_NX, P2_CHECK_RANK, P2_CHECK_N, P2_F64_TOL = 16, 16, 32, 1e-8
+
+
+def p2_observable(nx, dtype, device):
+    """(observable, P1 space) of the scalar P2 fixture at nx, observed at
+    the confusion problem's 100 targets."""
+    from hippyflow_tpu_torch.fem import (
+        DirichletBC,
+        FunctionSpace,
+        GalerkinForm,
+        grid_targets,
+        unit_square_mesh,
+    )
+    from hippyflow_tpu_torch.models import (
+        LinearStateObservable,
+        PointwiseObservation,
+        VariationalPDEProblem,
+    )
+
+    mesh = unit_square_mesh(nx)
+    V2, V1 = FunctionSpace(mesh, degree=2), FunctionSpace(mesh)
+    form = GalerkinForm(
+        flux=lambda x, u, gu, m, z, c: torch.exp(m)[..., None] * gu,
+        source=lambda x, u, gu, m, z, c: u**3 - 1.0, quad_degree=4)
+    pde = VariationalPDEProblem(V2, V1, form,
+                                DirichletBC.from_predicate(V2, None, 0.0),
+                                dtype=dtype, device=device)
+    B = PointwiseObservation(V2, grid_targets(0.6, 0.8, 10), dtype=dtype,
+                             device=device)
+    return LinearStateObservable(pde, B), V1
+
+
+def p2_subspace(device):
+    """Path p2: the float32 input active subspace of the P2 problem at
+    nx=64, counted and under ``utils.profiling.trace`` (the device busy
+    share); its stage seconds (PhaseTimer phases and annotate ranges
+    inside the projector), K1's rows, the Schur step, K3 and K2 both
+    designs launched, the float32 Jacobian against float64 for 2 samples.
+    Float32 Newton stalls at its rounding floor on a few samples (exp(m)
+    reaches e^8): those are resampled, as in the JAX package, and counted
+    in the run's line.  Returns (launches, the shapes K1 and K2 ran at,
+    the float64 band of the first chunk)."""
+    from hippyflow_tpu_torch.applications.confusion import confusion_prior
+    from hippyflow_tpu_torch.models import ObservableJacobian
+    from hippyflow_tpu_torch.utils import trace
+
+    f32, f64 = torch.float32, torch.float64
+    obs32, V1 = p2_observable(P2_NX, f32, device)
+    pde = obs32.problem
+    border = pde._band_order
+    log(f"p2 nx={P2_NX}: P2 state {pde.state_dim} dofs, P1 parameter {V1.dim} "
+        f"dofs, s={border.s}, nb={border.nb}, pad rows {border.n_pad}, "
+        f"dQ={obs32.dQ}; solvers {pde.fwd_solver} / {pde.adj_solver}")
+    check((border.s, border.nb, pde.fwd_solver, pde.adj_solver)
+          == (P2_S, P2_NX + 1, "thomas_inv", "thomas_inv"),
+          f"p2: s={border.s}, nb={border.nb}, {pde.fwd_solver}/{pde.adj_solver}")
+
+    def run(label):
+        return run_subspace(
+            obs32, lambda: confusion_prior(V1, dtype=f32, device=device), label,
+            P2_SAMPLES, P2_RANK, chunk_size=P2_CHUNK, jac_chunk_size=P2_JAC_CHUNK)
+
+    label = f"p2 float32 nx={P2_NX}"
+    # one run, counted and traced (the profiler's host cost is small beside
+    # the run's; its Chrome trace goes to a temporary directory)
+    with tempfile.TemporaryDirectory(prefix="p2_trace_") as log_dir:
+        with band_kernel_shapes() as shapes, trace(log_dir) as prof:
+            t0 = time.perf_counter()
+            launches, proj = run(label)
+            wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        size = sum(os.path.getsize(os.path.join(log_dir, f))
+                   for f in os.listdir(log_dir))
+    busy = busy_line(prof, wall)
+    t2 = time.perf_counter()
+    log(f"trace {label}: {busy}; Chrome trace {size / 1e6:.1f} MB, written in "
+        f"{t1 - t0 - wall:.1f} s, read in {t2 - t1:.1f} s")
+    del prof
+    check(set(proj.stage_seconds) == {"forward", "jacobian", "ghep"},
+          f"p2 stages {sorted(proj.stage_seconds)}")
+    for key in ("banded_factorize_rows", "schur_step", "batched_inverse",
+                "banded_solve_streamed", "banded_solve_panels"):
+        check(launches[key] > 0, f"{key} was not launched on p2")
+    check(launches["banded_factorize_chain"] == 0,
+          "p2: K1's chain ran at s=258 (above its limit)")
+    obs64, _ = p2_observable(P2_NX, f64, device)
+    m64 = proj.samples.ms[:2].double()
+    u64, info = obs64.problem.solve_fwd(m64)
+    check(bool(info.converged.all()), "p2 float64 solves did not converge")
+    J64 = ObservableJacobian(obs64).materialize(
+        obs64.problem.linearize(u64, m64, needs="adj"))
+    rel = rel_err(proj.Js[:2].double(), J64)
+    log(f"p2 Jacobian float32 against float64 (2 samples): max|dJ| / max|J| "
+        f"{rel:.3e} (limit {JAC_TOL_F32})")
+    check(rel <= JAC_TOL_F32, f"p2 J float32 vs float64 {rel:.3e}")
+    n_band = max(key[1] for key in shapes)
+    band64 = ordered_band(obs64.problem, proj.samples.us[:n_band].double(),
+                          proj.samples.ms[:n_band].double())
+    return launches, shapes, band64
+
+
+def p2_f64(device):
+    """Path p2_f64: the float64 checks that need no reference (x^2 exact
+    at nx=64, the convergence rate), then the float64 subspace at nx=16 on
+    the card against the CPU from one given noise.  Returns the launches."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.fem import (
+        DirichletBC,
+        FunctionSpace,
+        GalerkinForm,
+        unit_square_mesh,
+    )
+    from hippyflow_tpu_torch.models import (
+        ActiveSubspaceParameterList,
+        ActiveSubspaceProjector,
+        BiLaplacian2D,
+        VariationalPDEProblem,
+    )
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+    from hippyflow_tpu_torch.utils import GivenNoise
+
+    f64 = dict(dtype=torch.float64, device=device)
+    hk.reset_launch_counts()
+
+    def poisson(nx, bc_value, source):
+        V2 = FunctionSpace(unit_square_mesh(nx), degree=2)
+        V1 = FunctionSpace(V2.mesh)
+        form = GalerkinForm(flux=lambda x, u, gu, m, z, c: gu, source=source,
+                            quad_degree=5, symmetric=True)
+        pde = VariationalPDEProblem(V2, V1, form,
+                                    DirichletBC.from_predicate(V2, None, bc_value),
+                                    is_fwd_linear=True, **f64)
+        u, info = pde.solve_fwd(torch.zeros((1, V1.dim), **f64))
+        check(bool(info.converged.all()), f"p2 Poisson nx={nx} did not converge")
+        return V2, u[0]
+
+    V2, u = poisson(P2_NX, lambda x: x[:, 0] ** 2, lambda x, u, gu, m, z, c: 2.0)
+    exact = torch.as_tensor(V2.dof_coords[:, 0] ** 2, **f64)
+    err = (u - exact).abs().max().item()
+    sin_src = (lambda x, u, gu, m, z, c: -2.0 * math.pi**2
+               * torch.sin(math.pi * x[..., 0]) * torch.sin(math.pi * x[..., 1]))
+    errs = []
+    for nx in P2_RATE_NX:
+        V2, u = poisson(nx, 0.0, sin_src)
+        x = V2.dof_coords
+        e = u - torch.as_tensor(np.sin(np.pi * x[:, 0]) * np.sin(np.pi * x[:, 1]),
+                                **f64)
+        # e^T M e cell by cell (the P2 mass matrix at nx=64 is 2.2 GB dense)
+        phi, _, _, wdet = V2.quad_data(2 * V2.degree)
+        eq = e[torch.as_tensor(V2.cell_dofs, device=device)] @ torch.as_tensor(
+            phi, **f64).T
+        errs.append(math.sqrt((eq**2 * torch.as_tensor(wdet, **f64)).sum().item()))
+    rates = [math.log2(a / b) for a, b in zip(errs, errs[1:])]
+    log(f"p2 float64 exactness nx={P2_NX}: max|u - x^2| {err:.3e} (limit "
+        f"{P2_EXACT_TOL:.0e}); L2 errors at nx={P2_RATE_NX} "
+        f"{[f'{v:.3e}' for v in errs]}, rates {[round(r, 3) for r in rates]} "
+        f"(limit > {P2_RATE_MIN})")
+    check(err <= P2_EXACT_TOL, f"p2 x^2 exactness {err:.3e}")
+    check(min(rates) > P2_RATE_MIN, f"p2 convergence rates {rates}")
+    spectra = []
+    for dev in (device, torch.device("cpu")):
+        obs, V1 = p2_observable(P2_CHECK_NX, torch.float64, dev)
+        params = ActiveSubspaceParameterList()
+        params["rank"], params["oversampling"] = P2_CHECK_RANK, OVERSAMPLING
+        params["samples_per_process"], params["verbose"] = P2_CHECK_N, False
+        proj = ActiveSubspaceProjector(
+            obs, BiLaplacian2D(V1, gamma=0.1, delta=1.0, dtype=torch.float64,
+                               device=dev), parameters=params)
+        proj.keychain = GivenNoise(np.random.default_rng(SEED), dev)
+        spectra.append(proj.construct_input_subspace()[0].cpu())
+    d, d_cpu = spectra
+    head = d_cpu.abs() > 1e-4 * d_cpu[0].abs()
+    diff = ((d - d_cpu).abs() / d_cpu.abs())[head].max().item()
+    launches = launch_counts()
+    log(f"p2 float64 card against CPU nx={P2_CHECK_NX} ({P2_CHECK_N} samples, "
+        f"rank {P2_CHECK_RANK}): max relative eigenvalue difference {diff:.3e} "
+        f"over {int(head.sum())} (limit {P2_F64_TOL:.0e}); launches K1 "
+        f"{launches['banded_factorize']} (chain {launches['banded_factorize_chain']}"
+        f", rows {launches['banded_factorize_rows']}) K2 {launches['banded_solve']}"
+        f" K3 {launches['batched_inverse']}")
+    check(diff <= P2_F64_TOL, f"p2 float64 card vs CPU {diff:.3e}")
+    return launches
+
+
+def p2_kernel_records(band64, shapes, label):
+    """On the P2 bands: K1 and K2 at every shape of the p2 run, with K2's
+    streamed k=1 and panels k=100 transposed at N=16 and 32 both, against
+    their plain versions (``k12_shape_records``), K1's rows
+    (``k1_designs``) and its Schur step alone (``k1_schur``, beside the
+    library pair), and K3 on one block row's Schur complements in both
+    dtypes against its plain version (and ``torch.linalg.inv``'s identity
+    residual), timed in turns with it, at each cluster size, beside
+    ``torch.linalg.inv`` and the bound.  Returns the records for the
+    kernels' JSON line by kernel."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    N, nb, s, _ = band64.shape
+    # the chunks' shapes (Newton also runs the lanes still active, at every
+    # smaller N), with K2 at k=1 and k=100 at both
+    ns = (P2_JAC_CHUNK, P2_CHUNK)
+    log(f"{label}: K1 ran at N={sorted({k[1] for k in shapes if k[0] == 'K1'})}, "
+        f"K2 at (N, k, trans)={sorted({(k[1], k[4], k[5]) for k in shapes if k[0] == 'K2'})}")
+    shapes = {k for k in shapes if k[1] in ns} | {
+        ("K2", n, nb, s, k, k > 1) for n in ns for k in (1, RANK)}
+    k1, k2 = k12_shape_records(band64, shapes, label)
+    k1[f"designs_{label}"] = k1_designs(band64, f"{label} bands", reps=3)
+    schur = {f"{label}_n{N}_s{s}": k1_schur(band64, f"{label} bands", reps=5)}
+    j = nb // 2
+    M64, _ = hk.banded_factorize_plain(band64[:, : j + 1].contiguous())
+    T64 = (band64[:, j, :, s : 2 * s]
+           - M64[:, j] @ band64[:, j - 1, :, 2 * s :]).contiguous()
+    del M64
+    k3, eye = {}, torch.eye(s, dtype=torch.float64, device=band64.device)
+    for dtype in (torch.float32, torch.float64):
+        T = T64.to(dtype)
+        Y, Y_p = hk.batched_inverse(T), hk.batched_inverse_plain(T)
+        torch.cuda.synchronize()
+        diff = rel_err(Y, Y_p)
+        res = (T64 @ Y.double() - eye).abs().max().item()
+        res_inv = (T64 @ torch.linalg.inv(T).double() - eye).abs().max().item()
+        check(diff <= TOL_INV[dtype]["diff"],
+              f"K3 {label} {dtype}: kernel vs plain {diff:.3e}")
+        check(res <= max(TOL_INV[dtype]["residual"], PIVOT_FACTOR * res_inv),
+              f"K3 {label} {dtype}: max|T T^-1 - I| {res:.3e}")
+        tag = f"{label}_n{N}_s{s}" + ("" if dtype == torch.float32 else "_f64")
+        rec = time_k3_clusters(T, f"{label} Schur complements")
+        ms, plain_ms = paired_ms(lambda: hk.batched_inverse(T),
+                                 lambda: hk.batched_inverse_plain(T), 3)
+        log(f"K3 {label} {str(dtype)[6:]} Schur complements {tuple(T.shape)}: rel "
+            f"diff {diff:.3e}, max|T T^-1 - I| {res:.3e} (torch.linalg.inv "
+            f"{res_inv:.3e}); K3 {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        k3.update({f"{key}_{tag}": v for key, v in rec.items()})
+        k3.update({f"max_abs_err_{tag}": (Y - Y_p).abs().max().item(),
+                   f"plain_ms_{tag}": plain_ms})
+        del T, Y, Y_p
+    return {"banded_factorize": k1, "banded_solve": k2, "batched_inverse": k3,
+            "schur": schur}
+
+
+def phase_p2(device):
+    """The p2 phase: each step one path (see the module doc).  Returns
+    (launches by path, the kernel records)."""
+    t_phase = time.perf_counter()
+    paths = {}
+    paths["p2"], shapes, band64 = p2_subspace(device)
+    torch.cuda.empty_cache()
+    t_f64 = time.perf_counter()
+    paths["p2_f64"] = p2_f64(device)
+    t_rec = time.perf_counter()
+    records = p2_kernel_records(band64, shapes, "p2")
+    del band64
+    torch.cuda.empty_cache()
+    t_end = time.perf_counter()
+    log(f"p2 phase {t_end - t_phase:.1f} s (p2 {t_f64 - t_phase:.1f}, p2_f64 "
+        f"{t_rec - t_f64:.1f}, kernel records {t_end - t_rec:.1f})")
+    return paths, records
+
+
 def phase_lane192(device, profile=False):
     """The float32 nx=192 lane, grid-sequenced (the counted path) and
     cold-started: confusion_prior builds the structured prior (cyclic
@@ -3570,6 +3879,27 @@ KERNEL_NAMES = (("K1 chain", "banded_chain_kernel"),
                 ("K3/K4", "gj_inverse_kernel"))
 
 
+def busy_line(prof, wall) -> str:
+    """Device busy share of a profiled run and each port kernel's device
+    time, share and launches, from the profiler's raw events (parsing them
+    into ``prof.events()`` took 146 s for a 21 s run of the p2 lane)."""
+    # device-side events (kernels, copies) carry their own durations; one
+    # stream, so their sum is the busy time.  The GPU spans of the
+    # ``annotate`` ranges are device-side too, and overlap the kernels
+    events = [(e.name(), e.duration_ns() / 1e3)
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type().name == "CUDA" and not e.is_user_annotation()]
+    device_us = sum(us for _, us in events)
+    parts = []
+    for key, pattern in KERNEL_NAMES:
+        mine = [us for name, us in events if pattern in name]
+        if mine:
+            parts.append(f"{key} {sum(mine) / 1e6:.3f} s "
+                         f"({100 * sum(mine) / device_us:.1f}%, {len(mine)} launches)")
+    return (f"wall {wall:.3f} s, device busy {device_us / 1e6:.3f} s "
+            f"({100 * device_us / 1e6 / wall:.1f}%); " + "; ".join(parts))
+
+
 def profile_run(label, fn):
     """fn() once under torch.profiler (--profile): wall, device busy
     share, each port kernel's device time, share and launches, and the
@@ -3581,18 +3911,7 @@ def profile_run(label, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events (kernels, copies) carry their own durations; one
-    # stream, so their sum is the busy time
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    device_us = sum(e.device_time_total for e in events)
-    parts = []
-    for key, pattern in KERNEL_NAMES:
-        mine = [e.device_time_total for e in events if pattern in e.name]
-        if mine:
-            parts.append(f"{key} {sum(mine) / 1e6:.3f} s "
-                         f"({100 * sum(mine) / device_us:.1f}%, {len(mine)} launches)")
-    log(f"profile {label}: wall {wall:.3f} s, device busy {device_us / 1e6:.3f} s "
-        f"({100 * device_us / 1e6 / wall:.1f}%); " + "; ".join(parts))
+    log(f"profile {label}: {busy_line(prof, wall)}")
     log(prof.key_averages().table(sort_by="self_device_time_total",
                                   row_limit=25))
 
@@ -3649,6 +3968,7 @@ def run_phases(device, argv, parent=None):
     check([p._block_size for p, _ in levels64] == [NX // 2 + 1, NX // 4 + 1],
           f"nx={NX} levels {[p._block_size for p, _ in levels64]}")
     paths, proj64 = phase_main(obs32, prior32, levels64)
+    forward_utilization(obs32, prior32)
     save = argv[argv.index("--save-h1") + 1] if "--save-h1" in argv else None
     phase_training(proj64, device, "--profile" in argv, save)
     del proj64
@@ -3663,6 +3983,9 @@ def run_phases(device, argv, parent=None):
     torch.cuda.empty_cache()
     drivers_paths, drivers_records = phase_drivers(device)
     paths.update(drivers_paths)
+    torch.cuda.empty_cache()
+    p2_paths, p2_records = phase_p2(device)
+    paths.update(p2_paths)
     torch.cuda.empty_cache()
     if "--profile" in argv:
         phase_profile(obs32, prior32)
@@ -3705,8 +4028,9 @@ def run_phases(device, argv, parent=None):
                      (f"s{s_helm}_f64", s516[f64]["k3_clusters"])):
         k3.update({f"{k}_{tag}": v for k, v in rec.items()})
     schur.update(drivers_records.pop("schur"))
+    schur.update(p2_records.pop("schur"))
     for name, rec in (*control_records.items(), *models_records.items(),
-                      *drivers_records.items()):
+                      *drivers_records.items(), *p2_records.items()):
         report[name].update(rec)
     for dtype, sfx in ((f32, f"s{s_helm}"), (f64, f"s{s_helm}_f64")):
         r = s516[dtype]
@@ -3771,7 +4095,6 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
     from hippyflow_tpu_torch.ops import hopper_kernels as hk
 
     device = torch.device("cuda", 0)

@@ -25,8 +25,15 @@ against.
 """
 
 from . import config
+from .version import __version__
 from .fem import *  # noqa: F401,F403
 from .models import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
-from .utils import GivenNoise, KeyChain, ParameterList
+from .utils import (
+    GivenNoise,
+    KeyChain,
+    ParameterList,
+    dense_to_mv_local,
+    mv_to_dense,
+)

@@ -1,4 +1,4 @@
-"""Galerkin assembly of P1 forms, batched over samples.
+"""Galerkin assembly of scalar P1 and P2 forms, batched over samples.
 
 Port of ``hippyflow_tpu/fem/assembly.py``.  A weak form is given by
 pointwise flux/source callables,
@@ -21,9 +21,11 @@ JAX package: every element-matrix entry lands on one of seven fixed
 matrix diagonals, so residual, band and C^T assembly are shifted
 slice-adds of (ny, nx) element grids, with no scatter, and the band's
 diagonals are written into the (nb, s, 3s) block-tridiagonal storage
-directly.  On any other mesh the element contributions are summed by
-``index_add_`` (the JAX package's segment sums), and dense matrices are
-scattered the same way.
+directly.  On any other mesh, and for a P2 state (its own dofmap, basis
+gradients per quadrature point, and a P1 parameter evaluated with the
+P1 basis), the element contributions are summed by ``index_add_`` (the
+JAX package's segment sums), dense matrices are scattered the same way,
+and the band is gathered into the permuted storage of a ``BandOrder``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import config
+from .band_order import ordered_band_indices
 from .mesh import boundary_edges
 from .space import FunctionSpace
 
@@ -49,12 +52,13 @@ class GalerkinForm:
 
     evaluated on tensors broadcast over leading (sample, cell, quadrature
     point) axes: ``x`` (cells, points, 2) positions, ``u`` state values,
-    ``grad_u`` (..., 2) state gradients, ``m`` parameter values, ``z`` the
+    ``grad_u`` (..., 2) state gradients (a P1 state's have a point axis of
+    length 1: they are constant on a cell), ``m`` parameter values, ``z`` the
     control (N, dz) of each sample or None, and ``c`` a dict of
     coefficient values at the points (``c[name]`` (...) or (..., k);
     ``c['grad_' + name]`` (..., 2) or (..., k, 2)).
 
-    coefficients: name -> (n,) or (n, k) dof values on the P1 space.
+    coefficients: name -> (n,) or (n, k) vertex values (P1 on the mesh).
     cell_coefficients: name -> (nc,) per-cell constants.
     symmetric: dr/du is symmetric positive definite, so the ``dense``
     solver factorizes it by Cholesky (else pivoted LU).
@@ -106,45 +110,82 @@ def structured_plan(V: FunctionSpace):
     return nx, ny, s, dict(plan), offs
 
 
-class BoundGalerkinForm:
+class _OrderedBand:
+    """dr/du gathered into the permuted (nb, s, 3s) band storage of a
+    ``BandOrder`` (``fem/band_order.py``): each nonzero band slot sums its
+    element contributions, with no scatter.  The form supplies
+    ``_band_dofs`` (nc, L), the stacked dof id of each local row of its
+    element Jacobians dr_e/du_e (N, nc, L, L), and ``_elem_jacobian``."""
+
+    _ordered_gather = None
+
+    def prepare_banded_ordered(self, border) -> None:
+        """Build the gather tables of the permuted band (host numpy work,
+        once)."""
+        if self._ordered_gather is None:
+            idx = ordered_band_indices(self._band_dofs, border)
+            self._ordered_gather = _build_gather_tables(
+                idx, border.nb * border.s * 3 * border.s, self.device)
+
+    def assemble_A_banded_ordered(self, u, m, border, z=None):
+        """dr/du in the band order of ``border``: (N, nb, s, 3s)."""
+        self.prepare_banded_ordered(border)
+        A_e = self._elem_jacobian(u, m, z, "u")
+        N = u.shape[0]
+        flat = _gather_assemble(A_e.reshape(N, -1), self._ordered_gather,
+                                border.nb * border.s * 3 * border.s)
+        return flat.reshape(N, border.nb, border.s, 3 * border.s)
+
+
+class BoundGalerkinForm(_OrderedBand):
     """A GalerkinForm bound to (state space, parameter space) on one device.
 
     Entry points, all batched over a leading sample axis (u (N, n), m
     (N, n_m), z (N, dz) or None):
       residual(u, m, z)             -> (N, n)
       assemble_A_banded(u, m, z)    -> dr/du in (N, nb, s, 3s) band storage
+      assemble_A_banded_ordered(u, m, border, z) -> dr/du in the permuted
+          band storage of a BandOrder (P2 states)
       assemble_A / assemble_C       -> dense dr/du (N, n, n), dr/dm (N, n, n_m)
       assemble_Cz(u, m, z)          -> dense dr/dz (N, n, dz)
       assemble_A_diag(u, m, z)      -> the diagonal of dr/du (N, n)
       apply_C, apply_Ct, apply_Cz, apply_Czt: (dr/dm) dm, (dr/dm)^T dp,
           (dr/dz) dz, (dr/dz)^T dp, each on (N, ., k) blocks or vectors.
 
-    On a ``rectangle_mesh`` residual, band, C and C^T take the structured
-    scatter-free plan; on any other mesh (``structured_plan`` is None) the
-    element contributions are summed by ``index_add_``, the JAX package's
-    segment sums, and there is no band."""
+    The state space is P1 or P2 and the parameter space P1 (or equal to
+    the state space), each with its own dofmap (``cells``, ``cells_m``).
+    A P1 state on a ``rectangle_mesh`` takes the structured scatter-free
+    plan for residual, band, C and C^T; elsewhere (``structured_plan`` is
+    None: any other mesh, or a P2 state) the element contributions are
+    summed by ``index_add_``, the JAX package's segment sums, and the band
+    is the ordered one."""
 
     def __init__(self, Vu: FunctionSpace, Vm: FunctionSpace,
                  form: GalerkinForm, dtype=None, device=None):
         if Vu.mesh is not Vm.mesh:
             raise ValueError("state/parameter spaces must share a mesh")
-        if Vu.degree != 1 or Vm.degree != 1:
-            raise NotImplementedError("only P1 state and parameter spaces")
         self.dtype, self.device = config.resolve(dtype, device)
         self.Vu, self.Vm, self.form = Vu, Vm, form
-        self.plan = structured_plan(Vu)
+        self.plan = structured_plan(Vu) if Vm.degree == Vu.degree else None
         self.n = Vu.dim
         self.n_m = Vm.dim
         mesh = Vu.mesh
         t = lambda a: torch.as_tensor(a, dtype=self.dtype, device=self.device)
-        self.cells = torch.as_tensor(
-            np.asarray(Vu.cell_dofs), dtype=torch.long, device=self.device
-        )
+        # state and parameter dofmaps may differ (a P2 state, a P1 parameter)
+        self._band_dofs = np.asarray(Vu.cell_dofs, dtype=np.int64)
+        self.cells = torch.as_tensor(self._band_dofs, device=self.device)
+        self.cells_m = torch.as_tensor(
+            np.asarray(Vm.cell_dofs, dtype=np.int64), device=self.device)
         self._cells_flat = self.cells.reshape(-1)
+        self._cells_m_flat = self.cells_m.reshape(-1)
         phi, gphi, xq, wdet = Vu.quad_data(form.quad_degree)
         nq = phi.shape[0]
-        self._phi = t(phi)  # (nq, 3)
-        self._grads = t(gphi[:, 0])  # (nc, 3, 2): constant P1 gradients
+        self._phi = t(phi)  # (nq, ndu)
+        self._phi_m = t(Vm.quad_data(form.quad_degree)[0])  # (nq, ndm)
+        # P1: the gradients are constant on a cell, (nc, 3, 2), and gu is
+        # (N, nc, 1, 2); P2: per point, (nc, nq, 6, 2), gu (N, nc, nq, 2)
+        self._const_grad = gphi.shape[1] == 1
+        self._grads = t(gphi[:, 0] if self._const_grad else gphi)
         self._xq = t(xq)  # (nc, nq, 2)
         self._wdet = t(wdet)  # (nc, nq)
         lam, _, _ = Vu.quad_points(form.quad_degree)
@@ -161,28 +202,33 @@ class BoundGalerkinForm:
 
     # -- element kernel ----------------------------------------------------
     def _r_elem(self, u_e, m_e, z=None):
-        """Element residuals (N, nc, 3) from element dof values (N, nc, 3)
-        and the control z (N, dz) or None, given to the form as it is."""
+        """Element residuals (N, nc, ndu) from element dof values u_e
+        (N, nc, ndu), m_e (N, nc, ndm) and the control z (N, dz) or None,
+        given to the form as it is."""
         uq = u_e @ self._phi.T  # (N, nc, nq)
-        mq = m_e @ self._phi.T
-        gu = torch.einsum("nci,cid->ncd", u_e, self._grads)[:, :, None, :]
+        mq = m_e @ self._phi_m.T
+        if self._const_grad:
+            gu = torch.einsum("nci,cid->ncd", u_e, self._grads)[:, :, None, :]
+        else:
+            gu = torch.einsum("nci,cqid->ncqd", u_e, self._grads)
         out = 0.0
         if self.form.flux is not None:
             F = self.form.flux(self._xq, uq, gu, mq, z, self._coef)
             F = F * self._wdet[..., None]
-            out = out + torch.einsum("cid,ncqd->nci", self._grads, F)
+            if self._const_grad:
+                out = out + torch.einsum("cid,ncqd->nci", self._grads, F)
+            else:
+                out = out + torch.einsum("cqid,ncqd->nci", self._grads, F)
         if self.form.source is not None:
             S = self.form.source(self._xq, uq, gu, mq, z, self._coef)
             out = out + (S * self._wdet) @ self._phi
         return out
 
-    def _elements(self, x):
-        return x[:, self.cells]  # (N, nc, 3)
-
     def _elem_jacobian(self, u, m, z, wrt: str):
-        """Element blocks d r_e[a] / d x[b] with x = u_e, m_e (N, nc, 3, 3)
-        or z (N, nc, 3, dz): forward-mode derivatives, one tangent each."""
-        u_e, m_e = self._elements(u), self._elements(m)
+        """Element blocks d r_e[a] / d x[b] with x = u_e (N, nc, ndu, ndu),
+        m_e (N, nc, ndu, ndm) or z (N, nc, ndu, dz): forward-mode
+        derivatives, one tangent each."""
+        u_e, m_e = u[:, self.cells], m[:, self.cells_m]
         f, x = {
             "u": (lambda xx: self._r_elem(xx, m_e, z), u_e),
             "m": (lambda xx: self._r_elem(u_e, xx, z), m_e),
@@ -195,18 +241,20 @@ class BoundGalerkinForm:
             cols.append(torch.func.jvp(f, (x,), (tangent,))[1])
         return torch.stack(cols, dim=-1)
 
-    def _scatter(self, vals_e, n):
-        """Sum element values (N, nc, 3, ...) into (N, n, ...) by dof."""
+    def _scatter(self, vals_e, n, flat=None):
+        """Sum element values (N, nc, nd, ...) into (N, n, ...) by dof of
+        the dofmap ``flat`` (the state's by default)."""
         N = vals_e.shape[0]
         out = vals_e.new_zeros((N, n) + vals_e.shape[3:])
-        return out.index_add_(1, self._cells_flat,
+        return out.index_add_(1, self._cells_flat if flat is None else flat,
                               vals_e.reshape((N, -1) + vals_e.shape[3:]))
 
-    def _dense(self, vals_e, n_cols):
-        """Dense (N, n, n_cols) from element matrices (N, nc, 3, 3) on the
-        state (rows) and parameter (columns) cells, one index_add_."""
+    def _dense(self, vals_e, n_cols, col_cells):
+        """Dense (N, n, n_cols) from element matrices (N, nc, ndu, nd) on
+        the state cells (rows) and ``col_cells`` (columns), one
+        index_add_."""
         N = vals_e.shape[0]
-        flat = (self.cells[:, :, None] * n_cols + self.cells[:, None, :])
+        flat = self.cells[:, :, None] * n_cols + col_cells[:, None, :]
         out = vals_e.new_zeros((N, self.n * n_cols))
         out.index_add_(1, flat.reshape(-1), vals_e.reshape(N, -1))
         return out.reshape(N, self.n, n_cols)
@@ -214,7 +262,7 @@ class BoundGalerkinForm:
     # -- residual and matrices ----------------------------------------------
     def residual(self, u, m, z=None):
         """Global residual r(u, m, z): (N, n)."""
-        E = self._r_elem(self._elements(u), self._elements(m), z)
+        E = self._r_elem(u[:, self.cells], m[:, self.cells_m], z)
         if self.plan is None:
             return self._scatter(E, self.n)
         nx, ny, s, _, offs = self.plan
@@ -228,11 +276,13 @@ class BoundGalerkinForm:
 
     def assemble_A(self, u, m, z=None):
         """Dense dr/du (N, n, n)."""
-        return self._dense(self._elem_jacobian(u, m, z, "u"), self.n)
+        return self._dense(self._elem_jacobian(u, m, z, "u"), self.n,
+                           self.cells)
 
     def assemble_C(self, u, m, z=None):
         """Dense dr/dm (N, n, n_m)."""
-        return self._dense(self._elem_jacobian(u, m, z, "m"), self.n_m)
+        return self._dense(self._elem_jacobian(u, m, z, "m"), self.n_m,
+                           self.cells_m)
 
     def assemble_Cz(self, u, m, z):
         """Dense dr/dz (N, n, dz)."""
@@ -271,7 +321,7 @@ class BoundGalerkinForm:
 
     # -- products with C = dr/dm and Cz = dr/dz --------------------------------
     def apply_C(self, u, m, dm, z=None):
-        """(dr/dm) dm for dm (N, n, k) or (N, n): the element blocks
+        """(dr/dm) dm for dm (N, n_m, k) or (N, n_m): the element blocks
         dr_e/dm_e contracted with the element values of dm, summed."""
         squeeze = dm.ndim == 2
         if squeeze:
@@ -279,7 +329,7 @@ class BoundGalerkinForm:
         C = self._elem_jacobian(u, m, z, "m")
         if self.plan is None:
             out = self._scatter(torch.einsum("ncab,ncbk->ncak", C,
-                                             dm[:, self.cells]), self.n)
+                                             dm[:, self.cells_m]), self.n)
             return out[..., 0] if squeeze else out
         nx, ny, s, _, offs = self.plan
         C = C.reshape(-1, ny, nx, 2, 3, 3)
@@ -307,7 +357,8 @@ class BoundGalerkinForm:
         C = self._elem_jacobian(u, m, z, "m")
         if self.plan is None:
             out = self._scatter(torch.einsum("ncab,ncak->ncbk", C,
-                                             dp[:, self.cells]), self.n_m)
+                                             dp[:, self.cells]), self.n_m,
+                                self._cells_m_flat)
             return out[..., 0] if squeeze else out
         nx, ny, s, _, offs = self.plan
         C = C.reshape(-1, ny, nx, 2, 3, 3)
@@ -397,7 +448,9 @@ def _gather_assemble(A_e_flat, tables, out_size: int):
 
 def _scatter_dense(V: FunctionSpace, vals_e: np.ndarray, dtype, device,
                    connectivity=None):
-    conn = np.asarray(V.mesh.cells if connectivity is None else connectivity)
+    """Sum element matrices (nc, a, a) into a dense (n, n) matrix by the
+    space's dofmap (or ``connectivity``, e.g. boundary edges)."""
+    conn = np.asarray(V.cell_dofs if connectivity is None else connectivity)
     rows = np.broadcast_to(conn[:, :, None], vals_e.shape).reshape(-1)
     cols = np.broadcast_to(conn[:, None, :], vals_e.shape).reshape(-1)
     A = np.zeros((V.dim, V.dim))
@@ -425,25 +478,31 @@ def boundary_mass_matrix(V: FunctionSpace, dtype=None,
 
 
 def mass_matrix(V: FunctionSpace, dtype=None, device=None) -> torch.Tensor:
-    """Dense consistent P1 mass matrix (n, n)."""
+    """Dense consistent mass matrix (n, n): P1 in closed form, P2 by
+    quadrature of degree 4."""
     dtype, device = config.resolve(dtype, device)
-    if V.degree != 1:
-        raise NotImplementedError("P1 only")
-    local = (np.full((3, 3), 1.0) + np.eye(3)) / 12.0
-    M_e = V.geometry.volumes[:, None, None] * local[None]
+    if V.degree == 1:
+        local = (np.full((3, 3), 1.0) + np.eye(3)) / 12.0
+        M_e = V.geometry.volumes[:, None, None] * local[None]
+    else:
+        phi, _, _, wdet = V.quad_data(2 * V.degree)
+        M_e = np.einsum("qi,qj,cq->cij", phi, phi, wdet)
     return _scatter_dense(V, M_e, dtype, device)
 
 
 def stiffness_matrix(V: FunctionSpace, tensor=None, dtype=None,
                      device=None) -> torch.Tensor:
-    """Dense P1 stiffness matrix int (Theta grad u) . grad v dx with an
-    optional constant (2, 2) tensor Theta."""
+    """Dense stiffness matrix int (Theta grad u) . grad v dx with an
+    optional constant (2, 2) tensor Theta: P1 in closed form, P2 by
+    quadrature of degree 4."""
     dtype, device = config.resolve(dtype, device)
-    if V.degree != 1:
-        raise NotImplementedError("P1 only")
     tensor = np.eye(2) if tensor is None else np.asarray(tensor)
-    g = V.geometry.grads
-    K_e = np.einsum("cid,de,cje,c->cij", g, tensor, g, V.geometry.volumes)
+    if V.degree == 1:
+        g = V.geometry.grads
+        K_e = np.einsum("cid,de,cje,c->cij", g, tensor, g, V.geometry.volumes)
+    else:
+        _, gphi, _, wdet = V.quad_data(2 * V.degree)
+        K_e = np.einsum("cqid,de,cqje,cq->cij", gphi, tensor, gphi, wdet)
     return _scatter_dense(V, K_e, dtype, device)
 
 
@@ -569,3 +628,49 @@ def bc_symmetrize_banded_masked(band, mask):
     ii = torch.arange(s, device=band.device)
     band[..., ii, s + ii] += mask01
     return band
+
+
+def band_bc_masks(bc: DirichletBC, s: int, dtype=None, device=None):
+    """(keep_row (nb, s, 1), keep_col (nb, 1, 3s), diag (nb, s, 3s)):
+    bc_symmetrize on the band layout of ``assemble_A_banded``, built once
+    on ``device``; they broadcast over a leading sample axis."""
+    dtype, device = config.resolve(dtype, device)
+    mask = np.asarray(bc.mask)
+    nb = mask.shape[0] // s
+    keep = (~mask).astype(np.float64).reshape(nb, s)
+    # column (j, o*s + i2) refers to global dof (j + o - 1)*s + i2
+    keep_col = np.zeros((nb, 3 * s))
+    for o in range(3):
+        jj = np.arange(nb) + o - 1
+        valid = (jj >= 0) & (jj < nb)
+        keep_col[valid, o * s : (o + 1) * s] = keep[jj[valid]]
+    diag = np.zeros((nb, s, 3 * s))
+    ii = np.arange(s)
+    diag[:, ii, s + ii] = mask.reshape(nb, s)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return t(keep[:, :, None]), t(keep_col[:, None, :]), t(diag)
+
+
+def bc_symmetrize_banded(band, keep_row, keep_col, diag):
+    """Apply ``band_bc_masks`` to band storage (..., nb, s, 3s): zero the
+    constrained rows and columns and put ones on their diagonal."""
+    return band * keep_row * keep_col + diag
+
+
+def bc_zero_rows(Mat, bc: DirichletBC):
+    """Zero the constrained rows of a matrix (n, k) or of a batch of them
+    (N, n, k)."""
+    keep = torch.as_tensor(~np.asarray(bc.mask), device=Mat.device)
+    return Mat * keep.to(Mat.dtype)[:, None]
+
+
+def bc_apply_rhs(b, bc: DirichletBC, A_unconstrained=None):
+    """Lift inhomogeneous values: b' = (I - Z) g + Z (b - A g), g on the
+    mask, for b (n,) or (N, n) and A (n, n) or (N, n, n).  Without A the
+    coupling term is left out (right for g = 0)."""
+    mask = torch.as_tensor(bc.mask, device=b.device)
+    g = torch.where(mask, torch.as_tensor(bc.value, dtype=b.dtype,
+                                          device=b.device), 0.0)
+    if A_unconstrained is not None:
+        b = b - A_unconstrained @ g
+    return torch.where(mask, g, b)

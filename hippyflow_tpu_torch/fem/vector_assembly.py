@@ -30,8 +30,7 @@ import numpy as np
 import torch
 
 from .. import config
-from .assembly import _build_gather_tables, _gather_assemble
-from .band_order import ordered_band_indices
+from .assembly import _OrderedBand
 from .space import FunctionSpace
 
 
@@ -53,7 +52,7 @@ class VectorGalerkinForm:
     cell_coefficients: Mapping[str, np.ndarray] = field(default_factory=dict)
 
 
-class VectorBoundGalerkinForm:
+class VectorBoundGalerkinForm(_OrderedBand):
     """A VectorGalerkinForm bound to (state space, P1 parameter space) on
     one device.  Entry points, all batched over a leading sample axis:
 
@@ -83,7 +82,7 @@ class VectorBoundGalerkinForm:
                                        device=self.device)
         # (nc, nd, ncomp) stacked dof id of each local (dof, component)
         segs = cells[:, :, None] + np.arange(self.ncomp)[None, None, :] * self.n
-        self._segs_np = segs.reshape(-1, self.nd * self.ncomp)
+        self._band_dofs = segs.reshape(-1, self.nd * self.ncomp)
         self._segs = torch.as_tensor(segs.reshape(-1), device=self.device)
         phi, gphi, xq, wdet = Vu.quad_data(form.quad_degree)
         phi_m = Vm.quad_data(form.quad_degree)[0]
@@ -97,7 +96,6 @@ class VectorBoundGalerkinForm:
         self._wdet = t(wdet)  # (nc, nq)
         self._coef = {name: t(np.repeat(np.asarray(vals)[:, None], nq, axis=1))
                       for name, vals in form.cell_coefficients.items()}
-        self._ordered_gather = None
 
     # -- element kernel ----------------------------------------------------
     def _r_elem(self, u_e, m_e, z=None):
@@ -166,25 +164,6 @@ class VectorBoundGalerkinForm:
         return out.index_add_(1, self._segs,
                               torch.diagonal(A_e, dim1=-2, dim2=-1).reshape(
                                   u.shape[0], -1))
-
-    def prepare_banded_ordered(self, border) -> None:
-        """Build the gather tables of the permuted band for a ``BandOrder``
-        with interleaved components (host numpy work, once)."""
-        if self._ordered_gather is None:
-            idx = ordered_band_indices(self._segs_np, border)
-            self._ordered_gather = _build_gather_tables(
-                idx, border.nb * border.s * 3 * border.s, self.device
-            )
-
-    def assemble_A_banded_ordered(self, u, m, border, z=None):
-        """dr/du gathered into permuted band storage (N, nb, s, 3s) in the
-        row-ordered, component-interleaved numbering of ``border``."""
-        self.prepare_banded_ordered(border)
-        A_e = self._elem_jacobian(u, m, z, "u")
-        N = u.shape[0]
-        flat = _gather_assemble(A_e.reshape(N, -1), self._ordered_gather,
-                                border.nb * border.s * 3 * border.s)
-        return flat.reshape(N, border.nb, border.s, 3 * border.s)
 
     def apply_C(self, u, m, dm, z=None):
         """(dr/dm) dm for dm (N, n_m) or (N, n_m, k)."""

@@ -36,6 +36,7 @@ dq/dz.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import time
@@ -47,6 +48,7 @@ from ..ops.operators import low_rank_operator, prior_preconditioned_projector
 from ..ops.randomized import double_pass, double_pass_g
 from ..utils import KeyChain, ParameterList
 from ..utils.plotting import spectrum_plot
+from ..utils.profiling import PhaseTimer, annotate
 from .jacobian import ObservableJacobian, jjt_matmat, jtj_matmat
 from .sampling import (
     SampleBatch,
@@ -195,34 +197,42 @@ class ActiveSubspaceProjector:
     def _jac_chunk(self):
         return self.parameters["jac_chunk_size"] or self.parameters["chunk_size"]
 
-    def _prepare(self, lap):
+    @contextlib.contextmanager
+    def _stage(self, timer, name):
+        """One stage: a profiler range, timed by ``timer`` up to the end of
+        the device's work."""
+        with annotate(name), timer.phase(name, block_on=self.prior.mean):
+            yield
+
+    def _prepare(self, timer):
         """Samples, and what the operator needs before its first
-        application (the Jacobians, or the kept linearizations); returns
-        the stages' seconds, each taken by ``lap``."""
+        application (the Jacobians, or the kept linearizations), each a
+        stage of ``timer`` (a ``PhaseTimer``)."""
         if (self.samples is None and self.Js is None
                 and self._fused_symmetric_eligible()):
-            self.samples, self.Js = sample_and_materialize_symmetric(
-                self.observable, self.prior, self.keychain,
-                self.parameters["samples_per_process"],
-                chunk_size=self._jac_chunk(),
-                verbose=self.parameters["verbose"],
-            )
-            return {"fused": lap()}
-        self._ensure_samples()
-        stages = {"forward": lap()}
+            with self._stage(timer, "fused"):
+                self.samples, self.Js = sample_and_materialize_symmetric(
+                    self.observable, self.prior, self.keychain,
+                    self.parameters["samples_per_process"],
+                    chunk_size=self._jac_chunk(),
+                    verbose=self.parameters["verbose"],
+                )
+            return
+        with self._stage(timer, "forward"):
+            self._ensure_samples()
         s = self.samples
         if self.parameters["serialized_sampling"]:
-            return stages
+            return
         if self._materializable():
-            if self.Js is None:
-                self.Js = materialize_jacobians(self.observable, s.ms, s.us, s.zs,
-                                                chunk_size=self._jac_chunk())
-            stages["jacobian"] = lap()
+            with self._stage(timer, "jacobian"):
+                if self.Js is None:
+                    self.Js = materialize_jacobians(
+                        self.observable, s.ms, s.us, s.zs,
+                        chunk_size=self._jac_chunk())
         else:
-            if self.lins is None:
-                self.lins = linearize_batch(self.observable, s.ms, s.us, s.zs)
-            stages["linearize"] = lap()
-        return stages
+            with self._stage(timer, "linearize"):
+                if self.lins is None:
+                    self.lins = linearize_batch(self.observable, s.ms, s.us, s.zs)
 
     def _avg_gn_operator(self, operation: str):
         """The block operator X (n, k) -> E[J^T J] X (operation 'JTJ', n =
@@ -264,35 +274,30 @@ class ActiveSubspaceProjector:
         jacobian (materialized) or linearize (batched matrix-free), or
         fused (forward + Jacobian in one pass); then ghep (which holds
         every linearization of the serialized strategy); their sum in
-        ``_input_subspace_construction_time``."""
-        device = self.prior.mean.device
-        clock = [time.perf_counter()]
-
-        def lap():
-            _synchronize(device)
-            t = time.perf_counter()
-            clock[0], dt = t, t - clock[0]
-            return dt
-
-        stages = self._prepare(lap)
-        avg_jtj = self._avg_gn_operator("JTJ")
-        r = self.parameters["rank"]
-        p = self.parameters["oversampling"]
-        Omega = self.Omega_GN
-        if Omega is None:
-            Omega = self.keychain.normal((self.observable.dM, r + p),
-                                         dtype=self.prior.mean.dtype)
-            if self.parameters["store_Omega"]:
-                self.Omega_GN = Omega
-        if prior_preconditioned:
-            self.d_GN, self.V_GN = double_pass_g(
-                avg_jtj, self.prior.R_matmat, self.prior.Rsolver_matmat, Omega, r)
-            encoder = self.prior.R_matmat(self.V_GN)
-        else:
-            self.d_GN, self.V_GN = double_pass(avg_jtj, Omega, r, s=1)
-            encoder = self.V_GN
+        ``_input_subspace_construction_time``.  Each stage is a phase of a
+        ``PhaseTimer`` and an ``annotate`` range of its name."""
+        timer = PhaseTimer()
+        self._prepare(timer)
+        with self._stage(timer, "ghep"):
+            avg_jtj = self._avg_gn_operator("JTJ")
+            r = self.parameters["rank"]
+            p = self.parameters["oversampling"]
+            Omega = self.Omega_GN
+            if Omega is None:
+                Omega = self.keychain.normal((self.observable.dM, r + p),
+                                             dtype=self.prior.mean.dtype)
+                if self.parameters["store_Omega"]:
+                    self.Omega_GN = Omega
+            if prior_preconditioned:
+                self.d_GN, self.V_GN = double_pass_g(
+                    avg_jtj, self.prior.R_matmat, self.prior.Rsolver_matmat,
+                    Omega, r)
+                encoder = self.prior.R_matmat(self.V_GN)
+            else:
+                self.d_GN, self.V_GN = double_pass(avg_jtj, Omega, r, s=1)
+                encoder = self.V_GN
         self.prior_preconditioned = prior_preconditioned
-        self.stage_seconds = {**stages, "ghep": lap()}
+        self.stage_seconds = dict(timer.timings)
         self._input_subspace_construction_time = sum(self.stage_seconds.values())
         if self.parameters["verbose"]:
             print("input subspace construction took "
@@ -306,7 +311,7 @@ class ActiveSubspaceProjector:
         strategy (its Jacobians or linearizations are reused, or made
         here).  Returns (d_NG, decoder, encoder), encoder = decoder."""
         t0 = time.time()
-        self._prepare(lambda: 0.0)
+        self._prepare(PhaseTimer())
         avg_jjt = self._avg_gn_operator("JJT")
         dQ = self.observable.dQ
         r = min(self.parameters["rank"], dQ)

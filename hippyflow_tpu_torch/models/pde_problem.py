@@ -6,8 +6,9 @@ structured meshes:
 * a scalar state on a structured P1 mesh: the mesh's row-major numbering
   is block-tridiagonal with blocks of s = nx + 1 (confusion, the Poisson
   control problem);
-* a P2 and/or vector state (``VectorGalerkinForm``, e.g. the helmholtz
-  split-complex P2 state): the band is regained through the row ordering
+* a scalar P2 state (``GalerkinForm``) or a vector state
+  (``VectorGalerkinForm``, e.g. the helmholtz split-complex P2 state):
+  the band is regained through the row ordering
   of ``fem/band_order.py``, assembled straight into permuted storage and
   factorized behind a ``PermutedFactor``; pad rows at the band tail count
   as constrained and factorize as identity rows.
@@ -267,7 +268,8 @@ class VariationalPDEProblem:
             self.fwd_solver = self.adj_solver = solver
         else:
             if isinstance(form, VectorGalerkinForm) or Vu.degree != 1:
-                border = structured_band_order(Vu, ncomp=form.ncomp)
+                border = structured_band_order(
+                    Vu, ncomp=getattr(form, "ncomp", 1))
                 self._band_order, self._block_size = border, border.s
                 self.bound.prepare_banded_ordered(border)
                 self._band_mask = torch.as_tensor(

@@ -11,7 +11,15 @@ from .hopper_kernels import (
     build_kernels,
     reset_launch_counts,
 )
-from .linalg import CholeskyFactor, eigh_descending, generalized_eigh
+from .linalg import (
+    CholeskyFactor,
+    LUFactor,
+    cg_solve,
+    eigh_descending,
+    factorize,
+    generalized_eigh,
+    solve_refined,
+)
 from .operators import (
     averaged_operator,
     dense_operator,
@@ -38,8 +46,13 @@ from .structured import (
     block_cholesky_tridiag,
     block_tridiag_matmat,
     block_tridiag_matmat_trans,
+    extract_block_tridiag,
     factorize_block_cyclic,
     factorize_block_cyclic_banded,
+    factorize_block_tridiag,
+    factorize_block_tridiag_banded,
     factorize_block_tridiag_dense,
     factorize_thomas_inv_banded,
+    thomas_inv_bytes,
+    thomas_inv_flops,
 )

@@ -29,6 +29,7 @@ import sys
 
 import torch
 
+from ..utils.profiling import k2_bound
 from . import hopper_kernels as hk
 from .stream_solve_sweep import load_parent, mean_ms
 
@@ -40,8 +41,6 @@ SHAPES = (
     (16, 516, 52, 200, (True,)),
 )
 DTYPES = (torch.float32, torch.float64)
-PEAK_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 
 
@@ -55,16 +54,6 @@ def random_case(N, s, nb, k, dtype, device, seed=0):
     blocks[1] += torch.eye(s, dtype=dtype, device=device)
     bb = torch.randn(N, nb, s, k, generator=gen, dtype=dtype, device=device)
     return (*blocks, bb)
-
-
-def bound_ms(N, nb, s, k, itemsize):
-    """(ms, 'operations' or 'bytes'): 2 s^2 k operations for each of the
-    3 nb - 2 factor blocks a solve applies, the blocks read once, the rhs
-    read and the solution written once."""
-    blocks = N * (3 * nb - 2)
-    ops = 1e3 * 2 * blocks * s * s * k / PEAK_FLOPS
-    mem = 1e3 * (blocks * s * s + 2 * N * nb * s * k) * itemsize / HBM_BYTES_PER_S
-    return (ops, "operations") if ops >= mem else (mem, "bytes")
 
 
 def candidates(N, s, k, itemsize, device):
@@ -138,7 +127,7 @@ def sweep(N, s, nb, k, dtype, trans, device, check_only=False, parent=None,
         for name_ in keys:
             ms[name_].append(mean_ms(runs[name_], reps))
     ms = {name_: sum(v) / len(v) for name_, v in ms.items()}
-    b_ms, b_by = bound_ms(N, nb, s, k, item)
+    b_ms, b_by = k2_bound(N, nb, s, k, dtype)
     mine = sorted((g for g in geos), key=lambda g: ms[key(g)])
     line = (head + f"; picked {key(picked)} {ms[key(picked)]:.3f} ms "
             f"({ms[key(picked)] / ms[key(mine[0])]:.3f}x the fastest); fastest "

@@ -26,6 +26,7 @@ import time
 
 import torch
 
+from ..utils.profiling import schur_bound
 from . import hopper_kernels as hk
 from .stream_solve_sweep import load_parent
 
@@ -37,8 +38,6 @@ SHAPES = (
     (16, 516, (torch.float32, torch.float64)),
 )
 REPS = 20
-PEAK_FLOPS = 67e12  # float32 outside the tensor cores; float64 FP64 tensor cores
-HBM_BYTES_PER_S = 3.35e12
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 # cycles a second the spin kernel is counted at (about the H100's clock)
 SPIN_HZ = 2e9
@@ -92,15 +91,6 @@ def library_pair(band, dinv_prev, j: int):
     M = torch.bmm(band[:, j, :, :s], dinv_prev)
     return M, torch.baddbmm(band[:, j, :, s : 2 * s], M,
                             band[:, j - 1, :, 2 * s :], alpha=-1)
-
-
-def schur_bound(N: int, s: int, dtype):
-    """(ms, 'operations' or 'bytes') of one Schur step: 4 N s^3 operations,
-    and A_j, D_j, B_{j-1}, Dinv_{j-1} read and M_j, T_j written once."""
-    item = torch.finfo(dtype).bits // 8
-    ops = 1e3 * 4 * N * s**3 / PEAK_FLOPS
-    mem = 1e3 * 6 * N * s * s * item / HBM_BYTES_PER_S
-    return (ops, "operations") if ops >= mem else (mem, "bytes")
 
 
 def random_case(N: int, s: int, nb: int, dtype, device, seed: int = 0):

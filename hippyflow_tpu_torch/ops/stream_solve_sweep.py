@@ -29,6 +29,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import k2_bound
 from . import hopper_kernels as hk
 
 CLUSTERS = (1, 2, 3, 4, 6, 8)
@@ -46,7 +47,6 @@ SHAPES = (
     (1024, 17, 17, (torch.float32,)),
 )
 REPS = 3
-HBM_BYTES_PER_S = 3.35e12
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 
 
@@ -117,8 +117,7 @@ def sweep(N, s, nb, dtype, trans, device, check_only=False, parent=None):
     geo = hk.stream_geometry(N, s, 1, bb.element_size(), picked, trans,
                              hk._sm_count(device), hk._smem_limit(device),
                              hk._sm_smem(device))
-    bound = 1e3 * (N * (3 * nb - 2) * s * s + 2 * N * nb * s) \
-        * bb.element_size() / HBM_BYTES_PER_S
+    bound = k2_bound(N, nb, s, 1, dtype)[0]  # bytes at k=1
     best = min(runs.keys() - {"plain", "parent"}, key=ms.get)
     print(head + "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
           + f"; picked c={picked} (rows, stages, threads, splits, lanes a row, bytes {geo}), "

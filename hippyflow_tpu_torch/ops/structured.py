@@ -79,6 +79,26 @@ def factorize_thomas_inv_banded(band) -> InverseThomasFactor:
     return InverseThomasFactor(M=M, Dinv=Dinv, B=band[..., 2 * s :].contiguous())
 
 
+def thomas_inv_flops(nb: int, s: int, n_rhs: int = 1) -> float:
+    """Operations of one inverse block-Thomas factorization and solve of
+    one sample (the JAX package's model): 7 s^3 a block row to factorize
+    (an s x s inverse and two products) and 6 s^2 a block row and rhs to
+    solve (one product forward, two back)."""
+    return float(nb) * (7.0 * s**3 + 6.0 * s**2 * n_rhs)
+
+
+def thomas_inv_bytes(nb: int, s: int, n_rhs: int = 1,
+                     itemsize: int = 4) -> float:
+    """Bytes one assembly, factorization and solve of one sample must move
+    (the JAX package's model): the band (3 s^2 a block row) written by
+    assembly, read and written at the same size by the factorization and
+    read by the solve, four times in all, and the rhs block vector three
+    times (b read, the carry, x written)."""
+    band = 3.0 * nb * s * s * itemsize
+    rhs = nb * s * n_rhs * itemsize
+    return 4.0 * band + 3.0 * rhs
+
+
 class PermutedFactor(NamedTuple):
     """A factor of P A P^T (the band of a ``fem.band_order.BandOrder``)
     exposed in the original dof order: ``solve`` gathers the rhs into band
@@ -212,8 +232,10 @@ def factorize_block_tridiag(D, L_A, B) -> BlockTridiagFactor:
     return BlockTridiagFactor(Dlu=Dlu, Dpiv=Dpiv, L=torch.stack(Ls, dim=-3), B=B)
 
 
-def factorize_block_tridiag_dense(A, s: int) -> BlockTridiagFactor:
-    """Factorize a dense block-tridiagonal (n, n) matrix with block size s."""
+def extract_block_tridiag(A, s: int):
+    """(D, L_A, B), each (nb, s, s): the diagonal, sub- and super-diagonal
+    blocks of a dense block-tridiagonal (n, n) matrix, L_A[0] = B[nb-1] =
+    0."""
     n = A.shape[0]
     nb = n // s
     if nb * s != n:
@@ -225,7 +247,12 @@ def factorize_block_tridiag_dense(A, s: int) -> BlockTridiagFactor:
     L_A[1:] = Ab[idx[1:], :, idx[:-1], :]
     B = torch.zeros_like(D)
     B[:-1] = Ab[idx[:-1], :, idx[1:], :]
-    return factorize_block_tridiag(D, L_A, B)
+    return D, L_A, B
+
+
+def factorize_block_tridiag_dense(A, s: int) -> BlockTridiagFactor:
+    """Factorize a dense block-tridiagonal (n, n) matrix with block size s."""
+    return factorize_block_tridiag(*extract_block_tridiag(A, s))
 
 
 def factorize_block_tridiag_banded(band) -> BlockTridiagFactor:

@@ -1042,3 +1042,58 @@ def test_k3_on_navier_stokes_schur_complements(cuda):
     assert res_k3 <= 10.0 * res_inv, (res_k3, res_inv)
     M, Dinv = hk.banded_factorize(band)
     assert _rel(M, M_p) <= TOL[torch.float64] and _rel(Dinv, D_p) <= TOL[torch.float64]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_on_a_p2_band_at_s258(cuda, dtype):
+    """K1's rows (a Schur step and K3 per block row), the Schur step alone,
+    K3 on the Schur complements and K2 (streamed k=1 both ways, the panels
+    at k=100 transposed) on the ordered band of a scalar P2 state at
+    nx=64 (s=258; ny=4, so nb=5), held against their plain versions."""
+    from hippyflow_tpu_torch.fem import (
+        DirichletBC,
+        GalerkinForm,
+        bc_symmetrize_banded_masked,
+    )
+    from hippyflow_tpu_torch.models import VariationalPDEProblem
+
+    mesh = unit_square_mesh(64, 4)
+    V2, V1 = FunctionSpace(mesh, degree=2), FunctionSpace(mesh)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    form = GalerkinForm(
+        flux=lambda x, u, gu, m, z, c: torch.exp(m)[..., None] * gu,
+        source=lambda x, u, gu, m, z, c: u**3 - 1.0, quad_degree=4)
+    pde = VariationalPDEProblem(V2, V1, form,
+                                DirichletBC.from_predicate(V2, None, 0.0), **f64)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    m = 0.3 * torch.randn(3, V1.dim, generator=gen, **f64)
+    u = 0.5 * torch.randn(3, V2.dim, generator=gen, **f64)
+    band64 = bc_symmetrize_banded_masked(pde.bound.assemble_A_banded_ordered(
+        u, m, pde._band_order), pde._band_mask).contiguous()
+    N, nb, s, _ = band64.shape
+    assert (nb, s, pde.fwd_solver) == (5, 258, "thomas_inv")
+    assert hk.factorize_design(s, torch.finfo(dtype).bits // 8,
+                               hk._smem_limit(cuda))[0] == "rows"
+    band = band64.to(dtype)
+    hk.reset_launch_counts()
+    M, Dinv = hk.banded_factorize(band)
+    assert (hk.schur_step_.launches, hk.batched_inverse.launches) == (nb, nb)
+    M_p, D_p = hk.banded_factorize_plain(band)
+    torch.cuda.synchronize()
+    assert _rel(M, M_p) < TOL[dtype] and _rel(Dinv, D_p) < TOL[dtype]
+    # the Schur step alone at block row 2 on the plain factor's Dinv_1
+    Ms, Ds = torch.zeros_like(M), torch.zeros_like(Dinv)
+    Ds[:, 1] = D_p[:, 1]
+    hk.schur_step_(band, Ms, Ds, 2)
+    M2, T2 = hk.schur_step_plain(band, D_p[:, 1], 2)
+    assert _rel(Ms[:, 2], M2) < TOL[dtype] and _rel(Ds[:, 2], T2) < TOL[dtype]
+    # K3 on that Schur complement
+    assert _rel(hk.batched_inverse(T2.contiguous()),
+                hk.batched_inverse_plain(T2.contiguous())) < 10 * TOL[dtype]
+    B = band[..., 2 * s :].contiguous()
+    for k, trans in ((1, False), (1, True), (100, True)):
+        bb = torch.randn(N, nb, s, k, generator=gen, **f64).to(dtype)
+        x = hk.banded_solve(M, Dinv, B, bb, trans)
+        x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
+        torch.cuda.synchronize()
+        assert _rel(x, x_p) < TOL[dtype], (k, trans)
