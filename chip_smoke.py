@@ -204,6 +204,31 @@ each:
     Schur step beside the library pair (``K1 Schur``) and K3 on one block
     row's Schur complements (32, 258) against plain, ``torch.linalg.inv``
     and the bound (``K3 clusters``);
+9h. parallel: a one-rank NCCL group (``parallel.initialize_distributed``
+    through a FileStore in a temporary directory, destroyed at the end),
+    its (1, 1) ('sample', 'fem') mesh and a ``DeviceCollective`` over
+    'sample', each step one path: (1) ``parallel_spike``: the partitioned
+    SPIKE factor (``factorize_distributed_banded``, both directions) at
+    P=4 and 8 partitions on the main path's Newton bands (N=1024 float32,
+    N=256 float64; 65 rows padded to 68 and 72), its solves at k=1 and
+    k=100, forward and transposed, held against K1+K2 (relative residual
+    against the float64 band, and the difference), the factor and solve
+    times beside K1's and K2's, and K3 against its plain version,
+    ``torch.linalg.inv`` and the bound at every cyclic-reduction shape of
+    the partitions (``K3 spike_p4_l`` / ``spike_p8_l`` lines); (2)
+    ``parallel_parity``: the float64 parity pipeline through
+    ``solver="dist_banded"``, the dof-sharded structured prior (``mesh=``)
+    and the collective (limit 1e-8); (3) ``parallel_nx64``: the float32
+    main path, cold, through ``dist_banded`` and the collective (samples
+    and Jacobians in chunks of 256, each cold-started), stage seconds,
+    Newton, resampled failures, peak memory and the spectrum beside
+    ``auto``'s cold run of phase 9 (other draws: the chunks draw apart), and
+    K1/K2/K3 launches; (4) ``parallel_prior192``: the nx=192 structured
+    prior with P=4 unplaced SPIKE factors and built dof-sharded
+    (``dist_assemble_band``), 256 samples and ``Rsolver_matmat`` against
+    the float64 unsharded prior (float32: within 10x of the float32
+    unsharded prior's own distance), and K3 at its partitions' shapes
+    (``K3 prior192_p4_l`` lines);
 10. nx=192 lane: the same at nx=192 (37249 dofs, the structured prior),
     256 samples, rank 128, oversampling 10, chunk 32, Jacobian chunk 16,
     grid-sequenced at depth 3 (nx=96, 48, 24), and cold-started; then the
@@ -1323,9 +1348,10 @@ def phase_s516(device, parent=None):
     return s, report
 
 
-def phase_parity(obs64, prior64):
-    """The float64 pipeline against the stored reference spectrum."""
-    label = type(prior64).__name__
+def phase_parity(obs64, prior64, label=None, collective=None):
+    """The float64 pipeline against the stored reference spectrum (through
+    ``collective`` where given)."""
+    label = label or type(prior64).__name__
     import numpy as np
 
     from hippyflow_tpu_torch.models import (
@@ -1341,7 +1367,8 @@ def phase_parity(obs64, prior64):
     params["rank"], params["oversampling"] = rank, OVERSAMPLING
     params["samples_per_process"] = data["xi"].shape[0]
     params["ms_given"], params["verbose"] = True, False
-    proj = ActiveSubspaceProjector(obs64, prior64, parameters=params)
+    proj = ActiveSubspaceProjector(obs64, prior64, parameters=params,
+                                   collective=collective)
     proj.ms = prior64.sample(torch.as_tensor(data["xi"], dtype=dtype, device=device))
     proj.Omega_GN = torch.as_tensor(data["Omega"], dtype=dtype, device=device)
     t0 = time.perf_counter()
@@ -1378,12 +1405,13 @@ def launch_counts() -> dict:
 
 
 def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
-                 **params_kw):
+                 collective=None, **params_kw):
     """The float32 input active subspace once, through the user entry
     points, with every launch count set to 0 just before (``prior_fn``
     builds the prior, and the grid-sequencing map on ``warm_levels`` is
     built, inside the counted run) and read just after; then the health
-    checks.  Returns (launches, projector)."""
+    checks.  Returns (launches, projector); the projector's
+    ``smoke_summary`` holds the logged figures."""
     from hippyflow_tpu_torch.fem import coarse_newton_warm_start
     from hippyflow_tpu_torch.models import (
         ActiveSubspaceParameterList,
@@ -1407,7 +1435,8 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
         params["coarse_warm_start"] = warm
     for key, value in params_kw.items():
         params[key] = value
-    proj = ActiveSubspaceProjector(obs32, prior32, parameters=params)
+    proj = ActiveSubspaceProjector(obs32, prior32, parameters=params,
+                                   collective=collective)
     d, V, E = proj.construct_input_subspace()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
@@ -1446,26 +1475,33 @@ def run_subspace(obs32, prior_fn, label, n_samples, rank, warm_levels=None,
           f"{label}: shapes {tuple(d.shape)}, {tuple(V.shape)}")
     check(bool((d[1:] <= d[:-1]).all()), f"{label}: eigenvalues are not descending")
     check(ortho <= ORTHO_TOL_F32, f"{label}: max|V^T R V - I| {ortho:.3e}")
+    proj.smoke_summary = {
+        "total": total, "stages": dict(st), "newton_max": int(it.max().item()),
+        "newton_mean": it.mean().item(), "failures": proj.samples.n_failures,
+        "peak_gb": peak_gb, "d": d.cpu()}
     return launches, proj
 
 
 def phase_main(obs32, prior32, levels):
     """The float32 main path, once grid-sequenced through the user entry
     point (the counted path), and once cold-started for comparison.
-    Returns the launches by path and the grid-sequenced run's projector
-    (its samples, Jacobians and decoder feed the training phase)."""
-    paths, kept = {}, None
+    Returns the launches by path, the grid-sequenced run's projector (its
+    samples, Jacobians and decoder feed the training phase) and the cold
+    run's summary (the parallel phase's yardstick)."""
+    paths, kept, cold = {}, None, None
     for name, lv in (("nx64", levels), ("nx64_cold", None)):
-        cold = " cold start" if lv is None else f" grid-sequenced depth {len(lv)}"
+        label = " cold start" if lv is None else f" grid-sequenced depth {len(lv)}"
         launches, proj = run_subspace(obs32, lambda: prior32,
-                                      f"main float32 nx={NX}{cold}", N_SAMPLES,
+                                      f"main float32 nx={NX}{label}", N_SAMPLES,
                                       RANK, warm_levels=lv)
         for key in ("banded_factorize", "banded_solve"):
             check(launches[key] > 0, f"{key} was not launched on {name}")
         paths[name] = launches
         if lv is not None:
             kept = proj
-    return paths, kept
+        else:
+            cold = proj.smoke_summary
+    return paths, kept, cold
 
 
 def forward_utilization(obs32, prior32):
@@ -1970,9 +2006,10 @@ def _cr_levels(nb):
     return levels
 
 
-def capture_k3_inputs(band, **kw):
-    """The inputs of every K3 call that factorize_block_cyclic_banded(band,
-    **kw) makes (one per level and the root), cloned."""
+def capture_k3_inputs(band, factorize=None):
+    """The inputs of every K3 call that ``factorize(band)`` makes (by
+    default the forward cyclic-reduction factor: one per level and the
+    root), cloned."""
     from hippyflow_tpu_torch.ops import structured
 
     seen, real = [], structured.batched_inverse
@@ -1983,22 +2020,27 @@ def capture_k3_inputs(band, **kw):
 
     structured.batched_inverse = record
     try:
-        structured.factorize_block_cyclic_banded(band, **kw)
+        if factorize is None:
+            structured.factorize_block_cyclic_banded(band, with_transpose=False)
+        else:
+            factorize(band)
     finally:
         structured.batched_inverse = real
     return seen
 
 
-def k3_cr_records(bands, label):
+def k3_cr_records(bands, label, factorize=None,
+                  dtypes=(torch.float32, torch.float64)):
     """K3 against its plain version, torch.linalg.inv and the bound at
-    every cyclic-reduction shape of ``bands`` (N, nb, s, 3s) float64, in
-    float32 and float64.  Returns the records for the kernels' JSON line."""
+    every shape ``factorize`` (``capture_k3_inputs``) gives it on
+    ``bands`` (N, nb, s, 3s) float64, in each of ``dtypes``.  Returns the
+    records for the kernels' JSON line."""
     from hippyflow_tpu_torch.ops import hopper_kernels as hk
 
     records = {}
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes:
         for level, X in enumerate(capture_k3_inputs(bands.to(dtype),
-                                                    with_transpose=False)):
+                                                    factorize)):
             N, s, _ = X.shape
             Y = hk.batched_inverse(X)
             Y_p = hk.batched_inverse_plain(X)
@@ -3756,6 +3798,327 @@ def phase_p2(device):
     return paths, records
 
 
+# the parallel phase: the partitioned SPIKE solve at P=4 and 8 partitions
+# on the main path's Newton bands (N=1024 in float32, 256 in float64), its
+# solves at k=1 and k=100 held against K1+K2 (relative residual, taken in
+# float64, of the system in the solve's dtype, and the solution
+# difference, relative to the largest entry); the main path through solver="dist_banded" and a
+# DeviceCollective on a one-rank NCCL group's (1, 1) mesh (one partition,
+# samples and Jacobians in chunks of 256: at 1024 the forward chunk's
+# factors peaked at 36.3 GB; each chunk cold-started, as the one chunk of
+# auto's cold run is); the nx=192 structured prior at P=4
+PAR_PARTS, PAR_N = (4, 8), {torch.float32: 1024, torch.float64: 256}
+PAR_KS, PAR_CHUNK = (1, RANK), 256
+PAR_TOL = {torch.float32: {"residual": 1e-4, "diff": 1e-3},
+           torch.float64: {"residual": 1e-12, "diff": 1e-10}}
+PAR_PRIOR_PARTS, PAR_PRIOR_N, PAR_PRIOR_K = 4, 256, 16
+# the SPIKE priors' samples and R^{-1} X against the float64 unsharded
+# prior's, relative to the largest entry: in float64 within 1e-10; in
+# float32 within 10x of the float32 unsharded prior's own distance from
+# float64 (R^{-1} = K^{-1} M K^{-1} squares K's conditioning: the float32
+# bands' assembly roundoff alone moved it by 1.3e-3 on the card)
+PAR_PRIOR_TOL, PAR_PRIOR_F32_FACTOR = 1e-10, 10.0
+
+
+def _spike_factor(P):
+    from hippyflow_tpu_torch.parallel import factorize_distributed_banded
+
+    return lambda b: factorize_distributed_banded(b, P, with_transpose=False)
+
+
+def parallel_spike(device):
+    """Path parallel_spike: the SPIKE factors (both directions) at P=4 and
+    8 and their solves, the counted run; then, uncounted, the same factors
+    and solves again with their residuals, held against K1+K2 (the
+    yardstick), times of both in turns, and K3 at every cyclic-reduction
+    shape of the partitions against its plain version, ``torch.linalg.inv``
+    and the bound.  Returns (launches, records)."""
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+    from hippyflow_tpu_torch.ops.structured import (
+        block_tridiag_matmat,
+        block_tridiag_matmat_trans,
+        factorize_thomas_inv_banded,
+    )
+    from hippyflow_tpu_torch.parallel import factorize_distributed_banded
+
+    # each dtype's bands and right-hand sides, and no more: the library LU
+    # of the reduced systems allocates outside PyTorch's cache, so the
+    # phase keeps its own footprint small and empties the cache before
+    # each factorization
+    obs64, prior64 = setup(torch.float64, device)
+    bands64, gen = newton_bands(obs64, prior64, PAR_N[torch.float32], device)
+    del obs64, prior64
+    nb, s = bands64.shape[1], bands64.shape[2]
+    rhs64 = {k: torch.randn(bands64.shape[0], nb * s, k, generator=gen,
+                            dtype=torch.float64, device=device) for k in PAR_KS}
+    bands = {dtype: bands64[:N].to(dtype, copy=True) for dtype, N in PAR_N.items()}
+    rhs = {dtype: {k: b[:N].to(dtype, copy=True) for k, b in rhs64.items()}
+           for dtype, N in PAR_N.items()}
+    del bands64, rhs64
+    torch.cuda.empty_cache()
+    hk.reset_launch_counts()
+    for dtype in PAR_N:
+        for P in PAR_PARTS:
+            torch.cuda.empty_cache()
+            F = factorize_distributed_banded(bands[dtype], P)
+            for k in PAR_KS:
+                for trans in (False, True):
+                    F.solve(rhs[dtype][k], trans=trans)
+            del F
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(launches["batched_inverse"] > 0, "K3 was not launched on parallel_spike")
+    torch.cuda.empty_cache()
+
+    def residual(band, x, b, trans, chunk=128):
+        """||A x - b|| / ||b|| in float64 (of the system in the band's
+        dtype), a chunk of samples at a time."""
+        mv = block_tridiag_matmat_trans if trans else block_tridiag_matmat
+        num = sum(((mv(band[a:a + chunk].double(), x[a:a + chunk].double())
+                    - b[a:a + chunk].double()) ** 2).sum().item()
+                  for a in range(0, x.shape[0], chunk))
+        return math.sqrt(num) / b.double().norm().item()
+
+    spike = {}
+    for dtype, N in PAR_N.items():
+        band = bands[dtype]
+        T = factorize_thomas_inv_banded(band)
+        tol = PAR_TOL[dtype]
+        sfx = "" if dtype == torch.float32 else "_f64"
+        k1_ms = cuda_ms(lambda: factorize_thomas_inv_banded(band), 2)
+        line = [f"K1 {k1_ms:.3f} ms"]
+        spike[f"k1_ms_n{N}{sfx}"] = k1_ms
+        for P in PAR_PARTS:
+            torch.cuda.empty_cache()
+            fac_ms = cuda_ms(lambda: factorize_distributed_banded(band, P), 1)
+            torch.cuda.empty_cache()
+            F = factorize_distributed_banded(band, P)
+            spike[f"factor_ms_p{P}_n{N}{sfx}"] = fac_ms
+            line.append(f"SPIKE P={P} factor {fac_ms:.3f} ms")
+            for k in PAR_KS:
+                for trans in (False, True):
+                    B = rhs[dtype][k]
+                    x = F.solve(B, trans=trans)
+                    res = residual(band, x, B, trans)
+                    diff = rel_err(x, T.solve(B, trans=trans))
+                    del x
+                    tag = f"p{P}_k{k}_{'trans' if trans else 'fwd'}_n{N}{sfx}"
+                    check(res <= tol["residual"],
+                          f"SPIKE {tag}: relative residual {res:.3e}")
+                    check(diff <= tol["diff"],
+                          f"SPIKE {tag}: against K1+K2 {diff:.3e}")
+                    ms, k2_ms = paired_ms(lambda: F.solve(B, trans=trans),
+                                          lambda: T.solve(B, trans=trans), 2)
+                    spike.update({f"residual_{tag}": res, f"diff_{tag}": diff,
+                                  f"solve_ms_{tag}": ms, f"k2_ms_{tag}": k2_ms})
+                    line.append(f"P={P} k={k}{' trans' if trans else ''}: "
+                                f"residual {res:.3e}, against K1+K2 {diff:.3e}, "
+                                f"SPIKE {ms:.3f} ms, K2 {k2_ms:.3f} ms")
+                    del B
+            del F
+            torch.cuda.empty_cache()
+        log(f"parallel_spike {str(dtype)[6:]} N={N} nb=s={s}: "
+            + "; ".join(line))
+        del T, band
+    del rhs
+    torch.cuda.empty_cache()
+    k3 = {}
+    for P in PAR_PARTS:
+        for dtype in PAR_N:
+            k3.update(k3_cr_records(bands[dtype], f"spike_p{P}_l",
+                                    factorize=_spike_factor(P), dtypes=(dtype,)))
+            torch.cuda.empty_cache()
+    del bands
+    torch.cuda.empty_cache()
+    return launches, {**k3, "spike": spike}
+
+
+def parallel_parity(device, mesh, coll):
+    """Path parallel_parity: the float64 parity pipeline through
+    solver="dist_banded" on the mesh's 'fem' axis, the dof-sharded
+    structured prior (mesh=) and the DeviceCollective."""
+    from hippyflow_tpu_torch.applications.confusion import (
+        confusion_linear_observable,
+        load_ns_velocity,
+    )
+    from hippyflow_tpu_torch.models import StructuredBiLaplacianPrior
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    kw = dict(dtype=torch.float64, device=device)
+    hk.reset_launch_counts()
+    obs, V = confusion_linear_observable(
+        nx=NX, velocity=load_ns_velocity(NX), solver="dist_banded",
+        dist_mesh=mesh, dist_axis="fem", **kw)
+    prior = StructuredBiLaplacianPrior(V, gamma=0.1, delta=1.0, mesh=mesh, **kw)
+    phase_parity(obs, prior, "dist_banded, dof-sharded structured prior, "
+                 "DeviceCollective", collective=coll)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(launches["batched_inverse"] > 0, "K3 was not launched on parallel_parity")
+    return launches
+
+
+def parallel_nx64(device, mesh, coll, cold):
+    """Path parallel_nx64: the float32 main path (cold start) through
+    solver="dist_banded" and the DeviceCollective (chunks of 256), beside
+    ``auto``'s cold run from the main phase."""
+    from hippyflow_tpu_torch.applications.confusion import (
+        confusion_linear_observable,
+        confusion_prior,
+        load_ns_velocity,
+    )
+
+    kw = dict(dtype=torch.float32, device=device)
+    obs, V = confusion_linear_observable(
+        nx=NX, velocity=load_ns_velocity(NX), solver="dist_banded",
+        dist_mesh=mesh, dist_axis="fem", **kw)
+    prior = confusion_prior(V, **kw)
+    launches, proj = run_subspace(
+        obs, lambda: prior, f"parallel float32 nx={NX} cold start dist_banded",
+        N_SAMPLES, RANK, collective=coll, chunk_size=PAR_CHUNK,
+        reset_initial_guess=True)
+    got = proj.smoke_summary
+    check(launches["batched_inverse"] > 0, "K3 was not launched on parallel_nx64")
+    # the chunks draw their noise apart, and the card's generator gives 4
+    # draws of 256 other numbers than one of 1024: the spectra differ by
+    # the Monte Carlo spread, not by the solver (parity checks that)
+    head = cold["d"][0].abs().item()
+    d_diff = ((got["d"] - cold["d"]).abs().max() / head).item()
+    stages = lambda st: ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+    log(f"parallel_nx64 against auto (main phase, cold): total {got['total']:.3f} "
+        f"/ {cold['total']:.3f} s; stages {stages(got['stages'])} / "
+        f"{stages(cold['stages'])}; Newton max {got['newton_max']} / "
+        f"{cold['newton_max']}, mean {got['newton_mean']:.3f} / "
+        f"{cold['newton_mean']:.3f}; resampled failures {got['failures']} / "
+        f"{cold['failures']}; peak {got['peak_gb']:.2f} / {cold['peak_gb']:.2f} "
+        f"GB; max|d - d_auto| / d_0 {d_diff:.3e}; launches K1 "
+        f"{launches['banded_factorize']} K2 {launches['banded_solve']} K3 "
+        f"{launches['batched_inverse']}")
+    del proj, obs, prior
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parallel_prior192(device, mesh):
+    """Path parallel_prior192: the nx=192 structured prior with its K and M
+    solves through unplaced SPIKE factors at P=4, and built dof-sharded on
+    the mesh (``dist_assemble_band``, one partition), 256 samples and
+    ``Rsolver_matmat`` against the float64 unsharded prior, in both
+    dtypes."""
+    from hippyflow_tpu_torch.fem import FunctionSpace, unit_square_mesh
+    from hippyflow_tpu_torch.models import StructuredBiLaplacianPrior
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+    from hippyflow_tpu_torch.parallel import factorize_distributed_banded
+
+    V = FunctionSpace(unit_square_mesh(NX192))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    xi = torch.randn(PAR_PRIOR_N, V.dim, generator=gen, dtype=torch.float64,
+                     device=device)
+    X = torch.randn(V.dim, PAR_PRIOR_K, generator=gen, dtype=torch.float64,
+                    device=device)
+    hk.reset_launch_counts()
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        kw = dict(dtype=dtype, device=device)
+        t0 = time.perf_counter()
+        spike = StructuredBiLaplacianPrior(V, 0.1, 1.0, **kw)
+        # the same prior with its K and M solves through P=4 SPIKE factors
+        spike._K_fac = factorize_distributed_banded(
+            spike.K_band, PAR_PRIOR_PARTS, with_transpose=False)
+        spike._M_fac = factorize_distributed_banded(
+            spike.M_band, PAR_PRIOR_PARTS, with_transpose=False)
+        sharded = StructuredBiLaplacianPrior(V, 0.1, 1.0, mesh=mesh, **kw)
+        out[dtype] = {name: (p.sample(xi.to(dtype)), p.Rsolver_matmat(X.to(dtype)))
+                      for name, p in (("spike", spike), ("sharded", sharded))}
+        torch.cuda.synchronize()
+        out[dtype]["seconds"] = time.perf_counter() - t0
+        del spike, sharded
+    launches = launch_counts()
+    check(launches["batched_inverse"] > 0,
+          "K3 was not launched on parallel_prior192")
+    ref = StructuredBiLaplacianPrior(V, 0.1, 1.0, dtype=torch.float64,
+                                     device=device)
+    want = (ref.sample(xi), ref.Rsolver_matmat(X))
+    del ref
+    ref32 = StructuredBiLaplacianPrior(V, 0.1, 1.0, dtype=torch.float32,
+                                       device=device)
+    own = max(rel_err(got, w) for got, w in zip(
+        (ref32.sample(xi.float()), ref32.Rsolver_matmat(X.float())), want))
+    del ref32
+    for dtype in (torch.float32, torch.float64):
+        limit = (PAR_PRIOR_TOL if dtype == torch.float64
+                 else PAR_PRIOR_F32_FACTOR * own)
+        errs = {f"{name} {op}": rel_err(got, w)
+                for name in ("spike", "sharded")
+                for op, got, w in zip(("samples", "Rsolver"), out[dtype][name],
+                                      want)}
+        log(f"parallel_prior192 {str(dtype)[6:]} nx={NX192} ({V.dim} dofs, "
+            f"P={PAR_PRIOR_PARTS} unplaced; one rank sharded): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" against the float64 unsharded prior (limit {limit:.3e}"
+            + ("" if dtype == torch.float64 else
+               f": 10x the float32 unsharded prior's {own:.3e}")
+            + f"); {out[dtype]['seconds']:.2f} s")
+        for k, v in errs.items():
+            check(v <= limit, f"parallel_prior192 {dtype} {k}: {v:.3e}")
+    log(f"parallel_prior192 launches K3 {launches['batched_inverse']}")
+    # K3 at the P=4 partitions' cyclic-reduction shapes of the prior's K
+    band = StructuredBiLaplacianPrior(V, 0.1, 1.0, dtype=torch.float64,
+                                      device=device).K_band[None]
+    records = k3_cr_records(band, f"prior192_p{PAR_PRIOR_PARTS}_l",
+                            factorize=_spike_factor(PAR_PRIOR_PARTS))
+    return launches, records
+
+
+def phase_parallel(device, main_cold):
+    """The parallel phase: a one-rank NCCL group (a FileStore in a
+    temporary directory), its (1, 1) ('sample', 'fem') mesh and a
+    DeviceCollective over 'sample'; each step one path (see the module
+    doc); the group is destroyed at the end.  Returns (launches by path,
+    the kernel records)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from hippyflow_tpu_torch.parallel import (
+        DeviceCollective,
+        initialize_distributed,
+        make_sample_fem_mesh,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(device)
+    log(f"parallel phase: {free / 1e9:.2f} of {total / 1e9:.2f} GB free on entry, "
+        f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB allocated by tensors")
+    tmp = tempfile.mkdtemp(prefix="hippyflow_nccl_")
+    initialize_distributed(f"file://{os.path.join(tmp, 'store')}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = make_sample_fem_mesh(1, 1)
+        coll = DeviceCollective(mesh, axis="sample")
+        paths, times = {}, {}
+        paths["parallel_spike"], records = parallel_spike(device)
+        times["spike"] = time.perf_counter() - t_phase
+        t = time.perf_counter()
+        paths["parallel_parity"] = parallel_parity(device, mesh, coll)
+        times["parity"] = time.perf_counter() - t
+        t = time.perf_counter()
+        paths["parallel_nx64"] = parallel_nx64(device, mesh, coll, main_cold)
+        times["nx64"] = time.perf_counter() - t
+        t = time.perf_counter()
+        paths["parallel_prior192"], prior_k3 = parallel_prior192(device, mesh)
+        times["prior192"] = time.perf_counter() - t
+        records.update(prior_k3)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"parallel phase {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + ")")
+    return paths, {"batched_inverse": records}
+
+
 def phase_lane192(device, profile=False):
     """The float32 nx=192 lane, grid-sequenced (the counted path) and
     cold-started: confusion_prior builds the structured prior (cyclic
@@ -3967,7 +4330,7 @@ def run_phases(device, argv, parent=None):
                                  GRIDSEQ_DEPTH[NX], f32, device)
     check([p._block_size for p, _ in levels64] == [NX // 2 + 1, NX // 4 + 1],
           f"nx={NX} levels {[p._block_size for p, _ in levels64]}")
-    paths, proj64 = phase_main(obs32, prior32, levels64)
+    paths, proj64, main_cold = phase_main(obs32, prior32, levels64)
     forward_utilization(obs32, prior32)
     save = argv[argv.index("--save-h1") + 1] if "--save-h1" in argv else None
     phase_training(proj64, device, "--profile" in argv, save)
@@ -3986,6 +4349,9 @@ def run_phases(device, argv, parent=None):
     torch.cuda.empty_cache()
     p2_paths, p2_records = phase_p2(device)
     paths.update(p2_paths)
+    torch.cuda.empty_cache()
+    parallel_paths, parallel_records = phase_parallel(device, main_cold)
+    paths.update(parallel_paths)
     torch.cuda.empty_cache()
     if "--profile" in argv:
         phase_profile(obs32, prior32)
@@ -4030,7 +4396,8 @@ def run_phases(device, argv, parent=None):
     schur.update(drivers_records.pop("schur"))
     schur.update(p2_records.pop("schur"))
     for name, rec in (*control_records.items(), *models_records.items(),
-                      *drivers_records.items(), *p2_records.items()):
+                      *drivers_records.items(), *p2_records.items(),
+                      *parallel_records.items()):
         report[name].update(rec)
     for dtype, sfx in ((f32, f"s{s_helm}"), (f64, f"s{s_helm}_f64")):
         r = s516[dtype]

@@ -18,7 +18,11 @@ JAX package's solver choices (inverse and pivoted block-Thomas, batched
 cyclic reduction through K3, dense, BiCGStab) on structured and
 unstructured meshes, and the control paths (``z``, dq/dz) run through
 sampling, POD, ``DataGenerator`` and the active subspace; ``testing``
-holds the reference's Poisson control problem.  Entry points run on the
+holds the reference's Poisson control problem.  ``parallel`` splits the
+samples over the ranks of a ``torch.distributed`` device mesh and shards
+the bands' block rows over its 'fem' axis (the partitioned SPIKE solve
+of ``solver="dist_banded"`` and the dof-sharded structured prior).
+Entry points run on the
 card unless the caller passes ``device="cpu"``.  The package imports
 torch and never jax; ``hippyflow_tpu`` stays the reference it is tested
 against.
@@ -30,6 +34,12 @@ from .fem import *  # noqa: F401,F403
 from .models import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
+from .parallel import (
+    DeviceCollective,
+    NullCollective,
+    check_consistent_sharding,
+    make_sample_fem_mesh,
+)
 from .utils import (
     GivenNoise,
     KeyChain,

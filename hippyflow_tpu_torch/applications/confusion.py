@@ -129,7 +129,9 @@ def confusion_linear_observable(
     device=None,
     **pde_kwargs,
 ):
-    """Build the confusion observable.  Returns (observable, Vh)."""
+    """Build the confusion observable.  Returns (observable, Vh).  Other
+    keywords (``solver``, ``dist_mesh``, ``dist_axis``, ...) pass through
+    to ``VariationalPDEProblem``."""
     dtype, device = config.resolve(dtype, device)
     mesh = unit_square_mesh(nx)
     Vh = FunctionSpace(mesh)

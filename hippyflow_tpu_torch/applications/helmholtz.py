@@ -135,14 +135,15 @@ def helmholtz_linear_observable(
     operator_symmetric: bool = True,
     dtype=None,
     device=None,
-    solver: str = "auto",
+    **pde_kwargs,
 ):
     """Build the Helmholtz observable.  State: the (re, im) field on a P2
     space (``state_degree``); parameter: P1.  Returns (observable, Vh) with
     Vh the parameter space; the state space is ``observable.problem.Vu``.
     ``operator_symmetric=False`` keeps the staged pipeline (forward solves,
-    then Jacobians), for comparison with the fused pass; ``solver`` is
-    ``VariationalPDEProblem``'s."""
+    then Jacobians), for comparison with the fused pass; other keywords
+    (``solver``, ``dist_mesh``, ``dist_axis``, ...) pass through to
+    ``VariationalPDEProblem``."""
     if ny is None:
         ny = int(round(nx * (box_pml[3] - box_pml[1]) / (box_pml[2] - box_pml[0])))
     mesh = rectangle_mesh(nx, ny, box_pml[0], box_pml[1], box_pml[2], box_pml[3])
@@ -169,7 +170,7 @@ def helmholtz_linear_observable(
         operator_symmetric=operator_symmetric,
         dtype=dtype,
         device=device,
-        solver=solver,
+        **pde_kwargs,
     )
 
     obs_length = 0.2

@@ -515,34 +515,54 @@ def _numpy_dtype(dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
-def banded_from_elements(V: FunctionSpace, vals_e, connectivity=None) -> np.ndarray:
-    """Scatter (ncell, a, a) element matrices into (nb, s, 3s) band storage
-    on a structured P1 mesh (numpy host work, as in the JAX package).
-    ``connectivity`` defaults to the triangle cells; pass boundary edges
-    (ne, 2) with 2x2 element matrices for boundary mass terms."""
+def p1_mass_elements(V: FunctionSpace) -> np.ndarray:
+    """(ncell, 3, 3) consistent P1 mass element matrices (float64)."""
+    local = (np.full((3, 3), 1.0) + np.eye(3)) / 12.0
+    return V.geometry.volumes[:, None, None] * local[None]
+
+
+def p1_stiffness_elements(V: FunctionSpace, tensor=None) -> np.ndarray:
+    """(ncell, 3, 3) P1 stiffness element matrices of div(tensor grad)
+    (float64; the identity tensor where None)."""
+    tensor = np.eye(2) if tensor is None else np.asarray(tensor)
+    g = V.geometry.grads
+    return np.einsum("cid,de,cje,c->cij", g, tensor, g, V.geometry.volumes)
+
+
+def band_indices(V: FunctionSpace, connectivity=None) -> np.ndarray:
+    """(ncell, a * a) flat indices into (nb, s, 3s) band storage of each
+    cell's element-matrix entries (row-major), on a structured P1 mesh.
+    ``connectivity`` defaults to the triangle cells; boundary edges (ne, 2)
+    give the entries of 2x2 boundary element matrices."""
     if V.degree != 1 or V.mesh.structured_shape is None:
         raise NotImplementedError("band storage needs a structured P1 space")
     s = V.mesh.structured_shape[0] + 1
     conn = np.asarray(V.mesh.cells if connectivity is None else connectivity)
     a = conn.shape[1]
-    vals_e = np.asarray(vals_e)
-    g1 = np.repeat(conn, a, axis=1).reshape(-1).astype(np.int64)
-    g2 = np.tile(conn, (1, a)).reshape(-1).astype(np.int64)
+    g1 = np.repeat(conn, a, axis=1).astype(np.int64)
+    g2 = np.tile(conn, (1, a)).astype(np.int64)
     o = g2 // s - g1 // s + 1
     if not ((o >= 0) & (o <= 2)).all():
         raise ValueError("connectivity exceeds the band")
-    idx = g1 * (3 * s) + o * s + (g2 % s)
+    return g1 * (3 * s) + o * s + (g2 % s)
+
+
+def banded_from_elements(V: FunctionSpace, vals_e, connectivity=None) -> np.ndarray:
+    """Scatter (ncell, a, a) element matrices into (nb, s, 3s) band storage
+    on a structured P1 mesh (numpy host work, as in the JAX package), at
+    the indices of ``band_indices``."""
+    idx = band_indices(V, connectivity)
+    s = V.mesh.structured_shape[0] + 1
+    vals_e = np.asarray(vals_e)
     flat = np.zeros(V.dim * 3 * s, dtype=vals_e.dtype)
-    np.add.at(flat, idx, vals_e.reshape(-1))
+    np.add.at(flat, idx.reshape(-1), vals_e.reshape(-1))
     return flat.reshape(V.dim // s, s, 3 * s)
 
 
 def mass_matrix_banded(V: FunctionSpace, dtype=None, device=None) -> torch.Tensor:
     """(nb, s, 3s) band of the consistent P1 mass matrix."""
     dtype, device = config.resolve(dtype, device)
-    local = (np.full((3, 3), 1.0) + np.eye(3)) / 12.0
-    M_e = V.geometry.volumes[:, None, None] * local[None]
-    band = banded_from_elements(V, M_e.astype(_numpy_dtype(dtype)))
+    band = banded_from_elements(V, p1_mass_elements(V).astype(_numpy_dtype(dtype)))
     return torch.as_tensor(band, device=device)
 
 
@@ -550,9 +570,7 @@ def stiffness_matrix_banded(V: FunctionSpace, tensor=None, dtype=None,
                             device=None) -> torch.Tensor:
     """(nb, s, 3s) band of the P1 stiffness matrix (optional tensor)."""
     dtype, device = config.resolve(dtype, device)
-    tensor = np.eye(2) if tensor is None else np.asarray(tensor)
-    g = V.geometry.grads
-    K_e = np.einsum("cid,de,cje,c->cij", g, tensor, g, V.geometry.volumes)
+    K_e = p1_stiffness_elements(V, tensor)
     band = banded_from_elements(V, K_e.astype(_numpy_dtype(dtype)))
     return torch.as_tensor(band, device=device)
 

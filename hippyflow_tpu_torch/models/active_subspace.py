@@ -26,6 +26,15 @@ E[J J^T].  The expectations are applied in one of three ways
   JAX package scans over chunks padded with copies of the first sample at
   weight 0; here the last chunk is short.  The sums are the same.
 
+With a ``collective`` (``parallel.DeviceCollective``) the samples are
+drawn and solved split over its ranks (``sample_until_solved``), each
+rank makes the Jacobians (or linearizations) of its share of them
+(``collective.local_slice``), and every application of the expectations
+sums the rank's share and meets the other ranks' sums in one
+``all_reduce`` (``collective.sum_partials``); the eigensolves then run on
+every rank alike.  The fused pass runs on one rank only, as in the JAX
+package.
+
 ``construct_low_rank_Jacobians`` saves the exact SVD of each Jacobian,
 resuming chunk by chunk; ``test_errors`` runs the projection error tests
 and ``test_errors_double_loop`` the double-loop Monte-Carlo error of the
@@ -37,6 +46,7 @@ dq/dz.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import shutil
 import time
@@ -45,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.operators import low_rank_operator, prior_preconditioned_projector
+from ..parallel.collective import NullCollective
 from ..ops.randomized import double_pass, double_pass_g
 from ..utils import KeyChain, ParameterList
 from ..utils.plotting import spectrum_plot
@@ -121,10 +132,11 @@ class ActiveSubspaceProjector:
     ``utils.GivenNoise`` to give those too)."""
 
     def __init__(self, observable, prior, parameters: ParameterList | None = None,
-                 control_distribution=None):
+                 control_distribution=None, collective=None):
         self.observable = observable
         self.prior = prior
         self.control_distribution = control_distribution
+        self.collective = collective or NullCollective()
         self.parameters = parameters or ActiveSubspaceParameterList()
         self.keychain = KeyChain(self.parameters["seed"], prior.mean.device)
         self.samples: SampleBatch | None = None
@@ -167,6 +179,7 @@ class ActiveSubspaceProjector:
             reset_initial_guess=self.parameters["reset_initial_guess"],
             coarse_warm_start=self.parameters["coarse_warm_start"],
             control_distribution=self.control_distribution,
+            collective=self.collective,
         )
         if self.parameters["verbose"]:
             print(
@@ -181,10 +194,11 @@ class ActiveSubspaceProjector:
         """True when sampling takes the fused forward + Jacobian pass: a
         linear operator with A^T = A, no Dirichlet rows (bc masking breaks
         the symmetry), a materializable B, the materialized strategy, drawn
-        samples, no controls and no grid sequencing."""
+        samples, no controls, no grid sequencing and one rank."""
         problem = self.observable.problem
         return (
-            self.control_distribution is None
+            self.collective.size() == 1
+            and self.control_distribution is None
             and problem.is_fwd_linear
             and problem.operator_symmetric
             and not problem._has_bc
@@ -220,51 +234,62 @@ class ActiveSubspaceProjector:
             return
         with self._stage(timer, "forward"):
             self._ensure_samples()
-        s = self.samples
         if self.parameters["serialized_sampling"]:
             return
+        ms, us, zs = self._local_samples()
         if self._materializable():
             with self._stage(timer, "jacobian"):
                 if self.Js is None:
                     self.Js = materialize_jacobians(
-                        self.observable, s.ms, s.us, s.zs,
+                        self.observable, ms, us, zs,
                         chunk_size=self._jac_chunk())
         else:
             with self._stage(timer, "linearize"):
                 if self.lins is None:
-                    self.lins = linearize_batch(self.observable, s.ms, s.us, s.zs)
+                    self.lins = linearize_batch(self.observable, ms, us, zs)
+
+    def _local_samples(self):
+        """(ms, us, zs) of this rank's share of the samples (all of them
+        on one process)."""
+        s = self.samples
+        sl = self.collective.local_slice(s.ms.shape[0])
+        return s.ms[sl], s.us[sl], None if s.zs is None else s.zs[sl]
 
     def _avg_gn_operator(self, operation: str):
         """The block operator X (n, k) -> E[J^T J] X (operation 'JTJ', n =
         dM) or E[J J^T] X ('JJT', n = dQ) in the strategy the module's
-        docstring describes; ``_prepare`` has run."""
-        s = self.samples
-        n = s.ms.shape[0]
+        docstring describes; ``_prepare`` has run.  Each application sums
+        this rank's samples and adds the other ranks' sums
+        (``collective.sum_partials``)."""
+        n = self.samples.ms.shape[0]
+        red = self.collective.sum_partials
         J = ObservableJacobian(self.observable)
         per_sample = jtj_matmat if operation == "JTJ" else jjt_matmat
         if self.parameters["serialized_sampling"]:
             problem = self.observable.problem
+            ms, us, zs = self._local_samples()
+            n_loc = ms.shape[0]
             chunk = max(1, min(self.parameters["chunk_size"] or 16, n))
 
             def serialized(X):
                 acc = torch.zeros_like(X)
-                for a in range(0, n, chunk):
-                    e = min(a + chunk, n)
+                for a in range(0, n_loc, chunk):
+                    e = min(a + chunk, n_loc)
                     lin = problem.linearize(
-                        s.us[a:e], s.ms[a:e], None if s.zs is None else s.zs[a:e])
+                        us[a:e], ms[a:e], None if zs is None else zs[a:e])
                     acc += per_sample(J, lin)(X).sum(dim=0)
                     del lin  # free this chunk's factors before the next's
-                return acc / n
+                return red(acc) / n
 
             return serialized
         if self._materializable():
             Js = self.Js
             if operation == "JTJ":
                 Jf = Js.reshape(-1, Js.shape[-1])  # (N dQ, dM)
-                return lambda X: (Jf.T @ (Jf @ X)) / n
-            return lambda X: (Js @ (Js.mT @ X)).sum(dim=0) / n
+                return lambda X: red(Jf.T @ (Jf @ X)) / n
+            return lambda X: red((Js @ (Js.mT @ X)).sum(dim=0)) / n
         apply = per_sample(J, self.lins)
-        return lambda X: apply(X).mean(dim=0)
+        return lambda X: red(apply(X).sum(dim=0)) / n
 
     def construct_input_subspace(self, prior_preconditioned: bool = True):
         """The GHEP of E[J^T J] against R (``prior_preconditioned``) or its
@@ -360,6 +385,10 @@ class ActiveSubspaceProjector:
         self._ensure_samples()
         s = self.samples
         n = s.ms.shape[0]
+        if self.collective.size() > 1 and output_directory is not None:
+            raise NotImplementedError(
+                "the Jacobian data's resumable files are written by one "
+                "process: pass output_directory=None under a collective")
         prefix = "z" if control else ""
         rank_param = ((self.parameters["control_jacobian_rank"] if control
                        else None) or self.parameters["jacobian_rank"])
@@ -380,8 +409,9 @@ class ActiveSubspaceProjector:
                     for k in keys:
                         parts[k].append(torch.as_tensor(z[k], device=s.ms.device))
                 continue
-            # reuse the Jacobians of the subspace build where they exist
-            if not control and self.Js is not None:
+            # reuse the Jacobians of the subspace build where they hold
+            # every sample
+            if not control and self.Js is not None and self.Js.shape[0] == n:
                 J = self.Js[a:b]
             else:
                 J = materialize_jacobians(
@@ -478,8 +508,9 @@ class ActiveSubspaceProjector:
         (an outer sample with none is discarded).  Returns ("double_loop",
         r) -> (avg, std) and ("double_loop_discarded", r) -> (outer
         discarded, inner discarded); the averages are also left in
-        ``_double_loop_errors``.  On one process the collective average of
-        the JAX package is the identity."""
+        ``_double_loop_errors``.  The averages go through the collective's
+        ``allReduce`` of scalars, as in the JAX package: every rank runs
+        the same test, so the average is the identity."""
         if self.V_GN is None:
             raise RuntimeError("construct_input_subspace first")
         n = n_samples or self.parameters["error_test_samples"]
@@ -510,8 +541,12 @@ class ActiveSubspaceProjector:
                          / n_ok.clamp(min=1)[:, None])
             valid = n_ok > 0
             errs = (torch.linalg.vector_norm(qs_v - cond_mean, dim=1) / den)[valid]
-            avg = errs.mean().item()
-            out[("double_loop", r)] = (avg, errs.std(correction=0).item())
+            # collective averages of replicated scalars (every rank ran the
+            # same test), the identity as in the JAX package
+            avg = self.collective.allReduce(errs.mean().item(), "avg")
+            std = math.sqrt(self.collective.allReduce(
+                errs.std(correction=0).item() ** 2, "avg"))
+            out[("double_loop", r)] = (avg, std)
             out[("double_loop_discarded", r)] = (
                 int(n - nv + (~valid).sum().item()), int(nj * nv - n_ok.sum().item()))
             results.append(avg)
@@ -533,10 +568,13 @@ class ActiveSubspaceProjector:
         AS_<n>_<which>_eigenvalues_<rank>.pdf (where matplotlib is
         installed)."""
         outdir = self.parameters["output_directory"]
-        if not self.parameters["save_and_plot"] or outdir is None:
+        if (not self.parameters["save_and_plot"] or outdir is None
+                or self.collective.rank() != 0):
             return
         os.makedirs(outdir, exist_ok=True)
-        name = f"AS_{int(self.parameters['samples_per_process'])}"
+        # the JAX package's name: samples_per_process times the size
+        n = self.parameters["samples_per_process"] * self.collective.size()
+        name = f"AS_{int(n)}"
         suffix = self.parameters[f"{which}_decoder_name"]
         np.save(os.path.join(outdir, name + suffix), decoder.cpu().numpy())
         dname = "_d_GN" if which == "input" else "_d_NG"

@@ -26,6 +26,7 @@ from ..fem import boundary_mass_matrix
 from ..ops.linalg import CholeskyFactor, generalized_eigh
 from ..ops.operators import low_rank_operator, prior_preconditioned_projector
 from ..ops.randomized import double_pass, double_pass_g, lanczos_ghep, orthogonalize
+from ..parallel.collective import NullCollective
 from ..utils import KeyChain, ParameterList
 from ..utils.plotting import spectrum_plot
 
@@ -65,10 +66,14 @@ def KLEParameterList() -> ParameterList:
 class KLEProjector:
     """Input subspace projector from the prior alone.  ``keychain`` draws
     the probe block and the test samples (replace it with a
-    ``utils.GivenNoise`` to give them)."""
+    ``utils.GivenNoise`` to give them).  ``collective`` is kept as in the
+    JAX package: the KLE needs no sample reduction, so every rank computes
+    the same subspace."""
 
-    def __init__(self, prior, parameters: ParameterList | None = None):
+    def __init__(self, prior, parameters: ParameterList | None = None,
+                 collective=None):
         self.prior = prior
+        self.collective = collective or NullCollective()
         self.parameters = parameters or KLEParameterList()
         self.keychain = KeyChain(self.parameters["seed"], prior.mean.device)
         self.d_KLE = None
@@ -161,7 +166,8 @@ class KLEProjector:
         plot ``KLE_eigenvalues_<rank>.pdf`` (where matplotlib is
         installed)."""
         outdir = self.parameters["output_directory"]
-        if not self.parameters["save_and_plot"] or outdir is None:
+        if (not self.parameters["save_and_plot"] or outdir is None
+                or self.collective.rank() != 0):
             return
         os.makedirs(outdir, exist_ok=True)
         np.save(os.path.join(outdir, self.parameters["input_decoder_name"]),

@@ -29,8 +29,14 @@ Solver choices (``solver=``), as in the JAX package:
   blocks are large (s >= 128) or the band short (nb <= 256), else cyclic
   reduction; elsewhere ``dense``.
 
-``dist_banded`` (the dof-sharded solve) belongs with the parallel layer
-(ROADMAP M13) and raises.  ``RefinedBandFactor`` is not ported: the JAX
+* ``dist_banded``: the band's block rows sharded over the ``dist_axis``
+  of ``dist_mesh`` (a ``torch.distributed`` device mesh): each rank
+  factorizes its own partitions of the partitioned SPIKE solve
+  (``parallel/dist_banded.py``; K3 once per cyclic-reduction level), in as
+  many partitions as the axis has ranks; forward and transposed solves
+  take and return the global tensors every rank holds.
+
+``RefinedBandFactor`` is not ported: the JAX
 package wraps factors in it only under its lowered-precision solver
 policy, and the port solves in IEEE precision.
 
@@ -79,8 +85,8 @@ from ..ops.structured import (
 
 STATE, PARAMETER, ADJOINT, CONTROL = 0, 1, 2, 3
 SOLVERS = ("auto", "dense", "block_tridiag", "block_cyclic", "thomas_inv",
-           "iterative")
-BAND_SOLVERS = ("block_tridiag", "block_cyclic", "thomas_inv")
+           "iterative", "dist_banded")
+BAND_SOLVERS = ("block_tridiag", "block_cyclic", "thomas_inv", "dist_banded")
 
 
 class NewtonInfo(NamedTuple):
@@ -197,7 +203,14 @@ class IterativeFactor:
 
 
 def _factorize_band(band, solver: str, with_transpose: bool,
-                    with_forward: bool):
+                    with_forward: bool, dist=None):
+    if solver == "dist_banded":
+        from ..parallel.dist_banded import factorize_distributed_banded
+
+        mesh, axis = dist
+        return factorize_distributed_banded(
+            band, mesh.size(mesh.mesh_dim_names.index(axis)),
+            with_transpose=with_transpose, mesh=mesh, axis=axis)
     if solver == "thomas_inv":
         return factorize_thomas_inv_banded(band)
     if solver == "block_cyclic":
@@ -217,7 +230,8 @@ class VariationalPDEProblem:
     distributional right-hand side (point sources), residual -> residual -
     rhs_vector.  operator_symmetric: A^T = A as assembled (possibly
     indefinite), so an adjoint factor serves forward solves too (the fused
-    sampling pass).  solver: see the module doc."""
+    sampling pass).  solver: see the module doc; ``dist_banded`` takes
+    ``dist_mesh`` and ``dist_axis``."""
 
     def __init__(
         self,
@@ -237,13 +251,16 @@ class VariationalPDEProblem:
         control_dim: int | None = None,
         newton_stale_factor: int = 1,
         solver: str = "auto",
+        dist_mesh=None,
+        dist_axis: str = "fem",
     ):
-        if solver == "dist_banded":
-            raise NotImplementedError(
-                "solver='dist_banded' (the dof-sharded banded solve) is not "
-                "ported: it belongs with the parallel layer (ROADMAP M13)")
         if solver not in SOLVERS:
             raise ValueError(f"solver={solver!r}: one of {SOLVERS}")
+        if solver == "dist_banded" and (
+                dist_mesh is None or dist_axis not in dist_mesh.mesh_dim_names):
+            raise ValueError("solver='dist_banded' needs a dist_mesh with the "
+                             f"axis {dist_axis!r}")
+        self._dist = (dist_mesh, dist_axis) if solver == "dist_banded" else None
         self.dtype, self.device = config.resolve(dtype, device)
         self.Vu, self.Vm, self.form, self.bc = Vu, Vm, form, bc
         if isinstance(form, VectorGalerkinForm):
@@ -373,13 +390,15 @@ class VariationalPDEProblem:
         if self._band_order is None:
             band = bc_symmetrize_banded_masked(
                 self.bound.assemble_A_banded(u, m, z), self._mask)
-            return _factorize_band(band, solver, needs != "fwd", needs != "adj")
+            return _factorize_band(band, solver, needs != "fwd", needs != "adj",
+                                   self._dist)
         border = self._band_order
         band = bc_symmetrize_banded_masked(
             self.bound.assemble_A_banded_ordered(u, m, border, z),
             self._band_mask)
         return PermutedFactor(
-            _factorize_band(band, solver, needs != "fwd", needs != "adj"),
+            _factorize_band(band, solver, needs != "fwd", needs != "adj",
+                            self._dist),
             border)
 
     # -- linear forward solve -----------------------------------------------

@@ -14,6 +14,12 @@ beside ``m_data`` and ``q_data``).  ``save_mass_and_stiffness_matrices``
 writes the state space's mass and stiffness matrices as scipy CSR files,
 and ``two_state_solution`` the solves at the prior mean and at one prior
 sample, as ``.npy`` and legacy-VTK files.
+
+With a ``collective`` (``parallel.DeviceCollective``) the forward solves
+of the samples are split over its ranks (``sample_until_solved``) and
+every rank holds the gathered samples; the error tests' averages go
+through the collective's ``allReduce`` of scalars (every rank runs the
+same test), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..fem import mass_matrix, stiffness_matrix
 from ..ops.linalg import CholeskyFactor, eigh_descending, generalized_eigh
 from ..ops.operators import low_rank_operator, prior_preconditioned_projector
 from ..ops.randomized import double_pass
+from ..parallel.collective import NullCollective
 from ..utils import KeyChain, ParameterList
 from ..utils.mesh_utils import export_vtk
 from ..utils.plotting import spectrum_plot
@@ -73,9 +80,10 @@ class PODProjector:
     ``generate_training_data`` draws per chunk, or takes ``noise``."""
 
     def __init__(self, observable, prior, control_distribution=None,
-                 parameters: ParameterList | None = None):
+                 parameters: ParameterList | None = None, collective=None):
         self.observable = observable
         self.control_distribution = control_distribution
+        self.collective = collective or NullCollective()
         self.prior = prior
         self.parameters = parameters or PODParameterList()
         self.keychain = KeyChain(self.parameters["seed"], prior.mean.device)
@@ -106,7 +114,14 @@ class PODProjector:
             verbose=self.parameters["verbose"],
             coarse_warm_start=self.parameters["coarse_warm_start"],
             control_distribution=self.control_distribution,
+            collective=self.collective,
         )
+
+    def _average(self, errs):
+        """(mean, std) of the errors through the collective's average."""
+        avg = self.collective.allReduce(errs.mean().item(), "avg")
+        var = self.collective.allReduce(errs.std(correction=0).item() ** 2, "avg")
+        return avg, float(np.sqrt(var))
 
     def construct_subspace(self):
         """Randomized HEP of (1/N) sum_i q_i q_i^T (reference
@@ -127,7 +142,8 @@ class PODProjector:
             print("POD subspace construction took "
                   f"{self._subspace_construction_time:.3f}s")
         outdir = self.parameters["output_directory"]
-        if self.parameters["save_and_plot"] and outdir:
+        if (self.parameters["save_and_plot"] and outdir
+                and self.collective.rank() == 0):
             os.makedirs(outdir, exist_ok=True)
             np.save(os.path.join(outdir, "POD_projector"), self.U_MV.cpu().numpy())
             d = self.d.cpu().numpy()
@@ -157,6 +173,10 @@ class PODProjector:
             prune_stale_chunks,
         )
 
+        if self.collective.size() > 1:
+            raise NotImplementedError(
+                "the resumable training-data files are written by one "
+                "process: generate them without a collective")
         t0 = time.time()
         os.makedirs(output_directory, exist_ok=True)
         n = n_data or self.parameters["data_per_process"]
@@ -293,8 +313,9 @@ class PODProjector:
                                           self.parameters["chunk_size"])
             U = self.U_MV[:, :rank_out]
             errs = _rel_errors(qs, q_red @ U @ U.T)
-            avg.append(errs.mean().item())
-            std.append(errs.std(correction=0).item())
+            a, sd = self._average(errs)
+            avg.append(a)
+            std.append(sd)
             self.io_iterations.append(its)
             self.io_failed.append(int((~ok).sum().item()))
             if self.parameters["verbose"]:
@@ -315,8 +336,9 @@ class PODProjector:
         for r in ranks:
             U = self.U_MV[:, :r]
             errs = _rel_errors(Q, Q @ U @ U.T)
-            avg.append(errs.mean().item())
-            std.append(errs.std(correction=0).item())
+            a, sd = self._average(errs)
+            avg.append(a)
+            std.append(sd)
             if self.parameters["verbose"]:
                 print(f"POD avg rel error = {avg[-1]:.4e} at rank {r}")
         return np.asarray(avg), np.asarray(std)

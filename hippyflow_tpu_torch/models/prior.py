@@ -36,6 +36,12 @@ from ..fem import (
     stiffness_matrix,
     stiffness_matrix_banded,
 )
+from ..fem.assembly import (
+    _boundary_mass_elements,
+    band_indices,
+    p1_mass_elements,
+    p1_stiffness_elements,
+)
 from ..ops.linalg import CholeskyFactor
 from ..ops.structured import (
     block_cholesky_tridiag,
@@ -161,11 +167,18 @@ class StructuredBiLaplacianPrior(_BiLaplacianOperators):
     The same covariance, precision and sampling distribution as
     ``BiLaplacianPrior`` (given the same noise, the same samples up to
     roundoff), with the operator surface of the JAX package's
-    ``StructuredBiLaplacianPrior`` (materialized, single device).  Not
-    ported: ``materialize=False``, which only keeps XLA's programs small
-    (the port builds its bands and factors once, here), and the
-    dof-sharded ``mesh=`` path (partitioned SPIKE), which belongs with the
-    parallel layer."""
+    ``StructuredBiLaplacianPrior``.  Not ported: ``materialize=False``,
+    which only keeps XLA's programs small (the port builds its bands and
+    factors once, here).
+
+    With a device ``mesh`` (``parallel.make_sample_fem_mesh``) the prior
+    is dof-sharded over its ``fem_axis``: each rank assembles only its own
+    block rows (``parallel.dist_assemble_band``), the K and M solves are
+    partitioned SPIKE factors (``parallel.factorize_distributed_banded``),
+    the products halo products (``parallel.dist_block_tridiag_matmat``),
+    and the block Cholesky factor of M runs down the ranks, each taking
+    the last diagonal factor of the rank before it (one hop a rank).
+    Inputs and outputs stay the global tensors every rank holds."""
 
     def __init__(
         self,
@@ -179,6 +192,8 @@ class StructuredBiLaplacianPrior(_BiLaplacianOperators):
         robin_bc: bool = False,
         dtype=None,
         device=None,
+        mesh=None,
+        fem_axis: str = "fem",
     ):
         if Vh.mesh.structured_shape is None or Vh.degree != 1:
             raise NotImplementedError("structured P1 meshes only")
@@ -186,6 +201,12 @@ class StructuredBiLaplacianPrior(_BiLaplacianOperators):
         self.Vh = Vh
         self.gamma, self.delta = float(gamma), float(delta)
         kw = dict(dtype=dtype, device=device)
+        self._mesh, self._fem_axis = mesh, fem_axis
+        if mesh is not None:
+            self._build_sharded(theta0, theta1, alpha, robin_bc, kw)
+            self.mean = (torch.zeros(Vh.dim, **kw) if mean is None
+                         else torch.as_tensor(mean, **kw))
+            return
         self.M_band = mass_matrix_banded(Vh, **kw)
         A_band = stiffness_matrix_banded(
             Vh, aniso_tensor_2d(theta0, theta1, alpha), **kw
@@ -203,18 +224,95 @@ class StructuredBiLaplacianPrior(_BiLaplacianOperators):
             mean = torch.zeros(Vh.dim, **kw)
         self.mean = torch.as_tensor(mean, **kw)
 
+    def _build_sharded(self, theta0, theta1, alpha, robin_bc, kw):
+        """The dof-sharded bands and factors (see the class doc)."""
+        from ..parallel.dist_banded import (
+            _axis,
+            _rows_dtensor,
+            dist_assemble_band,
+            factorize_distributed_banded,
+            partition_cells_by_row,
+        )
+
+        Vh, mesh, axis = self.Vh, self._mesh, self._fem_axis
+        s = Vh.mesh.structured_shape[0] + 1
+        nb = Vh.dim // s
+        ax = _axis(mesh, axis)
+        np_dtype = torch.empty((), dtype=kw["dtype"]).numpy().dtype
+
+        def assemble(vals_e, conn, pad_identity=True):
+            idx = band_indices(Vh, conn)
+            plan, _ = partition_cells_by_row((np.asarray(conn) // s).min(axis=1),
+                                             nb, ax.size)
+            vals = torch.as_tensor(vals_e.reshape(len(idx), -1).astype(np_dtype),
+                                   device=kw["device"])
+            return dist_assemble_band(mesh, vals, torch.as_tensor(idx),
+                                      plan, nb, s, axis, pad_identity)
+
+        cells = Vh.mesh.cells
+        M_e = p1_mass_elements(Vh)
+        K_e = (self.gamma * p1_stiffness_elements(
+            Vh, aniso_tensor_2d(theta0, theta1, alpha)) + self.delta * M_e)
+        self.M_band = assemble(M_e, cells)
+        K_band = assemble(K_e, cells)
+        if robin_bc:
+            edges, Mb_e = _boundary_mass_elements(Vh)
+            K_band = K_band + assemble(
+                robin_coefficient(self.gamma, self.delta) * Mb_e, edges,
+                pad_identity=False)
+        self.K_band = K_band
+        n, P = Vh.dim, ax.size
+        self._K_fac = factorize_distributed_banded(K_band, P, with_transpose=False,
+                                                   n_true=n)
+        self._M_fac = factorize_distributed_banded(self.M_band, P,
+                                                   with_transpose=False, n_true=n)
+        # M's block Cholesky down the ranks: each rank's first row couples
+        # to the previous rank's last, whose diagonal factor arrives in one
+        # hop (rank 0 starts)
+        M_loc = self.M_band.to_local()
+        C_prev = None
+        if ax.pos > 0:
+            C_prev = torch.empty_like(M_loc[0, :, :s])
+            torch.distributed.recv(C_prev, torch.distributed.get_global_rank(
+                ax.group, ax.pos - 1), group=ax.group)
+        chol = block_cholesky_tridiag(M_loc, C_prev)
+        if ax.pos + 1 < ax.size:
+            torch.distributed.send(chol.C[-1].contiguous(),
+                                   torch.distributed.get_global_rank(
+                                       ax.group, ax.pos + 1), group=ax.group)
+        # L_M is block lower bidiagonal: the band [Off, tril(C), 0]
+        band_L = torch.cat([chol.Off, torch.tril(chol.C),
+                            torch.zeros_like(chol.C)], dim=-1)
+        self._M_chol = _ShardedCholesky(
+            _rows_dtensor(band_L, mesh, axis, self.M_band.shape[0]), mesh, axis)
+
     def M_matmat(self, X):
-        return _band_matmat(self.M_band, X)
+        return _band_matmat(self.M_band, X, self._mesh, self._fem_axis)
 
     def Msolver_matmat(self, X):
         return self._M_fac.solve(X)
 
     def K_matmat(self, X):
-        return _band_matmat(self.K_band, X)
+        return _band_matmat(self.K_band, X, self._mesh, self._fem_axis)
 
 
-def _band_matmat(band, X):
-    """One (nb, s, 3s) band times X (n, k) or (n,)."""
+class _ShardedCholesky:
+    """The row-sharded band of L_M; ``matvec_L`` is its halo product."""
+
+    def __init__(self, band_L, mesh, axis):
+        self.band_L, self.mesh, self.axis = band_L, mesh, axis
+
+    def matvec_L(self, X):
+        return _band_matmat(self.band_L, X, self.mesh, self.axis)
+
+
+def _band_matmat(band, X, mesh=None, axis="fem"):
+    """One (nb, s, 3s) band times X (n, k) or (n,): the halo product of a
+    row-sharded band over ``mesh``'s ``axis``, else the serial one."""
+    if mesh is not None:
+        from ..parallel.dist_banded import dist_block_tridiag_matmat
+
+        return dist_block_tridiag_matmat(mesh, band, X, axis)
     return block_tridiag_matmat(band[None], X[None])[0]
 
 

@@ -87,6 +87,7 @@ def sample_until_solved(
     coarse_warm_start=None,
     control_distribution=None,
     controls=None,
+    collective=None,
 ) -> SampleBatch:
     """Draw n_samples prior samples with converged forward solves.
 
@@ -106,11 +107,26 @@ def sample_until_solved(
     this replaces the chunk-to-chunk carry.  Otherwise, unless
     ``reset_initial_guess``, each chunk starts from the previous chunk's
     converged states, lane by lane (a failed or non-finite lane carries
-    zero), and resampled lanes cold-start."""
+    zero), and resampled lanes cold-start.
+
+    With a ``collective`` (``parallel.DeviceCollective``) the samples are
+    split over its ranks: every rank draws each chunk's noise (and
+    controls) whole from the same stream, solves its share of the lanes
+    (``collective.local_slice``) and gathers the chunk's results, so every
+    rank holds the whole batch and agrees on the failed lanes before it
+    draws their replacements (whose solves are split the same way).  The
+    default chunk is the one-process chunk times the collective's size."""
     problem = observable.problem
     dtype, device = prior.mean.dtype, prior.mean.device
     if chunk_size is None:
         chunk_size = auto_chunk_size(problem, dtype, device)
+        if collective is not None:
+            # each rank's share at the one-process chunk
+            chunk_size = min(4096, chunk_size * collective.size())
+    if collective is None:
+        share, gather = (lambda b: slice(0, b)), (lambda x, b: x)
+    else:
+        share, gather = collective.local_slice, collective.gather_samples
     nonlinear = not problem.is_fwd_linear
     use_cws = coarse_warm_start is not None and nonlinear
     carry = not reset_initial_guess and nonlinear and not use_cws
@@ -123,11 +139,20 @@ def sample_until_solved(
         return control_distribution.sample_n(keychain, b, dtype=dtype)
 
     def solve(noise_c, z, u0):
+        """The chunk's lanes (this rank's share of them, gathered): (m, u,
+        q, converged, Newton iterations), each with the chunk's rows."""
+        b = noise_c.shape[0]
+        sl = share(b)
+        noise_c = noise_c[sl]
+        z = None if z is None else z[sl]
+        u0 = None if u0 is None else u0[sl]
         if use_cws:
             u0 = coarse_warm_start(noise_c)
         m = prior.sample(noise_c)
         u, info = problem.solve_fwd(m, z=z, u0=u0)
-        return m, u, observable.evalu(u), info
+        ok = gather(info.converged.to(torch.uint8), b).bool()
+        return (gather(m, b), gather(u, b), gather(observable.evalu(u), b), ok,
+                gather(info.iterations, b))
 
     chunks = []
     u_prev = None
@@ -138,22 +163,20 @@ def sample_until_solved(
         u0 = None
         if carry and u_prev is not None and u_prev.shape[0] >= b:
             u0 = u_prev[:b]
-        m, u, q, info = solve(noise_c, z, u0)
+        m, u, q, ok, it = solve(noise_c, z, u0)
         if carry:
-            good = info.converged[:, None] & torch.isfinite(u).all(
-                dim=1, keepdim=True
-            )
+            good = ok[:, None] & torch.isfinite(u).all(dim=1, keepdim=True)
             u_prev = torch.where(good, u, 0.0)
-        chunks.append((m, u, q, z, info))
+        chunks.append((m, u, q, z, ok, it))
         if verbose:
             print(f"  solved {a + b}/{n_samples}", flush=True)
 
     out = {k: [] for k in ("m", "u", "q", "z", "it")}
     failed_ms = []
     n_failures = 0
-    for m, u, q, z, info in chunks:
+    for m, u, q, z, ok_t, it in chunks:
         b = m.shape[0]
-        ok, it = info.converged.cpu().numpy(), info.iterations.clone()
+        ok = ok_t.cpu().numpy()
         for _ in range(max_tries):
             if ok.all():
                 break
@@ -165,13 +188,13 @@ def sample_until_solved(
                 print(f"resampling {nbad} failed forward solves")
             noise2 = draw(b)
             z2 = draw_z(b)
-            m2, u2, q2, info2 = solve(noise2, z2, None)
+            m2, u2, q2, ok2, it2 = solve(noise2, z2, None)
             bad_t = torch.as_tensor(bad, device=device)
             m[bad_t], u[bad_t], q[bad_t] = m2[:nbad], u2[:nbad], q2[:nbad]
             if with_control:  # out of place: z may be the caller's controls
                 z = z.index_copy(0, bad_t, z2[:nbad])
-            it[bad_t] = info2.iterations[:nbad]
-            ok[bad] = info2.converged[:nbad].cpu().numpy()
+            it[bad_t] = it2[:nbad]
+            ok[bad] = ok2[:nbad].cpu().numpy()
         if not ok.all():
             raise RuntimeError(
                 f"{(~ok).sum()} forward solves failed after {max_tries} "

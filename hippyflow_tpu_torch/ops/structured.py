@@ -473,14 +473,19 @@ class BlockBidiagCholesky(NamedTuple):
         return out[:, 0] if squeeze else out
 
 
-def block_cholesky_tridiag(band) -> BlockBidiagCholesky:
+def block_cholesky_tridiag(band, C_prev=None) -> BlockBidiagCholesky:
     """Block Cholesky of an SPD matrix in (nb, s, 3s) band storage:
-    Off_j = A_j C_{j-1}^{-T},  C_j = chol(D_j - Off_j Off_j^T)."""
+    Off_j = A_j C_{j-1}^{-T},  C_j = chol(D_j - Off_j Off_j^T).  With
+    ``C_prev``, the band is the block rows after those whose last diagonal
+    factor C_prev is (a row-sharded band's next share; its first row's A
+    couples to that row); otherwise A_0 = 0."""
     s = band.shape[1]
     L_A, D = band[:, :, :s], band[:, :, s : 2 * s]
     C = torch.empty_like(D)
     Off = torch.zeros_like(D)
-    C[0] = torch.linalg.cholesky(D[0])
+    if C_prev is not None:
+        Off[0] = torch.linalg.solve_triangular(C_prev, L_A[0].mT, upper=False).mT
+    C[0] = torch.linalg.cholesky(D[0] - Off[0] @ Off[0].mT)
     for j in range(1, D.shape[0]):
         # Off = A C^{-T}, from C Off^T = A^T
         Off[j] = torch.linalg.solve_triangular(C[j - 1], L_A[j].mT, upper=False).mT

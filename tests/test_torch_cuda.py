@@ -1097,3 +1097,38 @@ def test_kernels_on_a_p2_band_at_s258(cuda, dtype):
         x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
         torch.cuda.synchronize()
         assert _rel(x, x_p) < TOL[dtype], (k, trans)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spike_at_nx64_on_card(cuda, dtype):
+    """The partitioned SPIKE factor with P=4 (K3 on every cyclic-reduction
+    level of the 17-row partitions) on the confusion Newton bands at nx=64
+    (N=8, nb=s=65, padded to 68 rows), forward and transposed, k=1 and 100:
+    against the same factor on the CPU and against K1+K2 on the card."""
+    from hippyflow_tpu_torch.applications.confusion import (
+        confusion_linear_observable,
+        confusion_prior,
+    )
+    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
+    from hippyflow_tpu_torch.parallel import factorize_distributed_banded
+
+    obs, V = confusion_linear_observable(nx=64, velocity="analytic",
+                                         dtype=torch.float64, device="cpu")
+    prior = confusion_prior(V, dtype=torch.float64, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    m = prior.sample(torch.randn(8, V.dim, generator=g, dtype=torch.float64))
+    pde = obs.problem
+    u = torch.zeros(8, V.dim, dtype=torch.float64)
+    band64 = bc_symmetrize_banded_masked(pde.bound.assemble_A_banded(u, m),
+                                         pde._mask)
+    tol = TOL[dtype] * (10.0 if dtype == torch.float32 else 100.0)
+    F_cpu = factorize_distributed_banded(band64.to(dtype), 4)
+    band = band64.to(device=cuda, dtype=dtype)
+    F = factorize_distributed_banded(band, 4)
+    T = factorize_thomas_inv_banded(band)
+    for k in (1, 100):
+        B = torch.randn(8, V.dim, k, generator=g, dtype=torch.float64)
+        for trans in (False, True):
+            x = F.solve(B.to(device=cuda, dtype=dtype), trans=trans)
+            assert _rel(x.cpu(), F_cpu.solve(B.to(dtype), trans=trans)) < tol
+            assert _rel(x, T.solve(B.to(device=cuda, dtype=dtype), trans=trans)) < tol

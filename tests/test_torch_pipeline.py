@@ -194,6 +194,7 @@ import hippyflow_tpu_torch.applications.helmholtz_training
 import hippyflow_tpu_torch.applications.confusion_multirun
 import hippyflow_tpu_torch.applications.helmholtz_multirun
 import hippyflow_tpu_torch.utils.plotting
+import hippyflow_tpu_torch.parallel, hippyflow_tpu_torch.parallel.dist_banded
 bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 sys.exit(f"loaded {bad}" if bad else 0)
 """
@@ -207,8 +208,8 @@ def test_import_pulls_in_no_jax():
     its Poisson control fixture (``testing``), mesh I/O and multivector
     shims, its plots, and its confusion, confusion-setup,
     confusion-training, helmholtz, Navier-Stokes, helmholtz-setup,
-    helmholtz-training and both multirun applications import, and
-    matplotlib is not imported with them."""
+    helmholtz-training and both multirun applications, and its parallel
+    layer import, and matplotlib is not imported with them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,

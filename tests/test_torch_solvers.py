@@ -18,6 +18,7 @@ CPU, on the Poisson control problem (``testing.py``) at nx=8.
 * the batched cyclic-reduction factor and its solves against JAX's
   ``factorize_block_cyclic_banded`` under vmap with the interpret-mode
   Pallas Gauss-Jordan (``batched_inverse(force="pallas")``), 1e-12;
+* ``dist_banded`` on a one-rank mesh against ``auto`` and JAX (1e-10);
 * a permuted-numbering unstructured mesh: residual, dense A, its
   diagonal, dense Cz and Cz^T against JAX at 1e-12, and the dense and
   iterative solves against the structured one;
@@ -389,14 +390,53 @@ def test_robin_prior_matches_jax(mesh):
 
 
 def test_dist_banded_raises():
+    """dist_banded without a device mesh, and a band solver on an
+    unstructured mesh, are refused."""
     _, tpde = _pair(True)
-    with pytest.raises(NotImplementedError, match="M13"):
+    with pytest.raises(ValueError, match="dist_mesh"):
         VariationalPDEProblem(tpde.Vu, tpde.Vm, tpde.form, tpde.bc,
                               solver="dist_banded", **F64)
     with pytest.raises(ValueError, match="structured mesh"):
         _, tmesh, _, st = _unstructured(True)
         tt.setup_poisson_control_problem(st, mesh=tmesh, solver="block_cyclic",
                                          **F64)
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    """A one-rank gloo group and its (1, 1) mesh (the partitioned solves
+    across ranks: ``tests/test_torch_parallel_ranks.py``)."""
+    from _torch_parallel_worker import world_one
+
+    with world_one(tmp_path_factory.mktemp("group") / "store") as mesh:
+        yield mesh
+
+
+@pytest.mark.parametrize("linear", [True, False])
+def test_dist_banded_matches_auto(linear, one_rank_mesh):
+    """solver='dist_banded' on a one-rank 'fem' axis (one SPIKE partition:
+    the cyclic-reduction factor of the whole band and the interface system)
+    against ``auto`` and the JAX package: the same Newton iterations, the
+    state and the incremental solves within 1e-10."""
+    jpde, auto = _pair(linear)
+    st = _settings(NX, linear)
+    dist = tt.setup_poisson_control_problem(
+        st, solver="dist_banded", dist_mesh=one_rank_mesh, dist_axis="fem",
+        **F64)[0]
+    m, z = _inputs()
+    rhs = np.random.default_rng(1).standard_normal((N, dist.state_dim, 2))
+    u, info, *wants = _j_solve_and_incremental(jpde, m, z, rhs)
+    ud, infod = dist.solve_fwd(_t(m), _t(z))
+    ua, infoa = auto.solve_fwd(_t(m), _t(z))
+    assert np.array_equal(infod.iterations.numpy(), np.asarray(info.iterations))
+    assert torch.equal(infod.iterations, infoa.iterations)
+    assert _rel(ud, u) <= DIRECT_TOL and _rel(ud, ua) <= DIRECT_TOL
+    lin, lin_a = dist.linearize(ud, _t(m), _t(z)), auto.linearize(ud, _t(m), _t(z))
+    for is_adj, want in zip((False, True), wants):
+        got = dist.solve_incremental(lin, _t(rhs), is_adj=is_adj)
+        assert _rel(got, want) <= DIRECT_TOL
+        assert _rel(got, auto.solve_incremental(lin_a, _t(rhs), is_adj=is_adj)) \
+            <= DIRECT_TOL
 
 
 @pytest.mark.parametrize("structured", [True, False])

@@ -3,8 +3,8 @@ JAX package, float64 on the CPU, on the same numpy inputs: ``cg_solve``,
 ``solve_refined``, ``extract_block_tridiag`` and the four Dirichlet
 helpers (``band_bc_masks``, ``bc_symmetrize_banded``, ``bc_zero_rows``,
 ``bc_apply_rhs``), each to 1e-10; and every public name of the JAX
-package's ``fem``, ``ops`` and ``utils`` and of its top level has a
-counterpart in the port, the parallel layer's names (ROADMAP M13) apart.
+package's ``fem``, ``ops``, ``utils`` and ``parallel`` and of its top level
+has a counterpart in the port.
 """
 
 import ast
@@ -193,9 +193,8 @@ def test_bc_apply_rhs_matches_jax(batch, with_A):
 
 # -- the public names ---------------------------------------------------------------
 
-# the parallel layer (ROADMAP M13): the only names not yet ported
-NOT_PORTED = {"parallel", "NullCollective", "DeviceCollective",
-              "make_sample_fem_mesh", "check_consistent_sharding"}
+# every public name is ported
+NOT_PORTED = set()
 
 
 def _public_names(modname):
@@ -220,7 +219,7 @@ def _public_names(modname):
     return {n for n in out if not n.startswith("_") or n == "__version__"}
 
 
-@pytest.mark.parametrize("sub", ["", ".fem", ".ops", ".utils"])
+@pytest.mark.parametrize("sub", ["", ".fem", ".ops", ".utils", ".parallel"])
 def test_every_public_name_has_a_counterpart(sub):
     jax_names = _public_names("hippyflow_tpu" + sub)
     port = importlib.import_module("hippyflow_tpu_torch" + sub)
