@@ -4467,7 +4467,7 @@ def main(argv) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     # IEEE float32 products in the plain versions and the library yardsticks
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log(f"device: {kind}; torch {torch.__version__} CUDA {torch.version.cuda}; "

@@ -36,9 +36,11 @@ every rank alike.  The fused pass runs on one rank only, as in the JAX
 package.
 
 ``construct_low_rank_Jacobians`` saves the exact SVD of each Jacobian,
-resuming chunk by chunk; ``test_errors`` runs the projection error tests
-and ``test_errors_double_loop`` the double-loop Monte-Carlo error of the
-input subspace.  With a control distribution the samples carry controls
+resuming chunk by chunk (under a collective each rank makes its share of
+every chunk and global rank 0 alone reads and writes the files);
+``test_errors`` runs the projection error tests and
+``test_errors_double_loop`` the double-loop Monte-Carlo error of the input
+subspace.  With a control distribution the samples carry controls
 z, and ``construct_low_rank_control_Jacobians`` saves the SVD of each
 dq/dz.
 """
@@ -380,62 +382,85 @@ class ActiveSubspaceProjector:
 
     def _jacobian_data(self, output_directory, check_for_data,
                        control: bool = False):
+        """The Jacobians' SVD data, chunk by chunk.  Under a collective
+        global rank 0 (``collective.rank()``, the I/O gate) scans the chunk
+        directory and broadcasts the finished chunks' ranges; it loads each
+        finished chunk when the loop reaches it and broadcasts its arrays.
+        Each rank makes the SVD of its share of every missing chunk's
+        samples, the shares are gathered, and rank 0 alone writes the chunk
+        and the bundle, each write followed by a barrier.  Every rank
+        returns the same arrays."""
         from .data_generator import _save_bundle, _scan_chunks, _svd_payload
 
         self._ensure_samples()
         s = self.samples
         n = s.ms.shape[0]
-        if self.collective.size() > 1 and output_directory is not None:
-            raise NotImplementedError(
-                "the Jacobian data's resumable files are written by one "
-                "process: pass output_directory=None under a collective")
+        coll = self.collective
+        writer = coll.rank() == 0
         prefix = "z" if control else ""
         rank_param = ((self.parameters["control_jacobian_rank"] if control
                        else None) or self.parameters["jacobian_rank"])
         chunk_size = self.parameters["chunk_size"] or n
         chunk_dir = (None if output_directory is None
                      else os.path.join(output_directory, f"chunks{prefix}"))
-        done = {}
-        if chunk_dir is not None:
-            os.makedirs(chunk_dir, exist_ok=True)
-            if check_for_data:
-                done = {(a, b): f for a, b, f in _scan_chunks(chunk_dir)}
         keys = tuple(f"{k}{prefix}_data" for k in ("U", "sigma", "V"))
+        done, finished = {}, set()
+        if chunk_dir is not None:
+            if writer:
+                os.makedirs(chunk_dir, exist_ok=True)
+                if check_for_data:
+                    done = {(a, b): f for a, b, f in _scan_chunks(chunk_dir)}
+            finished = set(coll.bcast_io(sorted(done)))
         parts = {k: [] for k in keys}
         for a in range(0, n, chunk_size):
             b = min(a + chunk_size, n)
-            if (a, b) in done:
-                with np.load(done[(a, b)]) as z:
-                    for k in keys:
-                        parts[k].append(torch.as_tensor(z[k], device=s.ms.device))
+            if (a, b) in finished:
+                chunk = None
+                if writer:
+                    with np.load(done[(a, b)]) as z:
+                        chunk = {k: torch.as_tensor(z[k]) for k in keys}
+                for k, v in coll.bcast_io_tensors(chunk).items():
+                    parts[k].append(v.to(s.ms.device))
                 continue
-            # reuse the Jacobians of the subspace build where they hold
-            # every sample
-            if not control and self.Js is not None and self.Js.shape[0] == n:
-                J = self.Js[a:b]
-            else:
-                J = materialize_jacobians(
-                    self.observable, s.ms[a:b], s.us[a:b],
-                    None if s.zs is None else s.zs[a:b], chunk_size=b - a,
-                    control=control)
+            share = coll.local_slice(b - a)
+            J = self._chunk_jacobians(a + share.start, a + share.stop, control)
             rank = min(rank_param, *J.shape[1:])
-            chunk = dict(zip(keys, _svd_payload(J, rank)))
+            chunk = dict(zip(keys, (coll.gather_samples(x, b - a)
+                                    for x in _svd_payload(J, rank))))
             if chunk_dir is not None:
-                np.savez(os.path.join(chunk_dir, f"chunk_{a}_{b}.npz"),
-                         **{k: v.cpu().numpy() for k, v in chunk.items()})
+                if writer:
+                    np.savez(os.path.join(chunk_dir, f"chunk_{a}_{b}.npz"),
+                             **{k: v.cpu().numpy() for k, v in chunk.items()})
+                coll.barrier()
             for k in keys:
                 parts[k].append(chunk[k])
         U, sig, V = (torch.cat(parts[k]) for k in keys)
         if output_directory is not None:
-            _save_bundle(
-                os.path.join(output_directory, f"J{prefix}svd_data.npz"),
-                **{k: v.cpu().numpy() for k, v in zip(keys, (U, sig, V))})
-            np.save(os.path.join(output_directory, "mq_m_data.npy"),
-                    s.ms.cpu().numpy())
-            np.save(os.path.join(output_directory, "mq_q_data.npy"),
-                    s.qs.cpu().numpy())
-            shutil.rmtree(chunk_dir, ignore_errors=True)
+            if writer:
+                _save_bundle(
+                    os.path.join(output_directory, f"J{prefix}svd_data.npz"),
+                    **{k: v.cpu().numpy() for k, v in zip(keys, (U, sig, V))})
+                np.save(os.path.join(output_directory, "mq_m_data.npy"),
+                        s.ms.cpu().numpy())
+                np.save(os.path.join(output_directory, "mq_q_data.npy"),
+                        s.qs.cpu().numpy())
+                shutil.rmtree(chunk_dir, ignore_errors=True)
+            coll.barrier()
         return U, sig, V
+
+    def _chunk_jacobians(self, lo, hi, control: bool):
+        """The Jacobians (or control Jacobians) of samples [lo, hi): the
+        subspace build's where this rank holds them, else materialized."""
+        s = self.samples
+        if not control and self.Js is not None:
+            held = self.collective.local_slice(s.ms.shape[0])
+            if (self.Js.shape[0] == held.stop - held.start
+                    and held.start <= lo and hi <= held.stop):
+                return self.Js[lo - held.start:hi - held.start]
+        return materialize_jacobians(
+            self.observable, s.ms[lo:hi], s.us[lo:hi],
+            None if s.zs is None else s.zs[lo:hi], chunk_size=max(1, hi - lo),
+            control=control)
 
     def test_errors(self, ranks=(8, 16, 32, 64), test_input: bool = True,
                     test_output: bool = False, n_samples: int | None = None):

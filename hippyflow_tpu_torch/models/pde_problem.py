@@ -38,7 +38,11 @@ Solver choices (``solver=``), as in the JAX package:
 
 ``RefinedBandFactor`` is not ported: the JAX
 package wraps factors in it only under its lowered-precision solver
-policy, and the port solves in IEEE precision.
+policy, and the port solves in IEEE precision.  On the card that policy
+could only put the library products of ``block_cyclic`` and
+``block_tridiag`` in TF32 (K1-K3 are IEEE); with the refinement sweep it
+needs, it made neither faster (``python3 -m
+hippyflow_tpu_torch.ops.tf32_sweep``).
 
 Every method takes tensors with a leading sample axis, and the control z
 (N, dz) where the problem has one (``control_dim``):

@@ -19,7 +19,9 @@ With a ``collective`` (``parallel.DeviceCollective``) the forward solves
 of the samples are split over its ranks (``sample_until_solved``) and
 every rank holds the gathered samples; the error tests' averages go
 through the collective's ``allReduce`` of scalars (every rank runs the
-same test), as in the JAX package.
+same test), as in the JAX package.  The resumable training-data files
+are read and written by global rank 0 alone (``collective.rank()``), which
+hands every rank the resume point and the finished arrays.
 """
 
 from __future__ import annotations
@@ -165,47 +167,48 @@ class PODProjector:
         first missing chunk, and each chunk draws from its own generator
         (``chunk_keychain``, tag 1), so a resumed run writes the same bits
         as an uninterrupted one.  ``noise`` (n_data, noise_dim) and
-        ``controls`` (n_data, dZ) give the chunks' first draws.  Returns
-        (m_data, q_data) as numpy arrays."""
-        from .data_generator import (
-            chunk_keychain,
-            load_chunks_validated,
-            prune_stale_chunks,
-        )
+        ``controls`` (n_data, dZ) give the chunks' first draws.  Under a
+        collective every rank solves its share of each chunk's samples,
+        and global rank 0 (``collective.rank()``) alone reads and writes
+        the files: it finds the resume point and broadcasts it with the
+        arrays it read (a finished bundle, or the chunks before the resume
+        point), and writes each chunk (a barrier follows) and the bundle;
+        every rank keeps the chunks this run made.  Returns (m_data,
+        q_data) as numpy arrays, the same on every rank."""
+        from .data_generator import chunk_keychain
 
-        if self.collective.size() > 1:
-            raise NotImplementedError(
-                "the resumable training-data files are written by one "
-                "process: generate them without a collective")
+        coll = self.collective
+        writer = coll.rank() == 0
         t0 = time.time()
-        os.makedirs(output_directory, exist_ok=True)
         n = n_data or self.parameters["data_per_process"]
         out_path = os.path.join(output_directory, "mq_data.npz")
-        if check_for_data and os.path.exists(out_path):
-            with np.load(out_path) as existing:
-                if existing["m_data"].shape[0] >= n:
-                    if self.parameters["verbose"]:
-                        print("training data already generated, skipping")
-                    return existing["m_data"], existing["q_data"]
         chunk_dir = os.path.join(output_directory, "chunks_pod")
+        # global rank 0 (the I/O gate) reads a finished bundle or finds
+        # where to resume; every rank gets the plan and what was read
+        plan, read = None, None
+        if writer:
+            os.makedirs(output_directory, exist_ok=True)
+            plan, read = _resume_plan(out_path, chunk_dir, n, check_for_data)
+        plan = coll.bcast_io(plan)
+        if plan["finished"] or plan["start"] > 0:
+            read = coll.bcast_io_tensors(
+                read and {k: torch.from_numpy(v) for k, v in read.items()})
+            read = {k: v.cpu().numpy() for k, v in read.items()}
+        if plan["finished"]:
+            if self.parameters["verbose"] and writer:
+                print("training data already generated, skipping")
+            return read["m_data"], read["q_data"]
+        i = plan["start"]
+        made = [read] if i > 0 else []  # numpy chunks, in sample order
+        if i > 0 and self.parameters["verbose"] and writer:
+            print(f"resuming training-data generation at sample {i}")
         problem = self.observable.problem
         dtype, device = self.prior.mean.dtype, self.prior.mean.device
         chunk_size = self.parameters["chunk_size"] or auto_chunk_size(
             problem, dtype, device)
-        # resume at the first gap, deleting stale chunks beyond it (they may
-        # come from another chunk grid); a run from scratch clears the
-        # directory outright
-        if check_for_data:
-            os.makedirs(chunk_dir, exist_ok=True)
-            i = prune_stale_chunks(chunk_dir)
-        else:
-            shutil.rmtree(chunk_dir, ignore_errors=True)
-            os.makedirs(chunk_dir)
-            i = 0
-        if i > 0 and self.parameters["verbose"]:
-            print(f"resuming training-data generation at sample {i}")
         while i < n:
             b = min(chunk_size, n - i)
+            # every rank draws the chunk's noise whole and solves its share
             batch = sample_until_solved(
                 self.observable, self.prior,
                 chunk_keychain(self.parameters["seed"], 1, i, device), b,
@@ -214,16 +217,23 @@ class PODProjector:
                 coarse_warm_start=self.parameters["coarse_warm_start"],
                 control_distribution=self.control_distribution,
                 controls=None if controls is None else controls[i:i + b],
+                collective=coll,
             )
             payload = {"m_data": batch.ms, "q_data": batch.qs}
             if batch.zs is not None:
                 payload["z_data"] = batch.zs
-            np.savez(os.path.join(chunk_dir, f"chunk_{i}_{i + b}.npz"),
-                     **{k: v.cpu().numpy() for k, v in payload.items()})
+            payload = {k: v.cpu().numpy() for k, v in payload.items()}
+            if writer:
+                np.savez(os.path.join(chunk_dir, f"chunk_{i}_{i + b}.npz"),
+                         **payload)
+            coll.barrier()
+            made.append(payload)
             i += b
-        cat = {k: v[:n] for k, v in load_chunks_validated(chunk_dir, n).items()}
-        np.savez_compressed(out_path, **cat)
-        shutil.rmtree(chunk_dir, ignore_errors=True)
+        cat = {k: np.concatenate([c[k] for c in made])[:n] for k in made[-1]}
+        if writer:
+            np.savez_compressed(out_path, **cat)
+            shutil.rmtree(chunk_dir, ignore_errors=True)
+        coll.barrier()
         self._data_generation_time = time.time() - t0
         return cat["m_data"], cat["q_data"]
 
@@ -434,3 +444,29 @@ class PODProjectorFromData:
         rel = weighted_l2_norm_vector(recon, M) / weighted_l2_norm_vector(X, M)
         print(f"Mean reconstruction error: {rel.mean().item():.3e}")
         print(f"Max reconstruction error: {rel.max().item():.3e}")
+
+
+def _resume_plan(out_path, chunk_dir, n, check_for_data):
+    """Where ``generate_training_data`` stands, read by the I/O rank: the
+    plan ({"finished", "start"}) and the arrays read.  A finished bundle
+    of n samples or more gives its m_data and q_data.  Else a resume
+    starts at the first gap, deletes the stale chunks beyond it (they may
+    come from another chunk grid) and gives the chunks before it
+    concatenated (None from sample 0); a run from scratch clears the chunk
+    directory outright."""
+    from .data_generator import load_chunks_validated, prune_stale_chunks
+
+    if check_for_data and os.path.exists(out_path):
+        with np.load(out_path) as existing:
+            if existing["m_data"].shape[0] >= n:
+                return ({"finished": True, "start": n},
+                        {"m_data": existing["m_data"],
+                         "q_data": existing["q_data"]})
+    if check_for_data:
+        os.makedirs(chunk_dir, exist_ok=True)
+        start = prune_stale_chunks(chunk_dir)
+        return ({"finished": False, "start": start},
+                load_chunks_validated(chunk_dir, start) if start else None)
+    shutil.rmtree(chunk_dir, ignore_errors=True)
+    os.makedirs(chunk_dir)
+    return {"finished": False, "start": 0}, None

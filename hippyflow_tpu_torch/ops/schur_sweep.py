@@ -145,7 +145,7 @@ def sweep(N, s, dtype, device, check_only=False, parent=None):
 
 def main(argv) -> None:
     device = torch.device("cuda", 0)
-    if torch.backends.cuda.matmul.allow_tf32:
+    if torch.backends.cuda.matmul.fp32_precision != "ieee":
         raise SystemExit("TF32 matmuls are on: the library pair would not be IEEE float32")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

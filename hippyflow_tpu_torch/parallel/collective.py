@@ -132,6 +132,17 @@ class NullCollective:
         """Every process's share of an n-row sample axis, in order: x."""
         return x
 
+    def bcast_io(self, obj):
+        """The I/O rank's object on every process: obj itself."""
+        return obj
+
+    def bcast_io_tensors(self, tensors):
+        """The I/O rank's tensors on every process: ``tensors`` itself."""
+        return tensors
+
+    def barrier(self) -> None:
+        """Wait for every process: nothing to wait for."""
+
 
 class DeviceCollective:
     """Collective over one axis of a device mesh.
@@ -199,6 +210,49 @@ class DeviceCollective:
         buf = [torch.empty_like(part) for _ in shares]
         dist.all_gather(buf, part, group=self.group)
         return torch.cat([b[: hi - lo] for b, (lo, hi) in zip(buf, shares)])
+
+    # --- the I/O gate: the whole world -------------------------------------
+    # The resumable files are read and written by global rank 0 alone
+    # (``rank()``), and every process must take part in handing out what it
+    # read, so these three span the default (world) group, not the axis's.
+    def _check_world(self) -> None:
+        if self.mesh.size() != dist.get_world_size():
+            raise RuntimeError(
+                f"the I/O gate spans every process, but the mesh covers "
+                f"{self.mesh.size()} of {dist.get_world_size()}")
+
+    def bcast_io(self, obj):
+        """Global rank 0's small picklable object (a resume plan) on every
+        process of the world: one ``broadcast_object_list``; what the other
+        processes pass is ignored."""
+        self._check_world()
+        box = [obj if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def bcast_io_tensors(self, tensors):
+        """Global rank 0's tensors (a dict name -> tensor; what the other
+        processes pass is ignored) on every process of the world, on the
+        process group's device: one ``broadcast_object_list`` of their
+        names, shapes and dtypes, then one ``dist.broadcast`` each."""
+        root = dist.get_rank() == 0
+        meta = self.bcast_io({k: (tuple(v.shape), v.dtype)
+                              for k, v in tensors.items()} if root else None)
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if _mesh_device_type() == "cuda" else torch.device("cpu"))
+        out = {}
+        for k, (shape, dtype) in meta.items():
+            t = (tensors[k].to(device).contiguous() if root
+                 else torch.empty(shape, dtype=dtype, device=device))
+            dist.broadcast(t, src=0)
+            out[k] = t
+        return out
+
+    def barrier(self) -> None:
+        """Wait for every process of the world (after a write of the I/O
+        rank, before any process reads or returns)."""
+        self._check_world()
+        dist.barrier()
 
     def _divisible(self, x) -> bool:
         return np.ndim(x) >= 1 and x.shape[0] % self.size() == 0

@@ -5,10 +5,11 @@ never JAX:
     python tests/_torch_parallel_worker.py CASES RANK WORLD STORE OUT
 
 CASES is ``world4`` (a 4-rank job: (1, 4) and (2, 2) meshes) or ``world2``
-(the collectives on 2 ranks); STORE is the file of the ``FileStore`` that
-the ranks meet at, and rank 0 writes every result into OUT (npz).  The
-input generators here are shared with the test module, which feeds the
-same numpy inputs to the JAX package.
+(the collectives on 2 ranks, and the resumable Jacobian and POD files
+written under a collective, in the STORE file's directory); STORE is the
+file of the ``FileStore`` that the ranks meet at, and rank 0 writes every
+result into OUT (npz).  The input generators here are shared with the test
+module, which feeds the same numpy inputs to the JAX package.
 """
 
 import contextlib
@@ -26,6 +27,9 @@ SPIKE_CASES = ((16, 5, 4), (13, 4, 4))
 PRIOR_CASES = ((12, 4), (24, 2))  # nx, ranks on 'fem'
 AS_NX, AS_N, AS_RANK, AS_OVERSAMPLING, AS_SEED = 12, 8, 8, 4, 3
 RESAMPLE_NX = 8
+# the resumable files: chunks of 3 of the AS_N = 8 samples ([0, 3), [3, 6),
+# [6, 8)), split 2 + 1 and 1 + 1 over 2 ranks; Jacobian rank 5
+FILES_CHUNK, FILES_JAC_RANK = 3, 5
 
 
 def random_band(nb, s, seed=0):
@@ -224,9 +228,167 @@ def world4(out):
         coll.shard_samples(proj.samples.ms))
 
 
-def world2(out):
+def files_as_params():
+    from hippyflow_tpu_torch.models import ActiveSubspaceParameterList
+
+    params = ActiveSubspaceParameterList()
+    params["rank"], params["oversampling"] = AS_RANK, AS_OVERSAMPLING
+    params["samples_per_process"] = AS_N
+    params["chunk_size"], params["jacobian_rank"] = FILES_CHUNK, FILES_JAC_RANK
+    params["verbose"] = False
+    return params
+
+
+def _same_on_every_rank(arrays):
+    """True on rank 0 when every rank's arrays equal its own, bit for bit."""
+    mine = [np.asarray(a) for a in arrays]
+    return all(len(o) == len(mine) and all(np.array_equal(x, y)
+                                           for x, y in zip(o, mine))
+               for o in _every_rank(mine))
+
+
+def _every_rank(value):
+    """[each rank's value], in rank order."""
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, value)
+    return every
+
+
+def _bundle(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def resumable_files(out, coll, workdir):
+    """``construct_low_rank_Jacobians(output_directory=...)`` and
+    ``PODProjector.generate_training_data`` under the 2-rank collective:
+    each rank is given a directory of its own, so only rank 0's may hold
+    files; against one-rank runs; and resumed from partial chunks (a
+    directory both ranks name, which rank 0 alone reads)."""
+    import torch.distributed as dist
+
+    from hippyflow_tpu_torch.applications import confusion
+    from hippyflow_tpu_torch.models import (
+        ActiveSubspaceProjector,
+        PODParameterList,
+        PODProjector,
+    )
+    from hippyflow_tpu_torch.models import pod as pod_module
+    from hippyflow_tpu_torch.utils import GivenNoise
+
+    rank = dist.get_rank()
+    obs, V = confusion.confusion_linear_observable(
+        nx=AS_NX, velocity="analytic", **F64)
+    prior = confusion.confusion_prior(V, **F64)
+    own = lambda tag: os.path.join(workdir, f"{tag}_rank{rank}")
+
+    def as_run(c, outdir, subspace=False):
+        proj = ActiveSubspaceProjector(obs, prior, parameters=files_as_params(),
+                                       collective=c)
+        proj.keychain = GivenNoise(np.random.default_rng(AS_SEED), "cpu")
+        if subspace:  # the build's Jacobians: each rank holds its share
+            proj.construct_input_subspace()
+        made = []  # the sample ranges whose Jacobians this rank made
+        inner = proj._chunk_jacobians
+
+        def counted(lo, hi, control):
+            made.append((lo, hi))
+            return inner(lo, hi, control)
+
+        proj._chunk_jacobians = counted
+        U, sig, Vm = proj.construct_low_rank_Jacobians(output_directory=outdir)
+        return proj, (U.numpy(), sig.numpy(), Vm.numpy()), made
+
+    proj2, as2, _ = as_run(coll, own("as2"), subspace=True)
+    _, as1, _ = as_run(None, own("as1"))
+    out["files_as_ranks_equal"] = _same_on_every_rank(as2)
+    out["files_as_dirs"] = _every_rank(os.path.isdir(own("as2")))
+    out["files_as_m"] = proj2.samples.ms.numpy()
+    for tag, arrays in (("2", as2), ("1", as1)):
+        out.update({f"files_as{tag}_{k}": v for k, v in zip("USV", arrays)})
+    if rank == 0:
+        b2 = _bundle(os.path.join(own("as2"), "Jsvd_data.npz"))
+        out.update({f"files_jsvd_{k}": v for k, v in b2.items()})
+        out["files_as_listing"] = np.array(sorted(os.listdir(own("as2"))))
+        out["files_as_m_file"] = np.load(os.path.join(own("as2"), "mq_m_data.npy"))
+    # resume: rank 0 leaves the first chunk of the uninterrupted run and a
+    # chunk of another grid, as a killed run would
+    resume = os.path.join(workdir, "as_resume")
+    if rank == 0:
+        os.makedirs(os.path.join(resume, "chunks"))
+        np.savez(os.path.join(resume, "chunks", "chunk_0_3.npz"),
+                 **{k: v[:3] for k, v in b2.items()})
+        np.savez(os.path.join(resume, "chunks", "chunk_3_5.npz"),
+                 U_data=np.zeros(1), sigma_data=np.zeros(1), V_data=np.zeros(1))
+    dist.barrier()
+    _, asr, made = as_run(coll, resume)
+    out["files_as_resumed_made"] = np.array(made)
+    out["files_as_resumed_equal"] = _same_on_every_rank(asr) and all(
+        np.array_equal(x, y) for x, y in zip(asr, as2))
+    if rank == 0:
+        br = _bundle(os.path.join(resume, "Jsvd_data.npz"))
+        out["files_as_resumed_bundle_equal"] = all(
+            np.array_equal(br[k], b2[k]) for k in b2)
+        out["files_as_resumed_listing"] = np.array(sorted(os.listdir(resume)))
+
+    # POD training data: the same, with a stale chunk past the first gap
+    calls = []  # the sizes of the chunks this rank solved
+    inner_sample = pod_module.sample_until_solved
+
+    def counted_sample(*args, **kwargs):
+        calls.append(args[3])
+        return inner_sample(*args, **kwargs)
+
+    pod_module.sample_until_solved = counted_sample
+    try:
+        params = PODParameterList()
+        params["chunk_size"], params["verbose"] = FILES_CHUNK, False
+
+        def pod_run(c, outdir):
+            pod = PODProjector(obs, prior, parameters=params, collective=c)
+            return pod.generate_training_data(outdir, n_data=AS_N)
+
+        mq2 = pod_run(coll, own("pod2"))
+        mq1 = pod_run(None, own("pod1"))
+        out["files_pod_ranks_equal"] = _same_on_every_rank(mq2)
+        out["files_pod_dirs"] = _every_rank(os.path.isdir(own("pod2")))
+        out["files_pod2_m"], out["files_pod2_q"] = mq2
+        out["files_pod1_m"], out["files_pod1_q"] = mq1
+        resume = os.path.join(workdir, "pod_resume")
+        if rank == 0:
+            p2 = _bundle(os.path.join(own("pod2"), "mq_data.npz"))
+            out["files_pod_listing"] = np.array(sorted(os.listdir(own("pod2"))))
+            os.makedirs(os.path.join(resume, "chunks_pod"))
+            np.savez(os.path.join(resume, "chunks_pod", "chunk_0_3.npz"),
+                     m_data=p2["m_data"][:3], q_data=p2["q_data"][:3])
+            np.savez(os.path.join(resume, "chunks_pod", "chunk_6_8.npz"),
+                     m_data=np.zeros((2, 1)), q_data=np.zeros((2, 1)))
+        dist.barrier()
+        calls.clear()
+        mqr = pod_run(coll, resume)
+        out["files_pod_resumed_chunks"] = np.array(calls)
+        out["files_pod_resumed_equal"] = _same_on_every_rank(mqr) and all(
+            np.array_equal(x, y) for x, y in zip(mqr, mq2))
+        if rank == 0:
+            pr = _bundle(os.path.join(resume, "mq_data.npz"))
+            out["files_pod_resumed_bundle_equal"] = all(
+                np.array_equal(pr[k], p2[k]) for k in p2)
+            out["files_pod_resumed_listing"] = np.array(sorted(os.listdir(resume)))
+        # a finished bundle: every rank gets its arrays, nothing is solved
+        calls.clear()
+        again = pod_run(coll, resume)
+        out["files_pod_again_solved"] = len(calls)
+        out["files_pod_again_equal"] = _same_on_every_rank(again) and all(
+            np.array_equal(x, y) for x, y in zip(again, mq2))
+    finally:
+        pod_module.sample_until_solved = inner_sample
+
+
+def world2(out, workdir):
     """The collectives on 2 ranks (the JAX package's two-process test and
-    the allReduce rules)."""
+    the allReduce rules), and the resumable files under them."""
     import warnings
 
     import torch.distributed as dist
@@ -310,6 +472,8 @@ def world2(out):
         out[f"resample_{name}_failures"] = b.n_failures
         out[f"resample_{name}_failed"] = b.failed_ms
 
+    resumable_files(out, coll, workdir)
+
 
 def main(argv):
     cases, rank, world, store, dest = argv
@@ -325,7 +489,10 @@ def main(argv):
         out["no_group_raised"] = "initialize_distributed" in str(e)
     out["multi"] = initialize_distributed(f"file://{store}", world, rank,
                                           device="cpu")
-    {"world4": world4, "world2": world2}[cases](out)
+    if cases == "world4":
+        world4(out)
+    else:
+        world2(out, os.path.dirname(store))
     import torch.distributed as dist
 
     dist.barrier()

@@ -1132,3 +1132,20 @@ def test_spike_at_nx64_on_card(cuda, dtype):
             x = F.solve(B.to(device=cuda, dtype=dtype), trans=trans)
             assert _rel(x.cpu(), F_cpu.solve(B.to(dtype), trans=trans)) < tol
             assert _rel(x, T.solve(B.to(device=cuda, dtype=dtype), trans=trans)) < tol
+
+
+def test_tf32_reaches_cyclic_reduction_and_one_sweep_recovers(cuda):
+    """``ops.tf32_sweep`` on the Poisson control band at nx=32, float32:
+    with TF32 the cyclic reduction's library products lose accuracy (the
+    residual rises above the IEEE one), one refinement sweep with an IEEE
+    residual brings it back within 10x; K3 runs in every mode, and the
+    CUDA setting reads "ieee" after."""
+    from hippyflow_tpu_torch.ops import tf32_sweep
+
+    band, b = tf32_sweep.control_band(32, 32, 8, cuda)
+    res = tf32_sweep.measure("block_cyclic", band, b, rounds=1)
+    assert all(res[m]["k3"] > 0 for m in tf32_sweep.MODES)
+    assert torch.backends.cuda.matmul.fp32_precision == "ieee"
+    ieee, tf32, refined = (res[m]["residual"] for m in tf32_sweep.MODES)
+    assert tf32 > ieee, (tf32, ieee)
+    assert refined <= 10.0 * ieee, (refined, ieee)

@@ -180,6 +180,27 @@ def test_one_rank_collective_rules(mesh11):
         DeviceCollective(mesh11, axis="rows")
 
 
+def test_io_gate_spans_the_world(mesh11, monkeypatch):
+    """The resumable files' I/O gate: rank 0's object and tensors on every
+    rank (the identity without a group and on one rank), and a refusal
+    where the mesh does not cover every process, which would deadlock."""
+    from hippyflow_tpu_torch.parallel import collective as tcoll
+
+    x = {"a": torch.arange(6.0).reshape(3, 2), "b": torch.arange(3)}
+    null = NullCollective()
+    assert null.bcast_io([(0, 3)]) == [(0, 3)] and null.bcast_io_tensors(x) is x
+    null.barrier()
+    c = DeviceCollective(mesh11, axis="sample")
+    assert c.bcast_io({"start": 3}) == {"start": 3}
+    got = c.bcast_io_tensors(x)
+    assert set(got) == {"a", "b"} and all(torch.equal(got[k], x[k]) for k in x)
+    c.barrier()
+    monkeypatch.setattr(tcoll.dist, "get_world_size", lambda *a, **k: 2)
+    for call in (lambda: c.bcast_io(1), lambda: c.bcast_io_tensors(x), c.barrier):
+        with pytest.raises(RuntimeError, match="I/O gate"):
+            call()
+
+
 def test_check_consistent_sharding(mesh11):
     """False on a leading axis sharded over another mesh axis; True with a
     warning on replicated or unsharded tensors."""

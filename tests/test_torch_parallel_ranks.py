@@ -15,7 +15,14 @@ the ranks import the port only, never JAX):
   spectrum at nx=12 with a ``DeviceCollective`` against the JAX package's
   serial run on the same noise (1e-8);
 * 2 ranks: the collectives of ``tests/test_multiprocess.py`` and the
-  ``allReduce`` rules, and failed lanes resampled across ranks.
+  ``allReduce`` rules, failed lanes resampled across ranks, and the
+  resumable files under the collective: ``construct_low_rank_Jacobians(
+  output_directory=...)`` and ``PODProjector.generate_training_data``
+  write from rank 0 alone, every rank returns the same arrays, the one-rank
+  run's (last bits; sigma and U diag(sigma) V^T to 1e-12), a run resumed
+  from partial chunks writes the uninterrupted run's bundles, and the
+  Jacobians' bundle is the JAX package's serial one on the same noise
+  (1e-9).
 
 The JAX side runs in the test process on the same numpy inputs, in float64.
 """
@@ -338,3 +345,83 @@ def test_failed_lanes_resampled_across_ranks(world2):
     for key in ("ms", "us", "failed"):
         assert _rel(world2[f"resample_split_{key}"],
                     world2[f"resample_serial_{key}"]) < 1e-12
+
+
+# -- the resumable files on 2 ranks ------------------------------------------------
+
+def _svd_product(U, S, V):
+    return np.einsum("nik,nk,njk->nij", U, S, V)
+
+
+@pytest.mark.parametrize("kind", ["as", "pod"])
+def test_resumable_files_written_by_rank_zero(world2, kind):
+    """Rank 0 alone writes: rank 1's own directory is never made, rank 0's
+    holds the bundle and no chunk directory; every rank returns the same
+    arrays."""
+    assert bool(world2[f"files_{kind}_ranks_equal"])
+    assert world2[f"files_{kind}_dirs"].tolist() == [True, False]
+    want = (["Jsvd_data.npz", "mq_m_data.npy", "mq_q_data.npy"] if kind == "as"
+            else ["mq_data.npz"])
+    assert world2[f"files_{kind}_listing"].tolist() == want
+
+
+def test_two_rank_files_match_one_rank(world2):
+    """m and q of the split run are the one-rank run's but for the last
+    bits of the lanes a rank solved alone (another product shape); sigma
+    and U diag(sigma) V^T to 1e-12 (U and V only up to signs)."""
+    assert _rel(world2["files_pod2_m"], world2["files_pod1_m"]) < 1e-14
+    assert _rel(world2["files_pod2_q"], world2["files_pod1_q"]) < 1e-14
+    assert _rel(world2["files_as2_S"], world2["files_as1_S"]) < 1e-12
+    two, one = ((world2[f"files_as{t}_{k}"] for k in "USV") for t in "21")
+    assert _rel(_svd_product(*two), _svd_product(*one)) < 1e-12
+    # the bundle holds what the call returned, and the samples it used
+    np.testing.assert_array_equal(world2["files_jsvd_sigma_data"],
+                                  world2["files_as2_S"])
+    np.testing.assert_array_equal(world2["files_as_m_file"], world2["files_as_m"])
+
+
+def test_resumed_files_equal_an_uninterrupted_run(world2):
+    """From the first chunk of an uninterrupted run and a chunk of another
+    grid (Jacobians), or a stale chunk past the first gap (POD): the
+    finished chunk is not made again, and the bundles and returned arrays
+    are the uninterrupted run's, bit for bit; a finished bundle is read,
+    not made again."""
+    made = world2["files_as_resumed_made"]
+    assert made.size and (made[:, 0] >= W.FILES_CHUNK).all()
+    assert world2["files_pod_resumed_chunks"].tolist() == [3, 2]
+    for kind in ("as", "pod"):
+        assert bool(world2[f"files_{kind}_resumed_equal"])
+        assert bool(world2[f"files_{kind}_resumed_bundle_equal"])
+    assert world2["files_as_resumed_listing"].tolist() == [
+        "Jsvd_data.npz", "mq_m_data.npy", "mq_q_data.npy"]
+    assert world2["files_pod_resumed_listing"].tolist() == ["mq_data.npz"]
+    assert int(world2["files_pod_again_solved"]) == 0
+    assert bool(world2["files_pod_again_equal"])
+
+
+def test_two_rank_jacobian_bundle_matches_jax_serial(world2, tmp_path):
+    """``Jsvd_data.npz`` of the 2-rank run against the JAX package's serial
+    ``construct_low_rank_Jacobians`` on the same noise and chunks."""
+    from applications.confusion import confusion_linear_observable, confusion_prior
+    from hippyflow_tpu.models import (
+        ActiveSubspaceParameterList,
+        ActiveSubspaceProjector,
+    )
+
+    obs, V = confusion_linear_observable(nx=W.AS_NX, velocity="analytic")
+    params = ActiveSubspaceParameterList()
+    params["rank"], params["oversampling"] = W.AS_RANK, W.AS_OVERSAMPLING
+    params["samples_per_process"] = W.AS_N
+    params["chunk_size"] = W.FILES_CHUNK
+    params["jacobian_rank"] = W.FILES_JAC_RANK
+    params["verbose"] = False
+    proj = ActiveSubspaceProjector(obs, confusion_prior(V), parameters=params)
+    proj.keychain = _JaxGivenNoise(np.random.default_rng(W.AS_SEED))
+    proj.construct_low_rank_Jacobians(output_directory=str(tmp_path / "jax"))
+    with np.load(tmp_path / "jax" / "Jsvd_data.npz") as z:
+        want = {k: z[k] for k in z.files}
+    got = {k: world2[f"files_jsvd_{k}"] for k in want}
+    assert _rel(got["sigma_data"], want["sigma_data"]) < 1e-9
+    assert _rel(_svd_product(got["U_data"], got["sigma_data"], got["V_data"]),
+                _svd_product(want["U_data"], want["sigma_data"],
+                             want["V_data"])) < 1e-9
