@@ -239,7 +239,22 @@ each:
     nb=52), dense BiLaplacian prior (gamma=1, delta=5, 3380 dofs),
     32 samples, rank 128, oversampling 10, chunk 16, through the fused
     pass; for 2 samples the float32 Jacobian against the same samples
-    run through the kernels in float64.
+    run through the kernels in float64;
+12. surface, in two parts: (a) ``bench.py``'s save stage, once at nx=64
+    after 9b (the main path of phase 9, grid-sequenced, one chunk of 1024)
+    and once at nx=192 in phase 10 (the lane's settings, eight chunks of
+    32): the forward stage, then ``confusion_mq_data.npz`` written on a
+    thread while the Jacobian and GHEP stages run, then
+    ``AS_input_decoder.npy``, with the seconds the writer waits for its
+    copy of (m, q) and that copy alone against the stages (the most the
+    JAX package's host prefetch could hide; not a counted path);
+    (b) ``surface_jt``, run after 11 on its observables:
+    ``ObservableJacobian.transpmult`` through a ``ComponentObservation``
+    of the real component of the helmholtz state (s=516) for 4 of the
+    lane's samples, float32, against ``materialize(lin).mT @ dq`` (limit
+    1e-4), and in float64 for 2 samples (limit 1e-10) and against the
+    same product on the CPU (limit 1e-8); K1's rows, the Schur step, K3
+    and K2 launched.
 
 Then a JSON line describing the kernels (``launches`` is the sum over the
 paths, which are each driven with the counts set to 0 just before and
@@ -366,6 +381,12 @@ SETUP_N, SETUP_RANK, SETUP_ERROR_SAMPLES = 512, 128, 50
 # at nx=16 (rank 16, 32 samples and data, 8 error-test samples): every
 # spectrum above 1e-4 lambda_0 and every basis's projector (relative)
 SETUP_CHECK_NX, SETUP_F64_TOL = 16, 1e-8
+# the repaired J^T on the helmholtz bands: samples in float32 and float64,
+# columns of dq; the float32 product against the materialized one is held
+# to JAC_TOL_F32, the float64 one to JT_TOL_F64 and to the CPU's to
+# JT_CPU_TOL (relative to the largest entry)
+JT_SAMPLES, JT_SAMPLES_F64, JT_COLUMNS = 4, 2, 3
+JT_TOL_F64, JT_CPU_TOL = 1e-10, 1e-8
 
 
 def log(msg: str) -> None:
@@ -1502,6 +1523,172 @@ def phase_main(obs32, prior32, levels):
         else:
             cold = proj.smoke_summary
     return paths, kept, cold
+
+
+def save_stage(obs32, prior32, warm, n_samples, rank, label, **params_kw):
+    """One pass of ``bench.py``'s timed lane (``timed_pass``) through the
+    port, into a temporary directory: the forward stage, then a thread that
+    copies ``samples.ms`` / ``qs`` to the host and writes
+    ``confusion_mq_data.npz`` while the Jacobian and GHEP stages run, then
+    the decoder's ``AS_input_decoder.npy``.  Logs the stage seconds, the
+    seconds the writer waited for its copy, and the copy of (m, q) alone
+    after the pass, against the forward + Jacobian + GHEP seconds: the
+    most that a copy to the host started as each sampling chunk ends (the
+    JAX package's ``prefetch_host``) could take off the pass."""
+    import threading
+
+    import numpy as np
+    from hippyflow_tpu_torch.models import (
+        ActiveSubspaceParameterList,
+        ActiveSubspaceProjector,
+    )
+
+    params = ActiveSubspaceParameterList()
+    params["rank"], params["oversampling"] = rank, OVERSAMPLING
+    params["samples_per_process"] = n_samples
+    params["verbose"], params["seed"] = False, SEED
+    params["coarse_warm_start"] = warm
+    for key, value in params_kw.items():
+        params[key] = value
+    proj = ActiveSubspaceProjector(obs32, prior32, parameters=params)
+    st, waited = {}, {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proj._ensure_samples()
+        torch.cuda.synchronize()
+        st["forward"] = time.perf_counter() - t0
+
+        def write_npz():
+            t = time.perf_counter()
+            m, q = proj.samples.ms.cpu().numpy(), proj.samples.qs.cpu().numpy()
+            waited["s"] = time.perf_counter() - t
+            np.savez(os.path.join(out_dir, "confusion_mq_data.npz"), m_data=m,
+                     q_data=q)
+
+        saver = threading.Thread(target=write_npz)
+        saver.start()
+        t2 = time.perf_counter()
+        d, dec, _ = proj.construct_input_subspace()
+        torch.cuda.synchronize()
+        st["jacobian_ghep"] = time.perf_counter() - t2
+        t4 = time.perf_counter()
+        saver.join()
+        np.save(os.path.join(out_dir, "AS_input_decoder.npy"),
+                dec.cpu().numpy())
+        st["save"] = time.perf_counter() - t4
+        st["total"] = time.perf_counter() - t0
+        with np.load(os.path.join(out_dir, "confusion_mq_data.npz")) as z:
+            check(z["m_data"].shape == (n_samples, obs32.dM)
+                  and z["q_data"].shape == (n_samples, obs32.dQ)
+                  and np.array_equal(z["q_data"],
+                                     proj.samples.qs.cpu().numpy()),
+                  f"save stage {label}: confusion_mq_data.npz")
+    ms, qs = proj.samples.ms, proj.samples.qs
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ms.cpu(), qs.cpu()
+    copy_s = time.perf_counter() - t
+    mb = (ms.numel() * ms.element_size() + qs.numel() * qs.element_size()) / 1e6
+    stages = st["forward"] + st["jacobian_ghep"]
+    log(f"save stage {label} samples={n_samples} (bench.py's layout): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
+        + f" s; the writer waited {waited['s']:.4f} s; the copy of (m, q) "
+        f"alone ({mb:.1f} MB) {copy_s:.4f} s, {100 * copy_s / stages:.2f}% "
+        f"of forward + jacobian_ghep; {nvidia_smi_line()}")
+
+
+def phase_surface(obs32, prior32, levels, n_samples, rank, **params_kw):
+    """(a) The save stage of ``bench.py``'s lane, grid-sequenced on
+    ``levels``: at nx=64 one sampling chunk of 1024, at nx=192 eight of
+    32."""
+    from hippyflow_tpu_torch.fem import coarse_newton_warm_start
+
+    warm = coarse_newton_warm_start(prior32, levels[0][0], obs32.problem.Vu,
+                                    levels[0][1], coarser_levels=levels[1:])
+    nx = obs32.problem.Vu.mesh.structured_shape[0]
+    save_stage(obs32, prior32, warm, n_samples, rank,
+               f"float32 nx={nx} grid-sequenced depth {len(levels)}",
+               **params_kw)
+
+
+def phase_surface_jt(device, obs32, obs64, ms):
+    """(b) The repaired J^T on the helmholtz lane's bands (s=516): a
+    ``ComponentObservation`` of the real component (ncomp=2) at the lane's
+    targets; the float32 linearization and ``transpmult`` of
+    ``JT_SAMPLES`` of the lane's samples (the counted path
+    ``surface_jt``) against ``materialize(lin).mT @ dq``; in float64 the
+    same at ``JT_TOL_F64``, and against the same product on the CPU."""
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        helmholtz_linear_observable,
+    )
+    from hippyflow_tpu_torch.fem import ComponentObservation
+    from hippyflow_tpu_torch.models import (
+        LinearStateObservable,
+        ObservableJacobian,
+        PointwiseObservation,
+    )
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    def component(obs):
+        pde = obs.problem
+        B = PointwiseObservation(pde.Vu, obs.B.targets, dtype=pde.dtype,
+                                 device=pde.device)
+        return LinearStateObservable(pde, ComponentObservation(B, 2, 0))
+
+    def dq_of(obs, n):
+        gen = torch.Generator().manual_seed(SEED)
+        return torch.randn(n, obs.dQ, JT_COLUMNS, generator=gen,
+                           dtype=torch.float64).to(obs.problem.dtype)
+
+    comp32 = component(obs32)
+    m32 = ms[:JT_SAMPLES]
+    u32, info = obs32.problem.solve_fwd(m32)
+    check(bool(info.converged.all()), "surface J^T: float32 solves")
+    dq32 = dq_of(comp32, JT_SAMPLES).to(device)
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    lin = obs32.problem.linearize(u32, m32, needs="adj")
+    J = ObservableJacobian(comp32)
+    jt32 = J.transpmult(lin, dq32)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    err32 = rel_err(jt32, J.materialize(lin).mT @ dq32)
+    del lin
+    comp64 = component(obs64)
+    m64 = ms[:JT_SAMPLES_F64].double()
+    u64, info = obs64.problem.solve_fwd(m64)
+    check(bool(info.converged.all()), "surface J^T: float64 solves")
+    dq64 = dq_of(comp64, JT_SAMPLES_F64).to(device)
+    J64 = ObservableJacobian(comp64)
+    lin = obs64.problem.linearize(u64, m64, needs="adj")
+    jt64 = J64.transpmult(lin, dq64)
+    err64 = rel_err(jt64, J64.materialize(lin).mT @ dq64)
+    del lin
+    obs_cpu, _ = helmholtz_linear_observable(
+        nx=HELM_NX, frequency=HELM_FREQ, dtype=torch.float64, device="cpu")
+    comp_cpu = component(obs_cpu)
+    lin = obs_cpu.problem.linearize(u64.cpu(), m64.cpu(), needs="adj")
+    err_cpu = rel_err(jt64.cpu(),
+                      ObservableJacobian(comp_cpu).transpmult(lin, dq64.cpu()))
+    log(f"surface J^T helmholtz s={obs32.problem._block_size} component 0 of "
+        f"2, dQ={comp32.dQ}, k={JT_COLUMNS}: float32 N={JT_SAMPLES} "
+        f"linearize + transpmult {seconds:.4f} s, against materialize "
+        f"{err32:.3e} (limit {JAC_TOL_F32}); float64 N={JT_SAMPLES_F64} "
+        f"{err64:.3e} (limit {JT_TOL_F64}), card against CPU {err_cpu:.3e} "
+        f"(limit {JT_CPU_TOL}); launches K1 {launches['banded_factorize']} "
+        f"(rows {launches['banded_factorize_rows']}; Schur steps "
+        f"{launches['schur_step']}) K2 {launches['banded_solve']} K3 "
+        f"{launches['batched_inverse']}; {nvidia_smi_line()}")
+    check(err32 <= JAC_TOL_F32, f"surface J^T float32 {err32:.3e}")
+    check(err64 <= JT_TOL_F64, f"surface J^T float64 {err64:.3e}")
+    check(err_cpu <= JT_CPU_TOL, f"surface J^T card against CPU {err_cpu:.3e}")
+    for key in ("banded_factorize_rows", "schur_step", "batched_inverse",
+                "banded_solve"):
+        check(launches[key] > 0, f"{key} was not launched on surface_jt")
+    return {"surface_jt": launches}
 
 
 def forward_utilization(obs32, prior32):
@@ -4157,6 +4344,9 @@ def phase_lane192(device, profile=False):
                     "schur_step"):
             check(launches[key] > 0, f"{key} was not launched on {name}")
         paths[name] = launches
+    phase_surface(obs32, prior_fn(), levels, N192_SAMPLES, RANK192,
+                  chunk_size=CHUNK192, jac_chunk_size=JAC_CHUNK192)
+    torch.cuda.empty_cache()
     # the prior build alone with gj_cluster's choice and with one block per
     # matrix forced, in turns (picked, 1, 1, picked, three times): a host-
     # bound stage, so the mean and the least of each
@@ -4188,7 +4378,8 @@ def phase_lane192(device, profile=False):
 def phase_helmholtz(device, profile=False):
     """The float32 helmholtz lane, once, through the fused pass; then for 2
     of its samples the float32 Jacobian against the same samples run
-    through the kernels in float64."""
+    through the kernels in float64.  Returns the launches and (the float32
+    and float64 observables, the lane's samples) for ``phase_surface_jt``."""
     from hippyflow_tpu_torch.applications.helmholtz import (
         helmholtz_linear_observable,
         helmholtz_prior,
@@ -4231,7 +4422,7 @@ def phase_helmholtz(device, profile=False):
     check(rel <= JAC_TOL_F32, f"helmholtz J float32 vs float64 {rel:.3e}")
     if profile:
         profile_run(label, lambda: run(f"{label} (profiled)"))
-    return {"helmholtz": launches}
+    return {"helmholtz": launches}, (obs32, obs64, proj.samples.ms)
 
 
 # the port's kernels by a part of their names in a profiler trace
@@ -4336,6 +4527,8 @@ def run_phases(device, argv, parent=None):
     phase_training(proj64, device, "--profile" in argv, save)
     del proj64
     torch.cuda.empty_cache()
+    phase_surface(obs32, prior32, levels64, N_SAMPLES, RANK)
+    torch.cuda.empty_cache()
     paths["setup"] = phase_setup(obs32, prior32, device)
     torch.cuda.empty_cache()
     control_paths, control_records = phase_control(device)
@@ -4359,7 +4552,9 @@ def run_phases(device, argv, parent=None):
     torch.cuda.empty_cache()
     paths.update(phase_lane192(device, "--profile" in argv))
     torch.cuda.empty_cache()
-    paths.update(phase_helmholtz(device, "--profile" in argv))
+    helm_paths, helm = phase_helmholtz(device, "--profile" in argv)
+    paths.update(helm_paths)
+    paths.update(phase_surface_jt(device, *helm))
 
     designs = report["banded_factorize"]["designs"]
     designs.update(s193_report["designs"])

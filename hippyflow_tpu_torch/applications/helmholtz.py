@@ -59,6 +59,8 @@ class VectorPointwiseObservation:
     q[t * ncomp + k] = u_k(x_t), a dense B (nt * ncomp, n * ncomp) on the
     device."""
 
+    materializable = True
+
     def __init__(self, space: FunctionSpace, targets, ncomp: int, dtype=None,
                  device=None):
         dtype, device = config.resolve(dtype, device)
@@ -74,9 +76,19 @@ class VectorPointwiseObservation:
     def dim(self) -> int:
         return self.B.shape[0]
 
+    @property
+    def state_dim(self) -> int:
+        return self.B.shape[1]
+
     def apply(self, u):
-        """B u for states (N, n * ncomp) -> (N, nt * ncomp)."""
-        return u @ self.B.T
+        """B u for states (N, n * ncomp) -> (N, nt * ncomp), or blocks
+        (N, n * ncomp, k) -> (N, nt * ncomp, k)."""
+        return u @ self.B.T if u.ndim == 2 else self.B @ u
+
+    def applyt(self, q):
+        """B^T q for (N, nt * ncomp) -> (N, n * ncomp), or blocks
+        (N, nt * ncomp, k) -> (N, n * ncomp, k)."""
+        return q @ self.B if q.ndim == 2 else self.B.T @ q
 
     def dense(self):
         return self.B

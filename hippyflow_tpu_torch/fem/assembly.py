@@ -143,7 +143,7 @@ class BoundGalerkinForm(_OrderedBand):
     Entry points, all batched over a leading sample axis (u (N, n), m
     (N, n_m), z (N, dz) or None):
       residual(u, m, z)             -> (N, n)
-      assemble_A_banded(u, m, z)    -> dr/du in (N, nb, s, 3s) band storage
+      assemble_A_banded(u, m, z[, s]) -> dr/du in (N, nb, s, 3s) band storage
       assemble_A_banded_ordered(u, m, border, z) -> dr/du in the permuted
           band storage of a BandOrder (P2 states)
       assemble_A / assemble_C       -> dense dr/du (N, n, n), dr/dm (N, n, n_m)
@@ -167,6 +167,7 @@ class BoundGalerkinForm(_OrderedBand):
         self.dtype, self.device = config.resolve(dtype, device)
         self.Vu, self.Vm, self.form = Vu, Vm, form
         self.plan = structured_plan(Vu) if Vm.degree == Vu.degree else None
+        self._band_idx_cache = {}  # block size -> band indices
         self.n = Vu.dim
         self.n_m = Vm.dim
         mesh = Vu.mesh
@@ -294,11 +295,45 @@ class BoundGalerkinForm(_OrderedBand):
         A_e = self._elem_jacobian(u, m, z, "u")
         return self._scatter(torch.diagonal(A_e, dim1=-2, dim2=-1), self.n)
 
-    def assemble_A_banded(self, u, m, z=None):
+    def prepare_banded(self, s: int) -> None:
+        """Build the band indices of block size ``s`` (host numpy work,
+        once), unless the structured plan covers s."""
+        if self.plan is None or self.plan[2] != s:
+            self._band_indices(s)
+
+    def _band_indices(self, s: int):
+        """(nc * L * L,) flat index into (nb, s, 3s) band storage of each
+        element-matrix entry (row-major), for a numbering in which every
+        coupling spans at most one block row at block size s."""
+        cache = self._band_idx_cache
+        if s not in cache:
+            cells, L = self._band_dofs, self._band_dofs.shape[1]
+            g1 = np.repeat(cells, L, axis=1).reshape(-1)
+            g2 = np.tile(cells, (1, L)).reshape(-1)
+            o = g2 // s - g1 // s + 1
+            if not ((o >= 0) & (o <= 2)).all() or self.n % s:
+                raise ValueError(
+                    f"the numbering is not block-tridiagonal at s={s}")
+            cache[s] = torch.as_tensor(g1 * (3 * s) + o * s + g2 % s,
+                                       device=self.device)
+        return cache[s]
+
+    def assemble_A_banded(self, u, m, z=None, s: int | None = None):
         """dr/du in block-tridiagonal band storage (N, nb, s, 3s):
-        band[:, j, i, o*s + i2] = A[j*s + i, (j + o - 1)*s + i2]."""
-        if self.plan is None:
-            raise ValueError("band storage needs a structured rectangle mesh")
+        band[:, j, i, o*s + i2] = A[j*s + i, (j + o - 1)*s + i2].  The
+        structured plan's block size by default; another ``s`` (or a mesh
+        without the plan) sums the element matrices into the band by
+        index (``prepare_banded``), as the JAX package's segment sums do."""
+        if self.plan is None or (s is not None and s != self.plan[2]):
+            if s is None:
+                raise ValueError(
+                    "band storage needs a structured rectangle mesh or a "
+                    "block size s")
+            A_e = self._elem_jacobian(u, m, z, "u")
+            N = A_e.shape[0]
+            flat = A_e.new_zeros((N, self.n * 3 * s))
+            flat.index_add_(1, self._band_indices(s), A_e.reshape(N, -1))
+            return flat.reshape(N, self.n // s, s, 3 * s)
         nx, ny, s, dplan, _ = self.plan
         nb = ny + 1
         E = self._elem_jacobian(u, m, z, "u").reshape(-1, ny, nx, 2, 3, 3)
@@ -607,6 +642,10 @@ class DirichletBC:
         else:
             g = np.full(V.dim, float(value))
         return DirichletBC(mask=mask, value=np.where(mask, g, 0.0))
+
+    def homogenized(self) -> "DirichletBC":
+        """The same dofs with zero values (hippylib's bc0)."""
+        return DirichletBC(mask=self.mask, value=np.zeros_like(self.value))
 
 
 def mask_residual(r, u, bc: DirichletBC):

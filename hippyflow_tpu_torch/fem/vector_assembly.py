@@ -197,6 +197,8 @@ class ComponentObservation:
     """Pointwise observation of one component of a vector state: wraps a
     scalar ``PointwiseObservation`` (B (n_obs, n))."""
 
+    materializable = True
+
     def __init__(self, B_scalar, ncomp: int, component: int = 0):
         self.inner = B_scalar
         self.ncomp = ncomp
@@ -215,8 +217,19 @@ class ComponentObservation:
         return slice(self.component * n, (self.component + 1) * n)
 
     def apply(self, u):
-        """B u for states (N, n * ncomp) -> (N, n_obs)."""
+        """B u for states (N, n * ncomp) -> (N, n_obs), or blocks
+        (N, n * ncomp, k) -> (N, n_obs, k)."""
         return self.inner.apply(u[:, self._cols()])
+
+    def applyt(self, q):
+        """B^T q for (N, n_obs) -> (N, n * ncomp), or (N, n_obs, k) ->
+        (N, n * ncomp, k): the scalar B^T q in the component's slot, zeros
+        in the others."""
+        inner = self.inner.applyt(q)
+        out = inner.new_zeros((inner.shape[0], self.state_dim)
+                              + inner.shape[2:])
+        out[:, self._cols()] = inner
+        return out
 
     def dense(self):
         Bd = self.inner.dense()

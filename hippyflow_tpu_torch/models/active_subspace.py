@@ -79,6 +79,7 @@ def ActiveSubspaceParameterList() -> ParameterList:
     return ParameterList(
         {
             "samples_per_process": [64, "Number of samples used in expectations"],
+            "jacobian_data_per_process": [512, "Number of Jacobian data samples"],
             "error_test_samples": [50, "Number of samples for error test"],
             "double_loop_samples": [
                 20,
@@ -99,6 +100,7 @@ def ActiveSubspaceParameterList() -> ParameterList:
                 "alive at a time)",
             ],
             "output_directory": [None, "output directory for arrays"],
+            "plot_label_suffix": ["", "suffix for plot label"],
             "save_and_plot": [False, "save the decoders and spectra"],
             "store_Omega": [False, "keep the drawn probe blocks"],
             "ms_given": [False, "use externally supplied samples .ms"],

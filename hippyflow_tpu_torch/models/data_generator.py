@@ -177,7 +177,8 @@ class DataGenerator:
         os.makedirs(chunk_dir, exist_ok=True)
         dtype, device = self.prior.mean.dtype, self.prior.mean.device
         chunk_size = self.settings["chunk_size"] or auto_chunk_size(
-            self.observable.problem, dtype, device)
+            self.observable.problem.state_dim, dtype,
+            problem=self.observable.problem, device=device)
         if output_decoder is not None and output_encoder is None:
             output_encoder = output_decoder
         if input_decoder is not None and input_encoder is None:
@@ -332,7 +333,8 @@ class DataGenerator:
         shutil.rmtree(chunk_dir, ignore_errors=True)
         os.makedirs(chunk_dir)
         chunk_size = self.settings["chunk_size"] or auto_chunk_size(
-            self.observable.problem, dtype, device)
+            self.observable.problem.state_dim, dtype,
+            problem=self.observable.problem, device=device)
         N = m_data.shape[0]
         for s in range(0, N, chunk_size):
             e = min(s + chunk_size, N)

@@ -205,7 +205,7 @@ class PODProjector:
         problem = self.observable.problem
         dtype, device = self.prior.mean.dtype, self.prior.mean.device
         chunk_size = self.parameters["chunk_size"] or auto_chunk_size(
-            problem, dtype, device)
+            problem.state_dim, dtype, problem=problem, device=device)
         while i < n:
             b = min(chunk_size, n - i)
             # every rank draws the chunk's noise whole and solves its share

@@ -107,6 +107,14 @@ class _BiLaplacianOperators:
         m = m.T if batched else m[:, 0]
         return self.mean + m
 
+    def sample_n(self, keychain, n: int, dtype=None):
+        """n prior samples (n, dim) from the white noise of a ``KeyChain``
+        or ``GivenNoise`` stream, drawn and sampled at the prior's dtype,
+        returned at ``dtype`` (default the prior's)."""
+        m = self.sample(keychain.normal((n, self.noise_dim),
+                                        dtype=self.mean.dtype))
+        return m if dtype is None else m.to(dtype)
+
 
 def robin_coefficient(gamma: float, delta: float) -> float:
     """hippylib's Robin correction beta = sqrt(gamma delta) / 1.42 of the
@@ -375,14 +383,23 @@ class LaplacianPrior:
         m = m.T if batched else m[:, 0]
         return self.mean + m
 
+    def sample_n(self, keychain, n: int, dtype=None):
+        """n prior samples (n, dim) from the white noise of a ``KeyChain``
+        or ``GivenNoise`` stream, drawn and sampled at the prior's dtype,
+        returned at ``dtype`` (default the prior's)."""
+        m = self.sample(keychain.normal((n, self.noise_dim),
+                                        dtype=self.mean.dtype))
+        return m if dtype is None else m.to(dtype)
+
 
 def BiLaplacian2D(Vh, gamma: float = 0.1, delta: float = 0.1,
                   theta0: float = 2.0, theta1: float = 0.5,
-                  alpha: float = math.pi / 4.0, mean=None, dtype=None,
-                  device=None):
+                  alpha: float = math.pi / 4.0, mean=None,
+                  robin_bc: bool = False, dtype=None, device=None):
     """Reference-parity factory (hippyflow's ``maternPrior.BiLaplacian2D``)."""
     return BiLaplacianPrior(Vh, gamma, delta, theta0, theta1, alpha,
-                            mean=mean, dtype=dtype, device=device)
+                            mean=mean, robin_bc=robin_bc, dtype=dtype,
+                            device=device)
 
 
 def Laplacian2D(Vh, gamma: float = 0.1, delta: float = 0.1,

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import config
 from .jacobian import ObservableControlJacobian, ObservableJacobian
 from .observable import LinearStateObservable
 
@@ -31,12 +32,23 @@ def _device_memory_budget_gb(device) -> float:
     return 2.0
 
 
-def auto_chunk_size(problem, dtype, device) -> int:
+def auto_chunk_size(state_dim, dtype=None, memory_gb=None, problem=None,
+                    device=None) -> int:
     """Largest power-of-two sample batch (at most 4096) whose factorizations
-    fit the memory budget, at ``problem.bytes_per_sample(dtype)`` each."""
-    per_sample = problem.bytes_per_sample(dtype)
-    budget = _device_memory_budget_gb(device) * 1e9
-    count = max(1, min(4096, int(budget / per_sample)))
+    fit the memory budget (``memory_gb``, else a quarter of ``device``'s
+    memory), in the JAX package's order.
+
+    With a ``problem``, ``problem.bytes_per_sample(dtype)`` a sample;
+    without one, the dense rule, 3 state_dim^2 itemsize bytes a sample."""
+    dtype = dtype or config.DEFAULT_DTYPE
+    if problem is not None:
+        per_sample = problem.bytes_per_sample(dtype)
+    else:
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        per_sample = 3.0 * state_dim * state_dim * itemsize
+    if memory_gb is None:
+        memory_gb = _device_memory_budget_gb(config.resolve(dtype, device)[1])
+    count = max(1, min(4096, int(memory_gb * 1e9 / per_sample)))
     return 1 << (count.bit_length() - 1)
 
 
@@ -119,7 +131,8 @@ def sample_until_solved(
     problem = observable.problem
     dtype, device = prior.mean.dtype, prior.mean.device
     if chunk_size is None:
-        chunk_size = auto_chunk_size(problem, dtype, device)
+        chunk_size = auto_chunk_size(problem.state_dim, dtype, problem=problem,
+                                     device=device)
         if collective is not None:
             # each rank's share at the one-process chunk
             chunk_size = min(4096, chunk_size * collective.size())
@@ -247,7 +260,8 @@ def sample_and_materialize_symmetric(
         )
     dtype, device = prior.mean.dtype, prior.mean.device
     if chunk_size is None:
-        chunk_size = auto_chunk_size(problem, dtype, device)
+        chunk_size = auto_chunk_size(problem.state_dim, dtype, problem=problem,
+                                     device=device)
     J = ObservableJacobian(observable)
     draw = lambda b: keychain.normal((b, prior.noise_dim), dtype=dtype)
 
@@ -319,7 +333,8 @@ def fresh_solves(observable: LinearStateObservable, ms, chunk_size: int | None =
     converged (N,) bool, Newton iterations (N,))."""
     problem = observable.problem
     if chunk_size is None:
-        chunk_size = auto_chunk_size(problem, ms.dtype, ms.device)
+        chunk_size = auto_chunk_size(problem.state_dim, ms.dtype,
+                                     problem=problem, device=ms.device)
     qs, ok, its = [], [], []
     for a in range(0, ms.shape[0], chunk_size):
         z = None if zs is None else zs[a:a + chunk_size]
@@ -343,7 +358,8 @@ def materialize_jacobians(observable: LinearStateObservable, ms, us, zs=None,
     J = (ObservableControlJacobian if control else ObservableJacobian)(observable)
     n = ms.shape[0]
     if chunk_size is None:
-        chunk_size = auto_chunk_size(problem, ms.dtype, ms.device)
+        chunk_size = auto_chunk_size(problem.state_dim, ms.dtype,
+                                     problem=problem, device=ms.device)
     J_all = torch.empty((n,) + J.shape, dtype=ms.dtype, device=ms.device)
     for a in range(0, n, chunk_size):
         e = min(a + chunk_size, n)

@@ -28,6 +28,13 @@ class CholeskyFactor(NamedTuple):
         batch; A^T = A, so ``trans`` changes nothing."""
         return _solve_cols(lambda x: torch.cholesky_solve(x, self.L), b, self.L)
 
+    def solve_L(self, b):
+        """L^{-1} b (the square root's inverse action), b shaped as in
+        ``solve``."""
+        return _solve_cols(
+            lambda x: torch.linalg.solve_triangular(self.L, x, upper=False),
+            b, self.L)
+
     def matvec_L(self, x):
         """L @ x (square-root action of A)."""
         return self.L @ x

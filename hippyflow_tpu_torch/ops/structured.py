@@ -184,11 +184,19 @@ class BlockTridiagFactor(NamedTuple):
     L: torch.Tensor  # (..., nb, s, s) sub-diagonal multipliers, L[0] = 0
     B: torch.Tensor  # (..., nb, s, s) super-diagonal blocks, B[nb-1] = 0
 
+    @property
+    def nb(self) -> int:
+        return self.Dlu.shape[-3]
+
+    @property
+    def s(self) -> int:
+        return self.Dlu.shape[-2]
+
     def solve(self, b, trans: bool = False):
         """Solve A x = b (or A^T x = b); b (n,) or (n, k) for one matrix,
         (N, n) or (N, n, k) for a batch."""
         lead = self.Dlu.shape[:-3]
-        nb, s = self.Dlu.shape[-3], self.Dlu.shape[-2]
+        nb, s = self.nb, self.s
         bb, squeeze = _rhs_blocks(b, lead, nb, s)
 
         def lu_solve(j, r, adjoint=False):

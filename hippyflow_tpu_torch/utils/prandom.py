@@ -22,11 +22,21 @@ class KeyChain:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
 
-    def normal(self, shape, dtype=None):
-        """Standard normal draws of the given shape."""
+    def next_key(self) -> torch.Generator:
+        """A new generator on the chain's device, seeded from the chain's
+        next draw: a stream of its own."""
+        seed = torch.randint(0, 2**62, (1,), generator=self.generator,
+                             device=self.device).item()
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return gen
+
+    def normal(self, shape, dtype=None, sigma: float = 1.0):
+        """Normal draws of the given shape, standard deviation ``sigma``."""
         dtype = dtype or config.DEFAULT_DTYPE
-        return torch.randn(shape, generator=self.generator, dtype=dtype,
-                           device=self.device)
+        x = torch.randn(shape, generator=self.generator, dtype=dtype,
+                        device=self.device)
+        return x if sigma == 1.0 else sigma * x
 
     def uniform(self, shape, lo: float = 0.0, hi: float = 1.0, dtype=None):
         """Uniform draws on [lo, hi) of the given shape."""
@@ -45,10 +55,11 @@ class GivenNoise:
         _, self.device = config.resolve(None, device)
         self.rng = rng
 
-    def normal(self, shape, dtype=None):
-        return torch.as_tensor(self.rng.standard_normal(shape),
-                               dtype=dtype or config.DEFAULT_DTYPE,
-                               device=self.device)
+    def normal(self, shape, dtype=None, sigma: float = 1.0):
+        x = torch.as_tensor(self.rng.standard_normal(shape),
+                            dtype=dtype or config.DEFAULT_DTYPE,
+                            device=self.device)
+        return x if sigma == 1.0 else sigma * x
 
     def uniform(self, shape, lo: float = 0.0, hi: float = 1.0, dtype=None):
         return torch.as_tensor(self.rng.uniform(lo, hi, shape),

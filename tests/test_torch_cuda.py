@@ -1149,3 +1149,42 @@ def test_tf32_reaches_cyclic_reduction_and_one_sweep_recovers(cuda):
     ieee, tf32, refined = (res[m]["residual"] for m in tf32_sweep.MODES)
     assert tf32 > ieee, (tf32, ieee)
     assert refined <= 10.0 * ieee, (refined, ieee)
+
+
+def test_component_transpmult_on_card_matches_cpu(cuda):
+    """J^T dq through a ComponentObservation of the helmholtz problem's
+    real part (nx=8, s=68, K1's rows, the Schur step, K3 and K2), float64:
+    on the card against the materialized product and against the CPU."""
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        helmholtz_linear_observable,
+        helmholtz_prior,
+    )
+    from hippyflow_tpu_torch.fem import ComponentObservation
+    from hippyflow_tpu_torch.models import (
+        LinearStateObservable,
+        ObservableJacobian,
+        PointwiseObservation,
+    )
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        kw = dict(dtype=torch.float64, device=dev)
+        obs, Vh = helmholtz_linear_observable(nx=8, frequency=600.0, **kw)
+        B = ComponentObservation(PointwiseObservation(obs.problem.Vu,
+                                                      obs.B.targets, **kw), 2, 0)
+        comp = LinearStateObservable(obs.problem, B)
+        xi = np.random.default_rng(31).standard_normal((3, Vh.dim))
+        m = helmholtz_prior(Vh, **kw).sample(torch.tensor(xi, **kw))
+        u, info = obs.problem.solve_fwd(m)
+        assert info.converged.all()
+        dq = torch.tensor(np.random.default_rng(32).standard_normal(
+            (3, comp.dQ, 2)), **kw)
+        J = ObservableJacobian(comp)
+        hk.reset_launch_counts()
+        lin = obs.problem.linearize(u, m)
+        got = J.transpmult(lin, dq)
+        if dev.type == "cuda":
+            assert hk.banded_factorize.launches > 0 and hk.banded_solve.launches > 0
+        assert _rel(got, J.materialize(lin).mT @ dq) < 1e-10
+        out[dev.type] = got.cpu()
+    assert _rel(out["cuda"], out["cpu"]) < 1e-8

@@ -226,4 +226,5 @@ def test_auto_chunk_size_matches(dtype):
         jV.dim, jnp.float32 if dtype == torch.float32 else jnp.float64,
         problem=jobs.problem,
     )
-    assert auto_chunk_size(tobs.problem, dtype, "cpu") == want < 4096
+    assert auto_chunk_size(tobs.problem.state_dim, dtype, problem=tobs.problem,
+                           device="cpu") == want < 4096

@@ -388,8 +388,10 @@ def test_auto_chunk_size_at_nx192():
     would take 43, rounded down to 32."""
     per_sample = 16 * 37249 * 193 * 4
     assert 4.5e8 < per_sample < 4.7e8
-    assert auto_chunk_size(_Problem(), torch.float32, "cpu") == 4
-    assert auto_chunk_size(_Problem(), torch.float64, "cpu") == 2
+    assert auto_chunk_size(_Problem.state_dim, torch.float32, problem=_Problem(),
+                           device="cpu") == 4
+    assert auto_chunk_size(_Problem.state_dim, torch.float64, problem=_Problem(),
+                           device="cpu") == 2
     assert 1 << (int(20e9 / per_sample).bit_length() - 1) == 32
 
 

@@ -4,13 +4,25 @@ JAX package, float64 on the CPU, on the same numpy inputs: ``cg_solve``,
 helpers (``band_bc_masks``, ``bc_symmetrize_banded``, ``bc_zero_rows``,
 ``bc_apply_rhs``), each to 1e-10; every public name of the JAX
 package's ``fem``, ``ops``, ``utils`` and ``parallel`` and of its top level
-has a counterpart in the port; and so has every top-level public function,
-class and assignment of the JAX package's ``config``, ``ops.structured``,
-``fem.multigrid`` and ``models.sampling`` (parsed from their sources), but
-for the names left out by decision (``LEFT_OUT``).
+has a counterpart in the port (``nn`` too); and so has every top-level
+public function, class and assignment of the JAX package's ``config``,
+``ops.structured``, ``fem.multigrid`` and ``models.sampling`` (parsed from
+their sources).  Every module of the JAX package but its Pallas kernels,
+and every application module, is parsed for its public functions and
+classes: each public method has a counterpart on the port's class, each
+keyword of each function and method one of the same name, and each key of
+the JAX parameter lists one in the port's; but for what is left out by
+decision (``LEFT_OUT``, each entry with its reason).  The members this
+check found missing are held against the JAX package: the component
+observation's ``applyt`` (1e-12) and J^T through it (1e-10), the priors'
+``sample_n`` under given noise, ``CholeskyFactor.solve_L``,
+``BlockTridiagFactor.nb`` / ``.s``, ``DirichletBC.homogenized``,
+``BiLaplacian2D(robin_bc=)``, ``assemble_A_banded(s=)`` and
+``auto_chunk_size``'s forms (1e-12 or exactly).
 """
 
 import ast
+import functools
 import importlib
 import os
 
@@ -223,7 +235,7 @@ def _public_names(modname):
     return {n for n in out if not n.startswith("_") or n == "__version__"}
 
 
-@pytest.mark.parametrize("sub", ["", ".fem", ".ops", ".utils", ".parallel"])
+@pytest.mark.parametrize("sub", ["", ".fem", ".ops", ".utils", ".parallel", ".nn"])
 def test_every_public_name_has_a_counterpart(sub):
     jax_names = _public_names("hippyflow_tpu" + sub)
     port = importlib.import_module("hippyflow_tpu_torch" + sub)
@@ -237,7 +249,8 @@ def test_every_public_name_has_a_counterpart(sub):
         assert port.__version__ == hippyflow_tpu.__version__
 
 
-# top-level names of JAX modules left out of the port by decision
+# names of JAX modules left out of the port by decision: top-level names,
+# ``Class.method``, ``function(keyword)`` and ``Class.method(keyword)``
 LEFT_OUT = {
     "config": {
         # the XLA compile management: PyTorch runs eagerly, nothing to
@@ -254,12 +267,59 @@ LEFT_OUT = {
         # with its refinement sweep made neither faster (ops/tf32_sweep.py)
         "set_solver_precision", "solver_precision", "solver_refine_steps",
     },
-    # the policy's refinement wrapper (the same measurement)
-    "ops.structured": {"RefinedBandFactor"},
-    # the grid-sequencing chain split into XLA programs: compile management
-    "fem.multigrid": {"SplitWarmStartChain"},
-    # jit of lifted programs and their threaded precompilation
-    "models.sampling": {"jit_lifted", "precompile_parallel"},
+    "ops.structured": {
+        # the policy's refinement wrapper (the same measurement)
+        "RefinedBandFactor",
+        # JAX pytree registration: a torch factor is a plain object
+        "PermutedFactor.tree_flatten", "PermutedFactor.tree_unflatten",
+    },
+    "fem.multigrid": {
+        # the grid-sequencing chain split into XLA programs, and the switch
+        # that asks for it: compile management
+        "SplitWarmStartChain", "coarse_newton_warm_start(split)",
+    },
+    "models.sampling": {
+        # jit of lifted programs and their threaded precompilation, and the
+        # entries' mode that only builds those programs: compile management
+        "jit_lifted", "precompile_parallel",
+        "sample_until_solved(precompile_only)",
+        "sample_and_materialize_symmetric(precompile_only)",
+        "materialize_jacobians(precompile_only)",
+        # a JAX PRNG key; the port draws from a KeyChain or GivenNoise
+        # stream, passed as ``keychain``
+        "UniformDistribution.sample_n(key)",
+        # the host prefetch of each chunk's (m, q, z) (and with it
+        # ``SampleBatch.host_chunks``): it only hides the copy of the
+        # samples to the host, which on the H100 is under 1% of the stages
+        # it would overlap (chip_smoke.py's ``save stage`` lines at nx=64
+        # and nx=192); timed in turns with and without it at nx=192, 1024
+        # samples in 32 chunks, the stages and the writer's wait moved
+        # within one spread
+        "sample_until_solved(prefetch_host)",
+    },
+    "models.prior": {
+        # a JAX PRNG key, as above
+        "BiLaplacianPrior.sample_n(key)", "LaplacianPrior.sample_n(key)",
+        "StructuredBiLaplacianPrior.sample_n(key)",
+        # keeps K's band out of the XLA program's constants: compile
+        # management (the port always holds its factors as tensors)
+        "StructuredBiLaplacianPrior.__init__(materialize)",
+    },
+    # ahead-of-time compilation of the projector's XLA programs; the key
+    # of the host prefetch (as ``sample_until_solved(prefetch_host)``)
+    "models.active_subspace": {"ActiveSubspaceProjector.precompile_programs",
+                               "ActiveSubspaceParameterList[prefetch_host]"},
+    # the inherited J dm takes its direction as ``dm``; no caller of the JAX
+    # package passes Jz's direction by name, so one method serves both
+    "models.jacobian": {"ObservableControlJacobian.mult(dz)"},
+    # JAX pytree registration
+    "models.pde_problem": {"IterativeFactor.tree_flatten",
+                           "IterativeFactor.tree_unflatten"},
+    "parallel.dist_banded": {"DistributedBandedFactor.tree_flatten",
+                             "DistributedBandedFactor.tree_unflatten"},
+    # a JAX key has no torch counterpart: the port's KeyChain takes the
+    # int seed (``seed``)
+    "utils.prandom": {"KeyChain.__init__(seed_or_key)"},
 }
 
 
@@ -287,9 +347,506 @@ def test_every_module_name_has_a_counterpart(mod):
     root = os.path.dirname(hippyflow_tpu.__file__)
     jax_names = _module_names(os.path.join(root, *mod.split(".")) + ".py")
     port = importlib.import_module("hippyflow_tpu_torch." + mod)
-    left_out = LEFT_OUT.get(mod, set())
+    left_out = {n for n in LEFT_OUT.get(mod, set()) if n.isidentifier()}
     assert left_out <= jax_names
     missing = sorted(n for n in jax_names - left_out if not hasattr(port, n))
     assert not missing, missing
     ported = sorted(n for n in left_out if hasattr(port, n))
     assert not ported, ported  # a name that came back leaves LEFT_OUT
+
+
+# -- methods and keywords -------------------------------------------------------
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_modules():
+    """Every module of the JAX package but its Pallas kernels, and the
+    application modules, as keys of ``LEFT_OUT`` ("models.prior",
+    "applications.helmholtz", "" for the package's ``__init__``)."""
+    out = []
+    pkg = os.path.join(_ROOT, "hippyflow_tpu")
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), pkg)[:-3]
+                out.append(rel.replace(os.sep, ".").replace("__init__", "")
+                           .rstrip("."))
+    out.remove("ops.pallas_kernels")
+    out += ["applications." + f[:-3]
+            for f in os.listdir(os.path.join(_ROOT, "applications"))
+            if f.endswith(".py") and f != "__init__.py"]
+    return sorted(out)
+
+
+def _jax_source(mod):
+    if mod.startswith("applications."):
+        return os.path.join(_ROOT, *mod.split(".")) + ".py"
+    path = os.path.join(_ROOT, "hippyflow_tpu", *mod.split("."))
+    return path + ".py" if os.path.isfile(path + ".py") else \
+        os.path.join(path, "__init__.py")
+
+
+def _params(fn):
+    """The names a parsed function takes by keyword (not self or cls)."""
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs
+            if x.arg not in ("self", "cls")]
+
+
+def _public_surface(path):
+    """{name: keywords} of the public functions and {class: {method:
+    keywords}} of the public classes (public methods, ``__init__`` and
+    ``__call__``), parsed from a module's source."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    funcs, classes = {}, {}
+    for node in tree.body:
+        if node.name.startswith("_") if hasattr(node, "name") else True:
+            continue
+        if isinstance(node, ast.FunctionDef):
+            funcs[node.name] = _params(node)
+        elif isinstance(node, ast.ClassDef):
+            classes[node.name] = {
+                b.name: _params(b) for b in node.body
+                if isinstance(b, ast.FunctionDef)
+                and (not b.name.startswith("_")
+                     or b.name in ("__init__", "__call__"))}
+    return funcs, classes
+
+
+def _port_keywords(cls_or_fn, method=None):
+    """The parameter names of a port function, or of a port class's method
+    (``__init__``: the class's own signature, dataclasses and named tuples
+    included; ``__call__`` of a torch module: its ``forward``); None where
+    the member is a property."""
+    import inspect
+
+    if method is None:
+        obj = cls_or_fn
+    elif method == "__init__":
+        obj = cls_or_fn
+    elif method == "__call__" and issubclass(cls_or_fn, torch.nn.Module):
+        obj = cls_or_fn.forward
+    else:
+        if isinstance(inspect.getattr_static(cls_or_fn, method),
+                      (property, functools.cached_property)):
+            return None
+        obj = getattr(cls_or_fn, method)
+    params = inspect.signature(obj).parameters.values()
+    return {p.name for p in params
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+
+
+def _port_module(mod):
+    return importlib.import_module(
+        "hippyflow_tpu_torch" + ("." + mod if mod else ""))
+
+
+@pytest.mark.parametrize("mod", _jax_modules())
+def test_every_method_and_keyword_has_a_counterpart(mod):
+    """Every public function and class of the JAX module has a counterpart
+    in the port's module of the same path, every public method of each
+    class one on the port's class (inherited, or a property), and every
+    keyword of each function and method one of the same name; but for the
+    entries of ``LEFT_OUT``, each of which must still be missing."""
+    funcs, classes = _public_surface(_jax_source(mod))
+    port = _port_module(mod)
+    gaps = set()
+    for name, kws in funcs.items():
+        fn = getattr(port, name, None)
+        if fn is None:
+            gaps.add(name)
+            continue
+        gaps |= {f"{name}({k})" for k in kws if k not in _port_keywords(fn)}
+    for name, methods in classes.items():
+        cls = getattr(port, name, None)
+        if cls is None:
+            gaps.add(name)
+            continue
+        for meth, kws in methods.items():
+            if not hasattr(cls, meth):
+                gaps.add(f"{name}.{meth}")
+                continue
+            have = _port_keywords(cls, meth)
+            if have is not None:
+                gaps |= {f"{name}.{meth}({k})" for k in kws if k not in have}
+    left_out = {n for n in LEFT_OUT.get(mod, set()) if "[" not in n}
+    assert gaps - left_out == set(), sorted(gaps - left_out)
+    # a left-out entry that came back (or was never a gap) leaves LEFT_OUT
+    assert left_out - gaps == set(), sorted(left_out - gaps)
+
+
+def _parameter_lists():
+    """(module, name) of every JAX function that returns a ParameterList."""
+    out = []
+    for mod in _jax_modules():
+        with open(_jax_source(mod)) as f:
+            tree = ast.parse(f.read())
+        out += [(mod, n.name) for n in tree.body
+                if isinstance(n, ast.FunctionDef)
+                and isinstance(n.returns, ast.Name)
+                and n.returns.id == "ParameterList"]
+    return out
+
+
+@pytest.mark.parametrize("mod,name", _parameter_lists())
+def test_every_parameter_key_has_a_counterpart(mod, name):
+    """The port's parameter list has every key of the JAX one, with the
+    same default where the default is a plain value; but for the keys
+    ``LEFT_OUT`` lists as ``name[key]``, each of which must still be
+    missing."""
+    jlist = getattr(importlib.import_module("hippyflow_tpu." + mod), name)()
+    tlist = getattr(_port_module(mod), name)()
+    left_out = {n[len(name) + 1:-1] for n in LEFT_OUT.get(mod, set())
+                if n.startswith(name + "[")}
+    assert left_out <= set(jlist.keys()) and not left_out & set(tlist.keys())
+    missing = sorted(k for k in jlist.keys() if k not in tlist
+                     and k not in left_out)
+    assert not missing, missing
+    for k in jlist.keys() - left_out:
+        if isinstance(jlist[k], (bool, int, float, str, type(None))):
+            assert tlist[k] == jlist[k], k
+
+
+def test_the_parameter_lists_are_found():
+    assert {n for _, n in _parameter_lists()} >= {
+        "ActiveSubspaceParameterList", "KLEParameterList", "PODParameterList",
+        "modelWrapperSettings", "newtonSolver_ParameterList"}
+
+
+# -- the methods and keywords that were missing, against the JAX package -----------
+
+def _component_case(component):
+    """One component of a 2-component P2 state observed at points, on
+    both sides."""
+    from hippyflow_tpu.fem.vector_assembly import (
+        ComponentObservation as JComponentObservation,
+    )
+    from hippyflow_tpu.models.observable import (
+        PointwiseObservation as JPointwiseObservation,
+    )
+    from hippyflow_tpu_torch.models import PointwiseObservation
+
+    targets = np.array([[0.3, 0.4], [0.55, 0.8], [0.9, 0.1], [0.2, 0.7]])
+    t_obs = tfem.ComponentObservation(
+        PointwiseObservation(tfem.FunctionSpace(tfem.unit_square_mesh(4), 2),
+                             targets, **F64), 2, component)
+    j_obs = JComponentObservation(
+        JPointwiseObservation(jfem.FunctionSpace(jfem.unit_square_mesh(4), 2),
+                              targets), 2, component)
+    return t_obs, j_obs
+
+
+@pytest.mark.parametrize("k", [None, 3])
+@pytest.mark.parametrize("component", [0, 1])
+def test_component_observation_applyt_matches_jax(component, k):
+    """applyt on a batch (N, dQ) or (N, dQ, k) is the transpose of the
+    port's dense and apply, zero outside the component's slot, and equals
+    the JAX package's sample by sample."""
+    t_obs, j_obs = _component_case(component)
+    rng = np.random.default_rng(11 + component)
+    shape = (3, t_obs.dim) if k is None else (3, t_obs.dim, k)
+    q = rng.standard_normal(shape)
+    got = t_obs.applyt(_t(q))
+    assert got.shape == (3, t_obs.state_dim) + (() if k is None else (k,))
+    want = np.stack([np.asarray(j_obs.applyt(jnp.asarray(x))) for x in q])
+    assert _rel(got, want) < 1e-12
+    D = t_obs.dense()
+    assert _rel(got, torch.einsum("nq...,qs->ns...", _t(q), D)) < 1e-12
+    n = t_obs.state_dim // 2
+    other = slice(0, n) if component == 1 else slice(n, 2 * n)
+    assert not got[:, other].any()
+    # <B u, q> = <u, B^T q>
+    u = _t(rng.standard_normal((3, t_obs.state_dim) + shape[2:]))
+    lhs = (t_obs.apply(u) * _t(q)).sum()
+    assert abs(lhs - (u * got).sum()) < 1e-12 * abs(lhs)
+
+
+def test_vector_pointwise_observation_applyt_matches_jax():
+    """The helmholtz lane's observation of both components: state_dim and
+    applyt on vectors and blocks, against the JAX package's."""
+    from applications.helmholtz import VectorPointwiseObservation as JVPO
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        VectorPointwiseObservation as TVPO,
+    )
+
+    targets = np.array([[0.3, 0.4], [0.55, 0.8], [0.9, 0.1]])
+    t_obs = TVPO(tfem.FunctionSpace(tfem.unit_square_mesh(4), 2), targets, 2,
+                 **F64)
+    j_obs = JVPO(jfem.FunctionSpace(jfem.unit_square_mesh(4), 2), targets, 2)
+    assert (t_obs.dim, t_obs.state_dim) == (j_obs.dim, j_obs.state_dim)
+    rng = np.random.default_rng(12)
+    for shape in ((3, t_obs.dim), (3, t_obs.dim, 2)):
+        q = rng.standard_normal(shape)
+        want = np.stack([np.asarray(j_obs.applyt(jnp.asarray(x))) for x in q])
+        assert _rel(t_obs.applyt(_t(q)), want) < 1e-12
+        u = rng.standard_normal((3, t_obs.state_dim) + shape[2:])
+        want = np.stack([np.asarray(j_obs.apply(jnp.asarray(x))) for x in u])
+        assert _rel(t_obs.apply(_t(u)), want) < 1e-12
+
+
+@functools.lru_cache(maxsize=None)
+def _helmholtz_component(component=0, nx=8):
+    """The helmholtz problem at nx=8 observed on one component of its
+    state, on both sides; m of 2 prior samples and JAX's states."""
+    from applications.helmholtz import helmholtz_linear_observable as jh
+    from applications.helmholtz import helmholtz_prior as jh_prior
+    from hippyflow_tpu.fem.vector_assembly import (
+        ComponentObservation as JComponentObservation,
+    )
+    from hippyflow_tpu.models import LinearStateObservable as JLSO
+    from hippyflow_tpu.models.observable import (
+        PointwiseObservation as JPointwiseObservation,
+    )
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        helmholtz_linear_observable as th,
+    )
+    from hippyflow_tpu_torch.models import (
+        LinearStateObservable,
+        PointwiseObservation,
+    )
+
+    jobs, jV = jh(nx=nx, frequency=600.0)
+    tobs, tV = th(nx=nx, frequency=600.0, **F64)
+    targets = jobs.B.targets
+    jB = JComponentObservation(
+        JPointwiseObservation(jobs.problem.Vu, targets), 2, component)
+    tB = tfem.ComponentObservation(
+        PointwiseObservation(tobs.problem.Vu, targets, **F64), 2, component)
+    jc, tc = JLSO(jobs.problem, jB), LinearStateObservable(tobs.problem, tB)
+    xi = np.random.default_rng(13).standard_normal((2, jV.dim))
+    m = np.asarray(jh_prior(jV).sample(jnp.asarray(xi)))
+    u = np.asarray(jax.jit(jax.vmap(
+        lambda mm: jobs.problem.solve_fwd(mm)[0]))(jnp.asarray(m)))
+    return jc, tc, m, u
+
+
+@pytest.mark.parametrize("k", [None, 2])
+def test_transpmult_through_a_component_observable_matches_jax(k):
+    """J^T dq through ComponentObservation (applyBt, then the adjoint
+    solve and C^T) against the JAX package, and against the port's
+    materialized J."""
+    from hippyflow_tpu.models import ObservableJacobian as JOJ
+    from hippyflow_tpu_torch.models import ObservableJacobian
+
+    jc, tc, m, u = _helmholtz_component()
+    shape = (2, tc.dQ) if k is None else (2, tc.dQ, k)
+    dq = np.random.default_rng(14).standard_normal(shape)
+    JJ, jp = JOJ(jc), jc.problem
+    want = jax.vmap(lambda mm, uu, d: JJ.transpmult(jp.linearize(uu, mm), d))(
+        jnp.asarray(m), jnp.asarray(u), jnp.asarray(dq))
+    J = ObservableJacobian(tc)
+    lin = tc.problem.linearize(_t(u), _t(m))
+    got = J.transpmult(lin, _t(dq))
+    assert _rel(got, want) < TOL
+    Jm = J.materialize(lin)
+    assert _rel(got, torch.einsum("nqm,nq...->nm...", Jm, _t(dq))) < TOL
+
+
+def test_serialized_subspace_through_a_component_observable():
+    """The matrix-free (serialized) input subspace through a component
+    observable: the same spectrum as the materialized one from the same
+    samples and probe block."""
+    from hippyflow_tpu_torch.applications.helmholtz import helmholtz_prior
+    from hippyflow_tpu_torch.models import (
+        ActiveSubspaceParameterList,
+        ActiveSubspaceProjector,
+    )
+
+    _, tc, m, _ = _helmholtz_component()
+    prior = helmholtz_prior(tc.problem.Vm, **F64)
+    Omega = _t(np.random.default_rng(15).standard_normal((tc.dM, 6)))
+    spectra = []
+    for serialized in (False, True):
+        p = ActiveSubspaceParameterList()
+        p["rank"], p["oversampling"], p["verbose"] = 4, 2, False
+        p["ms_given"], p["serialized_sampling"] = True, serialized
+        proj = ActiveSubspaceProjector(tc, prior, parameters=p)
+        proj.ms, proj.Omega_GN = _t(m), Omega
+        d, _, _ = proj.construct_input_subspace()
+        spectra.append(d)
+    assert (proj.Js is None) and spectra[0][0] > 0
+    assert _rel(spectra[1], spectra[0]) < TOL
+
+
+@functools.lru_cache(maxsize=None)
+def _priors(nx=8):
+    """(JAX prior, port prior) pairs: the dense BiLaplacian, the Laplacian
+    and the structured BiLaplacian."""
+    import hippyflow_tpu as hf
+    import hippyflow_tpu_torch as hft
+
+    jV = jfem.FunctionSpace(jfem.unit_square_mesh(nx))
+    tV = tfem.FunctionSpace(tfem.unit_square_mesh(nx))
+    return {
+        "bilaplacian": (hf.BiLaplacianPrior(jV, 0.1, 1.0),
+                        hft.BiLaplacianPrior(tV, 0.1, 1.0, **F64)),
+        "laplacian": (hf.LaplacianPrior(jV, 0.1, 1.0),
+                      hft.LaplacianPrior(tV, 0.1, 1.0, **F64)),
+        "structured": (hf.StructuredBiLaplacianPrior(jV, 0.1, 1.0),
+                       hft.StructuredBiLaplacianPrior(tV, 0.1, 1.0, **F64)),
+    }
+
+
+@pytest.mark.parametrize("kind", ["bilaplacian", "laplacian", "structured"])
+def test_sample_n_matches_jax_under_given_noise(kind):
+    """sample_n draws its white noise from the stream, then samples: under
+    a given stream it equals the JAX prior's samples of the same noise,
+    and under a KeyChain it equals sample() of the chain's own draw; a
+    ``dtype`` is the dtype of the samples it returns."""
+    from hippyflow_tpu_torch.utils import GivenNoise, KeyChain
+
+    jpr, tpr = _priors()[kind]
+    got = tpr.sample_n(GivenNoise(np.random.default_rng(16), "cpu"), 5)
+    xi = np.random.default_rng(16).standard_normal((5, jpr.noise_dim))
+    want = jpr.sample(jnp.asarray(xi))
+    assert got.shape == (5, tpr.dim) and got.dtype == torch.float64
+    assert _rel(got, want) < 1e-12
+    draw = KeyChain(3, "cpu").normal((4, tpr.noise_dim), dtype=torch.float64)
+    assert torch.equal(tpr.sample_n(KeyChain(3, "cpu"), 4), tpr.sample(draw))
+    got32 = tpr.sample_n(KeyChain(3, "cpu"), 4, dtype=torch.float32)
+    assert got32.dtype == torch.float32
+    assert torch.equal(got32, tpr.sample(draw).to(torch.float32))
+
+
+@pytest.mark.parametrize("robin_bc", [False, True])
+def test_bilaplacian2d_robin_bc_matches_jax(robin_bc):
+    import hippyflow_tpu as hf
+    import hippyflow_tpu_torch as hft
+
+    jpr = hf.BiLaplacian2D(jfem.FunctionSpace(jfem.unit_square_mesh(6)),
+                           gamma=0.1, delta=1.0, robin_bc=robin_bc)
+    tpr = hft.BiLaplacian2D(tfem.FunctionSpace(tfem.unit_square_mesh(6)),
+                            gamma=0.1, delta=1.0, robin_bc=robin_bc, **F64)
+    assert _rel(tpr.K, jpr.K) < 1e-12
+    xi = np.random.default_rng(17).standard_normal((3, tpr.noise_dim))
+    assert _rel(tpr.sample(_t(xi)), jpr.sample(jnp.asarray(xi))) < 1e-12
+    plain = hft.BiLaplacian2D(tfem.FunctionSpace(tfem.unit_square_mesh(6)),
+                              gamma=0.1, delta=1.0, **F64)
+    assert torch.equal(tpr.K, plain.K) != robin_bc
+
+
+@pytest.mark.parametrize("shape", [(20,), (20, 3), (4, 20), (4, 20, 3)])
+def test_cholesky_solve_L_matches_jax(shape):
+    """L^{-1} b for one factor (b a vector or a block) and for a batch of
+    four factors, against the JAX package's (vmapped for the batch)."""
+    rng = np.random.default_rng(18)
+    batch = len(shape) == 3 or shape == (4, 20)
+    A = np.stack([_spd(20, seed=i) for i in range(4)]) if batch else _spd(20)
+    b = rng.standard_normal(shape)
+    tfac = tops.factorize(_t(A), True)
+    got = tfac.solve_L(_t(b))
+    if batch:
+        want = jax.vmap(lambda a, bb: jops.factorize(a, True).solve_L(bb))(
+            jnp.asarray(A), jnp.asarray(b))
+    else:
+        want = jops.factorize(jnp.asarray(A), True).solve_L(jnp.asarray(b))
+    assert got.shape == shape
+    assert _rel(got, want) < 1e-12
+    vec = got.ndim < tfac.L.ndim
+    Lx = tfac.L @ (got[..., None] if vec else got)
+    assert _rel(Lx[..., 0] if vec else Lx, b) < 1e-12
+
+
+def test_block_tridiag_factor_nb_and_s_match_jax():
+    A = _spd(24, seed=19)
+    j = jops.structured.factorize_block_tridiag_dense(jnp.asarray(A), 6)
+    t = tops.structured.factorize_block_tridiag_dense(_t(A), 6)
+    assert (t.nb, t.s) == (j.nb, j.s) == (4, 6)
+    batch = tops.structured.factorize_block_tridiag(
+        *(x.expand(3, -1, -1, -1) for x in tops.extract_block_tridiag(_t(A), 6)))
+    assert (batch.nb, batch.s) == (4, 6)
+
+
+def test_dirichlet_bc_homogenized_matches_jax():
+    jbc, tbc, _ = _bc_case()
+    t0, j0 = tbc.homogenized(), jbc.homogenized()
+    np.testing.assert_array_equal(t0.mask, j0.mask)
+    np.testing.assert_array_equal(t0.value, np.asarray(j0.value))
+    assert t0.mask.any() and tbc.value.any() and not t0.value.any()
+
+
+@pytest.mark.parametrize("s", [7, 14])
+def test_assemble_A_banded_at_a_block_size_matches_jax(s):
+    """The band of a P1 form at the structured plan's block size (7 at
+    nx=6) and at twice it, which JAX sums by segment and the port by
+    index: both equal the JAX package's, and prepare_banded builds the
+    indices of the second once."""
+    import hippyflow_tpu as hf
+    import hippyflow_tpu_torch as hft
+
+    nx, ny = 6, 5  # 42 dofs: 6 block rows of 7, 3 of 14
+    jV = jfem.FunctionSpace(jfem.unit_square_mesh(nx, ny))
+    tV = tfem.FunctionSpace(tfem.unit_square_mesh(nx, ny))
+    jform = hf.GalerkinForm(
+        flux=lambda x, u, gu, m, z, c: jnp.exp(m) * gu * (1.0 + u * u),
+        source=lambda x, u, gu, m, z, c: -m * u)
+    tform = hft.fem.GalerkinForm(
+        flux=lambda x, u, gu, m, z, c: torch.exp(m)[..., None] * gu
+        * (1.0 + u * u)[..., None],
+        source=lambda x, u, gu, m, z, c: -m * u)
+    jb = jfem.BoundGalerkinForm(jV, jV, jform)
+    tb = tfem.BoundGalerkinForm(tV, tV, tform, **F64)
+    rng = np.random.default_rng(20)
+    u, m = rng.standard_normal((2, 42)), 0.3 * rng.standard_normal((2, 42))
+    jb.prepare_banded(s)
+    tb.prepare_banded(s)
+    assert (s in tb._band_idx_cache) == (s != 7)
+    want = jax.vmap(lambda uu, mm: jb.assemble_A_banded(uu, mm, None, s))(
+        jnp.asarray(u), jnp.asarray(m))
+    got = tb.assemble_A_banded(_t(u), _t(m), s=s)
+    assert got.shape == (2, 42 // s, s, 3 * s)
+    assert _rel(got, want) < 1e-12
+    with pytest.raises(ValueError):
+        tb.prepare_banded(5)  # 42 rows are not blocks of 5
+
+
+def test_auto_chunk_size_forms_match_jax():
+    """JAX's (state_dim, dtype, memory_gb, problem) order, positional and
+    by keyword, gives the JAX chunks, bare (the dense rule) and with a
+    problem (its band)."""
+    from applications.confusion import confusion_linear_observable as jco
+    from hippyflow_tpu.models.sampling import auto_chunk_size as j_chunk
+    from hippyflow_tpu_torch.applications.confusion import (
+        confusion_linear_observable as tco,
+    )
+    from hippyflow_tpu_torch.models import auto_chunk_size
+
+    for n, dt, jdt, gb in ((4225, torch.float32, jnp.float32, 20.0),
+                           (1000, torch.float64, jnp.float64, 0.5),
+                           (100000, torch.float32, jnp.float32, 1.0)):
+        want = j_chunk(n, jdt, gb)
+        assert want == j_chunk(n, jdt, memory_gb=gb)
+        assert auto_chunk_size(n, dt, gb) == want
+        assert auto_chunk_size(state_dim=n, dtype=dt, memory_gb=gb) == want
+    assert auto_chunk_size(10, torch.float64, device="cpu") == 4096
+    jobs, jV = jco(nx=16, velocity="analytic")
+    tobs, _ = tco(nx=16, velocity="analytic", **F64)
+    for gb in (0.01, 0.3):
+        want = j_chunk(jV.dim, jnp.float64, gb, jobs.problem)
+        assert auto_chunk_size(jV.dim, torch.float64, gb, tobs.problem) == want
+        assert auto_chunk_size(jV.dim, torch.float64, memory_gb=gb,
+                               problem=tobs.problem, device="cpu") == want
+
+
+def test_keychain_next_key_and_sigma():
+    """next_key is a generator of its own, seeded from the chain (so the
+    chain moves on); normal(sigma=) scales the standard draw, on KeyChain
+    and GivenNoise alike."""
+    from hippyflow_tpu_torch.utils import GivenNoise, KeyChain
+
+    a, b = KeyChain(5, "cpu"), KeyChain(5, "cpu")
+    ga, gb = a.next_key(), b.next_key()
+    assert isinstance(ga, torch.Generator)
+    x = torch.randn(8, generator=ga, dtype=torch.float64)
+    assert torch.equal(x, torch.randn(8, generator=gb, dtype=torch.float64))
+    assert torch.equal(a.normal((3,)), b.normal((3,)))
+    assert a.next_key().initial_seed() != ga.initial_seed()
+    want = KeyChain(6, "cpu").normal((4, 3), dtype=torch.float64)
+    got = KeyChain(6, "cpu").normal((4, 3), dtype=torch.float64, sigma=2.5)
+    assert torch.equal(got, 2.5 * want)
+    g = GivenNoise(np.random.default_rng(7), "cpu").normal((5,), sigma=0.5,
+                                                          dtype=torch.float64)
+    np.testing.assert_array_equal(
+        g.numpy(), 0.5 * np.random.default_rng(7).standard_normal(5))
