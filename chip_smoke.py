@@ -240,7 +240,7 @@ each:
     32 samples, rank 128, oversampling 10, chunk 16, through the fused
     pass; for 2 samples the float32 Jacobian against the same samples
     run through the kernels in float64;
-12. surface, in two parts: (a) ``bench.py``'s save stage, once at nx=64
+12. surface, in three parts: (a) ``bench.py``'s save stage, once at nx=64
     after 9b (the main path of phase 9, grid-sequenced, one chunk of 1024)
     and once at nx=192 in phase 10 (the lane's settings, eight chunks of
     32): the forward stage, then ``confusion_mq_data.npz`` written on a
@@ -254,7 +254,14 @@ each:
     lane's samples, float32, against ``materialize(lin).mT @ dq`` (limit
     1e-4), and in float64 for 2 samples (limit 1e-10) and against the
     same product on the CPU (limit 1e-8); K1's rows, the Schur step, K3
-    and K2 launched.
+    and K2 launched; (c) ``surface_vector``, after (b) on the same
+    observables: the lane's problem with a P2 parameter space and a copy
+    of its form scaled by an all-ones P1 dof-valued coefficient
+    (``coefficients``), at the P2 interpolant of the lane's samples, the
+    same J^T for the lane's chunk of 16 in float32 and for 2 samples in
+    float64 with the same limits, and the float64 band against the lane's
+    own band at the P1 samples (limit 1e-12); K1's rows, the Schur step,
+    K3 and K2 launched.
 
 Then a JSON line describing the kernels (``launches`` is the sum over the
 paths, which are each driven with the counts set to 0 just before and
@@ -387,6 +394,10 @@ SETUP_CHECK_NX, SETUP_F64_TOL = 16, 1e-8
 # JT_CPU_TOL (relative to the largest entry)
 JT_SAMPLES, JT_SAMPLES_F64, JT_COLUMNS = 4, 2, 3
 JT_TOL_F64, JT_CPU_TOL = 1e-10, 1e-8
+# the vector form with a P2 parameter space and a unit P1 dof-valued
+# coefficient: at the P2 interpolant of the lane's (P1) m its float64 band
+# is the lane's own to this (relative to the largest entry)
+VECTOR_BAND_TOL = 1e-12
 
 
 def log(msg: str) -> None:
@@ -1258,7 +1269,7 @@ def phase_s516(device, parent=None):
     m = prior.sample(torch.randn(n, prior.noise_dim, generator=gen, **f64))
     zero = torch.zeros(n, pde.state_dim, **f64)
     band64 = bc_symmetrize_banded_masked(
-        pde.bound.assemble_A_banded_ordered(zero, m, pde._band_order),
+        pde.bound.assemble_A_banded_ordered(zero, m, None, pde._band_order),
         pde._band_mask).contiguous()
     del zero, m, obs, prior
     N, nb, s, _ = band64.shape
@@ -1612,6 +1623,26 @@ def phase_surface(obs32, prior32, levels, n_samples, rank, **params_kw):
                **params_kw)
 
 
+def component_observable(pde, targets):
+    """The real component (0 of 2) of a helmholtz state observed at the
+    lane's targets."""
+    from hippyflow_tpu_torch.fem import ComponentObservation
+    from hippyflow_tpu_torch.models import (
+        LinearStateObservable,
+        PointwiseObservation,
+    )
+
+    B = PointwiseObservation(pde.Vu, targets, dtype=pde.dtype, device=pde.device)
+    return LinearStateObservable(pde, ComponentObservation(B, 2, 0))
+
+
+def jt_directions(obs, n):
+    """dq (n, dQ, JT_COLUMNS) from the seed, at the problem's dtype."""
+    gen = torch.Generator().manual_seed(SEED)
+    return torch.randn(n, obs.dQ, JT_COLUMNS, generator=gen,
+                       dtype=torch.float64).to(obs.problem.dtype)
+
+
 def phase_surface_jt(device, obs32, obs64, ms):
     """(b) The repaired J^T on the helmholtz lane's bands (s=516): a
     ``ComponentObservation`` of the real component (ncomp=2) at the lane's
@@ -1622,30 +1653,15 @@ def phase_surface_jt(device, obs32, obs64, ms):
     from hippyflow_tpu_torch.applications.helmholtz import (
         helmholtz_linear_observable,
     )
-    from hippyflow_tpu_torch.fem import ComponentObservation
-    from hippyflow_tpu_torch.models import (
-        LinearStateObservable,
-        ObservableJacobian,
-        PointwiseObservation,
-    )
+    from hippyflow_tpu_torch.models import ObservableJacobian
     from hippyflow_tpu_torch.ops import hopper_kernels as hk
 
-    def component(obs):
-        pde = obs.problem
-        B = PointwiseObservation(pde.Vu, obs.B.targets, dtype=pde.dtype,
-                                 device=pde.device)
-        return LinearStateObservable(pde, ComponentObservation(B, 2, 0))
-
-    def dq_of(obs, n):
-        gen = torch.Generator().manual_seed(SEED)
-        return torch.randn(n, obs.dQ, JT_COLUMNS, generator=gen,
-                           dtype=torch.float64).to(obs.problem.dtype)
-
-    comp32 = component(obs32)
+    targets = obs32.B.targets
+    comp32 = component_observable(obs32.problem, targets)
     m32 = ms[:JT_SAMPLES]
     u32, info = obs32.problem.solve_fwd(m32)
     check(bool(info.converged.all()), "surface J^T: float32 solves")
-    dq32 = dq_of(comp32, JT_SAMPLES).to(device)
+    dq32 = jt_directions(comp32, JT_SAMPLES).to(device)
     torch.cuda.synchronize()
     hk.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1657,11 +1673,11 @@ def phase_surface_jt(device, obs32, obs64, ms):
     launches = launch_counts()
     err32 = rel_err(jt32, J.materialize(lin).mT @ dq32)
     del lin
-    comp64 = component(obs64)
+    comp64 = component_observable(obs64.problem, targets)
     m64 = ms[:JT_SAMPLES_F64].double()
     u64, info = obs64.problem.solve_fwd(m64)
     check(bool(info.converged.all()), "surface J^T: float64 solves")
-    dq64 = dq_of(comp64, JT_SAMPLES_F64).to(device)
+    dq64 = jt_directions(comp64, JT_SAMPLES_F64).to(device)
     J64 = ObservableJacobian(comp64)
     lin = obs64.problem.linearize(u64, m64, needs="adj")
     jt64 = J64.transpmult(lin, dq64)
@@ -1669,7 +1685,7 @@ def phase_surface_jt(device, obs32, obs64, ms):
     del lin
     obs_cpu, _ = helmholtz_linear_observable(
         nx=HELM_NX, frequency=HELM_FREQ, dtype=torch.float64, device="cpu")
-    comp_cpu = component(obs_cpu)
+    comp_cpu = component_observable(obs_cpu.problem, targets)
     lin = obs_cpu.problem.linearize(u64.cpu(), m64.cpu(), needs="adj")
     err_cpu = rel_err(jt64.cpu(),
                       ObservableJacobian(comp_cpu).transpmult(lin, dq64.cpu()))
@@ -1689,6 +1705,118 @@ def phase_surface_jt(device, obs32, obs64, ms):
                 "banded_solve"):
         check(launches[key] > 0, f"{key} was not launched on surface_jt")
     return {"surface_jt": launches}
+
+
+def vector_problem(lane):
+    """The helmholtz lane's problem with a P2 parameter space and a copy
+    of its form whose flux and source scale by a P1 dof-valued coefficient
+    ``a`` (``coefficients``), all ones: the same mesh, state, rhs and
+    Dirichlet data, the lane's dtype and device."""
+    import numpy as np
+
+    from hippyflow_tpu_torch.fem import FunctionSpace
+    from hippyflow_tpu_torch.fem.vector_assembly import VectorGalerkinForm
+    from hippyflow_tpu_torch.models import VariationalPDEProblem
+
+    base = lane.form
+    form = VectorGalerkinForm(
+        2, lambda x, u, gu, m, z, c: c["a"][..., None, None]
+        * base.flux(x, u, gu, m, z, c),
+        lambda x, u, gu, m, z, c: c["a"][..., None]
+        * base.source(x, u, gu, m, z, c),
+        base.quad_degree, False, {"a": np.ones(lane.Vu.mesh.num_vertices)})
+    return VariationalPDEProblem(
+        lane.Vu, FunctionSpace(lane.Vu.mesh, 2), form, lane.bc, True,
+        rhs_vector=lane.rhs_vector, operator_symmetric=True, dtype=lane.dtype,
+        device=lane.device)
+
+
+def phase_surface_vector(device, obs32, obs64, ms):
+    """(c) The vector form's coefficients and any-degree parameter space
+    on the helmholtz lane (s=516): ``vector_problem`` of the lane's
+    problems, m the P2 interpolant of the lane's samples, observed on the
+    real component.  Float32 at the lane's chunk (the counted path
+    ``surface_vector``: linearize and ``transpmult``) against
+    ``materialize(lin).mT @ dq``; float64 for 2 samples at ``JT_TOL_F64``
+    and against the CPU at ``JT_CPU_TOL``; the float64 band at the P2
+    interpolant against the lane's own band at the P1 m."""
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        helmholtz_linear_observable,
+    )
+    from hippyflow_tpu_torch.fem import prolong_p1_to_p2
+    from hippyflow_tpu_torch.models import ObservableJacobian
+    from hippyflow_tpu_torch.ops import hopper_kernels as hk
+
+    targets = obs32.B.targets
+    t_phase = t0 = time.perf_counter()
+    pde32 = vector_problem(obs32.problem)
+    comp32 = component_observable(pde32, targets)
+    m32 = prolong_p1_to_p2(ms[:HELM_CHUNK], obs32.problem.Vm, pde32.Vm)
+    u32, info = pde32.solve_fwd(m32)
+    check(bool(info.converged.all()), "surface vector: float32 solves")
+    newton32 = info.iterations.float()
+    dq32 = jt_directions(comp32, HELM_CHUNK).to(device)
+    torch.cuda.synchronize()
+    build_solve = time.perf_counter() - t0
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    lin = pde32.linearize(u32, m32, needs="adj")
+    J = ObservableJacobian(comp32)
+    jt32 = J.transpmult(lin, dq32)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    check(bool(torch.isfinite(jt32).all())
+          and jt32.shape == (HELM_CHUNK, pde32.Vm.dim, JT_COLUMNS),
+          f"surface vector: J^T float32 {tuple(jt32.shape)}")
+    err32 = rel_err(jt32, J.materialize(lin).mT @ dq32)
+    del lin
+    lane64 = obs64.problem
+    pde64 = vector_problem(lane64)
+    comp64 = component_observable(pde64, targets)
+    m1 = ms[:JT_SAMPLES_F64].double()
+    m64 = prolong_p1_to_p2(m1, lane64.Vm, pde64.Vm)
+    u64, info = pde64.solve_fwd(m64)
+    check(bool(info.converged.all()), "surface vector: float64 solves")
+    bo = lane64._band_order
+    band_err = rel_err(pde64.bound.assemble_A_banded_ordered(u64, m64, None, bo),
+                       lane64.bound.assemble_A_banded_ordered(u64, m1, None, bo))
+    dq64 = jt_directions(comp64, JT_SAMPLES_F64).to(device)
+    J64 = ObservableJacobian(comp64)
+    lin = pde64.linearize(u64, m64, needs="adj")
+    jt64 = J64.transpmult(lin, dq64)
+    err64 = rel_err(jt64, J64.materialize(lin).mT @ dq64)
+    del lin
+    obs_cpu, _ = helmholtz_linear_observable(
+        nx=HELM_NX, frequency=HELM_FREQ, dtype=torch.float64, device="cpu")
+    pde_cpu = vector_problem(obs_cpu.problem)
+    lin = pde_cpu.linearize(u64.cpu(), m64.cpu(), needs="adj")
+    err_cpu = rel_err(jt64.cpu(), ObservableJacobian(
+        component_observable(pde_cpu, targets)).transpmult(lin, dq64.cpu()))
+    log(f"surface vector helmholtz s={pde32._block_size} nb="
+        f"{pde32._band_order.nb}, P2 parameter ({pde32.Vm.dim} dofs), unit P1 "
+        f"coefficient, component 0 of 2, k={JT_COLUMNS}: float32 N={HELM_CHUNK} "
+        f"build + solve_fwd {build_solve:.4f} s (Newton max "
+        f"{int(newton32.max())} mean {newton32.mean().item():.3f}), "
+        f"linearize + transpmult {seconds:.4f} s, against materialize "
+        f"{err32:.3e} (limit {JAC_TOL_F32}); float64 N={JT_SAMPLES_F64} "
+        f"{err64:.3e} (limit {JT_TOL_F64}), card against CPU {err_cpu:.3e} "
+        f"(limit {JT_CPU_TOL}), band at the P2 interpolant against the "
+        f"lane's {band_err:.3e} (limit {VECTOR_BAND_TOL}); launches K1 "
+        f"{launches['banded_factorize']} (rows "
+        f"{launches['banded_factorize_rows']}; Schur steps "
+        f"{launches['schur_step']}) K2 {launches['banded_solve']} K3 "
+        f"{launches['batched_inverse']}; phase {time.perf_counter() - t_phase:.1f} "
+        f"s; {nvidia_smi_line()}")
+    check(err32 <= JAC_TOL_F32, f"surface vector J^T float32 {err32:.3e}")
+    check(err64 <= JT_TOL_F64, f"surface vector J^T float64 {err64:.3e}")
+    check(err_cpu <= JT_CPU_TOL,
+          f"surface vector J^T card against CPU {err_cpu:.3e}")
+    check(band_err <= VECTOR_BAND_TOL, f"surface vector band {band_err:.3e}")
+    for key in ("banded_factorize_rows", "schur_step", "batched_inverse",
+                "banded_solve"):
+        check(launches[key] > 0, f"{key} was not launched on surface_vector")
+    return {"surface_vector": launches}
 
 
 def forward_utilization(obs32, prior32):
@@ -3355,7 +3483,7 @@ def ordered_band(pde, u, m):
     in band order (N, nb, s, 3s)."""
     from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked
 
-    band = pde.bound.assemble_A_banded_ordered(u, m, pde._band_order)
+    band = pde.bound.assemble_A_banded_ordered(u, m, None, pde._band_order)
     return bc_symmetrize_banded_masked(band, pde._band_mask).contiguous()
 
 
@@ -4555,6 +4683,7 @@ def run_phases(device, argv, parent=None):
     helm_paths, helm = phase_helmholtz(device, "--profile" in argv)
     paths.update(helm_paths)
     paths.update(phase_surface_jt(device, *helm))
+    paths.update(phase_surface_vector(device, *helm))
 
     designs = report["banded_factorize"]["designs"]
     designs.update(s193_report["designs"])

@@ -35,6 +35,7 @@ from .multigrid import (
     CoarseNewtonWarmStart,
     coarse_newton_warm_start,
     prolong_linear,
+    prolong_p1_to_p2,
     restrict_injection,
 )
 from .quadrature import triangle_rule

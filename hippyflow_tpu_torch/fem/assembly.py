@@ -58,18 +58,21 @@ class GalerkinForm:
     coefficient values at the points (``c[name]`` (...) or (..., k);
     ``c['grad_' + name]`` (..., 2) or (..., k, 2)).
 
-    coefficients: name -> (n,) or (n, k) vertex values (P1 on the mesh).
-    cell_coefficients: name -> (nc,) per-cell constants.
     symmetric: dr/du is symmetric positive definite, so the ``dense``
     solver factorizes it by Cholesky (else pivoted LU).
+    coefficients: name -> (n,) or (n, k) vertex values (P1 on the mesh).
+    cell_coefficients: name -> (nc,) per-cell constants.
+
+    The fields are in the JAX package's order, so a positional
+    ``GalerkinForm(flux, source, 4, True)`` means the same on both.
     """
 
     flux: Callable | None = None
     source: Callable | None = None
     quad_degree: int = 2
+    symmetric: bool = False
     coefficients: Mapping[str, np.ndarray] = field(default_factory=dict)
     cell_coefficients: Mapping[str, np.ndarray] = field(default_factory=dict)
-    symmetric: bool = False
 
 
 def structured_plan(V: FunctionSpace):
@@ -127,8 +130,12 @@ class _OrderedBand:
             self._ordered_gather = _build_gather_tables(
                 idx, border.nb * border.s * 3 * border.s, self.device)
 
-    def assemble_A_banded_ordered(self, u, m, border, z=None):
-        """dr/du in the band order of ``border``: (N, nb, s, 3s)."""
+    def assemble_A_banded_ordered(self, u, m, z=None, border=None):
+        """dr/du in the band order of ``border``: (N, nb, s, 3s).  The
+        JAX package's order (u, m, z, border); ``border`` is required."""
+        if border is None:
+            raise TypeError("assemble_A_banded_ordered() needs the BandOrder "
+                            "'border'")
         self.prepare_banded_ordered(border)
         A_e = self._elem_jacobian(u, m, z, "u")
         N = u.shape[0]
@@ -144,7 +151,7 @@ class BoundGalerkinForm(_OrderedBand):
     (N, n_m), z (N, dz) or None):
       residual(u, m, z)             -> (N, n)
       assemble_A_banded(u, m, z[, s]) -> dr/du in (N, nb, s, 3s) band storage
-      assemble_A_banded_ordered(u, m, border, z) -> dr/du in the permuted
+      assemble_A_banded_ordered(u, m, z, border) -> dr/du in the permuted
           band storage of a BandOrder (P2 states)
       assemble_A / assemble_C       -> dense dr/du (N, n, n), dr/dm (N, n, n_m)
       assemble_Cz(u, m, z)          -> dense dr/dz (N, n, dz)

@@ -13,11 +13,13 @@ Transfers assume the row-major P1 layout of ``unit_square_mesh``
 (N, n, k) for k components.
 
 Not ported: ``SplitWarmStartChain``, which only lets XLA compile the
-levels concurrently; PyTorch runs the levels eagerly.
+levels concurrently; PyTorch runs the levels eagerly.  The port's own
+``prolong_p1_to_p2`` carries a P1 field into the P2 space of its mesh.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -60,6 +62,22 @@ def prolong_linear(xc, V_coarse, V_fine):
         g[:, :-1, :-1] + g[:, :-1, 1:] + g[:, 1:, :-1] + g[:, 1:, 1:]
     )
     return f.reshape((N, sfx * sfy) + trail)
+
+
+def prolong_p1_to_p2(x, V1, V2):
+    """The P2 interpolant, exact, of a P1 field on the same mesh: each
+    vertex keeps its value, each edge midpoint takes its ends' mean.
+    x (N, n_1) or (N, n_1, k) -> (N, n_2) or (N, n_2, k)."""
+    if V1.mesh is not V2.mesh or (V1.degree, V2.degree) != (1, 2):
+        raise ValueError("a P1 space and a P2 space on one mesh")
+    # a vertex dof is its own two ends; local dof 3 + k of a cell is the
+    # midpoint of the edge opposite the cell's vertex k
+    cells = np.asarray(V2.cell_dofs)
+    ends = np.tile(np.arange(V2.dim), (2, 1))
+    for k, (i, j) in enumerate(((1, 2), (0, 2), (0, 1))):
+        ends[:, cells[:, 3 + k]] = cells[:, i], cells[:, j]
+    ends = torch.as_tensor(ends, device=x.device)
+    return 0.5 * (x[:, ends[0]] + x[:, ends[1]])
 
 
 def _finite_rows(x):

@@ -3,9 +3,9 @@ samples (port of ``hippyflow_tpu/fem/vector_assembly.py``).
 
 States with ``ncomp`` components of a P1 or P2 space on one mesh, in the
 component-major layout ``u = [u_0, ..., u_{ncomp-1}]`` (each block of
-length ``n = Vu.dim``); the parameter m is a scalar P1 field.  The form
-callables act on whole tensors with leading (sample, cell, quadrature
-point) axes:
+length ``n = Vu.dim``); the parameter m is a scalar field of any degree
+on the same mesh.  The form callables act on whole tensors with leading
+(sample, cell, quadrature point) axes:
 
     flux(x, u, grad_u, m, z, c)   -> (..., ncomp, 2)
     source(x, u, grad_u, m, z, c) -> (..., ncomp)
@@ -37,28 +37,38 @@ from .space import FunctionSpace
 @dataclass(frozen=True)
 class VectorGalerkinForm:
     """Weak form of an ``ncomp``-component state (see the module doc).
-    The callables receive the control ``z`` (N, dz) or None and ``c``, the
-    ``cell_coefficients``: name -> (nc,) per-cell constants, each handed
-    over as (nc, nq) and so broadcast over the sample axis (e.g. the cell
-    diameters of a stabilization term).  The JAX package's P1 dof-valued
-    ``coefficients`` serve no ported form and are not ported.
-    ``symmetric``: dr/du is SPD (Cholesky in the ``dense`` solver)."""
+    The callables receive the control ``z`` (N, dz) or None and ``c``, a
+    dict of coefficient values at the points, each (nc, nq) or (nc, nq, k)
+    and so broadcast over the sample axis:
+
+    coefficients: name -> (n_vertices,) or (n_vertices, k) P1 dof values
+        on the mesh, interpolated at the quadrature points;
+    cell_coefficients: name -> (nc,) per-cell constants (e.g. the cell
+        diameters of a stabilization term).
+
+    ``symmetric``: dr/du is SPD (Cholesky in the ``dense`` solver).  The
+    fields are in the JAX package's order."""
 
     ncomp: int
     flux: Callable | None = None
     source: Callable | None = None
     quad_degree: int = 2
     symmetric: bool = False
+    coefficients: Mapping[str, np.ndarray] = field(default_factory=dict)
     cell_coefficients: Mapping[str, np.ndarray] = field(default_factory=dict)
 
 
 class VectorBoundGalerkinForm(_OrderedBand):
-    """A VectorGalerkinForm bound to (state space, P1 parameter space) on
-    one device.  Entry points, all batched over a leading sample axis:
+    """A VectorGalerkinForm bound to (state space, parameter space) on
+    one device; the parameter space may have any degree (its own dofmap
+    ``cells_m`` and basis ``phi_m`` (nq, nd_m)).  Entry points, all batched
+    over a leading sample axis (m (N, n_m)):
 
       residual(u, m)                        (N, n_total) -> (N, n_total)
       assemble_A(u, m)                      dense dr/du (N, n_total, n_total)
-      assemble_A_banded_ordered(u, m, bo)   dr/du in band order (N, nb, s, 3s)
+      assemble_A_diag(u, m)                 its diagonal (N, n_total)
+      assemble_A_banded_ordered(u, m, z, border)
+                                            dr/du in band order (N, nb, s, 3s)
       apply_C(u, m, dm), apply_Ct(u, m, dp) (dr/dm) dm and (dr/dm)^T dp
     """
 
@@ -66,8 +76,6 @@ class VectorBoundGalerkinForm(_OrderedBand):
                  form: VectorGalerkinForm, dtype=None, device=None):
         if Vu.mesh is not Vm.mesh:
             raise ValueError("state/parameter spaces must share a mesh")
-        if Vm.degree != 1:
-            raise NotImplementedError("the parameter space must be P1")
         self.dtype, self.device = config.resolve(dtype, device)
         self.Vu, self.Vm, self.form = Vu, Vm, form
         self.ncomp = form.ncomp
@@ -88,19 +96,26 @@ class VectorBoundGalerkinForm(_OrderedBand):
         phi_m = Vm.quad_data(form.quad_degree)[0]
         nq = phi.shape[0]
         self._phi = t(phi)  # (nq, nd)
-        self._phi_m = t(phi_m)  # (nq, 3)
+        self._phi_m = t(phi_m)  # (nq, nd_m)
         # (nc, nq, nd, 2) physical basis gradients (P1: constant in q)
         self._grads = t(
             np.broadcast_to(gphi, (gphi.shape[0], nq) + gphi.shape[2:]).copy())
         self._xq = t(xq)  # (nc, nq, 2)
         self._wdet = t(wdet)  # (nc, nq)
-        self._coef = {name: t(np.repeat(np.asarray(vals)[:, None], nq, axis=1))
-                      for name, vals in form.cell_coefficients.items()}
+        # P1 dof values at the points through the vertex cells, then the
+        # per-cell constants, each (nc, nq, ...)
+        lam = Vu.quad_points(form.quad_degree)[0]
+        coef = {name: t(np.einsum("qi,ci...->cq...", lam,
+                                  np.asarray(dofs)[Vu.mesh.cells]))
+                for name, dofs in form.coefficients.items()}
+        for name, vals in form.cell_coefficients.items():
+            coef[name] = t(np.repeat(np.asarray(vals)[:, None], nq, axis=1))
+        self._coef = coef
 
     # -- element kernel ----------------------------------------------------
     def _r_elem(self, u_e, m_e, z=None):
         """Element residuals (N, nc, nd, ncomp) from element values u_e
-        (N, nc, nd, ncomp) and m_e (N, nc, 3)."""
+        (N, nc, nd, ncomp) and m_e (N, nc, nd_m)."""
         uq = torch.einsum("qi,ncik->ncqk", self._phi, u_e)
         gu = torch.einsum("cqid,ncik->ncqkd", self._grads, u_e)
         mq = torch.einsum("qi,nci->ncq", self._phi_m, m_e)
@@ -123,7 +138,7 @@ class VectorBoundGalerkinForm(_OrderedBand):
     def _elem_jacobian(self, u, m, z, wrt: str):
         """Element blocks (N, nc, nd*ncomp, L): d r_e[(a, k)] / d x_e[l]
         with x = u (L = nd*ncomp, local order (dof, component)) or m
-        (L = 3)."""
+        (L = nd_m)."""
         u_e, m_e = self._elements(u, m)
         if wrt == "u":
             f, x = (lambda xx: self._r_elem(xx, m_e, z)), u_e
@@ -170,7 +185,7 @@ class VectorBoundGalerkinForm(_OrderedBand):
         squeeze = dm.ndim == 2
         if squeeze:
             dm = dm[..., None]
-        C = self._elem_jacobian(u, m, z, "m")  # (N, nc, a, 3)
+        C = self._elem_jacobian(u, m, z, "m")  # (N, nc, a, nd_m)
         N, k = dm.shape[0], dm.shape[-1]
         r_e = torch.einsum("ncab,ncbk->ncak", C, dm[:, self.cells_m])
         out = torch.zeros((N, self.n_total, k), dtype=r_e.dtype,
@@ -183,7 +198,7 @@ class VectorBoundGalerkinForm(_OrderedBand):
         squeeze = dp.ndim == 2
         if squeeze:
             dp = dp[..., None]
-        C = self._elem_jacobian(u, m, z, "m")  # (N, nc, a, 3)
+        C = self._elem_jacobian(u, m, z, "m")  # (N, nc, a, nd_m)
         N, k = dp.shape[0], dp.shape[-1]
         dp_e = dp[:, self._segs].reshape(N, C.shape[1], C.shape[2], k)
         contrib = torch.einsum("ncab,ncak->ncbk", C, dp_e)

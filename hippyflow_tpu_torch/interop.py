@@ -85,6 +85,7 @@ def sample_batch(ms, us, qs, n_failures: int = 0, dtype=None, device=None):
         ms=tensor(ms, dtype, device),
         us=tensor(us, dtype, device),
         qs=tensor(qs, dtype, device),
+        zs=None,
         n_failures=int(n_failures),
     )
 

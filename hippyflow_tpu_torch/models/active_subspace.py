@@ -135,8 +135,8 @@ class ActiveSubspaceProjector:
     drawing them; ``keychain`` draws the rest (replace it with a
     ``utils.GivenNoise`` to give those too)."""
 
-    def __init__(self, observable, prior, parameters: ParameterList | None = None,
-                 control_distribution=None, collective=None):
+    def __init__(self, observable, prior, control_distribution=None,
+                 collective=None, parameters: ParameterList | None = None):
         self.observable = observable
         self.prior = prior
         self.control_distribution = control_distribution

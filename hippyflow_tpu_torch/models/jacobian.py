@@ -64,6 +64,11 @@ class ObservableControlJacobian(ObservableJacobian):
     def shape(self):
         return (self.observable.dQ, self.observable.problem.control_dim)
 
+    def mult(self, lin: Linearization, dz):
+        """Jz dz for dz (N, dz) or (N, dz, k), one sample per
+        linearization (the JAX package's keyword ``dz``)."""
+        return super().mult(lin, dz)
+
     def _C(self, lin, dz):
         return self.observable.applyCz(lin, dz)
 

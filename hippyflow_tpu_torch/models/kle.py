@@ -70,8 +70,8 @@ class KLEProjector:
     JAX package: the KLE needs no sample reduction, so every rank computes
     the same subspace."""
 
-    def __init__(self, prior, parameters: ParameterList | None = None,
-                 collective=None):
+    def __init__(self, prior, collective=None,
+                 parameters: ParameterList | None = None):
         self.prior = prior
         self.collective = collective or NullCollective()
         self.parameters = parameters or KLEParameterList()

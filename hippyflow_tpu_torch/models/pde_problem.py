@@ -100,13 +100,14 @@ class NewtonInfo(NamedTuple):
 
 
 class Linearization(NamedTuple):
-    """States and parameters (N, n) with the factor of the bc-symmetrized
-    A = dr/du at each sample, and the controls (N, dz) or None."""
+    """States and parameters (N, n), the controls (N, dz) or None, and the
+    factor of the bc-symmetrized A = dr/du at each sample; the JAX
+    package's field order."""
 
     u: torch.Tensor
     m: torch.Tensor
+    z: torch.Tensor | None
     factor: object
-    z: torch.Tensor | None = None
 
 
 def bicgstab(A, b, M, tol: float, maxiter: int, atol: float = 0.0):
@@ -163,9 +164,10 @@ class IterativeFactor:
     vjp action of the bc-symmetrized A, no operator matrix, O(n) memory.
 
     The rhs (N, n) or (N, n, k) becomes N k lanes, each with its sample's
-    linearization point, solved at once."""
+    linearization point, solved at once.  The JAX package's argument
+    order (u, m, z, diag, problem, tol, maxiter)."""
 
-    def __init__(self, problem, u, m, z, diag, tol: float, maxiter: int):
+    def __init__(self, u, m, z, diag, problem, tol: float, maxiter: int):
         self.problem = problem
         self.u, self.m, self.z, self.diag = u, m, z, diag
         self.tol, self.maxiter = tol, maxiter
@@ -235,7 +237,8 @@ class VariationalPDEProblem:
     rhs_vector.  operator_symmetric: A^T = A as assembled (possibly
     indefinite), so an adjoint factor serves forward solves too (the fused
     sampling pass).  solver: see the module doc; ``dist_banded`` takes
-    ``dist_mesh`` and ``dist_axis``."""
+    ``dist_mesh`` and ``dist_axis``.  The parameters are in the JAX
+    package's order, then the port's ``dtype`` and ``device``."""
 
     def __init__(
         self,
@@ -243,20 +246,20 @@ class VariationalPDEProblem:
         Vm: FunctionSpace,
         form,
         bc: DirichletBC,
+        is_fwd_linear: bool = False,
+        control_dim: int | None = None,
         newton_rtol: float = 1e-9,
         newton_atol: float = 1e-12,
         newton_max_iter: int = 25,
         n_line_search: int = 8,
-        dtype=None,
-        device=None,
-        is_fwd_linear: bool = False,
-        rhs_vector=None,
-        operator_symmetric: bool = False,
-        control_dim: int | None = None,
         newton_stale_factor: int = 1,
+        rhs_vector=None,
         solver: str = "auto",
         dist_mesh=None,
         dist_axis: str = "fem",
+        operator_symmetric: bool = False,
+        dtype=None,
+        device=None,
     ):
         if solver not in SOLVERS:
             raise ValueError(f"solver={solver!r}: one of {SOLVERS}")
@@ -386,7 +389,7 @@ class VariationalPDEProblem:
         if solver == "iterative":
             diag = torch.where(self._mask, 1.0,
                                self.bound.assemble_A_diag(u, m, z))
-            return IterativeFactor(self, u, m, z, diag, self._iterative_tol,
+            return IterativeFactor(u, m, z, diag, self, self._iterative_tol,
                                    self._iterative_maxiter)
         if solver == "dense":
             A = bc_symmetrize(self.bound.assemble_A(u, m, z), self.bc)
@@ -398,7 +401,7 @@ class VariationalPDEProblem:
                                    self._dist)
         border = self._band_order
         band = bc_symmetrize_banded_masked(
-            self.bound.assemble_A_banded_ordered(u, m, border, z),
+            self.bound.assemble_A_banded_ordered(u, m, z, border),
             self._band_mask)
         return PermutedFactor(
             _factorize_band(band, solver, needs != "fwd", needs != "adj",
@@ -561,4 +564,4 @@ class VariationalPDEProblem:
 
     def evalGradientParameter(self, u, m, p, z=None):
         """C^T p, the m-gradient of the Lagrangian's residual term."""
-        return self.apply_Ct(Linearization(u=u, m=m, factor=None, z=z), p)
+        return self.apply_Ct(Linearization(u, m, z, None), p)

@@ -82,7 +82,7 @@ class PODProjector:
     ``generate_training_data`` draws per chunk, or takes ``noise``."""
 
     def __init__(self, observable, prior, control_distribution=None,
-                 parameters: ParameterList | None = None, collective=None):
+                 collective=None, parameters: ParameterList | None = None):
         self.observable = observable
         self.control_distribution = control_distribution
         self.collective = collective or NullCollective()

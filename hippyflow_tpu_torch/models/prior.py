@@ -134,9 +134,9 @@ class BiLaplacianPrior(_BiLaplacianOperators):
         theta1: float = 0.5,
         alpha: float = math.pi / 4.0,
         mean=None,
+        robin_bc: bool = False,
         dtype=None,
         device=None,
-        robin_bc: bool = False,
     ):
         dtype, device = config.resolve(dtype, device)
         self.Vh = Vh
@@ -177,7 +177,8 @@ class StructuredBiLaplacianPrior(_BiLaplacianOperators):
     roundoff), with the operator surface of the JAX package's
     ``StructuredBiLaplacianPrior``.  Not ported: ``materialize=False``,
     which only keeps XLA's programs small (the port builds its bands and
-    factors once, here).
+    factors once, here); so ``device``, ``mesh`` and ``fem_axis``, which
+    follow it in the JAX package's order, are keyword-only here.
 
     With a device ``mesh`` (``parallel.make_sample_fem_mesh``) the prior
     is dof-sharded over its ``fem_axis``: each rank assembles only its own
@@ -199,6 +200,7 @@ class StructuredBiLaplacianPrior(_BiLaplacianOperators):
         mean=None,
         robin_bc: bool = False,
         dtype=None,
+        *,
         device=None,
         mesh=None,
         fem_axis: str = "fem",

@@ -12,7 +12,7 @@ machinery have no counterpart here.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -72,18 +72,19 @@ class UniformDistribution:
 
 @dataclass
 class SampleBatch:
-    """Solved forward samples, leading sample axis."""
+    """Solved forward samples, leading sample axis; the JAX package's
+    fields in its order, then the port's ``iterations`` (keyword-only,
+    since the JAX package's next field, ``host_chunks``, is not ported)."""
 
     ms: torch.Tensor  # (n, dM)
     us: torch.Tensor  # (n, n_state)
     qs: torch.Tensor  # (n, dQ)
+    zs: torch.Tensor | None  # (n, dZ) with a control distribution, or None
     n_failures: int
     # parameters whose forward solve did not converge (resampled lanes)
     failed_ms: np.ndarray | None = None
     # Newton iterations of every kept sample, (n,)
-    iterations: torch.Tensor | None = None
-    # controls (n, dZ) with a control distribution
-    zs: torch.Tensor | None = None
+    iterations: torch.Tensor | None = field(default=None, kw_only=True)
 
 
 def sample_until_solved(
@@ -91,17 +92,21 @@ def sample_until_solved(
     prior,
     keychain,
     n_samples: int,
+    control_distribution=None,
     chunk_size: int | None = None,
     max_tries: int = 10,
     verbose: bool = False,
-    reset_initial_guess: bool = False,
-    noise=None,
-    coarse_warm_start=None,
-    control_distribution=None,
-    controls=None,
     collective=None,
+    reset_initial_guess: bool = False,
+    *,
+    coarse_warm_start=None,
+    noise=None,
+    controls=None,
 ) -> SampleBatch:
-    """Draw n_samples prior samples with converged forward solves.
+    """Draw n_samples prior samples with converged forward solves.  The
+    JAX package's parameters in its order up to ``reset_initial_guess``;
+    the rest are keyword-only, since its next one (``prefetch_host``) is
+    not ported.
 
     ``noise`` (n_samples, noise_dim), when given, replaces the first draws;
     resampling always draws from ``keychain``.  With a
@@ -219,10 +224,10 @@ def sample_until_solved(
         ms=torch.cat(out["m"]),
         us=torch.cat(out["u"]),
         qs=torch.cat(out["q"]),
+        zs=torch.cat(out["z"]) if with_control else None,
         n_failures=n_failures,
         failed_ms=np.concatenate(failed_ms) if failed_ms else None,
         iterations=torch.cat(out["it"]),
-        zs=torch.cat(out["z"]) if with_control else None,
     )
 
 
@@ -235,6 +240,7 @@ def sample_and_materialize_symmetric(
     max_tries: int = 10,
     refine_steps: int = 1,
     verbose: bool = False,
+    *,
     noise=None,
 ):
     """Fused forward + Jacobian sampling for a linear problem whose
@@ -248,7 +254,8 @@ def sample_and_materialize_symmetric(
     resampling semantics as in ``sample_until_solved`` (the flag is
     ``linear_convergence_check``); the noise stream is the same, so fused
     and staged runs see identical parameters.  ``noise`` (n_samples,
-    noise_dim), when given, replaces the first draws.
+    noise_dim), when given, replaces the first draws; it is keyword-only,
+    in the slot of the JAX package's unported ``precompile_only``.
     Returns (SampleBatch, Js (n, dQ, dM))."""
     problem = observable.problem
     if not (problem.is_fwd_linear and problem.operator_symmetric):
@@ -319,6 +326,7 @@ def sample_and_materialize_symmetric(
         ms=torch.cat(out["m"]),
         us=torch.cat(out["u"]),
         qs=torch.cat(out["q"]),
+        zs=None,
         n_failures=n_failures,
         failed_ms=np.concatenate(failed_ms) if failed_ms else None,
         iterations=torch.ones(n_samples, dtype=torch.long, device=device),

@@ -150,7 +150,7 @@ def test_apply_Cz_and_Czt_match_jax(k):
     dz = rng.standard_normal((3, DZ) + (() if k is None else (k,)))
     dp = rng.standard_normal((3, tobs.problem.state_dim)
                              + (() if k is None else (k,)))
-    lin = Linearization(_t(u), _t(m), None, _t(z))
+    lin = Linearization(_t(u), _t(m), _t(z), None)
     jp = jobs.problem
     want_cz = jax.vmap(lambda a, b, c, d: jp.apply_Cz(JLin(a, b, c, None), d))(
         u, m, z, dz)

@@ -708,7 +708,7 @@ def test_helmholtz_bands_at_s516(cuda):
         torch.randn(2, Vh.dim, generator=torch.Generator(device=cuda).manual_seed(0),
                     **f64))
     band64 = bc_symmetrize_banded_masked(pde.bound.assemble_A_banded_ordered(
-        torch.zeros(2, pde.state_dim, **f64), m, pde._band_order),
+        torch.zeros(2, pde.state_dim, **f64), m, None, pde._band_order),
         pde._band_mask).contiguous()
     N, nb, s, _ = band64.shape
     assert (s, nb) == (516, 52)
@@ -1029,7 +1029,7 @@ def test_k3_on_navier_stokes_schur_complements(cuda):
     pde = VariationalPDEProblem(V, V, _ns_form(V, 100.0), _ns_bc(V), **f64)
     u = torch.cat([v[:, 0], v[:, 1], p])[None]
     band = bc_symmetrize_banded_masked(pde.bound.assemble_A_banded_ordered(
-        u, torch.zeros((1, V.dim), **f64), pde._band_order), pde._band_mask)
+        u, torch.zeros((1, V.dim), **f64), None, pde._band_order), pde._band_mask)
     N, nb, s, _ = band.shape
     assert s == 195
     M_p, D_p = hk.banded_factorize_plain(band)
@@ -1069,7 +1069,7 @@ def test_kernels_on_a_p2_band_at_s258(cuda, dtype):
     m = 0.3 * torch.randn(3, V1.dim, generator=gen, **f64)
     u = 0.5 * torch.randn(3, V2.dim, generator=gen, **f64)
     band64 = bc_symmetrize_banded_masked(pde.bound.assemble_A_banded_ordered(
-        u, m, pde._band_order), pde._band_mask).contiguous()
+        u, m, None, pde._band_order), pde._band_mask).contiguous()
     N, nb, s, _ = band64.shape
     assert (nb, s, pde.fwd_solver) == (5, 258, "thomas_inv")
     assert hk.factorize_design(s, torch.finfo(dtype).bits // 8,
@@ -1097,6 +1097,62 @@ def test_kernels_on_a_p2_band_at_s258(cuda, dtype):
         x_p = hk.banded_solve_plain(M, Dinv, B, bb, trans)
         torch.cuda.synchronize()
         assert _rel(x, x_p) < TOL[dtype], (k, trans)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_on_the_vector_form_band_at_s516(cuda, dtype):
+    """K1's rows and K2 on the ordered band of the helmholtz form scaled by
+    a P1 dof-valued coefficient, with a P2 parameter space (nx=64, 600 Hz:
+    s=516, nb=52), 2 samples: K2 against its plain version on K1's factor
+    (k=1 both ways, k=3 transposed), and the K1+K2 solve's residual within
+    10x the pivoted plain pair's (the band is indefinite and K1 does not
+    pivot)."""
+    from hippyflow_tpu_torch.applications.helmholtz import (
+        helmholtz_linear_observable,
+    )
+    from hippyflow_tpu_torch.fem import bc_symmetrize_banded_masked, prolong_p1_to_p2
+    from hippyflow_tpu_torch.fem.vector_assembly import VectorGalerkinForm
+    from hippyflow_tpu_torch.models import VariationalPDEProblem
+
+    f64 = dict(dtype=torch.float64, device=cuda)
+    lane = helmholtz_linear_observable(nx=64, frequency=600.0, **f64)[0].problem
+    x = lane.Vu.mesh.vertices
+    base = lane.form
+    form = VectorGalerkinForm(
+        2, lambda x, u, gu, m, z, c: c["a"][..., None, None]
+        * base.flux(x, u, gu, m, z, c),
+        lambda x, u, gu, m, z, c: c["a"][..., None]
+        * base.source(x, u, gu, m, z, c), 4, False,
+        {"a": 1.0 + 0.2 * np.sin(x[:, 0]) * np.cos(x[:, 1])})
+    V2 = FunctionSpace(lane.Vu.mesh, 2)
+    pde = VariationalPDEProblem(lane.Vu, V2, form, lane.bc, True,
+                                rhs_vector=lane.rhs_vector,
+                                operator_symmetric=True, **f64)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    m1 = 0.2 * torch.randn(2, lane.Vm.dim, generator=gen, **f64)
+    m = prolong_p1_to_p2(m1, lane.Vm, V2)
+    band64 = bc_symmetrize_banded_masked(pde.bound.assemble_A_banded_ordered(
+        torch.zeros(2, pde.state_dim, **f64), m, None, pde._band_order),
+        pde._band_mask).contiguous()
+    N, nb, s, _ = band64.shape
+    assert (nb, s) == (52, 516)
+    band = band64.to(dtype)
+    hk.reset_launch_counts()
+    M, Dinv = hk.banded_factorize(band)
+    assert hk.banded_factorize.launches_by_design == {"chain": 0, "rows": 1}
+    assert (hk.schur_step_.launches, hk.batched_inverse.launches) == (nb, nb)
+    M_p, D_p = hk.banded_factorize_plain(band)
+    B = band[..., 2 * s :].contiguous()
+    for k, trans in ((1, False), (1, True), (3, True)):
+        bb = torch.randn(N, nb, s, k, generator=gen, **f64)
+        x = hk.banded_solve(M, Dinv, B, bb.to(dtype), trans)
+        assert _rel(x, hk.banded_solve_plain(M, Dinv, B, bb.to(dtype), trans)) \
+            < TOL[dtype], (k, trans)
+        x_p = hk.banded_solve_plain(M_p, D_p, B, bb.to(dtype), trans)
+        apply = block_tridiag_matmat_trans if trans else block_tridiag_matmat
+        res = [(apply(band64, y.double().reshape(N, nb * s, k))
+                - bb.reshape(N, nb * s, k)).abs().max().item() for y in (x, x_p)]
+        assert res[0] <= 10.0 * res[1], (k, trans, res)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -140,12 +140,12 @@ def test_vector_assembly_matches_jax(frequency):
     band_j = _jvmap(lambda a, b: j_bc_sym(
         jp.bound.assemble_A_banded_ordered(a, b, None, bo), jp._band_mask), ju, jm)
     band_t = bc_symmetrize_banded_masked(
-        tp.bound.assemble_A_banded_ordered(tu, tm, tp._band_order), tp._band_mask)
+        tp.bound.assemble_A_banded_ordered(tu, tm, None, tp._band_order), tp._band_mask)
     _close(band_t, band_j, 1e-12)
     rng = np.random.default_rng(2)
     dm, dp = rng.standard_normal((3, tp.Vm.dim, 2)), rng.standard_normal(
         (3, tp.state_dim, 4))
-    lin_t = Linearization(u=tu, m=tm, factor=None)
+    lin_t = Linearization(u=tu, m=tm, z=None, factor=None)
     _close(tp.apply_C(lin_t, torch.tensor(dm)),
            _jvmap(lambda a, b, c: jp.apply_C(JLin(a, b, None, None), c), ju, jm,
                 jnp.asarray(dm)), 1e-12)
@@ -159,7 +159,7 @@ def test_ordered_band_is_the_dense_operator_permuted():
     tu, tm = torch.tensor(u), torch.tensor(m)
     bo = tp._band_order
     band = bc_symmetrize_banded_masked(
-        tp.bound.assemble_A_banded_ordered(tu, tm, bo), tp._band_mask).numpy()
+        tp.bound.assemble_A_banded_ordered(tu, tm, None, bo), tp._band_mask).numpy()
     A = tp.bound.assemble_A(tu, tm).numpy()
     s, nb, n = bo.s, bo.nb, bo.n_total
     dense = np.zeros((3, nb * s, nb * s))

@@ -86,7 +86,7 @@ def test_form_residual_and_band_match_jax(nx):
     bo = jp._band_order
     band_j = jax.vmap(lambda a, b: jp.bound.assemble_A_banded_ordered(a, b, None, bo))(
         ju, jm)
-    band_t = tp.bound.assemble_A_banded_ordered(tu, tm, tp._band_order)
+    band_t = tp.bound.assemble_A_banded_ordered(tu, tm, None, tp._band_order)
     assert band_t.shape == (2, bo.nb, bo.s, 3 * bo.s)
     _close(band_t, band_j, 1e-12)
 

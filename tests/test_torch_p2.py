@@ -175,7 +175,7 @@ def test_p2_ordered_band():
     want = _jax_batch(
         lambda uu, mm, zz: jb.assemble_A_banded_ordered(uu, mm, zz, jborder),
         u, m, z)
-    got = tb.assemble_A_banded_ordered(_t(u), _t(m), tborder, _t(z))
+    got = tb.assemble_A_banded_ordered(_t(u), _t(m), _t(z), tborder)
     assert got.shape == (N, 8, 38, 114)
     assert _rel(got, want) < 1e-12
 

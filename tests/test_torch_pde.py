@@ -114,7 +114,7 @@ def test_apply_C_matches(k):
     dm = np.random.default_rng(4).standard_normal(shape)
     got = tobs.problem.apply_C(
         Linearization(interop.tensor(u_ref, **F64), interop.tensor(m, **F64),
-                      None), interop.tensor(dm, **F64))
+                      None, None), interop.tensor(dm, **F64))
     want = jax.vmap(lambda u, mm, d: jobs.problem.apply_C(
         JLin(u, mm, None, None), d))(jnp.asarray(u_ref), jnp.asarray(m),
                                      jnp.asarray(dm))

@@ -18,12 +18,19 @@ observation's ``applyt`` (1e-12) and J^T through it (1e-10), the priors'
 ``sample_n`` under given noise, ``CholeskyFactor.solve_L``,
 ``BlockTridiagFactor.nb`` / ``.s``, ``DirichletBC.homogenized``,
 ``BiLaplacian2D(robin_bc=)``, ``assemble_A_banded(s=)`` and
-``auto_chunk_size``'s forms (1e-12 or exactly).
+``auto_chunk_size``'s forms (1e-12 or exactly).  The same walk holds the
+call forms: JAX's positional parameters come first on the port and in
+JAX's order, with none of the port's taken by position from a parameter
+the port leaves out on; the fields of JAX's dataclasses and named tuples
+are the port's, in JAX's order; and every literal default of a JAX
+parameter or field is the port's.
 """
 
 import ast
+import dataclasses
 import functools
 import importlib
+import inspect
 import os
 
 import jax
@@ -250,7 +257,9 @@ def test_every_public_name_has_a_counterpart(sub):
 
 
 # names of JAX modules left out of the port by decision: top-level names,
-# ``Class.method``, ``function(keyword)`` and ``Class.method(keyword)``
+# ``Class.method``, ``Class.field`` (of a dataclass or named tuple),
+# ``function(keyword)``, ``Class.method(keyword)``, ``name[key]`` (of a
+# parameter list) and ``function(keyword=)`` (its literal default)
 LEFT_OUT = {
     "config": {
         # the XLA compile management: PyTorch runs eagerly, nothing to
@@ -295,7 +304,7 @@ LEFT_OUT = {
         # and nx=192); timed in turns with and without it at nx=192, 1024
         # samples in 32 chunks, the stages and the writer's wait moved
         # within one spread
-        "sample_until_solved(prefetch_host)",
+        "sample_until_solved(prefetch_host)", "SampleBatch.host_chunks",
     },
     "models.prior": {
         # a JAX PRNG key, as above
@@ -309,9 +318,6 @@ LEFT_OUT = {
     # of the host prefetch (as ``sample_until_solved(prefetch_host)``)
     "models.active_subspace": {"ActiveSubspaceProjector.precompile_programs",
                                "ActiveSubspaceParameterList[prefetch_host]"},
-    # the inherited J dm takes its direction as ``dm``; no caller of the JAX
-    # package passes Jz's direction by name, so one method serves both
-    "models.jacobian": {"ObservableControlJacobian.mult(dz)"},
     # JAX pytree registration
     "models.pde_problem": {"IterativeFactor.tree_flatten",
                            "IterativeFactor.tree_unflatten"},
@@ -320,6 +326,19 @@ LEFT_OUT = {
     # a JAX key has no torch counterpart: the port's KeyChain takes the
     # int seed (``seed``)
     "utils.prandom": {"KeyChain.__init__(seed_or_key)"},
+    # the trace's folder has no default: the port writes nothing outside
+    # the folder its caller names (JAX's default is a folder under /tmp)
+    "utils.profiling": {"trace(log_dir=)"},
+}
+
+# JAX parameters the port takes in the same slot under another name
+# (each also a ``LEFT_OUT`` keyword): a JAX key becomes a key chain
+RENAMED = {
+    "models.prior": {"BiLaplacianPrior.sample_n(key)": "keychain",
+                     "LaplacianPrior.sample_n(key)": "keychain",
+                     "StructuredBiLaplacianPrior.sample_n(key)": "keychain"},
+    "models.sampling": {"UniformDistribution.sample_n(key)": "keychain"},
+    "utils.prandom": {"KeyChain.__init__(seed_or_key)": "seed"},
 }
 
 
@@ -415,13 +434,11 @@ def _public_surface(path):
     return funcs, classes
 
 
-def _port_keywords(cls_or_fn, method=None):
-    """The parameter names of a port function, or of a port class's method
-    (``__init__``: the class's own signature, dataclasses and named tuples
-    included; ``__call__`` of a torch module: its ``forward``); None where
-    the member is a property."""
-    import inspect
-
+def _port_params(cls_or_fn, method=None):
+    """The parameters (``inspect.Parameter``, in order, without self) of a
+    port function, or of a port class's method (``__init__``: the class's
+    own signature, dataclasses and named tuples included; ``__call__`` of a
+    torch module: its ``forward``); None where the member is a property."""
     if method is None:
         obj = cls_or_fn
     elif method == "__init__":
@@ -433,14 +450,120 @@ def _port_keywords(cls_or_fn, method=None):
                       (property, functools.cached_property)):
             return None
         obj = getattr(cls_or_fn, method)
-    params = inspect.signature(obj).parameters.values()
-    return {p.name for p in params
-            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+    return [p for p in inspect.signature(obj).parameters.values()
+            if p.name not in ("self", "cls")]
+
+
+def _port_keywords(cls_or_fn, method=None):
+    """The parameter names of a port function or method (as
+    ``_port_params``), None where the member is a property."""
+    params = _port_params(cls_or_fn, method)
+    return None if params is None else {
+        p.name for p in params
+        if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
 
 
 def _port_module(mod):
     return importlib.import_module(
         "hippyflow_tpu_torch" + ("." + mod if mod else ""))
+
+
+def _literal(node):
+    """(True, value) of a literal expression, else (False, None)."""
+    try:
+        return True, ast.literal_eval(node)
+    except ValueError:
+        return False, None
+
+
+def _signature(fn):
+    """(positional names, {name: literal default}) of a parsed function,
+    without self or cls."""
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    defaults = dict(zip([x.arg for x in pos[len(pos) - len(a.defaults):]],
+                        a.defaults))
+    defaults.update((x.arg, d) for x, d in zip(a.kwonlyargs, a.kw_defaults)
+                    if d is not None)
+    literal = {}
+    for name, node in defaults.items():
+        ok, value = _literal(node)
+        if ok:
+            literal[name] = value
+    return [x.arg for x in pos if x.arg not in ("self", "cls")], literal
+
+
+def _jax_signatures(mod):
+    """{"function" or "Class.method": (positional names, literal
+    defaults)} of a JAX module's public surface (as ``_public_surface``)."""
+    with open(_jax_source(mod)) as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for node in tree.body:
+        if getattr(node, "name", "_").startswith("_"):
+            continue
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = _signature(node)
+        elif isinstance(node, ast.ClassDef):
+            out.update((f"{node.name}.{b.name}", _signature(b))
+                       for b in node.body if isinstance(b, ast.FunctionDef)
+                       and (not b.name.startswith("_")
+                            or b.name in ("__init__", "__call__")))
+    return out
+
+
+def _jax_fields(mod):
+    """{class: (kind, [fields], {field: literal default})} of the public
+    dataclasses ("dataclass") and named tuples ("NamedTuple") of a JAX
+    module, the fields in their order."""
+    with open(_jax_source(mod)) as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for node in tree.body:
+        if not isinstance(node, ast.ClassDef) or node.name.startswith("_"):
+            continue
+        if any("NamedTuple" in ast.unparse(b) for b in node.bases):
+            kind = "NamedTuple"
+        elif any("dataclass" in ast.unparse(d) for d in node.decorator_list):
+            kind = "dataclass"
+        else:
+            continue
+        fields, defaults = [], {}
+        for b in node.body:
+            if (isinstance(b, ast.AnnAssign) and isinstance(b.target, ast.Name)
+                    and "ClassVar" not in ast.unparse(b.annotation)):
+                fields.append(b.target.id)
+                ok, value = _literal(b.value) if b.value is not None else (
+                    False, None)
+                if ok:
+                    defaults[b.target.id] = value
+        out[node.name] = (kind, fields, defaults)
+    return out
+
+
+def _left_out(mod, kind):
+    """The ``LEFT_OUT`` entries of a module of one kind: "field"
+    (``Class.field`` of a JAX dataclass or named tuple), "default"
+    (``function(keyword=)``), "key" (``name[key]``) or "surface" (the
+    rest: names, methods and keywords)."""
+    fields = {f"{c}.{f}" for c, (_, fs, _) in _jax_fields(mod).items()
+              for f in fs}
+    out = {"field": set(), "default": set(), "key": set(), "surface": set()}
+    for n in LEFT_OUT.get(mod, set()):
+        out["field" if n in fields else "default" if n.endswith("=)")
+            else "key" if "[" in n else "surface"].add(n)
+    return out[kind]
+
+
+def _port_member(port, name):
+    """The port's parameters of a JAX ``function`` or ``Class.method``
+    (``_port_params``); None where the port lacks it or it is a property
+    (the keyword walk reports those)."""
+    cls, _, meth = name.partition(".")
+    obj = getattr(port, cls, None)
+    if obj is None or (meth and not hasattr(obj, meth)):
+        return None
+    return _port_params(obj, meth or None)
 
 
 @pytest.mark.parametrize("mod", _jax_modules())
@@ -471,10 +594,148 @@ def test_every_method_and_keyword_has_a_counterpart(mod):
             have = _port_keywords(cls, meth)
             if have is not None:
                 gaps |= {f"{name}.{meth}({k})" for k in kws if k not in have}
-    left_out = {n for n in LEFT_OUT.get(mod, set()) if "[" not in n}
+    left_out = _left_out(mod, "surface")
     assert gaps - left_out == set(), sorted(gaps - left_out)
     # a left-out entry that came back (or was never a gap) leaves LEFT_OUT
     assert left_out - gaps == set(), sorted(left_out - gaps)
+
+
+_POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
+               inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+@pytest.mark.parametrize("mod", _jax_modules())
+def test_positional_order_matches_jax(mod):
+    """JAX's positional parameters of every public function and method come
+    first on the port, in JAX's order (a parameter of ``RENAMED`` under its
+    port name), so that each positional JAX call binds every argument to
+    the same parameter; from a parameter ``LEFT_OUT`` on, the port takes
+    none by position, so that such a call raises ``TypeError``.  Members
+    the port lacks are the keyword walk's."""
+    port = _port_module(mod)
+    left_out = _left_out(mod, "surface")
+    renamed = RENAMED.get(mod, {})
+    assert set(renamed) <= left_out
+    gaps = []
+    for name, (jax_pos, _) in _jax_signatures(mod).items():
+        params = _port_member(port, name)
+        if params is None:
+            continue
+        port_pos = [p.name for p in params if p.kind in _POSITIONAL]
+        for i, p in enumerate(jax_pos):
+            entry = f"{name}({p})"
+            if entry in left_out and entry not in renamed:
+                if len(port_pos) > i:
+                    gaps.append(f"{name}: {port_pos[i:]} positional from "
+                                f"the left-out {p!r} on")
+                break
+            want = renamed.get(entry, p)
+            if i >= len(port_pos) or port_pos[i] != want:
+                gaps.append(f"{name}: position {i} is "
+                            f"{port_pos[i] if i < len(port_pos) else None!r}"
+                            f", JAX's {want!r}")
+                break
+    assert not gaps, gaps
+
+
+def _fields_modules():
+    return [m for m in _jax_modules() if _jax_fields(m)]
+
+
+@pytest.mark.parametrize("mod", _fields_modules())
+def test_fields_match_jax_in_order(mod):
+    """Every JAX dataclass is a dataclass on the port and every named tuple
+    a named tuple, with each of JAX's fields (but for ``LEFT_OUT``'s
+    ``Class.field``, which must still be missing), and positionally in
+    JAX's order: a JAX positional construction, or a named tuple's
+    unpacking, gives each value the same field.  From a left-out field on,
+    the port's fields are keyword-only."""
+    port = _port_module(mod)
+    left_out = _left_out(mod, "field")
+    gaps = []
+    for name, (kind, fields, _) in _jax_fields(mod).items():
+        cls = getattr(port, name)
+        if kind == "NamedTuple":
+            assert issubclass(cls, tuple) and hasattr(cls, "_fields"), name
+            have = positional = list(cls._fields)
+        else:
+            assert dataclasses.is_dataclass(cls), name
+            have = [f.name for f in dataclasses.fields(cls)]
+            positional = [f.name for f in dataclasses.fields(cls)
+                          if f.init and not f.kw_only]
+        cut = None
+        for i, f in enumerate(fields):
+            if f"{name}.{f}" in left_out:
+                assert f not in have, f"{name}.{f} came back"
+                cut = i if cut is None else cut
+            elif f not in have:
+                gaps.append(f"{name}.{f} is missing")
+            elif cut is None and positional[i:i + 1] != [f]:
+                gaps.append(f"{name}: field {i} is {positional[i:i + 1]}, "
+                            f"JAX's {f!r}")
+        if cut is not None and len(positional) > cut:
+            gaps.append(f"{name}: {positional[cut:]} positional from the "
+                        "left-out field on")
+    assert not gaps, gaps
+    assert left_out <= {f"{c}.{f}" for c, (_, fs, _) in
+                        _jax_fields(mod).items() for f in fs}
+
+
+def _same_default(port, jax):
+    """A port default equals a JAX literal: equal, and a bool only where
+    JAX's is one (1 == True)."""
+    return (port is not inspect.Parameter.empty and port == jax
+            and isinstance(port, bool) == isinstance(jax, bool))
+
+
+@pytest.mark.parametrize("mod", _jax_modules())
+def test_literal_defaults_match_jax(mod):
+    """Every literal default of a JAX parameter (positional or keyword-only)
+    and of a JAX dataclass or named-tuple field is the port's default of
+    the same parameter; but for ``LEFT_OUT``'s ``function(keyword=)``
+    entries, each of which must still differ."""
+    port = _port_module(mod)
+    renamed = RENAMED.get(mod, {})
+    gaps = set()
+    for name, (_, defaults) in _jax_signatures(mod).items():
+        params = _port_member(port, name)
+        if params is None:
+            continue
+        by_name = {p.name: p.default for p in params}
+        for p, value in defaults.items():
+            mine = renamed.get(f"{name}({p})", p)
+            if mine in by_name and not _same_default(by_name[mine], value):
+                gaps.add(f"{name}({p}=)")
+    for name, (kind, _, defaults) in _jax_fields(mod).items():
+        cls = getattr(port, name)
+        have = (dict(cls._field_defaults) if kind == "NamedTuple" else
+                {f.name: f.default for f in dataclasses.fields(cls)
+                 if f.default is not dataclasses.MISSING})
+        gaps |= {f"{name}.{f}=" for f, value in defaults.items()
+                 if f in have and not _same_default(have[f], value)}
+    left_out = _left_out(mod, "default")
+    assert gaps - left_out == set(), sorted(gaps - left_out)
+    assert left_out - gaps == set(), sorted(left_out - gaps)
+
+
+def test_the_walk_sees_the_call_forms():
+    """The parse finds the members whose order it holds: JAX's positional
+    (u, m, z, border), the Linearization, GalerkinForm and SampleBatch
+    fields, and the defaults of parameters and fields."""
+    sigs = _jax_signatures("fem.assembly")
+    assert sigs["BoundGalerkinForm.assemble_A_banded_ordered"][0] == [
+        "u", "m", "z", "border"]
+    assert _jax_fields("models.pde_problem")["Linearization"][:2] == (
+        "NamedTuple", ["u", "m", "z", "factor"])
+    kind, fields, defaults = _jax_fields("fem.assembly")["GalerkinForm"]
+    assert kind == "dataclass" and fields[3] == "symmetric"
+    assert defaults == {"flux": None, "source": None, "quad_degree": 2,
+                        "symmetric": False}
+    assert _jax_fields("models.sampling")["SampleBatch"][1][3:5] == [
+        "zs", "n_failures"]
+    assert _jax_signatures("utils.profiling")["trace"][1] == {
+        "log_dir": "/tmp/hippyflow_tpu_trace"}
+    assert _left_out("models.sampling", "field") == {"SampleBatch.host_chunks"}
 
 
 def _parameter_lists():
