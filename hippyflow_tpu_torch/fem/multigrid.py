@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 
 def _grid_shape(V) -> tuple[int, int]:
     shape = getattr(V.mesh, "structured_shape", None)
@@ -88,7 +90,8 @@ class CoarseNewtonWarmStart:
     """The warm-start map noise (b, noise_dim) -> u0 (b, n_fine) of
     :func:`coarse_newton_warm_start`.  ``iterations`` collects, per level
     (0 = the first coarse level), the Newton iterations of every lane of
-    every call; ``clear`` empties it."""
+    every call; ``clear`` empties it.  Each call is a ``warm_start``
+    span."""
 
     def __init__(self, prior, chain, V_fine):
         self.prior = prior
@@ -100,6 +103,11 @@ class CoarseNewtonWarmStart:
         self.iterations = [[] for _ in self.chain]
 
     def __call__(self, noise):
+        with annotate("warm_start", fine=True, N=noise.shape[0],
+                      levels=len(self.chain)):
+            return self._warm_start(noise)
+
+    def _warm_start(self, noise):
         m = self.prior.sample(noise)
         ms, V_prev = [], self.V_fine
         for _, V in self.chain:

@@ -61,7 +61,7 @@ from ..parallel.collective import NullCollective
 from ..ops.randomized import double_pass, double_pass_g
 from ..utils import KeyChain, ParameterList
 from ..utils.plotting import spectrum_plot
-from ..utils.profiling import PhaseTimer, annotate
+from ..utils.profiling import PhaseTimer, stage
 from .jacobian import ObservableJacobian, jjt_matmat, jtj_matmat
 from .sampling import (
     SampleBatch,
@@ -219,7 +219,7 @@ class ActiveSubspaceProjector:
     def _stage(self, timer, name):
         """One stage: a profiler range, timed by ``timer`` up to the end of
         the device's work."""
-        with annotate(name), timer.phase(name, block_on=self.prior.mean):
+        with stage(timer, name, block_on=self.prior.mean):
             yield
 
     def _prepare(self, timer):
@@ -339,21 +339,21 @@ class ActiveSubspaceProjector:
         `activeSubspaceProjector.py:625-673`), in the input subspace's
         strategy (its Jacobians or linearizations are reused, or made
         here).  Returns (d_NG, decoder, encoder), encoder = decoder."""
-        t0 = time.time()
-        self._prepare(PhaseTimer())
-        avg_jjt = self._avg_gn_operator("JJT")
-        dQ = self.observable.dQ
-        r = min(self.parameters["rank"], dQ)
-        Omega = self.Omega_NG
-        if Omega is None:
-            Omega = self.keychain.normal(
-                (dQ, min(r + self.parameters["oversampling"], dQ)),
-                dtype=self.prior.mean.dtype)
-            if self.parameters["store_Omega"]:
-                self.Omega_NG = Omega
-        self.d_NG, self.U_NG = double_pass(avg_jjt, Omega, r, s=1)
-        _synchronize(self.prior.mean.device)
-        self._output_subspace_construction_time = time.time() - t0
+        timer = PhaseTimer()
+        self._prepare(timer)
+        with self._stage(timer, "hep"):
+            avg_jjt = self._avg_gn_operator("JJT")
+            dQ = self.observable.dQ
+            r = min(self.parameters["rank"], dQ)
+            Omega = self.Omega_NG
+            if Omega is None:
+                Omega = self.keychain.normal(
+                    (dQ, min(r + self.parameters["oversampling"], dQ)),
+                    dtype=self.prior.mean.dtype)
+                if self.parameters["store_Omega"]:
+                    self.Omega_NG = Omega
+            self.d_NG, self.U_NG = double_pass(avg_jjt, Omega, r, s=1)
+        self._output_subspace_construction_time = sum(timer.timings.values())
         if self.parameters["verbose"]:
             print("output subspace construction took "
                   f"{self._output_subspace_construction_time:.3f}s")
@@ -611,8 +611,3 @@ class ActiveSubspaceProjector:
                       out_name=os.path.join(
                           outdir, f"{name}_{which}_eigenvalues_"
                           f"{self.parameters['rank']}.pdf"))
-
-
-def _synchronize(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)

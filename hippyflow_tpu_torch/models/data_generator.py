@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..utils import KeyChain
+from ..utils.profiling import PhaseTimer, stage
 from .observable import StateSpaceIdentityOperator
 from .pod import PODProjectorFromData
 from .sampling import auto_chunk_size, materialize_jacobians, sample_until_solved
@@ -127,11 +128,6 @@ def chunk_keychain(seed: int, tag: int, chunk_start: int, device=None) -> KeyCha
     return KeyChain(int(state), device)
 
 
-def _synchronize(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _svd_payload(J, rank):
     """The exact SVD of each J (N, dq, dm), truncated at ``rank``:
     (U (N, dq, r), sigma (N, r), V (N, dm, r)) on J's device."""
@@ -143,8 +139,9 @@ class DataGenerator:
     """Generates (m, q[, z]) data and the Jacobians' information.
 
     After ``generate``, ``stage_seconds`` holds the wall seconds of its
-    stages (``forward``, ``jacobian``, ``jacobian_z``, ``write``, each
-    ended by a device synchronize) and ``samples`` the Newton iterations
+    stages (``forward``, ``jacobian``, ``jacobian_z``, ``write``, each a
+    ``PhaseTimer`` phase with an ``annotate`` range of its name, ended by
+    a device synchronize) and ``samples`` the Newton iterations
     of the kept samples and the resampled (unconverged) lanes."""
 
     def __init__(self, observable, prior, control_distribution=None,
@@ -189,68 +186,68 @@ class DataGenerator:
         Psi = as_tensor(input_decoder)
 
         start = prune_stale_chunks(chunk_dir)
-        seconds = dict.fromkeys(("forward", "jacobian", "jacobian_z", "write"),
-                                0.0)
-        clock = [time.perf_counter()]
+        timer = PhaseTimer()
 
-        def lap(key):
-            """Add the seconds since the last lap to stage ``key``."""
-            _synchronize(device)
-            now = time.perf_counter()
-            seconds[key] += now - clock[0]
-            clock[0] = now
+        def stage_of(key):
+            """Stage ``key``: a profiler range, timed up to the end of the
+            device's work."""
+            return stage(timer, key, block_on=self.prior.mean)
 
         its, n_failures = [], 0
         t0 = time.time()
         i = start
         while i < n_samples:
             b = min(chunk_size, n_samples - i)
-            batch = sample_until_solved(
-                self.observable, self.prior,
-                chunk_keychain(self.settings["seed"], 0, i, device), b,
-                chunk_size=b, verbose=self.settings["verbose"],
-                reset_initial_guess=self.settings["reset_initial_guess"],
-                noise=None if noise is None else noise[i:i + b],
-                coarse_warm_start=self.settings["coarse_warm_start"],
-                control_distribution=self.control_distribution,
-                controls=None if controls is None else controls[i:i + b],
-            )
+            with stage_of("forward"):
+                batch = sample_until_solved(
+                    self.observable, self.prior,
+                    chunk_keychain(self.settings["seed"], 0, i, device), b,
+                    chunk_size=b, verbose=self.settings["verbose"],
+                    reset_initial_guess=self.settings["reset_initial_guess"],
+                    noise=None if noise is None else noise[i:i + b],
+                    coarse_warm_start=self.settings["coarse_warm_start"],
+                    control_distribution=self.control_distribution,
+                    controls=None if controls is None else controls[i:i + b],
+                )
             its.append(batch.iterations)
             n_failures += batch.n_failures
-            lap("forward")
             payload = {"m_data": batch.ms, "q_data": batch.qs}
             if has_z:
                 payload["z_data"] = batch.zs
             for control, key in ((False, "jacobian"), (True, "jacobian_z")):
                 if not derivatives[int(control)]:
                     continue
-                J = materialize_jacobians(self.observable, batch.ms, batch.us,
-                                          batch.zs, chunk_size=b,
-                                          control=control)
-                payload.update(self._derivative_payload(
-                    J, MPhi, Psi, self.settings["rZ" if control else "rM"],
-                    prefix="z" if control else ""))
-                lap(key)
-            np.savez(os.path.join(chunk_dir, f"chunk_{i}_{i + b}.npz"),
-                     **{k: v.cpu().numpy() for k, v in payload.items()})
-            if self.settings["save_failed_solves"] and batch.failed_ms is not None:
-                skipped_dir = os.path.join(data_dir, "skipped")
-                os.makedirs(skipped_dir, exist_ok=True)
-                np.save(os.path.join(skipped_dir, f"m_failed_{i}_{i + b}.npy"),
-                        batch.failed_ms)
-            lap("write")
+                with stage_of(key):
+                    J = materialize_jacobians(self.observable, batch.ms,
+                                              batch.us, batch.zs, chunk_size=b,
+                                              control=control)
+                    payload.update(self._derivative_payload(
+                        J, MPhi, Psi, self.settings["rZ" if control else "rM"],
+                        prefix="z" if control else ""))
+            with stage_of("write"):
+                np.savez(os.path.join(chunk_dir, f"chunk_{i}_{i + b}.npz"),
+                         **{k: v.cpu().numpy() for k, v in payload.items()})
+                if (self.settings["save_failed_solves"]
+                        and batch.failed_ms is not None):
+                    skipped_dir = os.path.join(data_dir, "skipped")
+                    os.makedirs(skipped_dir, exist_ok=True)
+                    np.save(os.path.join(skipped_dir,
+                                         f"m_failed_{i}_{i + b}.npy"),
+                            batch.failed_ms)
             if self.settings["verbose"]:
                 rate = (i + b - start) / (time.time() - t0)
                 print(f"samples [{i}, {i + b}) done ({rate:.2f} samples/s)")
             i += b
         if compress:
-            self.compress_dataset(
-                data_dir, derivatives=derivatives, clean_up=clean_up,
-                has_z_data=has_z, input_decoder=input_decoder,
-                input_encoder=input_encoder, output_decoder=output_decoder,
-                output_encoder=output_encoder)
-            lap("write")
-        self.stage_seconds = seconds
+            with stage_of("write"):
+                self.compress_dataset(
+                    data_dir, derivatives=derivatives, clean_up=clean_up,
+                    has_z_data=has_z, input_decoder=input_decoder,
+                    input_encoder=input_encoder, output_decoder=output_decoder,
+                    output_encoder=output_encoder)
+        self.stage_seconds = {
+            **dict.fromkeys(("forward", "jacobian", "jacobian_z", "write"), 0.0),
+            **timer.timings}
         self.samples = {"iterations": torch.cat(its) if its else None,
                         "n_failures": n_failures}
 

@@ -9,6 +9,7 @@ of dQ right-hand sides per sample, then C^T (Cz^T).
 
 from __future__ import annotations
 
+from ..utils.profiling import annotate
 from .observable import LinearStateObservable
 from .pde_problem import Linearization
 
@@ -45,7 +46,8 @@ class ObservableJacobian:
         """Dense J (N, dQ, dM) from one blocked adjoint solve per sample."""
         obs = self.observable
         N = lin.u.shape[0]
-        Bt = obs.B.dense().T.expand(N, -1, -1)  # (N, n, dQ)
+        with annotate("fem.apply_c", fine=True):
+            Bt = obs.B.dense().T.expand(N, -1, -1)  # (N, n, dQ)
         X = obs.solveAdjIncremental(lin, Bt)  # A^{-T} B^T
         return -self._Ct(lin, X).mT  # (N, dQ, dM)
 

@@ -86,6 +86,7 @@ from ..ops.structured import (
     factorize_block_tridiag_banded,
     factorize_thomas_inv_banded,
 )
+from ..utils.profiling import annotate, host_syncs
 
 STATE, PARAMETER, ADJOINT, CONTROL = 0, 1, 2, 3
 SOLVERS = ("auto", "dense", "block_tridiag", "block_cyclic", "thomas_inv",
@@ -374,10 +375,11 @@ class VariationalPDEProblem:
     # -- residual and factorization ---------------------------------------
     def residual_masked(self, u, m, z=None):
         """Residual (N, n) with Dirichlet rows replaced by (u - g)."""
-        r = self.bound.residual(u, m, z)
-        if self.rhs_vector is not None:
-            r = r - self.rhs_vector
-        return torch.where(self._mask, u - self._g, r)
+        with annotate("fem.residual", fine=True):
+            r = self.bound.residual(u, m, z)
+            if self.rhs_vector is not None:
+                r = r - self.rhs_vector
+            return torch.where(self._mask, u - self._g, r)
 
     def _assemble_factorize(self, u, m, z=None, needs: str = "both"):
         """Assemble the bc-symmetrized A = dr/du at (u, m, z) and factorize.
@@ -395,14 +397,16 @@ class VariationalPDEProblem:
             A = bc_symmetrize(self.bound.assemble_A(u, m, z), self.bc)
             return factorize(A, self.form.symmetric)
         if self._band_order is None:
-            band = bc_symmetrize_banded_masked(
-                self.bound.assemble_A_banded(u, m, z), self._mask)
+            with annotate("fem.assemble", fine=True):
+                band = bc_symmetrize_banded_masked(
+                    self.bound.assemble_A_banded(u, m, z), self._mask)
             return _factorize_band(band, solver, needs != "fwd", needs != "adj",
                                    self._dist)
         border = self._band_order
-        band = bc_symmetrize_banded_masked(
-            self.bound.assemble_A_banded_ordered(u, m, z, border),
-            self._band_mask)
+        with annotate("fem.assemble", fine=True):
+            band = bc_symmetrize_banded_masked(
+                self.bound.assemble_A_banded_ordered(u, m, z, border),
+                self._band_mask)
         return PermutedFactor(
             _factorize_band(band, solver, needs != "fwd", needs != "adj",
                             self._dist),
@@ -413,17 +417,18 @@ class VariationalPDEProblem:
         """Right-hand side (N, n) of the linear forward system: bc rows
         carry the Dirichlet values, and the lift of inhomogeneous values is
         a jvp of the residual (no assembled matrix)."""
-        zero = torch.zeros((m.shape[0], self.state_dim), dtype=m.dtype,
-                           device=m.device)
-        b = -self.bound.residual(zero, m, z)
-        if self.rhs_vector is not None:
-            b = b + self.rhs_vector
-        if self._has_bc:
-            g = torch.where(self._mask, self._g, 0.0).expand_as(zero)
-            lift = torch.func.jvp(lambda uu: self.bound.residual(uu, m, z),
-                                  (zero,), (g,))[1]
-            b = torch.where(self._mask, g, b - lift)
-        return b
+        with annotate("fem.residual", fine=True):
+            zero = torch.zeros((m.shape[0], self.state_dim), dtype=m.dtype,
+                               device=m.device)
+            b = -self.bound.residual(zero, m, z)
+            if self.rhs_vector is not None:
+                b = b + self.rhs_vector
+            if self._has_bc:
+                g = torch.where(self._mask, self._g, 0.0).expand_as(zero)
+                lift = torch.func.jvp(lambda uu: self.bound.residual(uu, m, z),
+                                      (zero,), (g,))[1]
+                b = torch.where(self._mask, g, b - lift)
+            return b
 
     def linear_convergence_check(self, u, m, b, z=None):
         """Per-lane convergence flag of solved linear systems: the residual
@@ -470,9 +475,16 @@ class VariationalPDEProblem:
         """Forward solves for a batch of parameters m (N, n_m) and controls
         z (N, dz): linear, or Newton from initial guesses u0 (N, n) (zero
         where None).  Returns (u, NewtonInfo); a linear solve reports 1
-        iteration."""
-        if self.is_fwd_linear:
-            return self._solve_linear(m, z)
+        iteration.  Each call is a ``newton.solve`` span; each round's read
+        of the active lanes is a ``newton.sync`` span and counts in
+        ``host_syncs``."""
+        with annotate("newton.solve", fine=True, N=m.shape[0],
+                      s=self._block_size):
+            if self.is_fwd_linear:
+                return self._solve_linear(m, z)
+            return self._solve_newton(m, z, u0)
+
+    def _solve_newton(self, m, z, u0):
         N = m.shape[0]
         u = self._g.expand(N, -1) if u0 is None else u0
         u = torch.where(self._mask, self._g, u)
@@ -489,7 +501,9 @@ class VariationalPDEProblem:
         )
         it = torch.zeros(N, dtype=torch.long, device=m.device)
         while True:
-            active = ((rn > tol) & (it < self.newton_max_iter)).nonzero()[:, 0]
+            with annotate("newton.sync", fine=True):
+                active = ((rn > tol) & (it < self.newton_max_iter)).nonzero()[:, 0]
+            host_syncs.add("newton.sync")
             if active.numel() == 0:
                 break
             ua, ra, ma = u[active], r[active], m[active]
@@ -540,12 +554,15 @@ class VariationalPDEProblem:
     def apply_C(self, lin: Linearization, dm):
         """C dm with C = dr/dm of the masked residual (its Dirichlet rows
         are zero); dm (N, n_m) or (N, n_m, k)."""
-        return self._zero_bc_rows(self.bound.apply_C(lin.u, lin.m, dm, lin.z))
+        with annotate("fem.apply_c", fine=True):
+            return self._zero_bc_rows(self.bound.apply_C(lin.u, lin.m, dm, lin.z))
 
     def apply_Ct(self, lin: Linearization, dp):
         """C^T dp with C = dr/dm of the masked residual at the linearization
         point: its Dirichlet rows are zero, so C^T dp = C_r^T (keep * dp)."""
-        return self.bound.apply_Ct(lin.u, lin.m, self._zero_bc_rows(dp), lin.z)
+        with annotate("fem.apply_c", fine=True):
+            return self.bound.apply_Ct(lin.u, lin.m, self._zero_bc_rows(dp),
+                                       lin.z)
 
     def _check_control(self):
         if not self.has_control:

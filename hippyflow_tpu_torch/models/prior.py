@@ -17,6 +17,9 @@ m = mean + K^{-1} L_M xi with M = L_M L_M^T.
 ``LaplacianPrior`` (dense) has the precision R = gamma A + delta M itself,
 isotropic, with a dense Cholesky factor R = L_R L_R^T; its samples are
 m = mean + L_R^{-T} xi.
+
+``sample`` is a ``prior.sample`` span, and the R, R^-1, K^-1 and M^-1
+products ``prior.solve`` spans (``utils.profiling.annotate``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..ops.structured import (
     factorize_block_cyclic_banded,
     factorize_block_tridiag_dense,
 )
+from ..utils.profiling import annotate
 
 
 def aniso_tensor_2d(theta0: float, theta1: float, alpha: float) -> np.ndarray:
@@ -83,15 +87,18 @@ class _BiLaplacianOperators:
         return self._M_chol.matvec_L(X)
 
     def Ksolver_matmat(self, X):
-        return self._K_fac.solve(X)
+        with annotate("prior.solve", fine=True):
+            return self._K_fac.solve(X)
 
     def R_matmat(self, X):
         """R @ X = K M^{-1} K X."""
-        return self.K_matmat(self.Msolver_matmat(self.K_matmat(X)))
+        with annotate("prior.solve", fine=True):
+            return self.K_matmat(self.Msolver_matmat(self.K_matmat(X)))
 
     def Rsolver_matmat(self, X):
         """R^{-1} @ X = K^{-1} M K^{-1} X (this is also C @ X)."""
-        return self.Ksolver_matmat(self.M_matmat(self.Ksolver_matmat(X)))
+        with annotate("prior.solve", fine=True):
+            return self.Ksolver_matmat(self.M_matmat(self.Ksolver_matmat(X)))
 
     def C_matmat(self, X):
         return self.Rsolver_matmat(X)
@@ -99,13 +106,14 @@ class _BiLaplacianOperators:
     def sample(self, noise):
         """White noise (N, n) or (n,) -> prior samples mean + K^{-1} L_M xi
         of the same shape."""
-        noise = torch.as_tensor(noise, dtype=self.mean.dtype,
-                                device=self.mean.device)
-        batched = noise.ndim == 2
-        xi = noise.T if batched else noise[:, None]
-        m = self.Ksolver_matmat(self.sqrtM_matmat(xi))
-        m = m.T if batched else m[:, 0]
-        return self.mean + m
+        with annotate("prior.sample", fine=True):
+            noise = torch.as_tensor(noise, dtype=self.mean.dtype,
+                                    device=self.mean.device)
+            batched = noise.ndim == 2
+            xi = noise.T if batched else noise[:, None]
+            m = self.Ksolver_matmat(self.sqrtM_matmat(xi))
+            m = m.T if batched else m[:, 0]
+            return self.mean + m
 
     def sample_n(self, keychain, n: int, dtype=None):
         """n prior samples (n, dim) from the white noise of a ``KeyChain``
@@ -163,7 +171,8 @@ class BiLaplacianPrior(_BiLaplacianOperators):
         return self.M @ X
 
     def Msolver_matmat(self, X):
-        return self._M_chol.solve(X)
+        with annotate("prior.solve", fine=True):
+            return self._M_chol.solve(X)
 
     def K_matmat(self, X):
         return self.K @ X
@@ -300,7 +309,8 @@ class StructuredBiLaplacianPrior(_BiLaplacianOperators):
         return _band_matmat(self.M_band, X, self._mesh, self._fem_axis)
 
     def Msolver_matmat(self, X):
-        return self._M_fac.solve(X)
+        with annotate("prior.solve", fine=True):
+            return self._M_fac.solve(X)
 
     def K_matmat(self, X):
         return _band_matmat(self.K_band, X, self._mesh, self._fem_axis)
@@ -360,16 +370,19 @@ class LaplacianPrior:
         return self.M @ X
 
     def Msolver_matmat(self, X):
-        return self._M_chol.solve(X)
+        with annotate("prior.solve", fine=True):
+            return self._M_chol.solve(X)
 
     def sqrtM_matmat(self, X):
         return self._M_chol.matvec_L(X)
 
     def R_matmat(self, X):
-        return self.R @ X
+        with annotate("prior.solve", fine=True):
+            return self.R @ X
 
     def Rsolver_matmat(self, X):
-        return self._R_chol.solve(X)
+        with annotate("prior.solve", fine=True):
+            return self._R_chol.solve(X)
 
     Ksolver_matmat = Rsolver_matmat
     C_matmat = Rsolver_matmat
@@ -377,13 +390,14 @@ class LaplacianPrior:
     def sample(self, noise):
         """White noise (N, n) or (n,) -> mean + L_R^{-T} xi, so that the
         covariance is R^{-1}."""
-        noise = torch.as_tensor(noise, dtype=self.mean.dtype,
-                                device=self.mean.device)
-        batched = noise.ndim == 2
-        xi = noise.T if batched else noise[:, None]
-        m = torch.linalg.solve_triangular(self._R_chol.L.T, xi, upper=True)
-        m = m.T if batched else m[:, 0]
-        return self.mean + m
+        with annotate("prior.sample", fine=True):
+            noise = torch.as_tensor(noise, dtype=self.mean.dtype,
+                                    device=self.mean.device)
+            batched = noise.ndim == 2
+            xi = noise.T if batched else noise[:, None]
+            m = torch.linalg.solve_triangular(self._R_chol.L.T, xi, upper=True)
+            m = m.T if batched else m[:, 0]
+            return self.mean + m
 
     def sample_n(self, keychain, n: int, dtype=None):
         """n prior samples (n, dim) from the white noise of a ``KeyChain``

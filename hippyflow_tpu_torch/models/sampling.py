@@ -8,6 +8,11 @@ distributions, ``sample_and_materialize_symmetric``,
 re-solves.  PyTorch
 runs eagerly, so the JAX package's program cache and ahead-of-time compile
 machinery have no counterpart here.
+
+The host waits on the device once a chunk for its converged flags
+(``utils.profiling.host_syncs``, site ``sample.converged``) and twice a
+resampling sweep (site ``sample.resample``; the sweep is a
+``sample.resample`` span).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils.profiling import annotate, host_syncs
 from .jacobian import ObservableControlJacobian, ObservableJacobian
 from .observable import LinearStateObservable
 
@@ -195,24 +201,27 @@ def sample_until_solved(
     for m, u, q, z, ok_t, it in chunks:
         b = m.shape[0]
         ok = ok_t.cpu().numpy()
+        host_syncs.add("sample.converged")
         for _ in range(max_tries):
             if ok.all():
                 break
-            bad = np.flatnonzero(~ok)
-            nbad = len(bad)
-            n_failures += nbad
-            failed_ms.append(m[bad].cpu().numpy())
-            if verbose:
-                print(f"resampling {nbad} failed forward solves")
-            noise2 = draw(b)
-            z2 = draw_z(b)
-            m2, u2, q2, ok2, it2 = solve(noise2, z2, None)
-            bad_t = torch.as_tensor(bad, device=device)
-            m[bad_t], u[bad_t], q[bad_t] = m2[:nbad], u2[:nbad], q2[:nbad]
-            if with_control:  # out of place: z may be the caller's controls
-                z = z.index_copy(0, bad_t, z2[:nbad])
-            it[bad_t] = it2[:nbad]
-            ok[bad] = ok2[:nbad].cpu().numpy()
+            with annotate("sample.resample", fine=True, N=b):
+                bad = np.flatnonzero(~ok)
+                nbad = len(bad)
+                n_failures += nbad
+                failed_ms.append(m[bad].cpu().numpy())
+                if verbose:
+                    print(f"resampling {nbad} failed forward solves")
+                noise2 = draw(b)
+                z2 = draw_z(b)
+                m2, u2, q2, ok2, it2 = solve(noise2, z2, None)
+                bad_t = torch.as_tensor(bad, device=device)
+                m[bad_t], u[bad_t], q[bad_t] = m2[:nbad], u2[:nbad], q2[:nbad]
+                if with_control:  # out of place: z may be the caller's controls
+                    z = z.index_copy(0, bad_t, z2[:nbad])
+                it[bad_t] = it2[:nbad]
+                ok[bad] = ok2[:nbad].cpu().numpy()
+            host_syncs.add("sample.resample", 2)
         if not ok.all():
             raise RuntimeError(
                 f"{(~ok).sum()} forward solves failed after {max_tries} "
@@ -302,20 +311,23 @@ def sample_and_materialize_symmetric(
     for m, u, q, Jm, ok_t in chunks:
         b = m.shape[0]
         ok = ok_t.cpu().numpy()
+        host_syncs.add("sample.converged")
         for _ in range(max_tries):
             if ok.all():
                 break
-            bad = np.flatnonzero(~ok)
-            nbad = len(bad)
-            n_failures += nbad
-            failed_ms.append(m[bad].cpu().numpy())
-            if verbose:
-                print(f"resampling {nbad} failed linear solves")
-            m2, u2, q2, J2, ok2 = solve(draw(b))
-            bad_t = torch.as_tensor(bad, device=device)
-            m[bad_t], u[bad_t], q[bad_t] = m2[:nbad], u2[:nbad], q2[:nbad]
-            Jm[bad_t] = J2[:nbad]
-            ok[bad] = ok2[:nbad].cpu().numpy()
+            with annotate("sample.resample", fine=True, N=b):
+                bad = np.flatnonzero(~ok)
+                nbad = len(bad)
+                n_failures += nbad
+                failed_ms.append(m[bad].cpu().numpy())
+                if verbose:
+                    print(f"resampling {nbad} failed linear solves")
+                m2, u2, q2, J2, ok2 = solve(draw(b))
+                bad_t = torch.as_tensor(bad, device=device)
+                m[bad_t], u[bad_t], q[bad_t] = m2[:nbad], u2[:nbad], q2[:nbad]
+                Jm[bad_t] = J2[:nbad]
+                ok[bad] = ok2[:nbad].cpu().numpy()
+            host_syncs.add("sample.resample", 2)
         if not ok.all():
             raise RuntimeError(
                 f"{(~ok).sum()} linear solves failed after {max_tries} sweeps"

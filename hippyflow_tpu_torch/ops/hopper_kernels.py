@@ -48,7 +48,13 @@ attribute (``batched_inverse.rank1_launches`` for K4,
 ``banded_solve.launches_by_design`` for K1's and K2's two designs;
 ``reset_launch_counts`` zeroes them all); K1's row design launches K3 once
 per block row from C, and counts those launches in
-``batched_inverse.launches``.
+``batched_inverse.launches``.  Beside them each wrapper's
+``launches_by_shape`` (a ``utils.profiling.Tally``) counts by (design, N,
+s, nb, k, dtype): 'chain' and 'rows' for K1, 'schur' for its Schur step,
+'k3' and 'k4' for the inverses (nb the block rows of the buffer whose row
+they invert, 1 for a batch), 'panels' and 'streamed' for K2 (k its
+columns; 0 elsewhere).  A row-design call of K1 counts once under 'rows'
+and launches its nb Schur steps and nb K3 under their own keys.
 """
 
 from __future__ import annotations
@@ -64,6 +70,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from ..utils.profiling import Tally
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -259,6 +267,13 @@ def reset_launch_counts() -> None:
     banded_solve.launches_by_design = {"panels": 0, "streamed": 0}
     batched_inverse.launches = 0
     batched_inverse.rank1_launches = 0
+    for fn in (banded_factorize, schur_step_, banded_solve, batched_inverse):
+        fn.launches_by_shape.clear()
+
+
+def _shape_key(design: str, N: int, s: int, nb: int, k: int, dtype) -> tuple:
+    """A key of ``launches_by_shape``."""
+    return (design, int(N), int(s), int(nb), int(k), str(dtype).split(".")[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +378,8 @@ def _inverse_launch(X, n: int, s: int, stride: int, w: int, cluster):
         batched_inverse.rank1_launches += 1
     else:
         batched_inverse.launches += 1
+    batched_inverse.launches_by_shape.add(
+        _shape_key("k4" if w == 1 else "k3", n, s, stride // (s * s), 0, X.dtype))
 
 
 def batched_inverse(X, rank1: bool = False, cluster: int | None = None):
@@ -409,6 +426,7 @@ def batched_inverse_row_(buf, j: int, cluster: int | None = None):
 
 batched_inverse.launches = 0
 batched_inverse.rank1_launches = 0
+batched_inverse.launches_by_shape = Tally()
 
 
 # ---------------------------------------------------------------------------
@@ -598,10 +616,12 @@ def schur_step_(band, M, Dinv, j: int):
             "schur_step_", dev, band.data_ptr(), M.data_ptr(), Dinv.data_ptr(),
             N, nb, s, j)
     schur_step_.launches += 1
+    schur_step_.launches_by_shape.add(_shape_key("schur", N, s, nb, 0, band.dtype))
     return M, Dinv
 
 
 schur_step_.launches = 0
+schur_step_.launches_by_shape = Tally()
 
 
 def factorize_design(s: int, itemsize: int, limit: int,
@@ -668,14 +688,21 @@ def banded_factorize(band, design: str | None = None):
             Dinv.data_ptr(), N, nb, s, *args)
     banded_factorize.launches += 1
     banded_factorize.launches_by_design[design] += 1
+    banded_factorize.launches_by_shape.add(
+        _shape_key(design, N, s, nb, 0, band.dtype))
     if design == "rows":  # a Schur step and a K3 launch per block row
         schur_step_.launches += nb
         batched_inverse.launches += nb
+        schur_step_.launches_by_shape.add(
+            _shape_key("schur", N, s, nb, 0, band.dtype), nb)
+        batched_inverse.launches_by_shape.add(
+            _shape_key("k3", N, s, nb, 0, band.dtype), nb)
     return M, Dinv
 
 
 banded_factorize.launches = 0
 banded_factorize.launches_by_design = {"chain": 0, "rows": 0}
+banded_factorize.launches_by_shape = Tally()
 
 
 # ---------------------------------------------------------------------------
@@ -1144,8 +1171,10 @@ def banded_solve(M, Dinv, B, bb, trans: bool, tiles=None,
             dev, *args)
     banded_solve.launches += 1
     banded_solve.launches_by_design[design] += 1
+    banded_solve.launches_by_shape.add(_shape_key(design, N, s, nb, k, bb.dtype))
     return out
 
 
 banded_solve.launches = 0
 banded_solve.launches_by_design = {"panels": 0, "streamed": 0}
+banded_solve.launches_by_shape = Tally()

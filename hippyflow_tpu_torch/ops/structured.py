@@ -25,6 +25,9 @@ the diagonal D_j and [2s, 3s) the super-diagonal B_j.
 * ``BlockBidiagCholesky`` is the block Cholesky factor of an SPD band, the
   structured prior's square root of M (no TPU kernel).
 
+Factorizations are ``band.factorize`` spans and the factors' solves
+``band.solve`` spans (``utils.profiling.annotate``), with their shapes.
+
 ``BlockTridiagFactor`` and ``BlockCyclicFactor`` take one matrix or a
 batch: every array may carry a leading sample axis.
 """
@@ -35,6 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import annotate
 from .hopper_kernels import banded_factorize, banded_solve, batched_inverse
 
 
@@ -64,19 +68,22 @@ class InverseThomasFactor(NamedTuple):
         if squeeze:
             b = b[..., None]
         N, nb, s = b.shape[0], self.nb, self.s
-        bb = b.reshape(N, nb, s, b.shape[-1]).contiguous()
-        x = banded_solve(self.M, self.Dinv, self.B, bb, trans)
-        x = x.reshape(N, nb * s, -1)
-        return x[..., 0] if squeeze else x
+        with annotate("band.solve", fine=True, N=N, nb=nb, s=s, k=b.shape[-1]):
+            bb = b.reshape(N, nb, s, b.shape[-1]).contiguous()
+            x = banded_solve(self.M, self.Dinv, self.B, bb, trans)
+            x = x.reshape(N, nb * s, -1)
+            return x[..., 0] if squeeze else x
 
 
 def factorize_thomas_inv_banded(band) -> InverseThomasFactor:
     """Inverse block-Thomas factorization of a batch of bands
     (N, nb, s, 3s): one launch of K1 on the card."""
-    s = band.shape[-2]
-    band = band.contiguous()
-    M, Dinv = banded_factorize(band)
-    return InverseThomasFactor(M=M, Dinv=Dinv, B=band[..., 2 * s :].contiguous())
+    N, nb, s = band.shape[:3]
+    with annotate("band.factorize", fine=True, N=N, nb=nb, s=s):
+        band = band.contiguous()
+        M, Dinv = banded_factorize(band)
+        return InverseThomasFactor(M=M, Dinv=Dinv,
+                                   B=band[..., 2 * s :].contiguous())
 
 
 def thomas_inv_flops(nb: int, s: int, n_rhs: int = 1) -> float:
@@ -116,13 +123,15 @@ class PermutedFactor(NamedTuple):
         squeeze = b.ndim == 2
         if squeeze:
             b = b[..., None]
-        order = torch.as_tensor(bo.order, device=b.device)
-        inv = torch.as_tensor(bo.inv, device=b.device)
-        pad = torch.zeros((b.shape[0], bo.n_pad, b.shape[-1]), dtype=b.dtype,
-                          device=b.device)
-        x = self.inner.solve(torch.cat([b[:, order], pad], dim=1), trans=trans)
-        out = x[:, inv]
-        return out[..., 0] if squeeze else out
+        with annotate("band.solve", fine=True, N=b.shape[0], k=b.shape[-1]):
+            order = torch.as_tensor(bo.order, device=b.device)
+            inv = torch.as_tensor(bo.inv, device=b.device)
+            pad = torch.zeros((b.shape[0], bo.n_pad, b.shape[-1]), dtype=b.dtype,
+                              device=b.device)
+            x = self.inner.solve(torch.cat([b[:, order], pad], dim=1),
+                                 trans=trans)
+            out = x[:, inv]
+            return out[..., 0] if squeeze else out
 
 
 def block_tridiag_matmat(band, X):
@@ -195,6 +204,10 @@ class BlockTridiagFactor(NamedTuple):
     def solve(self, b, trans: bool = False):
         """Solve A x = b (or A^T x = b); b (n,) or (n, k) for one matrix,
         (N, n) or (N, n, k) for a batch."""
+        with annotate("band.solve", fine=True, nb=self.nb, s=self.s):
+            return self._solve(b, trans)
+
+    def _solve(self, b, trans: bool):
         lead = self.Dlu.shape[:-3]
         nb, s = self.nb, self.s
         bb, squeeze = _rhs_blocks(b, lead, nb, s)
@@ -228,6 +241,11 @@ def factorize_block_tridiag(D, L_A, B) -> BlockTridiagFactor:
     """Block-Thomas factorization from the three block diagonals
     (..., nb, s, s), a sequential loop over the block rows whose steps are
     batched over the leading axes."""
+    with annotate("band.factorize", fine=True, nb=D.shape[-3], s=D.shape[-1]):
+        return _factorize_block_tridiag(D, L_A, B)
+
+
+def _factorize_block_tridiag(D, L_A, B) -> BlockTridiagFactor:
     nb = D.shape[-3]
     Dp = [_row(D, 0)]
     Ls = [torch.zeros_like(Dp[0])]
@@ -376,11 +394,16 @@ class BlockCyclicFactor(NamedTuple):
         """Solve A x = rhs (or A^T x = rhs); rhs (n,) or (n, k) for one
         matrix, (N, n) or (N, n, k) for a batch."""
         levels = self.trans_levels if trans else self.levels
-        Dinv_root = self.Dinv_root_T if trans else self.Dinv_root
         if levels is None:
             raise ValueError(
                 "this direction was not factorized (with_transpose/with_forward)"
             )
+        with annotate("band.solve", fine=True, levels=len(levels), s=self.s):
+            return self._solve(rhs, trans)
+
+    def _solve(self, rhs, trans: bool):
+        levels = self.trans_levels if trans else self.levels
+        Dinv_root = self.Dinv_root_T if trans else self.Dinv_root
         s, lead = self.s, Dinv_root.shape[:-2]
         f, squeeze = _rhs_blocks(rhs, lead, rhs.shape[len(lead)] // s, s)
         zerov = torch.zeros((s, f.shape[-1]), dtype=f.dtype, device=f.device)
@@ -427,7 +450,12 @@ def factorize_block_cyclic(D, L_A, B, with_transpose: bool = True,
     K3 once per level and once at the root: ceil(log2 nb) + 1 launches."""
     if not (with_transpose or with_forward):
         raise ValueError("factorize at least one of A and A^T")
+    with annotate("band.factorize", fine=True, nb=D.shape[-3], s=D.shape[-1]):
+        return _factorize_block_cyclic(D, L_A, B, with_transpose, with_forward)
 
+
+def _factorize_block_cyclic(D, L_A, B, with_transpose: bool,
+                            with_forward: bool) -> BlockCyclicFactor:
     def run(a, d, b):
         levels = []
         while d.shape[-3] > 1:

@@ -9,6 +9,16 @@ profiler fails (the JAX one swallows it), and the peaks of a CUDA card
 that the table does not know raise ``ValueError`` instead of giving a
 made-up number.
 
+Below the stages the program marks its layers with fine spans
+(``annotate(name, fine=True)``, one of ``SPANS``): ``record_function``
+ranges entered only while a ``torch.profiler`` session records, so that
+with no profiler a span costs one check of the profiler's flag.  Each
+fine span adds its host seconds to ``span_seconds``.  ``host_syncs``
+counts, by site, the places where the main path's host waits on the
+device; ``reset_counters`` zeroes both.  A ``Tally`` keeps apart, in
+``traced``, what it counted while a profiler session recorded: the part
+that lies inside that session's trace.
+
 The bounds (``bound``, ``k1_bound``, ``k2_bound``, ``k3_bound``,
 ``schur_bound``) are the least time one H100 SXM could take for a kernel's
 work: its operations at the peak rate of their type or its bytes at the
@@ -17,10 +27,13 @@ memory rate, whichever is larger.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import threading
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -42,6 +55,54 @@ _H100_SXM = _PEAKS["H100 SXM"]
 PEAK_FLOPS = {torch.float32: _H100_SXM[0] * 1e12,
               torch.float64: _H100_SXM[0] * 1e12}
 HBM_BYTES_PER_S = _H100_SXM[1] * 1e9
+
+
+# The fine spans below the stages (the stages are ``PhaseTimer`` phases
+# with an ``annotate`` range of their name: forward, jacobian, ghep, ...).
+SPANS = (
+    "newton.solve",     # one batched forward solve (any level)
+    "newton.sync",      # the host's wait for the active lanes, each round
+    "fem.residual",     # residual evaluations
+    "fem.assemble",     # the Jacobian's band, bc-symmetrized
+    "fem.apply_c",      # C and C^T products, the observation's B^T
+    "band.factorize",   # K1 (both designs), cyclic reduction, block-Thomas
+    "band.solve",       # K2 (both designs), the other factors' solves
+    "prior.sample",     # prior samples (the warm start's recomputation too)
+    "prior.solve",      # R, R^-1, K^-1 and M^-1 products
+    "warm_start",       # every coarse level of one chunk
+    "sample.resample",  # re-solves of failed lanes
+)
+
+
+class Tally(collections.Counter):
+    """A ``Counter`` whose ``traced`` part holds what ``add`` counted while
+    a ``torch.profiler`` session recorded; ``clear`` zeroes both."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.traced = collections.Counter()
+
+    def add(self, key, n: int = 1) -> None:
+        self[key] += n
+        if _autograd_profiler._is_profiler_enabled:
+            self.traced[key] += n
+
+    def clear(self) -> None:
+        super().clear()
+        self.traced.clear()
+
+
+# host waits on the device by site: newton.sync, sample.converged,
+# sample.resample, stage (PhaseTimer's synchronize)
+host_syncs = Tally()
+# host seconds of each fine span, summed over the spans recorded
+span_seconds = collections.Counter()
+
+
+def reset_counters() -> None:
+    """Zero ``host_syncs`` and ``span_seconds``."""
+    host_syncs.clear()
+    span_seconds.clear()
 
 
 class PhaseTimer:
@@ -71,6 +132,7 @@ class PhaseTimer:
                 for dev in {t.device for t in leaves
                             if isinstance(t, torch.Tensor) and t.is_cuda}:
                     torch.cuda.synchronize(dev)
+                    host_syncs.add("stage")
             dt = time.perf_counter() - t0
             self.timings[name] = self.timings.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
@@ -104,15 +166,70 @@ def trace(log_dir: str):
             torch.cuda.synchronize()
 
 
+class _Range:
+    """A ``record_function`` range; a stage's also takes an NVTX range where
+    there is a card, a fine span adds its host seconds to
+    ``span_seconds``."""
+
+    __slots__ = ("name", "args", "fine", "rf", "nvtx", "t0")
+
+    def __init__(self, name: str, args, fine: bool):
+        self.name, self.args, self.fine = name, args, fine
+
+    def __enter__(self):
+        self.rf = _autograd_profiler.record_function(self.name, self.args)
+        self.rf.__enter__()
+        self.nvtx = not self.fine and torch.cuda.is_available()
+        if self.nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        if self.fine:
+            _open_spans().add(self.name)
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.fine:
+            span_seconds[self.name] += time.perf_counter() - self.t0
+            _open_spans().discard(self.name)
+        if self.nvtx:
+            torch.cuda.nvtx.range_pop()
+        self.rf.__exit__(*exc)
+        return False
+
+
+_local = threading.local()
+_OFF = contextlib.nullcontext()
+
+
+def _open_spans() -> set:
+    """The names of the fine spans open on this thread."""
+    if not hasattr(_local, "open"):
+        _local.open = set()
+    return _local.open
+
+
+def annotate(name: str, *, fine: bool = False, **shape):
+    """A named range in the profiler's trace (``record_function``, its
+    argument string ``shape`` as "k=v, ...") and, where there is a card,
+    an NVTX range.  A ``fine`` span (one of ``SPANS``) is entered only
+    while a ``torch.profiler`` session records (otherwise it costs one
+    check of the profiler's flag), takes no NVTX range, adds its host
+    seconds to ``span_seconds``, and is not entered inside an open span of
+    its own name, so that its seconds count once."""
+    if fine and (not _autograd_profiler._is_profiler_enabled
+                 or name in _open_spans()):
+        return _OFF
+    args = ", ".join(f"{k}={v}" for k, v in shape.items()) if shape else None
+    return _Range(name, args, fine)
+
+
 @contextlib.contextmanager
-def annotate(name: str):
-    """A named range in the profiler's trace (``record_function``) and,
-    where there is a card, an NVTX range."""
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
+def stage(timer: PhaseTimer, name: str, block_on=None):
+    """A stage: an ``annotate`` range of its name, timed as a phase of
+    ``timer`` up to the end of the device's work on ``block_on``'s
+    devices.  Yields the phase's holder."""
+    with annotate(name), timer.phase(name, block_on=block_on) as holder:
+        yield holder
 
 
 # -- utilization ------------------------------------------------------------

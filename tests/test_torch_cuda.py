@@ -1244,3 +1244,70 @@ def test_component_transpmult_on_card_matches_cpu(cuda):
         assert _rel(got, J.materialize(lin).mT @ dq) < 1e-10
         out[dev.type] = got.cpu()
     assert _rel(out["cuda"], out["cpu"]) < 1e-8
+
+
+def _by_design(tally):
+    out = {}
+    for key, n in tally.items():
+        out[key[0]] = out.get(key[0], 0) + n
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["chain", "rows", "streamed", "panels", "k3",
+                                  "k4", "schur"])
+def test_launches_by_shape_agree_with_launches_by_design(cuda, dtype, case):
+    """Each wrapper's ``launches_by_shape`` sums, key by key of its design,
+    to the counts it had (``launches_by_design``, ``launches``,
+    ``rank1_launches``), at shapes of the kernels' tests above; a
+    row-design call of K1 counts once under 'rows' and its nb Schur steps
+    and K3 launches under their own keys."""
+    s, nb, n = {"rows": (193, 6, 16), "chain": (65, 65, 5)}.get(case, (65, 5, 4))
+    band = _band(s, n, dtype, cuda, seed=s, nb=nb)
+    hk.reset_launch_counts()
+    if case in ("chain", "rows"):
+        hk.banded_factorize(band, design=case)
+    elif case in ("streamed", "panels"):
+        M, Dinv = hk.banded_factorize_plain(band)
+        k = 1 if case == "streamed" else 100
+        bb = torch.randn(n, nb, s, k, dtype=dtype, device=cuda)
+        hk.banded_solve(M, Dinv, band[..., 2 * s:].contiguous(), bb,
+                        trans=case == "panels")
+    elif case in ("k3", "k4"):
+        hk.batched_inverse(band[:, 0, :, s:2 * s].contiguous(),
+                           rank1=case == "k4")
+    else:
+        M = torch.zeros(n, nb, s, s, dtype=dtype, device=cuda)
+        Dinv = torch.zeros_like(M)
+        for j in range(nb):
+            hk.schur_step_(band, M, Dinv, j)
+    torch.cuda.synchronize()
+    item = str(dtype).split(".")[-1]
+    assert (_by_design(hk.banded_factorize.launches_by_shape)
+            == {d: v for d, v in hk.banded_factorize.launches_by_design.items()
+                if v})
+    assert (_by_design(hk.banded_solve.launches_by_shape)
+            == {d: v for d, v in hk.banded_solve.launches_by_design.items() if v})
+    assert sum(hk.schur_step_.launches_by_shape.values()) == hk.schur_step_.launches
+    inv = _by_design(hk.batched_inverse.launches_by_shape)
+    assert inv.get("k3", 0) == hk.batched_inverse.launches
+    assert inv.get("k4", 0) == hk.batched_inverse.rank1_launches
+    want = {
+        "chain": (hk.banded_factorize, {("chain", n, s, nb, 0, item): 1}),
+        "rows": (hk.batched_inverse, {("k3", n, s, nb, 0, item): nb}),
+        "streamed": (hk.banded_solve, {("streamed", n, s, nb, 1, item): 1}),
+        "panels": (hk.banded_solve, {("panels", n, s, nb, 100, item): 1}),
+        "k3": (hk.batched_inverse, {("k3", n, s, 1, 0, item): 1}),
+        "k4": (hk.batched_inverse, {("k4", n, s, 1, 0, item): 1}),
+        "schur": (hk.schur_step_, {("schur", n, s, nb, 0, item): nb}),
+    }
+    fn, shapes = want[case]
+    assert fn.launches_by_shape == shapes
+    if case == "rows":
+        assert hk.banded_factorize.launches_by_shape == {
+            ("rows", n, s, nb, 0, item): 1}
+        assert hk.schur_step_.launches_by_shape == {
+            ("schur", n, s, nb, 0, item): nb}
+    hk.reset_launch_counts()
+    assert not any(f.launches_by_shape for f in (
+        hk.banded_factorize, hk.schur_step_, hk.batched_inverse, hk.banded_solve))
