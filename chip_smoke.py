@@ -623,18 +623,12 @@ def load_parent(path):
     its own sources into its own directory), for timing an earlier design
     in turns with this one.  DIR must lie inside this checkout: nothing is
     written around it."""
-    import importlib.util
+    from hippyflow_tpu_torch.ops.stream_solve_sweep import load_parent as load
 
     path = os.path.realpath(path)
     if os.path.commonpath([path, os.path.realpath(REPO)]) != os.path.realpath(REPO):
         raise SystemExit(f"--parent {path}: not inside {REPO}")
-    src = os.path.join(path, "hippyflow_tpu_torch", "ops", "hopper_kernels.py")
-    spec = importlib.util.spec_from_file_location("parent_hopper_kernels", src)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod
-    spec.loader.exec_module(mod)
-    mod.build_kernels()
-    return mod
+    return load(path)
 
 
 def k1_designs(band64, label, parent=None, dtypes=(torch.float32, torch.float64),

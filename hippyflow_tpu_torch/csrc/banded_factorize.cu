@@ -59,7 +59,8 @@
 //   runs on a grid of sample x row panel and writes M_j and
 //   T_j = D_j - M_j B_{j-1} of its panel; the Gauss-Jordan kernel of K3
 //   (csrc/batched_inverse.cu) then inverts Dinv[:, j] in place, with the
-//   cluster of c blocks per matrix that the host picked.  2 nb launches
+//   cluster of c blocks per matrix and the design (L2 or resident) that
+//   the host picked.  2 nb launches
 //   per factorization.  The Schur step is two panel products whose right
 //   operands (Dinv_{j-1}, which the previous row just wrote, and B_{j-1})
 //   every panel of the sample reads from L2: 4 N s^3 multiply-adds over
@@ -822,9 +823,10 @@ int launch_factorize(const void* band, void* m_out, void* dinv_out, int n,
 
 template <typename T>
 int launch_factorize_rows(const void* band, void* m_out, void* dinv_out,
-                          int n, int nb, int s, int w, int c, void* stream,
+                          int n, int nb, int s, int w, int c, int resident,
+                          void* stream,
                           int (*invert)(void*, int, int, long long, int, int,
-                                        void*)) {
+                                        int, void*)) {
   int threads;
   size_t smem;
   int code = schur_configure<T>(s, &threads, &smem);
@@ -835,7 +837,7 @@ int launch_factorize_rows(const void* band, void* m_out, void* dinv_out,
     code = schur_launch<T>(threads, smem, band, m_out, dinv_out, n, nb, s, j,
                            stream);
     if (code != 0) return code;
-    code = invert(dinv + j * ss, n, s, nb * ss, w, c, stream);
+    code = invert(dinv + j * ss, n, s, nb * ss, w, c, resident, stream);
     if (code != 0) return code;
   }
   return 0;
@@ -860,22 +862,25 @@ extern "C" int hf_banded_factorize_f64(const void* band, void* m_out,
 }
 
 // The row design: n samples, per block row the Schur step, then K3 at
-// pivot width w in clusters of c blocks; what the kernels do not take
-// returns cudaErrorInvalidValue before any launch.
+// pivot width w in clusters of c blocks, in the L2 (resident 0) or
+// resident (1) design; what the kernels do not take returns
+// cudaErrorInvalidValue before any launch.
 extern "C" int hf_banded_factorize_rows_f32(const void* band, void* m_out,
                                             void* dinv_out, int n, int nb,
-                                            int s, int w, int c,
+                                            int s, int w, int c, int resident,
                                             void* stream) {
   return launch_factorize_rows<float>(band, m_out, dinv_out, n, nb, s, w, c,
-                                      stream, hf_batched_inverse_f32);
+                                      resident, stream,
+                                      hf_batched_inverse_f32);
 }
 
 extern "C" int hf_banded_factorize_rows_f64(const void* band, void* m_out,
                                             void* dinv_out, int n, int nb,
-                                            int s, int w, int c,
+                                            int s, int w, int c, int resident,
                                             void* stream) {
   return launch_factorize_rows<double>(band, m_out, dinv_out, n, nb, s, w, c,
-                                       stream, hf_batched_inverse_f64);
+                                       resident, stream,
+                                       hf_batched_inverse_f64);
 }
 
 // The Schur step of block row j alone (M_j into m, T_j into dinv[:, j];

@@ -59,15 +59,24 @@ __host__ __device__ inline int hf_gj_own_cols(int s, int c) {
   return cols < s ? cols : s;
 }
 
+// Row length of the resident Gauss-Jordan design's own columns in shared
+// memory: the most whole 32-column chunks a block of c owns.
+__host__ __device__ inline int hf_gj_res_ld(int s, int c) {
+  return 32 * (((s + 31) / 32 + c - 1) / c);
+}
+
 // Shared-memory elements of one Gauss-Jordan block at pivot width w in a
 // cluster of c: the pivot columns (s rows of HF_GJ_ROW, for 16-byte
-// loads), the block's own slice of the pivot rows before and after the
-// step (w x own columns each) and the pivot block's inverse (w rows of
-// HF_GJ_ROW).
-inline std::size_t hf_gj_smem_elems(int s, int w, int c) {
-  return (std::size_t)HF_GJ_ROW * s +
-         2 * (std::size_t)w * hf_gj_own_cols(s, c) +
-         (std::size_t)w * HF_GJ_ROW;
+// loads) and the pivot block's inverse (w rows of HF_GJ_ROW).  The L2
+// design adds the block's own slice of the pivot rows before and after
+// the step (w x own columns each); the resident design the new pivot rows
+// and the block's own columns of the matrix, in rows of hf_gj_res_ld.
+inline std::size_t hf_gj_smem_elems(int s, int w, int c, bool resident) {
+  const std::size_t common = (std::size_t)HF_GJ_ROW * (s + w);
+  if (resident) {
+    return common + (std::size_t)(w + s) * hf_gj_res_ld(s, c);
+  }
+  return common + 2 * (std::size_t)w * hf_gj_own_cols(s, c);
 }
 
 // A 16-byte vector of T, and a[0..n) = p[0..n) from shared memory: in
@@ -285,8 +294,11 @@ inline std::size_t hf_stream_smem_size(int s, int kt, int c, int rows,
 // K3/K4 host entries (csrc/batched_inverse.cu), also launched row by row
 // by K1's row-panel design: n matrices of s x s, `stride` elements apart,
 // pivot width w (1 to HF_GJ_MAX_W), c blocks per matrix (1 to
-// HF_GJ_MAX_CLUSTER); any other w or c returns cudaErrorInvalidValue.
+// HF_GJ_MAX_CLUSTER), the L2 (resident 0) or resident (1) design; any
+// other w, c or resident returns cudaErrorInvalidValue.
 extern "C" int hf_batched_inverse_f32(void* x, int n, int s, long long stride,
-                                      int w, int c, void* stream);
+                                      int w, int c, int resident,
+                                      void* stream);
 extern "C" int hf_batched_inverse_f64(void* x, int n, int s, long long stride,
-                                      int w, int c, void* stream);
+                                      int w, int c, int resident,
+                                      void* stream);

@@ -16,8 +16,10 @@ Pallas kernel of ``hippyflow_tpu/ops/pallas_kernels.py``:
   width 1.
 
 K3/K4 split each matrix's columns over a cluster of thread blocks; the
-cluster size comes from ``gj_cluster`` (``cluster=`` forces one), and K1's
-row design passes the same choice down to the K3 launches it makes.  K2's
+cluster size comes from ``gj_cluster`` (``cluster=`` forces one), and
+whether each matrix stays resident in the cluster's shared memory or is
+updated in L2 from ``gj_resident`` (``resident=`` forces one); K1's row
+design passes the same choices down to the K3 launches it makes.  K2's
 few-column design splits each factor block's rows over a cluster of thread
 blocks per sample; its size comes from ``stream_cluster`` (``cluster=``
 forces one) and its ring, threads and lanes from ``stream_geometry``.
@@ -55,6 +57,8 @@ s, nb, k, dtype): 'chain' and 'rows' for K1, 'schur' for its Schur step,
 they invert, 1 for a batch), 'panels' and 'streamed' for K2 (k its
 columns; 0 elsewhere).  A row-design call of K1 counts once under 'rows'
 and launches its nb Schur steps and nb K3 under their own keys.
+``batched_inverse.resident_by_shape`` counts, under the same keys, the
+K3/K4 launches that ran the resident design.
 """
 
 from __future__ import annotations
@@ -83,8 +87,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-# Pivot-block widths of K3 (the TPU kernel's 13) and K4.
+# Pivot-block widths of K3 (the TPU kernel's 13) and K4, and the row
+# stride of K3's staged pivot columns (``HF_GJ_ROW``).
 GJ_WIDTH = 13
+GJ_ROW = 16
 # Most thread blocks per matrix of K3/K4 (the portable cluster size), and
 # the fewest matrix columns per block worth a split (``gj_cluster``).
 GJ_MAX_CLUSTER = 8
@@ -164,12 +170,12 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         signatures = {
             "hf_banded_factorize": [p, p, p, i, i, i, i, i, p],
-            "hf_banded_factorize_rows": [p, p, p, i, i, i, i, i, p],
+            "hf_banded_factorize_rows": [p, p, p, i, i, i, i, i, i, p],
             "hf_schur_step": [p, p, p, i, i, i, i, p],
             "hf_banded_solve": [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p],
             "hf_banded_solve_stream": [p, p, p, p, p, i, i, i, i, i, i, i, i,
                                        i, i, i, i, p],
-            "hf_batched_inverse": [p, i, i, ll, i, i, p],
+            "hf_batched_inverse": [p, i, i, ll, i, i, i, p],
         }
         for stem, argtypes in signatures.items():
             for sfx in ("f32", "f64"):
@@ -181,7 +187,7 @@ def _library():
             ("hf_schur_smem_bytes", [i, i]),
             ("hf_solve_smem_bytes", [i, i, i, i, i, i]),
             ("hf_stream_smem_bytes", [i, i, i, i, i, i, i, i]),
-            ("hf_gj_smem_bytes", [i, i, i, i]),
+            ("hf_gj_smem_bytes", [i, i, i, i, i]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -269,6 +275,7 @@ def reset_launch_counts() -> None:
     batched_inverse.rank1_launches = 0
     for fn in (banded_factorize, schur_step_, banded_solve, batched_inverse):
         fn.launches_by_shape.clear()
+    batched_inverse.resident_by_shape.clear()
 
 
 def _shape_key(design: str, N: int, s: int, nb: int, k: int, dtype) -> tuple:
@@ -295,7 +302,12 @@ def gj_cluster(n: int, s: int, sm_count: int) -> int:
     inverse, two cluster barriers) outweigh the split (s=65: c=1).  At
     every K3 shape of the lanes (K1's rows, each cyclic-reduction level of
     the structured prior, the helmholtz Schur complements) the c it picks
-    above 1 measured faster than c=1."""
+    above 1 measured faster than c=1.
+
+    At that c, ``gj_resident`` picks where the matrix lives: in the
+    cluster's shared memory (each block holds its own columns for the
+    whole inverse) where they fit beside the staging, else in L2 (every
+    step a pass over the output buffer)."""
     return max(1, min(GJ_MAX_CLUSTER, 3 * sm_count // (4 * max(n, 1)),
                       s // GJ_MIN_COLS))
 
@@ -307,6 +319,49 @@ def gj_slices(s: int, c: int):
     m = -(-s // 32)
     return [(min(s, 32 * (r * m // c)), min(s, 32 * ((r + 1) * m // c)))
             for r in range(c)]
+
+
+def gj_res_ld(s: int, c: int) -> int:
+    """Row length of the resident design's own columns in shared memory
+    (the mirror of ``hf_gj_res_ld``): the most whole 32-column chunks a
+    block of a cluster of c owns."""
+    return 32 * -(-(-(-s // 32)) // c)
+
+
+def gj_own_cols(s: int, c: int) -> int:
+    """Columns one block of a K3/K4 cluster of c owns at most (the mirror
+    of ``hf_gj_own_cols``)."""
+    return min(s, gj_res_ld(s, c))
+
+
+def gj_smem_bytes(s: int, w: int, c: int, itemsize: int, resident: bool) -> int:
+    """Shared memory of one K3/K4 block (the mirror of ``hf_gj_smem_elems``):
+    the staged pivot columns (s x GJ_ROW) and P^-1 (w x GJ_ROW); the L2
+    design adds the own pivot rows before and after a step (w x own
+    columns each), the resident design the new pivot rows and the own
+    columns of the matrix, in rows of ``gj_res_ld``."""
+    elems = GJ_ROW * (s + w)
+    if resident:
+        elems += (w + s) * gj_res_ld(s, c)
+    else:
+        elems += 2 * w * gj_own_cols(s, c)
+    return elems * itemsize
+
+
+def gj_resident(s: int, c: int, itemsize: int, limit: int) -> bool:
+    """Whether K3/K4 on matrices of s x s in clusters of c keeps each
+    matrix resident in the cluster's shared memory: where a block's
+    footprint in that design (at pivot width GJ_WIDTH, for K4 too) fits
+    ``limit`` bytes.  Else the L2 design.  On the H100 (232448 bytes) every
+    float32 shape of the lanes up to (32, 258) at c=3 (121408 bytes) and
+    the prior's (96, 193) at c=1 (197760) is resident; helmholtz's
+    (16, 516) at c=6 (236992 bytes, float64 473984), (32, 258) float64
+    (242816) and (96, 193) float64 (395520) are not.  Measured on the H100
+    (``PERF.md``), the resident design was the faster at every shape it
+    takes.  A c the kernel refuses (outside 1 to GJ_MAX_CLUSTER) gives
+    False, and its launch raises."""
+    return (1 <= c <= GJ_MAX_CLUSTER
+            and gj_smem_bytes(s, GJ_WIDTH, c, itemsize, True) <= limit)
 
 
 def _pivot_block_inverse(P):
@@ -361,28 +416,36 @@ def batched_inverse_plain(X, w: int = GJ_WIDTH, slices: int = 1):
     return X
 
 
-def _inverse_launch(X, n: int, s: int, stride: int, w: int, cluster):
+def _inverse_launch(X, n: int, s: int, stride: int, w: int, cluster, resident):
     """K3/K4 on n matrices of s x s at X.data_ptr(), ``stride`` elements
-    apart, in place; cluster None takes ``gj_cluster``'s choice."""
+    apart, in place; cluster None takes ``gj_cluster``'s choice, resident
+    None ``gj_resident``'s at that cluster."""
     if cluster is None:
         cluster = gj_cluster(n, s, _sm_count(X.device))
+    if resident is None:
+        resident = gj_resident(s, cluster, X.element_size(), _smem_limit(X.device))
     lib = _library()
     _smem_check("batched_inverse",
-                lib.hf_gj_smem_bytes(s, w, cluster, X.element_size()),
-                X.device, f"s={s} at pivot width {w} in clusters of {cluster}")
+                lib.hf_gj_smem_bytes(s, w, cluster, int(resident), X.element_size()),
+                X.device, f"s={s} at pivot width {w} in clusters of {cluster}"
+                + (" resident" if resident else ""))
     if n == 0 or s == 0:
         return
     _launch(lib, getattr(lib, f"hf_batched_inverse_{_suffix(X.dtype)}"),
-            "batched_inverse", X.device, X.data_ptr(), n, s, stride, w, cluster)
+            "batched_inverse", X.device, X.data_ptr(), n, s, stride, w, cluster,
+            int(resident))
     if w == 1:
         batched_inverse.rank1_launches += 1
     else:
         batched_inverse.launches += 1
-    batched_inverse.launches_by_shape.add(
-        _shape_key("k4" if w == 1 else "k3", n, s, stride // (s * s), 0, X.dtype))
+    key = _shape_key("k4" if w == 1 else "k3", n, s, stride // (s * s), 0, X.dtype)
+    batched_inverse.launches_by_shape.add(key)
+    if resident:
+        batched_inverse.resident_by_shape.add(key)
 
 
-def batched_inverse(X, rank1: bool = False, cluster: int | None = None):
+def batched_inverse(X, rank1: bool = False, cluster: int | None = None,
+                    resident: bool | None = None):
     """K3 (pivot blocks of 13) or, with ``rank1``, K4 (rank-1 updates, the
     JAX package's ``force="pallas_rank1"``).  X (N, s, s) -> X^-1, without
     pivoting: the inputs must not need it (diagonally dominant or SPD
@@ -391,8 +454,11 @@ def batched_inverse(X, rank1: bool = False, cluster: int | None = None):
 
     On the card ``cluster`` forces the thread blocks per matrix (1 to
     GJ_MAX_CLUSTER; the kernel refuses any other); None takes
-    ``gj_cluster``'s choice.  On the CPU the plain version runs the same
-    schedule with ``cluster`` column slices (None: 1)."""
+    ``gj_cluster``'s choice.  ``resident`` forces the design (True: each
+    matrix in the cluster's shared memory, ValueError where it does not
+    fit; False: in L2); None takes ``gj_resident``'s choice.  Both give the
+    same bits.  On the CPU the plain version runs the same schedule with
+    ``cluster`` column slices (None: 1) and ``resident`` is not read."""
     w = 1 if rank1 else GJ_WIDTH
     if X.device.type == "cpu":
         return batched_inverse_plain(X, w, 1 if cluster is None else cluster)
@@ -401,14 +467,16 @@ def batched_inverse(X, rank1: bool = False, cluster: int | None = None):
     N, s, _ = X.shape
     _check_cuda("batched_inverse", [X], [X.shape])
     out = X.clone()
-    _inverse_launch(out, N, s, s * s, w, cluster)
+    _inverse_launch(out, N, s, s * s, w, cluster, resident)
     return out
 
 
-def batched_inverse_row_(buf, j: int, cluster: int | None = None):
+def batched_inverse_row_(buf, j: int, cluster: int | None = None,
+                         resident: bool | None = None):
     """K3 on block row j of an (N, nb, s, s) buffer, in place: buf[:, j]
     <- buf[:, j]^-1, the other rows untouched (the launch K1's row design
-    makes at each block row).  Returns buf."""
+    makes at each block row); ``cluster`` and ``resident`` as in
+    ``batched_inverse``.  Returns buf."""
     if buf.device.type == "cpu":
         buf[:, j] = batched_inverse_plain(buf[:, j], GJ_WIDTH,
                                           1 if cluster is None else cluster)
@@ -420,13 +488,14 @@ def batched_inverse_row_(buf, j: int, cluster: int | None = None):
     if not 0 <= j < nb:
         raise ValueError(f"batched_inverse_row_: row {j} of {nb}")
     _check_cuda("batched_inverse_row_", [buf], [buf.shape])
-    _inverse_launch(buf[:, j], N, s, nb * s * s, GJ_WIDTH, cluster)
+    _inverse_launch(buf[:, j], N, s, nb * s * s, GJ_WIDTH, cluster, resident)
     return buf
 
 
 batched_inverse.launches = 0
 batched_inverse.rank1_launches = 0
 batched_inverse.launches_by_shape = Tally()
+batched_inverse.resident_by_shape = Tally()
 
 
 # ---------------------------------------------------------------------------
@@ -654,7 +723,8 @@ def banded_factorize(band, design: str | None = None):
     whole row chain in shared memory; s whose tiles fit: s <= 120 in
     float32, 84 in float64) or 'rows' (a Schur-step launch and a K3 launch
     per block row, in clusters of ``gj_cluster(N, s, SMs)`` blocks per
-    matrix; any s up to the row panels' shared memory); None takes what
+    matrix, in the design ``gj_resident`` picks; any s up to the row
+    panels' shared memory); None takes what
     ``factorize_design`` picks: the chain where it fits, which is where it
     measured faster."""
     if band.device.type == "cpu":
@@ -673,11 +743,12 @@ def banded_factorize(band, design: str | None = None):
         args = (ld, chain_threads(N, s, _sm_count(dev), need, _sm_smem(dev)))
     else:
         cluster = gj_cluster(N, s, _sm_count(dev))
+        resident = gj_resident(s, cluster, item, _smem_limit(dev))
         schur_geometry(s, item, _smem_limit(dev))
         _smem_check("banded_factorize",
-                    lib.hf_gj_smem_bytes(s, GJ_WIDTH, cluster, item),
+                    lib.hf_gj_smem_bytes(s, GJ_WIDTH, cluster, int(resident), item),
                     dev, f"the row-panel inverse at s={s}")
-        args = (GJ_WIDTH, cluster)
+        args = (GJ_WIDTH, cluster, int(resident))
     M = torch.empty((N, nb, s, s), dtype=band.dtype, device=dev)
     Dinv = torch.empty_like(M)
     if N == 0 or nb == 0:
@@ -695,8 +766,10 @@ def banded_factorize(band, design: str | None = None):
         batched_inverse.launches += nb
         schur_step_.launches_by_shape.add(
             _shape_key("schur", N, s, nb, 0, band.dtype), nb)
-        batched_inverse.launches_by_shape.add(
-            _shape_key("k3", N, s, nb, 0, band.dtype), nb)
+        key = _shape_key("k3", N, s, nb, 0, band.dtype)
+        batched_inverse.launches_by_shape.add(key, nb)
+        if resident:
+            batched_inverse.resident_by_shape.add(key, nb)
     return M, Dinv
 
 

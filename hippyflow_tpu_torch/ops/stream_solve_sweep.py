@@ -75,12 +75,18 @@ def mean_ms(fn, reps: int = REPS) -> float:
 
 
 def load_parent(path: str):
-    """``hopper_kernels`` of another checkout (it builds its own sources)."""
-    src = Path(path).resolve() / "hippyflow_tpu_torch" / "ops" / "hopper_kernels.py"
-    spec = importlib.util.spec_from_file_location("parent_hopper_kernels", src)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod
-    spec.loader.exec_module(mod)
+    """``hopper_kernels`` of another checkout (it builds its own sources),
+    imported with that checkout's package under another name, so that its
+    relative imports find its own modules."""
+    root = Path(path).resolve() / "hippyflow_tpu_torch"
+    name = "parent_hippyflow_tpu_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, root / "__init__.py", submodule_search_locations=[str(root)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[name] = pkg
+        spec.loader.exec_module(pkg)
+    mod = importlib.import_module(f"{name}.ops.hopper_kernels")
     mod.build_kernels()
     return mod
 

@@ -1,9 +1,9 @@
 """The benchmark's span reduction (``hfbench/spans.py``) on a synthetic
 event list, beside ``hfbench/trace.py``'s ``summarize`` on the same list;
 and the readers of ``warm_start_s``, ``coarse_newton_iters``,
-``host_syncs`` and ``band_launches``, which give None where there is no
-trace or no coarse level and read the program's counters counted inside a
-profiler session."""
+``host_syncs``, ``band_launches`` and ``k3_resident``, which give None
+where there is no trace or no coarse level and read the program's
+counters counted inside a profiler session."""
 
 import sys
 from pathlib import Path
@@ -175,7 +175,8 @@ def counters():
 
 
 @pytest.mark.parametrize("name", ["warm_start_s", "host_syncs",
-                                  "band_launches", "coarse_newton_iters"])
+                                  "band_launches", "coarse_newton_iters",
+                                  "k3_resident"])
 def test_readers_find_nothing_to_read(name, counters):
     read = spec.metric_reader(name)
     if name == "coarse_newton_iters":
@@ -207,3 +208,28 @@ def test_readers_read_the_window_per_pass(counters):
     assert warm == pytest.approx(profiling.span_seconds["warm_start"] / 2)
     assert warm > 0
     assert spec.metric_reader("coarse_newton_iters")(run) == 8 / 4
+
+
+def test_k3_resident_reads_the_traced_share(counters):
+    """The share of the traced K3/K4 launches that ran resident; None where
+    none was traced, or where the program has no resident tally (a
+    checkout before the resident design)."""
+    read = spec.metric_reader("k3_resident")
+    key = ("k3", 16, 193, 193, 0, "float32")
+    hk.batched_inverse.launches_by_shape.add(key, 50)  # outside the session
+    hk.batched_inverse.resident_by_shape.add(key, 50)
+    assert read(_run()) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        hk.batched_inverse.launches_by_shape.add(key, 193)
+        hk.batched_inverse.resident_by_shape.add(key, 193)
+        hk.batched_inverse.launches_by_shape.add(("k3", 16, 516, 52, 0, "float32"), 52)
+        hk.batched_inverse.launches_by_shape.add(("k4", 96, 193, 1, 0, "float32"))
+        hk.schur_step_.launches_by_shape.add(("schur",) + key[1:], 193)
+    assert read(_run()) == pytest.approx(100.0 * 193 / (193 + 52 + 1))
+    assert read(_run(traced=False)) is None
+    tally = hk.batched_inverse.resident_by_shape
+    try:
+        del hk.batched_inverse.resident_by_shape
+        assert read(_run()) is None
+    finally:
+        hk.batched_inverse.resident_by_shape = tally

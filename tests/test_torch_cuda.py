@@ -1311,3 +1311,107 @@ def test_launches_by_shape_agree_with_launches_by_design(cuda, dtype, case):
     hk.reset_launch_counts()
     assert not any(f.launches_by_shape for f in (
         hk.banded_factorize, hk.schur_step_, hk.batched_inverse, hk.banded_solve))
+
+
+@pytest.mark.parametrize("dtype,n,s,rows,cluster", [
+    (torch.float32, 32, 193, True, None),  # K1's rows, nx=192 chunk: c=3
+    (torch.float32, 16, 193, True, None),  # the Jacobian's rows: c=4
+    (torch.float64, 16, 193, True, None),
+    (torch.float32, 96, 193, False, None),  # the prior's CR level 0: c=1
+    (torch.float32, 32, 258, True, None),  # P2 rows: c=3
+    (torch.float32, 2048, 65, False, None),  # many matrices, c=1
+    (torch.float64, 2048, 65, False, None),
+    (torch.float32, 3, 193, False, 7),  # a pivot block across two owners
+    (torch.float32, 3, 17, False, 8),  # blocks that own no column
+])
+def test_k3_resident_matches_the_l2_design_bit_for_bit(cuda, dtype, n, s, rows,
+                                                        cluster):
+    """K3 with each matrix resident in the cluster's shared memory against
+    the L2 design on the same input, through ``batched_inverse_row_`` with
+    K1's stride or ``batched_inverse``: the two do the same arithmetic in
+    the same order, so their results are equal bit for bit (and within
+    the plain version's limit); the resident launch is counted."""
+    if rows:
+        buf = torch.stack([_dd_batch(n, s, dtype, cuda, seed=q) for q in range(8)],
+                          dim=1).contiguous()
+        before = buf.clone()
+        hk.reset_launch_counts()
+        hk.batched_inverse_row_(buf, 5, cluster=cluster, resident=True)
+        got, X = buf[:, 5].clone(), before[:, 5].contiguous()
+        buf.copy_(before)
+        hk.batched_inverse_row_(buf, 5, cluster=cluster, resident=False)
+        want = buf[:, 5]
+        others = [q for q in range(8) if q != 5]
+        assert torch.equal(buf[:, others], before[:, others])
+        nb = 8
+    else:
+        X = _dd_batch(n, s, dtype, cuda, seed=s)
+        hk.reset_launch_counts()
+        got = hk.batched_inverse(X, cluster=cluster, resident=True)
+        want = hk.batched_inverse(X, cluster=cluster, resident=False)
+        nb = 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    m = min(n, 4)
+    assert _rel(got[:m], hk.batched_inverse_plain(X[:m])) < TOL[dtype]
+    key = ("k3", n, s, nb, 0, str(dtype).split(".")[-1])
+    assert hk.batched_inverse.launches_by_shape == {key: 2}
+    assert hk.batched_inverse.resident_by_shape == {key: 1}
+
+
+def test_k1_rows_at_nx192_equal_their_steps_with_the_l2_inverse(cuda):
+    """K1's row design at s=nb=193 (the nx=192 lane, float32), whose K3
+    launches take the resident design, equals bit for bit its Schur steps
+    followed by K3 forced to the L2 design, row by row: the factor the
+    row design gave before the resident design existed."""
+    s, nb, n = 193, 193, 16
+    band = _band(s, n, torch.float32, cuda, seed=3, nb=nb)
+    hk.reset_launch_counts()
+    M, Dinv = hk.banded_factorize(band)
+    assert hk.banded_factorize.launches_by_design == {"chain": 0, "rows": 1}
+    assert hk.batched_inverse.resident_by_shape == {
+        ("k3", n, s, nb, 0, "float32"): nb}
+    M2, D2 = torch.zeros_like(M), torch.zeros_like(Dinv)
+    for j in range(nb):
+        hk.schur_step_(band, M2, D2, j)
+        hk.batched_inverse_row_(D2, j, resident=False)
+    torch.cuda.synchronize()
+    assert torch.equal(M, M2) and torch.equal(Dinv, D2)
+
+
+def test_resident_by_shape_counts_the_resident_launches_alone(cuda):
+    """``resident_by_shape`` counts the K3/K4 launches that ran resident,
+    under ``launches_by_shape``'s keys, and none of those that kept the L2
+    design: helmholtz's (16, 516) block rows in both dtypes (and the
+    forced ones)."""
+    hk.reset_launch_counts()
+    f32, f64 = torch.float32, torch.float64
+    for dtype in (f32, f64):
+        buf = torch.stack([_dd_batch(16, 516, dtype, cuda, seed=q) for q in range(2)],
+                          dim=1).contiguous()
+        hk.batched_inverse_row_(buf, 1)
+    X = _dd_batch(16, 193, f32, cuda)
+    hk.batched_inverse(X)
+    hk.batched_inverse(X, rank1=True)
+    hk.batched_inverse(X, resident=False)
+    hk.banded_factorize(_band(193, 4, f32, cuda, nb=3))
+    torch.cuda.synchronize()
+    assert hk.batched_inverse.launches_by_shape == {
+        ("k3", 16, 516, 2, 0, "float32"): 1, ("k3", 16, 516, 2, 0, "float64"): 1,
+        ("k3", 16, 193, 1, 0, "float32"): 2, ("k4", 16, 193, 1, 0, "float32"): 1,
+        ("k3", 4, 193, 3, 0, "float32"): 3}
+    assert hk.batched_inverse.resident_by_shape == {
+        ("k3", 16, 193, 1, 0, "float32"): 1, ("k4", 16, 193, 1, 0, "float32"): 1,
+        ("k3", 4, 193, 3, 0, "float32"): 3}
+    with pytest.raises(ValueError, match="shared memory"):
+        hk.batched_inverse(_dd_batch(16, 516, f32, cuda), resident=True)
+
+
+def test_k3_footprint_mirrors_the_library(cuda):
+    """``gj_smem_bytes`` gives what the kernel asks for, in both designs."""
+    lib = hk._library()
+    for s, w, c, item in [(193, 13, 3, 4), (193, 13, 1, 8), (516, 13, 6, 4),
+                          (258, 1, 3, 8), (9, 13, 1, 4), (65, 13, 8, 8)]:
+        for resident in (False, True):
+            assert lib.hf_gj_smem_bytes(s, w, c, int(resident), item) == (
+                hk.gj_smem_bytes(s, w, c, item, resident))

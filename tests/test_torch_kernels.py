@@ -465,6 +465,55 @@ def test_gj_cluster_keeps_a_margin_of_sms_and_columns(n, s, want):
     assert c == 1 or (4 * n * c <= 3 * 132 and c * hk.GJ_MIN_COLS <= s)
 
 
+# the H100's shared memory a block may opt into
+H100_SMEM = 232448
+
+
+@pytest.mark.parametrize("n,s,itemsize,resident", [
+    (32, 193, 4, True),  # K1's rows, nx=192 chunk (c=3): 92288 bytes
+    (16, 193, 4, True),  # the Jacobian's rows (c=4): 65920
+    (96, 193, 4, True),  # the prior's cyclic reduction (c=1): 197760
+    (32, 258, 4, True),  # P2 rows (c=3): 121408
+    (16, 516, 4, False),  # helmholtz (c=6): 236992
+    (16, 516, 8, False),  # 473984
+    (32, 258, 8, False),  # 242816
+])
+def test_gj_resident_where_the_footprint_fits(n, s, itemsize, resident):
+    """K3 keeps its matrix in the cluster's shared memory where the
+    resident design's footprint (the staged pivot columns, P^-1, the new
+    pivot rows and the own columns, in rows of whole chunks) fits a
+    block's limit at the c that ``gj_cluster`` picks, and only there."""
+    c = hk.gj_cluster(n, s, 132)
+    need = hk.gj_smem_bytes(s, hk.GJ_WIDTH, c, itemsize, True)
+    ld = hk.gj_res_ld(s, c)
+    assert need == (hk.GJ_ROW * (s + hk.GJ_WIDTH) + (hk.GJ_WIDTH + s) * ld) * itemsize
+    assert hk.gj_resident(s, c, itemsize, H100_SMEM) == resident
+    assert resident == (need <= H100_SMEM)
+    assert hk.gj_resident(s, c, itemsize, need) and not hk.gj_resident(
+        s, c, itemsize, need - 1)
+    for bad in (0, -1, hk.GJ_MAX_CLUSTER + 1):  # the kernel refuses the launch
+        assert not hk.gj_resident(s, bad, itemsize, H100_SMEM)
+
+
+@pytest.mark.parametrize("s,c", [(193, 3), (193, 1), (258, 3), (516, 6), (17, 8),
+                                 (9, 1)])
+def test_gj_own_cols_and_resident_rows_hold_the_widest_slice(s, c):
+    """A block's own columns (the L2 design's slices of the pivot rows)
+    are the most whole 32-column chunks a slice takes, capped at s; the
+    resident design's rows hold as many whole chunks."""
+    chunks = max(-(-(hi - lo) // 32) for lo, hi in hk.gj_slices(s, c))
+    assert hk.gj_own_cols(s, c) == min(s, 32 * chunks)
+    assert hk.gj_res_ld(s, c) == 32 * chunks
+
+
+def test_reset_launch_counts_zeroes_the_resident_tally():
+    key = ("k3", 16, 193, 193, 0, "float32")
+    hk.batched_inverse.resident_by_shape.add(key, 5)
+    hk.reset_launch_counts()
+    assert not hk.batched_inverse.resident_by_shape
+    assert not hk.batched_inverse.resident_by_shape.traced
+
+
 @pytest.mark.parametrize("s,c", [(516, 8), (193, 4), (193, 7), (65, 3),
                                  (17, 8), (33, 2), (5, 3)])
 def test_gj_slices_split_a_row_into_whole_chunks(s, c):
