@@ -8,10 +8,12 @@ at pass 0), each side answers one whole pass and ``lanes`` check lanes,
 as many as a run of the cell compares, and the check that decides
 ``correct`` (``check.compare`` against the float64 reference) judges it:
 
-* ``program``: the program, through the harness's own pass;
-* ``tf32``, the control: the plain reference put in the program's place
-  one precision below the configuration's float32 (float32 data, every
-  product with TF32 operands, ``reference.blocktri.Arith``);
+* ``program``: the program, through the harness's own pass (the cell's
+  application's ``Program``);
+* ``tf32``, the control: the plain reference (the application's
+  ``reference``) put in the program's place one precision below the
+  configuration's float32 (float32 data, every product with TF32
+  operands, ``reference.blocktri.Arith``);
 * ``float32``: the reference in float32 with exact products, the rounding
   level of the configuration's own precision;
 * ``half_batch``, a fault planted in the program (``FAULTS``): E[J^T J]
@@ -119,17 +121,14 @@ def stand_in_answers(cell, draws, lanes, precision: str, device):
     """The reference's answers in float32, with TF32 products or exact."""
     import torch
 
-    from hfbench import check, spec
+    from hfbench import check
     from hfbench.reference import blocktri
-    from hfbench.reference.confusion import Confusion, input_subspace
 
     cfg = cell.config
-    stand_in = Confusion(cfg["nx"], spec.load_velocity(cfg), cfg["sqrt_n_obs"],
-                         cfg["c"], cfg["k"], cfg["gamma"], cfg["delta"],
-                         dtype=torch.float32, device=device,
-                         arith=blocktri.Arith(tf32=precision == "tf32"))
+    stand_in = cell.application.reference(
+        cell, torch.float32, device, blocktri.Arith(tf32=precision == "tf32"))
     out = check.solve_samples(stand_in, draws.noise, strict=False)
-    d, V = input_subspace(stand_in, out["J"], draws.omega, cfg["rank"])
+    d, V = check.input_subspace(stand_in, out["J"], draws.omega, cfg["rank"])
     idx = lanes.to(device)
     return check.Answers(lanes=lanes, m=out["m"][idx], u=out["u"][idx],
                          J=out["J"][idx], q=out["q"], d=d, V=V)
@@ -150,17 +149,14 @@ def main(argv=None) -> int:
     import torch
 
     from hfbench import check, harness, spec
-    from hfbench.reference.confusion import Confusion
 
     cell = spec.load_cell(args.workload)
     cfg = cell.config
     n, rank = cfg["samples_per_process"], cfg["rank"]
     count = min(n, args.lanes or cell.traffic["check_lanes_per_pass"])
-    truth = Confusion(cfg["nx"], spec.load_velocity(cfg), cfg["sqrt_n_obs"],
-                      cfg["c"], cfg["k"], cfg["gamma"], cfg["delta"],
-                      dtype=torch.float64, device=args.device)
+    truth = cell.application.reference(cell, torch.float64, args.device)
     on_program = {"program", "half_batch", "stale"} & set(args.sides)
-    prog = harness.Program(cell, args.device) if on_program else None
+    prog = cell.application.Program(cell, args.device) if on_program else None
     previous = None  # the program's answers to the previous seed's pass
     for seed in args.seeds:
         bank = harness.DrawBank(seed, n, truth.n, rank + cfg["oversampling"],

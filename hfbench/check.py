@@ -1,18 +1,19 @@
 """The comparison that decides ``correct``.
 
 Once the window has closed and the program's state is freed, the plain
-reference (``reference/``, float64) takes the draws of one pass, picked
-from the seed among the window's finished passes, and works out its whole
-pass again: every sample's prior sample, Newton solve, observations and
-Jacobian, and the randomized GHEP over them with the pass's probe block.
+reference (float64; the cell's application builds it from ``reference/``)
+takes the draws of one pass, picked from the seed among the window's
+finished passes, and works out its whole pass again: every sample's prior
+sample, state solve, observations and Jacobian, and the randomized GHEP
+over them with the pass's probe block (``input_subspace``).
 It also solves the check lanes (a few samples of every other pass, drawn
 from the seed).  The numbers compared, each against its limit from the
 cell's workload file:
 
-* ``m_gap``: the prior samples of the lanes (the prior's solves; at
-  nx=192 its cyclic reduction through K3): the largest
-  |m - m_ref| / |m_ref|;
-* ``u_gap``: the lanes' states (Newton through K1 and K2), the same;
+* ``m_gap``: the prior samples of the lanes (the prior's solves): the
+  largest |m - m_ref| / |m_ref|;
+* ``u_gap``: the lanes' states (the state solves through K1 and K2), the
+  same;
 * ``q_gap``: the observations of every sample of the picked pass and of
   the lanes, the same;
 * ``J_gap``: the lanes' Jacobians (the adjoint solves of K2's panels),
@@ -33,8 +34,6 @@ from dataclasses import dataclass, field
 
 import torch
 
-from .reference import blocktri
-from .reference.confusion import Confusion, input_subspace
 
 NAMES = ("m_gap", "u_gap", "q_gap", "J_gap", "d_gap", "V_gap")
 
@@ -71,29 +70,20 @@ def _rel(a, b, dims):
             / torch.linalg.vector_norm(b, dim=dims)).max().item()
 
 
-def batch_size(problem: Confusion, budget_bytes: float = 24e9) -> int:
-    """Samples the reference takes at once: its band and Schur inverses
-    and the Jacobian's transposed solve and element products in float64,
-    within the budget."""
-    s, nc = problem.s, problem.cells.shape[0]
-    per = 8 * (5 * s ** 3 + (nc + 4 * problem.n) * problem.dq)
-    b = max(1, int(budget_bytes // per))
-    return 1 << (b.bit_length() - 1)
-
-
-def solve_samples(problem: Confusion, noise, strict: bool = True):
-    """(m, u, q, J) of the reference for white noise (N, n), in batches.
-    ``strict``: a Newton solve that does not converge raises (the float64
-    reference); a stand-in in a lower precision answers what it reached."""
+def solve_samples(problem, noise, strict: bool = True):
+    """(m, u, q, J) of the reference ``problem`` for white noise (N, n), in
+    batches of its ``batch_size()``.  ``strict``: a state solve that does
+    not converge raises (the float64 reference); a stand-in in a lower
+    precision answers what it reached."""
     out = {"m": [], "u": [], "q": [], "J": []}
-    b = batch_size(problem)
+    b = problem.batch_size()
     for a in range(0, noise.shape[0], b):
         xi = noise[a:a + b].to(problem.dtype)
         m = problem.sample(xi)
-        u, ok, _ = problem.newton(m)
+        u, ok, _ = problem.solve(m)
         if strict and not bool(ok.all()):
-            raise RuntimeError(f"the reference's Newton did not converge on "
-                               f"{int((~ok).sum())} samples")
+            raise RuntimeError(f"the reference's state solve did not converge "
+                               f"on {int((~ok).sum())} samples")
         out["m"].append(m)
         out["u"].append(u)
         out["q"].append(problem.observe(u))
@@ -101,7 +91,28 @@ def solve_samples(problem: Confusion, noise, strict: bool = True):
     return {k: torch.cat(v) for k, v in out.items()}
 
 
-def v_gap(problem: Confusion, d_ref, V_ref, V):
+def input_subspace(problem, Js, Omega, rank: int):
+    """(d (rank,), V (n, rank)) of the randomized GHEP H v = lambda R v,
+    H = mean_i J_i^T J_i, from the probe block Omega (n, rank + p): Y =
+    R^{-1} H Omega, an R-orthonormal basis Q of its span, and the Ritz
+    pairs of Q^T H Q, every product through the problem's ``ar``."""
+    mm = problem.ar.mm
+    Jf = Js.reshape(-1, Js.shape[-1])                          # (N dq, n)
+    N = Js.shape[0]
+    H = lambda X: mm(Jf.T, mm(Jf, X)) / N
+    Y = problem.Rinv(H(Omega))
+    Q = torch.linalg.qr(Y).Q
+    for _ in range(2):                                         # R-orthonormal
+        G = mm(Q.T, problem.R(Q))
+        L = torch.linalg.cholesky(0.5 * (G + G.T))
+        Q = torch.linalg.solve_triangular(L, Q.T, upper=False).T
+    T = mm(Q.T, H(Q))
+    lam, W = torch.linalg.eigh(0.5 * (T + T.T))
+    order = torch.argsort(lam, descending=True)[:rank]
+    return lam[order], mm(Q, W[:, order])
+
+
+def v_gap(problem, d_ref, V_ref, V):
     """The d_ref-weighted R-norm residual of V off span(V_ref)."""
     V = V.to(problem.dtype)
     RV = problem.R(V)
@@ -112,7 +123,7 @@ def v_gap(problem: Confusion, d_ref, V_ref, V):
     return torch.sqrt((w * r2).sum() / w.sum()).item()
 
 
-def solve_reference(problem: Confusion, draws: dict, lanes: dict, picked: int,
+def solve_reference(problem, draws: dict, lanes: dict, picked: int,
                     rank: int) -> dict:
     """The reference's answers: the pass ``picked`` whole (q of every
     sample, d and V of its GHEP on its probe block) and the lanes
@@ -139,7 +150,7 @@ def solve_reference(problem: Confusion, draws: dict, lanes: dict, picked: int,
     return out
 
 
-def judge(problem: Confusion, ref: dict, answers: dict, picked: int) -> tuple[dict, int]:
+def judge(problem, ref: dict, answers: dict, picked: int) -> tuple[dict, int]:
     """The numbers compared (``NAMES``) for a side's ``answers`` {pass:
     Answers} against the reference's (``solve_reference``).  Returns
     (values, number of lanes compared)."""
@@ -162,7 +173,7 @@ def judge(problem: Confusion, ref: dict, answers: dict, picked: int) -> tuple[di
     return vals, n_lanes
 
 
-def compare(problem: Confusion, answers: dict, draws: dict, picked: int,
+def compare(problem, answers: dict, draws: dict, picked: int,
             rank: int) -> tuple[dict, int]:
     """``judge`` of ``answers`` against ``solve_reference`` on the same
     draws and lanes."""
@@ -171,7 +182,7 @@ def compare(problem: Confusion, answers: dict, draws: dict, picked: int,
     return judge(problem, ref, answers, picked)
 
 
-def compare_run(result, bank, velocity, picked, device) -> Outcome:
+def compare_run(result, bank, picked, device) -> Outcome:
     """The check of a harness run (``harness.RunResult``)."""
     cfg = result.cell.config
     limits = dict(result.cell.limits)
@@ -196,10 +207,8 @@ def compare_run(result, bank, velocity, picked, device) -> Outcome:
             lanes=r.lanes, m=kept["m"], u=kept["u"], J=kept["J"],
             q=kept["q"], d=kept["d"] if r.index == picked else None,
             V=kept["V"] if r.index == picked else None)
-    problem = Confusion(cfg["nx"], velocity, cfg["sqrt_n_obs"], cfg["c"],
-                        cfg["k"], cfg["gamma"], cfg["delta"],
-                        dtype=torch.float64, device=device,
-                        arith=blocktri.EXACT)
+    problem = result.cell.application.reference(result.cell, torch.float64,
+                                                device)
     draws = {p: bank.get(p) for p in answers}
     values, n_lanes = compare(problem, answers, draws, picked, cfg["rank"])
     return Outcome(values, limits, n_lanes, notes)

@@ -2,16 +2,13 @@
 trace's reduction, and the check against the plain reference.
 
 A pass is one input active subspace of the cell's configuration through
-the program's own entry points: the confusion observable
-(``applications/confusion.py``), its prior (``models/prior.py``), the
-grid-sequencing map (``fem.coarse_newton_warm_start``) where the traffic
-has one, and a fresh ``ActiveSubspaceProjector`` whose
-``construct_input_subspace()`` ends in a device synchronize.  The pass's
-draws (the prior's white noise and the GHEP's probe block) are made in
-set-up, on the device, from (seed, pass index), and handed to the
-projector through its ``keychain`` and ``Omega_GN``, so no pass times
-noise generation, every pass solves new samples, and the reference reads
-the same draws.
+the program's own entry points, as the configuration's application builds
+them (``applications/<application>.py``'s ``Program``), ending in a
+device synchronize.  The pass's draws (the prior's white noise and the
+GHEP's probe block) are made in set-up, on the device, from (seed, pass
+index), and handed to the projector through its ``keychain`` and
+``Omega_GN``, so no pass times noise generation, every pass solves new
+samples, and the reference reads the same draws.
 """
 
 from __future__ import annotations
@@ -23,7 +20,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from . import check, roofline, spec, trace
+from . import check, spec, trace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "hippyflow_tpu")
 
@@ -143,77 +140,6 @@ class PassRecord:
     kept: dict = field(default_factory=dict)
 
 
-class Program:
-    """The cell's program, built through its entry points."""
-
-    def __init__(self, cell: spec.Cell, device):
-        from hippyflow_tpu_torch.applications.confusion import (
-            confusion_linear_observable,
-            confusion_prior,
-        )
-        from hippyflow_tpu_torch.fem import (
-            FunctionSpace,
-            coarse_newton_warm_start,
-            restrict_injection,
-            unit_square_mesh,
-        )
-        from hippyflow_tpu_torch.models import ActiveSubspaceParameterList
-
-        cfg, traffic = cell.config, cell.traffic
-        self.dtype = getattr(torch, cfg["dtype"])
-        self.velocity = spec.load_velocity(cfg)
-        kw = dict(sqrt_n_obs=cfg["sqrt_n_obs"], c=cfg["c"], k=cfg["k"],
-                  newton_max_iter=cfg["newton_max_iter"],
-                  n_line_search=cfg["n_line_search"], dtype=self.dtype,
-                  device=device)
-        nx = cfg["nx"]
-        self.obs, Vh = confusion_linear_observable(nx=nx, velocity=self.velocity,
-                                                   **kw)
-        self.prior = confusion_prior(Vh, gamma=cfg["gamma"], delta=cfg["delta"],
-                                     dtype=self.dtype, device=device)
-        # the grid-sequencing levels at nx/2, nx/4, ..., each on the
-        # velocity restricted by injection from the level above
-        levels, V_prev, vel_prev = [], Vh, self.velocity
-        for depth in range(traffic["grid_sequencing_depth"]):
-            nx_c = nx >> (depth + 1)
-            V_c = FunctionSpace(unit_square_mesh(nx_c))
-            vel_c = restrict_injection(torch.as_tensor(vel_prev)[None], V_prev,
-                                       V_c)[0].numpy()
-            obs_c, V_c = confusion_linear_observable(nx=nx_c, velocity=vel_c, **kw)
-            levels.append((obs_c.problem, V_c))
-            V_prev, vel_prev = V_c, vel_c
-        self.level_sizes = [nx + 1] + [V.mesh.structured_shape[0] + 1
-                                       for _, V in levels]
-        self.warm = None
-        if levels:
-            self.warm = coarse_newton_warm_start(
-                self.prior, levels[0][0], Vh, levels[0][1],
-                coarser_levels=levels[1:])
-        p = ActiveSubspaceParameterList()
-        p["samples_per_process"] = cfg["samples_per_process"]
-        p["rank"], p["oversampling"] = cfg["rank"], cfg["oversampling"]
-        p["chunk_size"] = traffic["chunk_size"]
-        p["jac_chunk_size"] = traffic["jac_chunk_size"]
-        p["verbose"] = False
-        p["coarse_warm_start"] = self.warm
-        self.params = p
-        self.dim = Vh.dim
-        self.dq = self.obs.dQ
-
-    def run_pass(self, draws: Draws, noise: PassNoise):
-        """One input active subspace: (projector, d, V, E)."""
-        from hippyflow_tpu_torch.models import ActiveSubspaceProjector
-
-        if self.warm is not None:
-            self.warm.clear()
-        proj = ActiveSubspaceProjector(self.obs, self.prior,
-                                       parameters=self.params)
-        proj.keychain = noise
-        proj.Omega_GN = draws.omega
-        d, V, E = proj.construct_input_subspace()
-        return proj, d, V, E
-
-
 class Keeper:
     """Host buffers for what the check reads of each pass: d, V and q of
     every sample, and m, u and J of the pass's check lanes.  Pinned and
@@ -248,7 +174,7 @@ class RunResult:
     passes: list
     window_s: float
     setup_s: float
-    level_sizes: list
+    bands: list   # (nb, s) of each Newton level's band, fine first
     dq: int
     trace: trace.TraceSummary | None = None
     band_kernels: set = field(default_factory=set)
@@ -256,13 +182,13 @@ class RunResult:
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
-             device, t_process: float, log=None) -> tuple[RunResult, dict, Program]:
+             device, t_process: float, log=None) -> tuple[RunResult, DrawBank, object]:
     """Set-up and the measured window.  Returns the run, the draws and
     the program (whose state the caller frees before the reference)."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     device = torch.device(device)
     on_card = device.type == "cuda"
-    prog = Program(cell, device)
+    prog = cell.application.Program(cell, device)
     cfg, traffic = cell.config, cell.traffic
     n, dim, dq = cfg["samples_per_process"], prog.dim, prog.dq
     k = cfg["rank"] + cfg["oversampling"]
@@ -280,7 +206,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     del warm
     bank.premake()
     keeper = Keeper({"d": (cfg["rank"],), "V": (dim, cfg["rank"]), "q": (n, dq),
-                     "m": (L, dim), "u": (L, dim), "J": (L, dq, dim)},
+                     "m": (L, dim), "u": (L, prog.state_dim),
+                     "J": (L, dq, dim)},
                     bank.capacity, pinned=on_card)
     _sync(device)
     if on_card:
@@ -315,9 +242,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
             rec.finite = (torch.isfinite(d).all() & torch.isfinite(V).all()
                           & torch.isfinite(E).all())
             rec.iterations = s.iterations.sum()
-            if prog.warm is not None:
-                rec.coarse_iterations = [torch.stack([t.sum() for t in its]).sum()
-                                         for its in prog.warm.iterations]
+            rec.coarse_iterations = prog.coarse_iterations()
             lanes = torch.as_tensor(rec.lanes, device=device)
             rec.kept = keeper.keep({"d": d, "V": V, "q": s.qs, "m": s.ms[lanes],
                                     "u": s.us[lanes], "J": proj.Js[lanes]})
@@ -352,7 +277,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         log(f"{len(passes)} passes on the draws of {bank.capacity}: passes "
             f"from {bank.capacity} on repeat their samples")
     result = RunResult(cell=cell, seed=seed, passes=passes, window_s=window_s,
-                       setup_s=setup_s, level_sizes=prog.level_sizes, dq=dq,
+                       setup_s=setup_s, bands=prog.bands, dq=dq,
                        trace=summary, band_kernels=spec.band_kernel_names(),
                        peak_bytes=peak)
     return result, bank, prog
@@ -372,24 +297,25 @@ def failed_passes(result: RunResult) -> list[int]:
     return [r.index for r in result.passes if r.error is not None or not r.finite]
 
 
-def free_program(prog: Program, device) -> None:
-    del prog.obs, prog.prior, prog.warm, prog.params
+def free_program(prog, device) -> None:
+    prog.free()
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
 
 
 def band_need_seconds(result: RunResult) -> float:
-    """The least seconds of the band work of the window's passes."""
+    """The least seconds of the band work of the window's passes, as the
+    cell's application counts a pass's."""
     total = 0.0
     dtype = result.cell.config["dtype"]
+    need = result.cell.application.band_need_seconds
     for rec in result.passes:
         if rec.error is not None:
             continue
-        levels = [(result.level_sizes[0], rec.iterations)] + list(
-            zip(result.level_sizes[1:], rec.coarse_iterations))
-        total += roofline.pass_need_seconds(levels, result.dq, rec.n_samples,
-                                            dtype)
+        levels = [(result.bands[0], rec.iterations)] + list(
+            zip(result.bands[1:], rec.coarse_iterations))
+        total += need(levels, result.dq, rec.n_samples, dtype)
     return total
 
 
@@ -410,10 +336,8 @@ def reference_check(result: RunResult, bank: DrawBank, device, log=None):
     check lanes, and compare.  Returns check.Outcome."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     t0 = time.perf_counter()
-    cfg = result.cell.config
-    velocity = spec.load_velocity(cfg)
     k = pick_pass(result)
-    outcome = check.compare_run(result, bank, velocity, k, device)
+    outcome = check.compare_run(result, bank, k, device)
     resampled = [r.index for r in result.passes if r.n_failures]
     log(f"reference check of pass {k} and {outcome.n_lanes} lanes in "
         f"{time.perf_counter() - t0:.1f} s; passes that resampled lanes "

@@ -10,7 +10,9 @@ the memory rate, each input read once and each output written once.
 arithmetic (its ``utils/profiling.py``): block-Thomas factorization of
 (nb, s) band storage with inverted pivots, and the solve through it.
 
-The band work a pass needs, whatever implements it:
+The band work a Newton pass needs (``newton_need_seconds``), whatever
+implements it; an application (``applications/``) counts its own pass
+from it or from the kernels' bounds:
 
 * one factorization and one solve of one column per Newton iteration of
   each sample, at the (nb, s) of the level it ran on;
@@ -48,15 +50,22 @@ def k2_bound(N: int, nb: int, s: int, k: int, dtype: str) -> float:
                  (blocks * s * s + 2 * N * nb * s * k) * ITEMSIZE[dtype])
 
 
-def pass_need_seconds(levels: list[tuple[int, int]], dq: int,
-                      n_samples: int, dtype: str) -> float:
-    """The least seconds of one pass's band work.  ``levels`` holds
-    (s, Newton iterations summed over the samples) for the fine level and
-    each coarse level; every level's band has nb = s block rows."""
+def newton_need_seconds(levels: list[tuple[tuple[int, int], int]], dq: int,
+                        n_samples: int, dtype: str) -> float:
+    """The least seconds of one Newton pass's band work.  ``levels`` holds
+    ((nb, s), Newton iterations summed over the samples) for the fine
+    level and each coarse level."""
     t = 0.0
-    for s, iterations in levels:
-        t += iterations * (k1_bound(1, s, s, dtype) + k2_bound(1, s, s, 1, dtype))
-    s_fine = levels[0][0]
-    t += n_samples * (k1_bound(1, s_fine, s_fine, dtype)
-                      + k2_bound(1, s_fine, s_fine, dq, dtype))
+    for (nb, s), iterations in levels:
+        t += iterations * (k1_bound(1, nb, s, dtype) + k2_bound(1, nb, s, 1, dtype))
+    nb, s = levels[0][0]
+    t += n_samples * (k1_bound(1, nb, s, dtype) + k2_bound(1, nb, s, dq, dtype))
     return t
+
+
+def pass_need_seconds(levels: list[tuple[int, int]], dq: int, n_samples: int,
+                      dtype: str) -> float:
+    """``newton_need_seconds`` where every level's band has nb = s:
+    ``levels`` holds (s, Newton iterations summed over the samples)."""
+    return newton_need_seconds([((s, s), it) for s, it in levels], dq,
+                               n_samples, dtype)

@@ -3,14 +3,17 @@ files of one cell under ``hfbench/``, each found by its name:
 
 * ``workloads/<cell>.json``: the cell's configuration, traffic, chips,
   ``why`` and the limits of its correctness check;
-* ``configs/<config>.json``: the configuration's source, sizes, ``reduced``
-  and ``assumed``;
+* ``configs/<config>.json``: the configuration's source, sizes, ``reduced``,
+  ``assumed`` and ``application``;
+* ``applications/<application>.py``: the program that configurations of
+  the application run, its plain reference and the band work its pass
+  needs (``applications/__init__.py`` lists what the module defines);
 * ``traffic/<traffic>.json``: the traffic mix's parameters;
 * ``metrics/<metric>.py``: the reader of one per-layer metric;
 * ``metrics/band_kernels.d/*``: the names of the band kernels.
 
-A later change adds a cell, a configuration, a traffic mix or a metric by
-adding files and entries; none of these files is edited.
+A later change adds a cell, a configuration, an application, a traffic mix
+or a metric by adding files and entries; none of these files is edited.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ class Cell:
     workload: dict
     config: dict
     traffic: dict
+    application: object   # the module applications/<application>.py
 
     @property
     def chips(self) -> int:
@@ -60,9 +64,15 @@ class Cell:
 
 def load_cell(name: str, here: Path = HERE) -> Cell:
     workload = _json(here / "workloads" / f"{check_name(name)}.json")
-    config = _json(here / "configs" / f"{check_name(workload['config'])}.json")
+    config_path = here / "configs" / f"{check_name(workload['config'])}.json"
+    config = _json(config_path)
     traffic = _json(here / "traffic" / f"{check_name(workload['traffic'])}.json")
-    return Cell(name, workload, config, traffic)
+    if "application" not in config:
+        raise ValueError(f"{config_path} names no application: it needs an "
+                       f"\"application\" key, the name of a file "
+                       f"{here / 'applications'}/<application>.py")
+    return Cell(name, workload, config, traffic,
+                application(config["application"], here))
 
 
 def cell_metrics(bench: dict, cell: str, kind: str) -> list[dict]:
@@ -80,6 +90,18 @@ def metric_reader(name: str, here: Path = HERE):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def application(name: str, here: Path = HERE):
+    """The module ``applications/<name>.py``."""
+    path = here / "applications" / f"{check_name(name)}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no application module {path}")
+    spec = importlib.util.spec_from_file_location(
+        "hfbench_application_" + re.sub(r"\W", "_", name), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def load_velocity(config: dict, root: Path = ROOT):

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from hfbench import calibrate, check, harness, spec
-from hfbench.reference.confusion import Confusion
+from hfbench.applications.confusion import Reference as Confusion
 
 from conftest import ROOT
 

@@ -8,7 +8,8 @@ import torch
 
 from hfbench import check
 from hfbench.reference import blocktri
-from hfbench.reference.confusion import Confusion, input_subspace
+from hfbench.check import input_subspace
+from hfbench.reference.confusion import Confusion
 
 from conftest import tiny_velocity
 
